@@ -6,15 +6,19 @@
 Phases (any failure exits non-zero):
 
 1. device: card name and power limit, TF32 off, kernels built from
-   ``src/repro_torch/csrc`` (build seconds, ptxas register/smem report);
+   ``src/repro_torch/csrc`` (build seconds, ptxas register/smem report;
+   the bf16 flash kernel must not spill);
 2. kernels against their plain PyTorch versions at the main path's shapes
    and layout and at the reference kernel tests' shapes, f32 and bf16
    (elementwise rtol = atol and ||got - want|| / ||want|| both within
-   2e-4 / 1e-2), with kernel, plain and library-call times and the card's
-   bound for the same work;
+   2e-4 / 1e-2); flash attention has two routes, bf16 through
+   ``flash_attention_sm90.cu`` (TMA + wgmma) and f32 through
+   ``flash_attention.cu``; each with kernel, plain and library-call times
+   and the card's bound for the same work at every request shape;
 3. main path: ``optimize(make_prefill_step(llama2_1b))`` at full width
    (4 layers, bf16, random weights from seed 0), serving four requests of
-   different (b, s) through one plan; asserts 4 flash-attention and 9
+   different (b, s) through one plan; asserts 4 flash-attention launches,
+   all of them on the sm90 route, and 9
    RMSNorm launches per request, device_peak <= guaranteed_peak_bytes,
    the caching allocator's real peak of the request within device_peak
    plus the allocator's block overheads, arena_bytes <= arena_bound_bytes,
@@ -22,7 +26,11 @@ Phases (any failure exits non-zero):
    then, outside the counted run, the median wall time per request shape
    and a torch.profiler breakdown of device time by kernel;
 4. the same requests through the plain path (``impl="ref"``): logits agree
-   to 5e-2.
+   to 5e-2;
+5. the f32 path: the same model at full width in float32, depth cut to 1
+   layer, serving two requests through one plan: 1 launch of the f32
+   flash route and 3 RMSNorm launches per request, logits within 2e-4 of
+   the plain path.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -30,6 +38,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +65,10 @@ FLASH_TEST_SHAPES = [  # (b, hq, hkv, s, t, hd): tests/test_kernels.py:17-52
     (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 128, 128),
     (2, 4, 4, 100, 100, 64), (1, 6, 2, 384, 384, 32),
     (3, 2, 1, 64, 64, 64), (1, 4, 2, 100, 160, 64)]
+# the bf16 route also at one row and at a ragged 17 rows, model widths
+FLASH_BF16_SHAPES = FLASH_TEST_SHAPES + [(1, 32, 32, 1, 1, 128),
+                                         (1, 32, 32, 17, 17, 128)]
+F32_REQUESTS = [(1, 16), (2, 1000)]
 RMSNORM_TEST_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128),
                        (2, 33, 160)]
 
@@ -141,7 +154,37 @@ def phase_device():
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
+    sm90 = sm90_ptxas(lib.ptxas_log)
+    for hd, regs, spill in sm90:
+        log(f"[ptxas] flash_fwd_sm90<{hd}>: {regs} registers, {spill} spill "
+            f"bytes")
+    if sorted(r[0] for r in sm90) != [32, 64, 128] or any(r[2] for r in sm90):
+        raise AssertionError(f"sm90 flash kernel: want hd 32/64/128 without "
+                             f"spills, ptxas says {sm90}")
     return name, smi_line
+
+
+def sm90_ptxas(report: str):
+    """(hd, registers, spill bytes) of each instance of the sm90 flash
+    kernel in nvcc's ``-Xptxas -v`` report."""
+    rows, hd, spill = [], None, 0
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            inst = re.search(r"flash_fwd_sm90ILi(\d+)E", entry.group(1))
+            hd, spill = (int(inst.group(1)) if inst else None), 0
+            continue
+        if hd is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp:
+            spill = int(sp.group(1)) + int(sp.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows.append((hd, int(used.group(1)), spill))
+            hd = None
+    return rows
 
 
 def agree(got, want, tol: float, what: str):
@@ -171,16 +214,27 @@ def phase_kernels():
         return (torch.randn(shape, generator=gen, device="cuda") * std
                 ).to(dtype)
 
+    def flash(q, k, v, causal=True):
+        """flash_attention_cuda, asserting the route its dtype must take."""
+        n0 = flash_attention_cuda.sm90_launches
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        if flash_attention_cuda.sm90_launches - n0 != \
+                (q.dtype == torch.bfloat16):
+            raise AssertionError(f"{q.dtype} flash took the wrong route")
+        return out
+
     # correctness: test shapes in both dtypes, then every main-path shape
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
-        for (b, hq, hkv, s, t, hd) in FLASH_TEST_SHAPES:
+        shapes = FLASH_BF16_SHAPES if dtype == torch.bfloat16 \
+            else FLASH_TEST_SHAPES
+        for (b, hq, hkv, s, t, hd) in shapes:
             for causal in (True, False):
                 q = randn((b, hq, s, hd), dtype)
                 k, v = randn((b, hkv, t, hd), dtype), randn((b, hkv, t, hd), dtype)
-                agree(flash_attention_cuda(q, k, v, causal=causal),
+                agree(flash(q, k, v, causal=causal),
                       reference_attention(q, k, v, causal=causal), tol,
-                      f"flash {(b, hq, hkv, s, t, hd)} {dtype}")
+                      f"flash {(b, hq, hkv, s, t, hd)} causal={causal} {dtype}")
         for shape in RMSNORM_TEST_SHAPES:
             x = randn(shape, dtype)
             sc = randn((shape[-1],), dtype, 0.1)
@@ -193,47 +247,49 @@ def phase_kernels():
     rows = {}
     for (b, s) in REQUESTS:
         # the main path hands the kernel its (B, S, H, hd) activations
-        # transposed; f32 holds the kernel's arithmetic at 2e-4, bf16 is
-        # the served dtype whose numbers are kept
+        # transposed; f32 holds the f32 route at 2e-4, bf16 (the served
+        # dtype) the sm90 route at 1e-2
         qkv32 = [randn((b, s, cfg_hq, cfg_hd), torch.float32).transpose(1, 2)
                  for _ in range(3)]
         x32 = randn((b * s, cfg_d), torch.float32)
         sc32 = randn((cfg_d,), torch.float32, 0.1)
+        row = {}
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             q, k, v = (t.to(dtype) for t in qkv32)
-            f_err, f_rel = agree(flash_attention_cuda(q, k, v, causal=True),
-                                 reference_attention(q, k, v, causal=True),
+            f_err, f_rel = agree(flash(q, k, v), reference_attention(q, k, v),
                                  TOL[name], f"flash (b={b}, s={s}) {name}")
+            f_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+            f_plain = time_ms(lambda: reference_attention(q, k, v, causal=True),
+                              reps=5)
+            f_lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            f_bound, f_by = flash_bound(b, cfg_hq, cfg_hq, s, s, cfg_hd, name,
+                                        dtype.itemsize)
+            route = "sm90" if dtype == torch.bfloat16 else "simt"
+            log(f"[kernels] flash/{route} (b={b},h={cfg_hq},s={s},hd={cfg_hd}) "
+                f"{name}: max err {f_err:.3g} rel norm {f_rel:.3g} (tol "
+                f"{TOL[name]}); kernel {f_ms:.4f} ms plain {f_plain:.4f} ms "
+                f"sdpa {f_lib:.4f} ms bound {f_bound:.4f} ms ({f_by}), "
+                f"{100 * f_bound / f_ms:.1f}% of bound")
+            row[f"flash_{name}"] = dict(err=f_err, ms=f_ms, plain=f_plain,
+                                        lib=f_lib, bound=f_bound, by=f_by)
             x, sc = x32.to(dtype), sc32.to(dtype)
             n_err, n_rel = agree(rmsnorm_cuda(x, sc), reference_rmsnorm(x, sc),
                                  TOL[name], f"rmsnorm ({b * s},{cfg_d}) {name}")
-            log(f"[kernels] (b={b}, s={s}) {name} vs plain: flash max err "
-                f"{f_err:.3g} rel norm {f_rel:.3g}; rmsnorm max err "
+            log(f"[kernels] rmsnorm ({b * s},{cfg_d}) {name} vs plain: max err "
                 f"{n_err:.3g} rel norm {n_rel:.3g} (tol {TOL[name]})")
-        f_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
-        f_plain = time_ms(lambda: reference_attention(q, k, v, causal=True),
-                          reps=5)
-        f_lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True))
-        f_bound, f_by = flash_bound(b, cfg_hq, cfg_hq, s, s, cfg_hd,
-                                    "bfloat16", 2)
         n_ms = time_ms(lambda: rmsnorm_cuda(x, sc))
         n_plain = time_ms(lambda: reference_rmsnorm(x, sc))
         w = 1.0 + sc
         n_lib = time_ms(lambda: F.rms_norm(x, (cfg_d,), w, 1e-6))
         n_bound, n_by = rmsnorm_bound(b * s, cfg_d, "bfloat16", 2)
-        log(f"[kernels] flash (b={b},h={cfg_hq},s={s},hd={cfg_hd}) bf16: "
-            f"err {f_err:.3g} kernel {f_ms:.4f} ms plain {f_plain:.4f} ms "
-            f"sdpa {f_lib:.4f} ms bound {f_bound:.4f} ms ({f_by})")
         log(f"[kernels] rmsnorm ({b * s},{cfg_d}) bf16: err {n_err:.3g} "
             f"kernel {n_ms:.4f} ms plain {n_plain:.4f} ms F.rms_norm "
             f"{n_lib:.4f} ms bound {n_bound:.4f} ms ({n_by})")
-        rows[(b, s)] = dict(
-            flash=dict(err=f_err, ms=f_ms, plain=f_plain, lib=f_lib,
-                       bound=f_bound, by=f_by),
-            rmsnorm=dict(err=n_err, ms=n_ms, plain=n_plain, lib=n_lib,
-                         bound=n_bound, by=n_by))
+        row["rmsnorm"] = dict(err=n_err, ms=n_ms, plain=n_plain, lib=n_lib,
+                              bound=n_bound, by=n_by)
+        rows[(b, s)] = row
         del q, k, v, x, qkv32, x32
     torch.cuda.empty_cache()
     return rows
@@ -303,10 +359,12 @@ def phase_main_path():
     param_bytes = sum(t.numel() * t.element_size()
                       for t in pytree.tree_leaves(params))
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.sm90_launches = 0
     rmsnorm_cuda.launches = 0
     outs, rows = [], []
     for (b, s), batch in zip(REQUESTS, batches):
         f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+        g0 = flash_attention_cuda.sm90_launches
         tokens = batch["tokens"]
         held = torch.cuda.memory_allocated() - param_bytes - \
             tokens.numel() * tokens.element_size()
@@ -320,6 +378,7 @@ def phase_main_path():
         step_alloc = peak_alloc - held
         slack = allocator_slack(opt.program, {"b": b, "s": s})
         fl = flash_attention_cuda.launches - f0
+        gl = flash_attention_cuda.sm90_launches - g0
         nl = rmsnorm_cuda.launches - n0
         token = logits.float().argmax(-1).tolist()
         log(f"[main] request b={b} s={s}: wall {1e3 * wall:.3f} ms "
@@ -329,14 +388,16 @@ def phase_main_path():
             f"{opt.arena_bound_bytes} max_memory_allocated {peak_alloc} "
             f"held outside the step {held} allocator peak of the step "
             f"{step_alloc} (device_peak + {step_alloc - st.device_peak}; "
-            f"block-overhead slack {slack}) launches flash {fl} rmsnorm {nl}")
+            f"block-overhead slack {slack}) launches flash {fl} (sm90 {gl}) "
+            f"rmsnorm {nl}")
         if tuple(logits.shape) != (b, cfg.vocab):
             raise AssertionError(f"logits shape {tuple(logits.shape)}")
         if not torch.isfinite(logits.float()).all():
             raise AssertionError("non-finite logits")
-        if fl != cfg.n_layers or nl != 2 * cfg.n_layers + 1:
-            raise AssertionError(f"launches flash {fl} rmsnorm {nl} per "
-                                 f"request")
+        if fl != cfg.n_layers or gl != cfg.n_layers or \
+                nl != 2 * cfg.n_layers + 1:
+            raise AssertionError(f"launches flash {fl} (sm90 {gl}) rmsnorm "
+                                 f"{nl} per request")
         if st.device_peak > opt.guaranteed_peak_bytes:
             raise AssertionError("device_peak above guaranteed_peak_bytes")
         # device_peak <= guaranteed_peak_bytes, so this also holds the
@@ -354,6 +415,7 @@ def phase_main_path():
                          max_memory_allocated=peak_alloc,
                          step_alloc_peak=step_alloc, alloc_slack=slack))
     launches = {"flash_attention": flash_attention_cuda.launches,
+                "flash_attention_sm90": flash_attention_cuda.sm90_launches,
                 "rmsnorm": rmsnorm_cuda.launches}
     if len(captures) != n_captures:
         raise AssertionError("the main path re-captured between requests")
@@ -428,13 +490,65 @@ def phase_plain(cfg, params, opt_ref, batches, outs):
         ref = opt_ref(params, batch)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), ref.float(), rtol=5e-2,
-                                   atol=5e-2)
         eager = step(params, batch)
         torch.cuda.synchronize()
         log(f"[plain] b={b} s={s}: max |kernel path - plain path| {err:.4g}; "
             f"VM output bitwise equal to eager step: "
             f"{bool(torch.equal(got, eager))}")
+        torch.testing.assert_close(got.float(), ref.float(), rtol=5e-2,
+                                   atol=5e-2)
+
+
+def phase_f32_path():
+    """The f32 flash route inside the model: llama2_1b at full width in
+    float32, depth cut to 1 layer, two requests through one plan, held
+    against the plain path at 2e-4.  Returns the f32 route's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+    from repro_torch.core import TensorSpec, optimize, spec_like, symbolic_dims
+    from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=1, dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    B, S = symbolic_dims("b, s")
+    specs = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
+    opt = optimize(make_prefill_step(cfg), *specs, dynamic_dims=DYNAMIC_DIMS)
+    opt_ref = optimize(make_prefill_step(cfg, impl="ref"), *specs,
+                       dynamic_dims=DYNAMIC_DIMS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                        device="cuda", dtype=torch.int32)}
+               for (b, s) in F32_REQUESTS]
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.sm90_launches = 0
+    rmsnorm_cuda.launches = 0
+    outs = [opt(params, batch) for batch in batches]
+    torch.cuda.synchronize()
+    simt = flash_attention_cuda.launches - flash_attention_cuda.sm90_launches
+    n = len(F32_REQUESTS)
+    if simt != n * cfg.n_layers or flash_attention_cuda.sm90_launches or \
+            rmsnorm_cuda.launches != n * (2 * cfg.n_layers + 1):
+        raise AssertionError(
+            f"f32 path launches: flash f32 {simt}, sm90 "
+            f"{flash_attention_cuda.sm90_launches}, rmsnorm "
+            f"{rmsnorm_cuda.launches} over {n} requests")
+    for (b, s), batch, got in zip(F32_REQUESTS, batches, outs):
+        ref = opt_ref(params, batch)
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+        log(f"[f32] b={b} s={s}: logits {tuple(got.shape)} max |kernel path "
+            f"- plain path| {err:.3g} (tol 2e-4)")
+    log(f"[f32] launches over {n} requests: flash f32 {simt}, rmsnorm "
+        f"{rmsnorm_cuda.launches}")
+    del params, opt, opt_ref, outs
+    torch.cuda.empty_cache()
+    return simt
 
 
 def main() -> int:
@@ -458,24 +572,32 @@ def main() -> int:
     rows = phase_kernels()
     cfg, params, opt_ref, batches, outs, launches, req_rows = phase_main_path()
     phase_plain(cfg, params, opt_ref, batches, outs)
+    del params, opt_ref, outs
+    f32_launches = phase_f32_path()
 
     big = rows[REQUESTS[-1]]
+    flash_src = "src/repro/kernels/flash_attention.py:31"
     kernels = []
-    for key, route_name, src_path, replaces in (
-            ("flash", "flash_attention",
-             "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:31"),
+    for key, route_name, src_path, replaces, n in (
+            ("flash_bfloat16", "flash_attention_sm90_bf16",
+             "src/repro_torch/csrc/flash_attention_sm90.cu", flash_src,
+             launches["flash_attention_sm90"]),
+            ("flash_float32", "flash_attention_simt_f32",
+             "src/repro_torch/csrc/flash_attention.cu", flash_src,
+             f32_launches),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:17")):
+             "src/repro/kernels/rmsnorm.py:17", launches["rmsnorm"])):
         r = big[key]
         kernels.append({"name": route_name, "route": "cuda",
                         "source": src_path, "replaces": replaces,
-                        "launches": launches[route_name],
+                        "launches": n,
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"],
                         "bound_by": r["by"], "library_ms": r["lib"]})
     log(f"[done] total {time.perf_counter() - t_start:.1f} s; kernel numbers "
-        f"at (b, s) = {REQUESTS[-1]}; requests {json.dumps(req_rows)}")
+        f"at (b, s) = {REQUESTS[-1]} (the f32 route's launches from the f32 "
+        f"path, the others' from the main path); requests "
+        f"{json.dumps(req_rows)}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

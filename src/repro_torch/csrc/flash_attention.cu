@@ -1,5 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), bound to Python through a
-// plain C interface (ctypes; see repro_torch/kernels/build.py).
+// f32 flash-attention forward for Hopper (sm_90a), bound to Python through
+// a plain C interface (ctypes; see repro_torch/kernels/build.py).  bf16
+// inputs take csrc/flash_attention_sm90.cu (TMA + wgmma); f32 stays here,
+// on f32 FMAs, because the tensor cores' TF32 would not hold 2e-4.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_flash_kernel
 // (wrapper `flash_attention`, pallas_call at line 108).  Semantics kept:
@@ -13,18 +15,15 @@
 //     with q counted from 0 (top-left alignment, also when S != T); masked
 //     scores take the finite value -1e30, as in the TPU kernel;
 //   * kv tiles strictly above the diagonal are skipped;
-//   * out = acc / max(l, 1e-30), rounded to q's dtype.
+//   * out = acc / max(l, 1e-30).
 // The first kv tile always holds key 0, which every row may attend to, so
 // no row's running max stays at -1e30 once T >= 1.
 //
 // What bounds it on this card: for causal self-attention the work is
-// ~2*S*S*hd flops per (b, head) against ~4*S*hd elements moved, so
-// S/4 flops per bf16 byte: below the H100's ~295 flops/byte ridge up to
-// S ~ 1200 (bytes bound: 80 us at b=8, S=1024, hd=128), above it beyond
-// (operations, 989 TFLOP/s on the bf16 tensor cores).  This first
-// version computes with f32 FMAs out of shared memory, not on the tensor
-// cores, so it runs far from either floor; mma.sync / wgmma + TMA are
-// later work.
+// ~2*S*S*hd flops per (b, head) against ~4*S*hd elements moved, so S/8
+// flops per f32 byte, against the H100's ~20 flops/byte ridge for f32
+// FMAs (67 TFLOP/s): operations bound beyond S ~ 160 (1.03 ms at b=8,
+// S=1024, hd=128).  It computes with f32 FMAs out of shared memory.
 //
 // Design: the TPU grid's sequential kv axis becomes a loop inside one CTA.
 // One CTA of 256 threads per (b*Hq, 64-row q block); heavy (late) causal q
@@ -35,7 +34,6 @@
 // row share a half-warp, so row max and row sum reduce with four xor
 // shuffles and the per-row m, l and the row's slice of acc stay in that
 // thread's registers.  P goes through shared memory for the P.V product.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,19 +48,6 @@ constexpr float kNegInf = -1e30f;
 struct Strides {
   long long b, h, r;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // reduce over the 16 lanes of a half-warp (one row group)
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -84,10 +69,10 @@ constexpr size_t smem_floats() {
          (size_t)kBKV * HD + (size_t)kBQ * (kBKV + 1);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int Hq, int Hkv, int S,
                  int T_len, int causal, float scale) {
   constexpr int QS = HD + 1;      // padded row stride of the Q and K tiles
@@ -103,10 +88,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + hk * ks.h;
-  const T* vp = v + b * vs.b + hk * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + hk * ks.h;
+  const float* vp = v + b * vs.b + hk * vs.h;
+  float* op = o + b * os.b + h * os.h;
 
   const int tid = threadIdx.x;
   const int r0 = (tid >> 4) * 4;  // first of this thread's 4 rows
@@ -115,7 +100,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < kBQ * HD; idx += kThreads) {
     const int r = idx / HD, c = idx % HD;
     const int qr = q0 + r;
-    sQ[r * QS + c] = qr < S ? to_f32(qp[qr * qs.r + c]) : 0.f;
+    sQ[r * QS + c] = qr < S ? qp[qr * qs.r + c] : 0.f;
   }
 
   float acc[4][NO];
@@ -137,8 +122,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / HD, c = idx % HD;
       const int kr = kv0 + r;
       const bool ok = kr < T_len;
-      sK[r * QS + c] = ok ? to_f32(kp[kr * ks.r + c]) : 0.f;
-      sV[r * HD + c] = ok ? to_f32(vp[kr * vs.r + c]) : 0.f;
+      sK[r * QS + c] = ok ? kp[kr * ks.r + c] : 0.f;
+      sV[r * HD + c] = ok ? vp[kr * vs.r + c] : 0.f;
     }
     __syncthreads();
 
@@ -205,16 +190,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NO; ++c)
-      op[qr * os.r + cg + 16 * c] = from_f32<T>(acc[i][c] / denom);
+      op[qr * os.r + cg + 16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Strides* st, int B, int Hq, int Hkv, int S, int T_len,
            int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, HD>;
+  auto kernel = flash_fwd_kernel<HD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -222,42 +207,23 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((unsigned)(B * Hq), (unsigned)((S + kBQ - 1) / kBQ));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1], st[2],
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1], st[2],
       st[3], Hq, Hkv, S, T_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              const Strides* st, int B, int Hq, int Hkv, int S, int T_len,
-              int causal, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, st, B, Hq, Hkv, S, T_len, causal,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, S, T_len, causal,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, S, T_len, causal,
-                            scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128}.  strides holds
-// 12 element strides, (batch, head, row) of q, k, v and o in that order.
-// Returns cudaGetLastError() after the launch (0 on success); the Python
-// wrapper raises on anything else.
+// float32 only; hd in {32, 64, 128}.  strides holds 12 element strides,
+// (batch, head, row) of q, k, v and o in that order.  Returns
+// cudaGetLastError() after the launch (0 on success); the Python wrapper
+// raises on anything else.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o,
                                      const long long* strides, int B, int Hq,
-                                     int Hkv, int S, int T, int hd, int dtype,
-                                     int causal, float scale, void* stream) {
+                                     int Hkv, int S, int T, int hd, int causal,
+                                     float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || T <= 0 ||
       (S + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
@@ -265,11 +231,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, st, B, Hq, Hkv, S, T, causal,
-                            scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, st, B, Hq, Hkv, S, T,
-                                    causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, o, st, B, Hq, Hkv, S, T, causal, scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, st, B, Hq, Hkv, S, T, causal, scale, s);
+    case 128:
+      return launch<128>(q, k, v, o, st, B, Hq, Hkv, S, T, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -21,7 +21,12 @@ FLASH_SHAPES = [  # (b, hq, hkv, s, t, hd): tests/test_kernels.py + S != T
     (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 128, 128),
     (2, 4, 4, 100, 100, 64), (1, 6, 2, 384, 384, 32),
     (3, 2, 1, 64, 64, 64), (1, 4, 2, 100, 160, 64),
-    (1, 32, 32, 1024, 1024, 128)]  # llama2_1b prefill at s = 1024
+    (1, 32, 32, 1024, 1024, 128),  # llama2_1b prefill at s = 1024
+    # one row, a ragged 17, a ragged 1000 (8 kv tiles of 128, the last
+    # short), S > T
+    (1, 32, 32, 1, 1, 128), (1, 32, 32, 17, 17, 128),
+    (1, 32, 32, 1000, 1000, 128), (2, 8, 2, 1000, 1000, 64),
+    (1, 4, 2, 160, 100, 32)]
 NORM_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128), (2, 33, 160)]
 
 
@@ -48,8 +53,12 @@ def test_cuda_kernels_match_plain_versions(gen, dtype):
         v = _randn(gen, (b, hkv, t, hd), dtype)
         for causal in (True, False):
             n0 = flash_attention_cuda.launches
+            g0 = flash_attention_cuda.sm90_launches
             got = flash_attention(q, k, v, causal, None, None)
             assert flash_attention_cuda.launches == n0 + 1
+            # bf16 takes the TMA + wgmma kernel, f32 the f32 one
+            assert flash_attention_cuda.sm90_launches == \
+                g0 + (dtype == torch.bfloat16)
             torch.testing.assert_close(
                 got, reference_attention(q, k, v, causal=causal),
                 rtol=tol, atol=tol)
@@ -65,12 +74,19 @@ def test_cuda_kernels_match_plain_versions(gen, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_cuda_flash_reads_and_writes_the_model_layout(gen, dtype):
+@pytest.mark.parametrize("shape", [  # (b, s, (hq, hkv, hkv), hd)
+    (2, 100, (4, 2, 2), 64),
+    (2, 1000, (32, 32, 32), 128)], ids=str)  # llama2_1b at (b, s) = (2, 1000)
+def test_cuda_flash_reads_and_writes_the_model_layout(gen, dtype, shape):
     """(B, S, H, hd) activations passed transposed, as the model does: the
     output comes back in that layout with the plain version's values."""
-    q, k, v = (_randn(gen, (2, 100, h, 64), dtype).transpose(1, 2)
-               for h in (4, 2, 2))
+    b, s, heads, hd = shape
+    q, k, v = (_randn(gen, (b, s, h, hd), dtype).transpose(1, 2)
+               for h in heads)
+    g0 = flash_attention_cuda.sm90_launches
     got = flash_attention_cuda(q, k, v)
+    assert flash_attention_cuda.sm90_launches == \
+        g0 + (dtype == torch.bfloat16)
     assert got.stride() == q.stride()
     torch.testing.assert_close(got, reference_attention(q, k, v),
                                rtol=TOL[dtype], atol=TOL[dtype])
@@ -87,6 +103,16 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, (1, 2, 64, 16), torch.float32).transpose(2, 3)
     with pytest.raises(ValueError, match="unit-stride"):
         flash_attention_cuda(q, q, q)
+    # bf16 goes through TMA: a 136-byte row stride or a pointer 2 bytes off
+    # 16 raises rather than taking another kernel
+    n0 = flash_attention_cuda.launches
+    q = _randn(gen, (1, 2, 16, 68), torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, q, q)
+    q = _randn(gen, (2 * 16 * 64 + 1,), torch.bfloat16)[1:].view(1, 2, 16, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, q, q)
+    assert flash_attention_cuda.launches == n0
     x = _randn(gen, (8, 64), torch.float32).t()           # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm_cuda(x, torch.zeros(8, device="cuda"))
@@ -111,8 +137,10 @@ def test_serving_path_launches_the_kernels(gen):
         tok = torch.randint(0, SMOKE.vocab, (b, s), generator=gen,
                             device="cuda", dtype=torch.int32)
         f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+        g0 = flash_attention_cuda.sm90_launches
         got = opt(params, {"tokens": tok})
         assert flash_attention_cuda.launches - f0 == SMOKE.n_layers
+        assert flash_attention_cuda.sm90_launches == g0   # SMOKE is f32
         assert rmsnorm_cuda.launches - n0 == 2 * SMOKE.n_layers + 1
         st = opt.last_report.stats
         assert st.device_peak <= opt.guaranteed_peak_bytes

@@ -5,8 +5,13 @@ against the JAX kernels on the shapes of ``tests/test_kernels.py`` in f32
 and bf16 (2e-4 / 5e-2): the Pallas kernel in interpret mode on two shapes
 and ``repro.kernels.ref`` on the rest.  The hand-written CUDA kernels run
 only on a card, where ``tests/test_torch_gpu.py`` holds them against the
-plain versions.
+plain versions.  What surrounds the bf16 flash kernel does run here: its
+16-byte alignment check, and an emulation of its arithmetic (128-key
+tiles, exp2, P in bf16 for P.V as the tensor cores take it) that shows
+the card's bf16 tolerance holds by design.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ from repro.kernels.ops import rmsnorm as jrmsnorm
 from repro_torch.kernels import (flash_attention, flash_attention_cuda,
                                  reference_attention, reference_rmsnorm,
                                  rmsnorm, rmsnorm_cuda)
+from repro_torch.kernels.flash_attention import sm90_strides
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
@@ -140,3 +146,88 @@ def test_kernel_ops_capture_as_single_nodes():
                if n.op == "call_function"]
     assert targets == ["repro_torch.flash_attention.default",
                        "repro_torch.rmsnorm.default"]
+
+
+ALIGNED = 0x7F3A_0000_0200  # a 16-byte aligned device address
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_sm90_strides_take_the_model_and_contiguous_layouts(hd):
+    model = torch.empty(2, 100, 32, hd, dtype=torch.bfloat16).transpose(1, 2)
+    dense = torch.empty(2, 32, 100, hd, dtype=torch.bfloat16)
+    for x in (model, dense):
+        assert sm90_strides("q", x.shape, x.stride(), ALIGNED, x.dtype) == \
+            x.stride()[:3]
+    # a dimension of size 1 is never stepped: its stride may be anything
+    assert sm90_strides("q", (1, 1, 1, hd), (7, 5, 3, 1), ALIGNED,
+                        torch.bfloat16) == (hd, hd, hd)
+
+
+@pytest.mark.parametrize("case", ["pointer", "batch", "head", "row", "dtype"])
+def test_sm90_strides_refuse_what_tma_cannot_address(case):
+    shape, stride = (2, 4, 100, 64), [25600, 6400, 64, 1]
+    ptr, dtype = ALIGNED, torch.bfloat16
+    if case == "pointer":
+        ptr += 2
+    elif case == "dtype":
+        dtype = torch.float32
+    else:
+        stride[("batch", "head", "row").index(case)] += 4   # 8 bytes off
+    match = "bfloat16" if case == "dtype" else "16-byte"
+    with pytest.raises(ValueError, match=match):
+        sm90_strides("q", shape, stride, ptr, dtype)
+
+
+def _emulate_sm90(q, k, v, causal, p_terms, block=128):
+    """The bf16 kernel's arithmetic in plain torch: f32 scores over 128-key
+    tiles, online softmax in the log2 domain with the finite -1e30 mask,
+    row sums of the f32 probabilities, P in bf16 for P.V (one term, or the
+    kernel's two: hi = bf16(P), lo = bf16(P - hi)), f32 accumulation, one
+    rounding of the output."""
+    b, h, s, hd = q.shape
+    t = k.shape[2]
+    scale_log2 = math.log2(math.e) / math.sqrt(hd)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, hd)
+    rows = torch.arange(s)[:, None]
+    for kv0 in range(0, t, block):
+        cols = torch.arange(kv0, min(kv0 + block, t))[None, :]
+        sc = qf @ kf[:, :, kv0:kv0 + block].transpose(-1, -2)
+        if causal:
+            sc = torch.where(cols <= rows, sc, torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * scale_log2)
+        p = torch.exp2(sc * scale_log2 - m_new * scale_log2)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        if p_terms == 2:
+            hi = hi + (p - hi).to(torch.bfloat16).float()
+        acc = acc * corr + hi @ vf[:, :, kv0:kv0 + block]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("p_terms", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_arithmetic_holds_the_bf16_tolerance(causal, p_terms):
+    """chip_smoke and the gpu tests hold the bf16 kernel to rtol = atol =
+    1e-2 and a relative error norm of 1e-2; P in bf16 for the tensor cores
+    stays inside both at the main path's width, as one term and as the
+    kernel's two, which also rounds like the f32 softmax nearly always."""
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 1024, 128).astype(np.float32)
+                                ).to(torch.bfloat16) for _ in range(3))
+    got = _emulate_sm90(q, k, v, causal, p_terms)
+    want = reference_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    d = got.float() - want.float()
+    assert d.abs().max().item() <= 1e-2
+    rel = (d.norm() / want.float().norm()).item()
+    assert rel <= (1e-2 if p_terms == 1 else 2e-4)
+    # the emulation is the JAX reference's function, not a near miss of it
+    jwant = jref.reference_attention(*(jnp.asarray(x.float().numpy())
+                                       for x in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(jwant), rtol=5e-2,
+                               atol=5e-2)
