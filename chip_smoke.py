@@ -30,7 +30,30 @@ Phases (any failure exits non-zero):
 5. the f32 path: the same model at full width in float32, depth cut to 1
    layer, serving two requests through one plan: 1 launch of the f32
    flash route and 3 RMSNorm launches per request, logits within 2e-4 of
-   the plain path.
+   the plain path;
+6. the train path: ``optimize(make_train_step(llama2_1b))`` at full width
+   (4 layers, bf16 weights, f32 AdamW moments), forward, backward and
+   AdamW captured as one graph and planned once with the parameters and
+   moments donated (``call_donated`` on fresh copies of the state, so the
+   step's old state is freed inside the step).  Uncapped at (b, s) =
+   (1,16), (2,1000), (8,1024): median step time, 4 flash and 9 RMSNorm
+   launches per step, device_peak <= guaranteed_peak_bytes, the
+   allocator's peak of the step within device_peak plus block overhead,
+   finite loss; at (8,1024) loss, updated parameters and moments against
+   an eager call of the plain step (``impl="ref"``) within
+   TRAIN_PLAIN_TOL.  Then a ladder of memory limits at (8,1024), 0.95, 0.90,
+   ... of the uncapped device_peak, down to the first rung that raises
+   MemoryLimitExceeded: at each rung device_peak <= limit, the
+   allocator's peak of the step <= limit plus block overhead, loss and
+   every updated parameter and moment bitwise equal to the uncapped
+   step; at least one rung must evict.  Evictions, offloads to pinned host
+   memory, recomputes, evicted bytes, host peak, step time and launches
+   per step are printed per rung, and for the offloads whether the cost
+   model chose them or a victim chosen for recompute fell back to offload
+   because a source of its recompute was gone.  At full width every victim
+   has been offloaded so far (the ladder exercises offload and reload, not
+   recompute; ``tests/test_torch_gpu.py`` recomputes on the card at smoke
+   widths).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -69,6 +92,18 @@ FLASH_TEST_SHAPES = [  # (b, hq, hkv, s, t, hd): tests/test_kernels.py:17-52
 FLASH_BF16_SHAPES = FLASH_TEST_SHAPES + [(1, 32, 32, 1, 1, 128),
                                          (1, 32, 32, 17, 17, 128)]
 F32_REQUESTS = [(1, 16), (2, 1000)]
+TRAIN_SHAPES = [(1, 16), (2, 1000), (8, 1024)]
+TRAIN_REPS = 5
+# the kernel path's uncapped train step against the plain step's at
+# (8,1024), about 3x what the H100 read (loss 2.8e-5; weights one bf16 ulp
+# below 0.25, 9.8e-4; moments' relative error norm 1.3e-2 and 1.6e-2): the
+# two attention outputs round apart in bf16, so the gradients differ by
+# bf16 noise, and a wrongly saved q/k/v or a lost gradient moves the
+# moments by O(1)
+TRAIN_PLAIN_TOL = {"loss": 1e-4, "params_max_abs": 2e-3, "m_rel": 5e-2,
+                   "v_rel": 5e-2}
+CAP_STEP = 0.05     # the ladder's rungs: 0.95, 0.90, ... of the peak
+MAX_SUBGRAPH = 24   # optimize's default recompute-subgraph size
 RMSNORM_TEST_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128),
                        (2, 33, 160)]
 
@@ -446,40 +481,45 @@ def phase_latency(opt, params, batches, reps: int = 10):
 
 def phase_profile(opt, params, batches):
     """Device time by kernel over one request at the smallest and largest
-    shapes (torch.profiler), and the share of the request's wall time with
-    a kernel running.  Runs after the main path's launch counts are read."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    shapes.  Runs after the main path's launch counts are read."""
     for (b, s), batch in ((REQUESTS[0], batches[0]),
                           (REQUESTS[-1], batches[-1])):
+        profile_once(f"b={b} s={s}", lambda: opt(params, batch))
+
+
+def profile_once(label: str, run) -> None:
+    """torch.profiler over one call of ``run``: device time by kernel and
+    the share of the call's wall time with a kernel running."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            opt(params, batch)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        # device-side kernel rows only: CPU op rows (aten::mm ...) repeat
-        # the time of the kernels they launched
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-            if us > 0:
-                rows.append((us, e.count, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        if not rows:
-            log(f"[profile] b={b} s={s}: no device time recorded "
-                f"(device busy share not measured)")
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # device-side kernel rows only: CPU op rows (aten::mm ...) repeat
+    # the time of the kernels they launched
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        log(f"[profile] b={b} s={s}: wall {wall_us:.0f} us, kernel time "
-            f"{busy:.0f} us, device busy share {busy / wall_us:.3f}")
-        for us, count, key in rows[:10]:
-            log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
-                f"x{count:<4d} {key[:90]}")
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        log(f"[profile] {label}: no device time recorded "
+            f"(device busy share not measured)")
+        return
+    log(f"[profile] {label}: wall {wall_us:.0f} us, kernel time "
+        f"{busy:.0f} us, device busy share {busy / wall_us:.3f}")
+    for us, count, key in rows[:10]:
+        log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
+            f"x{count:<4d} {key[:90]}")
 
 
 def phase_plain(cfg, params, opt_ref, batches, outs):
@@ -551,6 +591,240 @@ def phase_f32_path():
     return simt
 
 
+def phase_train():
+    """The train path (phase 6).  Returns the kernels' launches over it."""
+    import statistics
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.llama2_1b import CONFIG
+    from repro_torch.core import (MemoryLimitExceeded, TensorSpec, optimize,
+                                  spec_like, symbolic_dims)
+    from repro_torch.core.scheduling.memsim import simulate_peak_bound
+    from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
+    from repro_torch.launch.steps import adamw_config_for, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    cfg = CONFIG
+    params = init_params(cfg, seed=0, device="cuda")
+    opt_state = init_state(params, adamw_config_for(cfg))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves((params, opt_state)))
+    B, S = symbolic_dims("b, s")
+    batch_spec = {"tokens": TensorSpec((B, S), torch.int32),
+                  "labels": TensorSpec((B, S), torch.int32)}
+    t0 = time.perf_counter()
+    opt = optimize(make_train_step(cfg), spec_like(params),
+                   spec_like(opt_state), batch_spec,
+                   dynamic_dims=DYNAMIC_DIMS, donate_inputs=True)
+    compile_s = time.perf_counter() - t0
+    plan, rep = opt.plan, opt.report
+    undonated = simulate_peak_bound(plan.graph, plan.order, plan.shape_graph,
+                                    donate_inputs=False)[1]
+    log(f"[train] optimize {compile_s:.2f} s, graph {plan.graph.stats()}, "
+        f"guards {rep.guards}, remat candidates {rep.n_candidates} "
+        f"(recomputable {rep.n_recomputable}, regen method fixed by bounds "
+        f"{rep.n_static_regen}); state {state_bytes} B; "
+        f"guaranteed_peak_bytes {opt.guaranteed_peak_bytes} (without "
+        f"donation the same order would need {undonated})")
+    if rep.guards:
+        raise AssertionError(f"the train capture left guards {rep.guards}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    batches = {shape: {k: torch.randint(0, cfg.vocab, shape, generator=gen,
+                                        device="cuda", dtype=torch.int32)
+                       for k in ("tokens", "labels")}
+               for shape in TRAIN_SHAPES}
+
+    def step(fn, batch):
+        """One donated call on fresh copies of the state: outputs, stats,
+        wall ms, and the allocator's peak of the step (its peak less what
+        was held outside the step, the step's inputs excepted)."""
+        args = [pytree.tree_map(torch.clone, params),
+                pytree.tree_map(torch.clone, opt_state), batch]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - state_bytes - sum(
+            t.numel() * t.element_size() for t in batch.values())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn.call_donated(args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        return (out, fn.last_report.stats, wall,
+                torch.cuda.max_memory_allocated() - held)
+
+    def launches():
+        return flash_attention_cuda.sm90_launches, rmsnorm_cuda.launches
+
+    def check_step(out, b, s):
+        loss, new_params, new_opt = out
+        if not torch.isfinite(loss):
+            raise AssertionError(f"non-finite loss at ({b},{s})")
+        if int(new_opt.step) != 1 or tuple(new_params["embed"].shape) != \
+                tuple(params["embed"].shape):
+            raise AssertionError("train step returned the wrong state")
+
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.sm90_launches = 0
+    rmsnorm_cuda.launches = 0
+    want, rows = None, {"uncapped": [], "ladder": []}
+    for (b, s) in TRAIN_SHAPES:
+        batch, env = batches[(b, s)], {"b": b, "s": s}
+        step(opt, batch)                      # warm-up, outside the timing
+        slack = allocator_slack(opt.program, env)
+        walls = []
+        for _ in range(TRAIN_REPS):
+            f0, n0 = launches()
+            out, st, wall, alloc = step(opt, batch)
+            fl, nl = launches()[0] - f0, launches()[1] - n0
+            walls.append(wall)
+            check_step(out, b, s)
+            if (fl, nl) != (cfg.n_layers, 2 * cfg.n_layers + 1):
+                raise AssertionError(f"train step launches flash {fl} "
+                                     f"rmsnorm {nl}")
+            if st.device_peak > opt.guaranteed_peak_bytes:
+                raise AssertionError("device_peak above guaranteed_peak")
+            if alloc > st.device_peak + slack:
+                raise AssertionError(
+                    f"the allocator's peak of the step, {alloc}, is above "
+                    f"device_peak {st.device_peak} + {slack} of overhead")
+        loss = out[0].item()
+        row = dict(b=b, s=s, median_ms=statistics.median(walls),
+                   min_ms=min(walls), max_ms=max(walls), loss=loss,
+                   device_peak=st.device_peak, alloc_peak=alloc,
+                   alloc_slack=slack, flash=fl, rmsnorm=nl)
+        rows["uncapped"].append(row)
+        log(f"[train] ({b},{s}) uncapped: median {row['median_ms']:.3f} ms "
+            f"(min {min(walls):.3f}, max {max(walls):.3f}) over "
+            f"{TRAIN_REPS} steps, loss {loss:.6f}, device_peak "
+            f"{st.device_peak}, allocator peak of the step {alloc} "
+            f"(device_peak + {alloc - st.device_peak}; slack {slack}), "
+            f"launches per step flash {fl} rmsnorm {nl}, "
+            f"{b * s / row['median_ms'] * 1e3:.0f} tokens/s")
+        if (b, s) == TRAIN_SHAPES[-1]:
+            want, peak = out, st.device_peak
+        del out
+    profile_once(f"train ({b},{s}) uncapped",
+                 lambda: step(opt, batches[TRAIN_SHAPES[-1]]))
+
+    b, s = TRAIN_SHAPES[-1]
+    batch, env = batches[(b, s)], {"b": b, "s": s}
+    want_leaves = pytree.tree_leaves(want)
+    frac, last = 1.0 - CAP_STEP, None
+    while frac > CAP_STEP / 2:
+        cap = int(frac * peak)
+        fn = opt.with_memory_limit(cap)
+        slack = allocator_slack(fn.program, env) + \
+            MAX_SUBGRAPH * LARGE_OVERHEAD    # a recompute's temporaries
+        f0, n0 = launches()
+        try:
+            out, st, wall1, alloc = step(fn, batch)
+        except MemoryLimitExceeded as e:
+            log(f"[train] cap {frac:.2f} x peak = {cap}: "
+                f"MemoryLimitExceeded ({e}); the ladder ends here")
+            break
+        fl, nl = launches()[0] - f0, launches()[1] - n0
+        equal = len(want_leaves) == len(pytree.tree_leaves(out)) and all(
+            torch.equal(x, y)
+            for x, y in zip(pytree.tree_leaves(out), want_leaves))
+        del out
+        _, _, wall2, _ = step(fn, batch)      # pinned host blocks cached
+        row = dict(frac=frac, cap=cap, first_ms=wall1, ms=wall2,
+                   device_peak=st.device_peak, alloc_peak=alloc,
+                   alloc_slack=slack, evictions=st.evictions,
+                   offloads=st.offloads, reloads=st.reloads,
+                   recomputes=st.recomputes,
+                   recompute_fallbacks=st.recompute_fallbacks,
+                   evicted_bytes=st.evicted_bytes,
+                   host_peak=st.host_peak,
+                   recompute_flops=st.recompute_flops, flash=fl, rmsnorm=nl,
+                   bitwise_equal=equal)
+        rows["ladder"].append(row)
+        log(f"[train] cap {frac:.2f} x peak = {cap}: step {wall2:.3f} ms "
+            f"(first call {wall1:.3f} ms), device_peak {st.device_peak}, "
+            f"allocator peak of the step {alloc} (cap + {alloc - cap}; "
+            f"slack {slack}), evictions {st.evictions} (offloads "
+            f"{st.offloads}, reloads {st.reloads}, recomputes "
+            f"{st.recomputes}; offloaded by the cost model "
+            f"{st.offloads - st.recompute_fallbacks}, chosen for recompute "
+            f"but offloaded as a source was gone {st.recompute_fallbacks}), "
+            f"evicted {st.evicted_bytes} B, host peak "
+            f"{st.host_peak} B, recompute flops {st.recompute_flops}, "
+            f"launches per step flash {fl} rmsnorm {nl}, outputs bitwise "
+            f"equal to the uncapped step: {equal}")
+        if st.device_peak > cap:
+            raise AssertionError(f"device_peak {st.device_peak} above the "
+                                 f"limit {cap}")
+        if alloc > cap + slack:
+            raise AssertionError(f"the allocator's peak of the step, {alloc},"
+                                 f" is above the limit {cap} + {slack}")
+        if not equal:
+            raise AssertionError(f"capped step at {frac:.2f} differs from "
+                                 f"the uncapped step")
+        last = fn
+        frac = round(frac - CAP_STEP, 2)
+    if not any(r["evictions"] for r in rows["ladder"]):
+        raise AssertionError("no rung of the cap ladder evicted")
+    counts = {"flash_attention_sm90": flash_attention_cuda.sm90_launches,
+              "flash_attention_f32": flash_attention_cuda.launches -
+              flash_attention_cuda.sm90_launches,
+              "rmsnorm": rmsnorm_cuda.launches}
+    log(f"[train] launches over the train path {counts}; rows "
+        f"{json.dumps(rows)}")
+    if counts["flash_attention_f32"]:
+        raise AssertionError("the bf16 train path took the f32 flash route")
+    profile_once(f"train ({b},{s}) at cap {rows['ladder'][-1]['frac']:.2f}",
+                 lambda: step(last, batch))
+    compare_train_plain(cfg, params, opt_state, batch, want)
+    del params, opt_state, want, want_leaves, opt, fn, last
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compare_train_plain(cfg, params, opt_state, batch, want):
+    """The kernel path's uncapped train step (``want``) against an eager
+    call of the plain step (``impl="ref"``) on the same state and batch:
+    loss, the updated parameters and the moments, within TRAIN_PLAIN_TOL."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch.steps import make_train_step
+    ref = make_train_step(cfg, impl="ref")(params, opt_state, batch)
+    torch.cuda.synchronize()
+    loss, new_params, new_opt = want
+    r_loss, r_params, r_opt = ref
+
+    def rel_norm(pairs):
+        num = den = 0.0
+        for got, exp in pairs:
+            num += (got.float() - exp.float()).square().sum().item()
+            den += exp.float().square().sum().item()
+        return (num / den) ** 0.5
+
+    err = {
+        "loss": abs(loss.item() - r_loss.item()),
+        "params_max_abs": max(
+            (x.float() - y.float()).abs().max().item() for x, y in
+            zip(pytree.tree_leaves(new_params), pytree.tree_leaves(r_params))),
+        "m_rel": rel_norm(zip(pytree.tree_leaves(new_opt.m),
+                              pytree.tree_leaves(r_opt.m))),
+        "v_rel": rel_norm(zip(pytree.tree_leaves(new_opt.v),
+                              pytree.tree_leaves(r_opt.v))),
+    }
+    b, s = batch["tokens"].shape
+    log(f"[train] ({b},{s}) kernel path vs plain step: loss "
+        f"{loss.item():.6f} vs {r_loss.item():.6f}; "
+        + ", ".join(f"{k} {v:.4g} (tol {TRAIN_PLAIN_TOL[k]})"
+                    for k, v in err.items()))
+    bad = {k: v for k, v in err.items() if not v <= TRAIN_PLAIN_TOL[k]}
+    if bad or int(r_opt.step) != int(new_opt.step):
+        raise AssertionError(f"train step differs from the plain step: {bad}")
+    del ref, r_params, r_opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -574,30 +848,35 @@ def main() -> int:
     phase_plain(cfg, params, opt_ref, batches, outs)
     del params, opt_ref, outs
     f32_launches = phase_f32_path()
+    train = phase_train()
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
     kernels = []
-    for key, route_name, src_path, replaces, n in (
+    for key, route_name, src_path, replaces, by_path in (
             ("flash_bfloat16", "flash_attention_sm90_bf16",
              "src/repro_torch/csrc/flash_attention_sm90.cu", flash_src,
-             launches["flash_attention_sm90"]),
+             {"prefill": launches["flash_attention_sm90"],
+              "train": train["flash_attention_sm90"]}),
             ("flash_float32", "flash_attention_simt_f32",
              "src/repro_torch/csrc/flash_attention.cu", flash_src,
-             f32_launches),
+             {"prefill_f32": f32_launches,
+              "train": train["flash_attention_f32"]}),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:17", launches["rmsnorm"])):
+             "src/repro/kernels/rmsnorm.py:17",
+             {"prefill": launches["rmsnorm"], "train": train["rmsnorm"]})):
         r = big[key]
         kernels.append({"name": route_name, "route": "cuda",
                         "source": src_path, "replaces": replaces,
-                        "launches": n,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"],
                         "bound_by": r["by"], "library_ms": r["lib"]})
     log(f"[done] total {time.perf_counter() - t_start:.1f} s; kernel numbers "
-        f"at (b, s) = {REQUESTS[-1]} (the f32 route's launches from the f32 "
-        f"path, the others' from the main path); requests "
-        f"{json.dumps(req_rows)}")
+        f"at (b, s) = {REQUESTS[-1]}; launches per path, each counted from 0 "
+        f"just before the path and read just after it (the f32 route runs "
+        f"only on the f32 path); requests {json.dumps(req_rows)}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

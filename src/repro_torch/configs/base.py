@@ -26,6 +26,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
+    optimizer_dtype: str = "float32"  # AdamW moments (bfloat16 option)
     # embedding-table padding to a tile boundary (pad logits masked)
     pad_vocab_to: int = 128
 

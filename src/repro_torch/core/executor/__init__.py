@@ -1,4 +1,6 @@
-from .memory import MemoryManager, MemoryStats
+from .interpreter import PlanInterpreter
+from .memory import MemoryLimitExceeded, MemoryManager, MemoryStats
 from .vm import ProgramVM, RunReport
 
-__all__ = ["MemoryManager", "MemoryStats", "ProgramVM", "RunReport"]
+__all__ = ["MemoryLimitExceeded", "MemoryManager", "MemoryStats",
+           "PlanInterpreter", "ProgramVM", "RunReport"]

@@ -18,6 +18,11 @@ Each op returns its output in ``torch.empty_like`` of its first input, on
 every route and in its fake, so a captured graph's strides hold at run
 time: the model hands flash attention its ``(B, S, H, hd)`` activations
 transposed and gets the output back in that layout.
+
+Both ops are differentiable (``register_autograd``): the backward is the
+plain PyTorch gradient of the op's function (``ref.*_backward``) on every
+route, so a captured train step records it as aten nodes.  The reference
+has no backward kernel (its primitives define no JVP), so none is owed.
 """
 from __future__ import annotations
 
@@ -74,3 +79,35 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 @rmsnorm.register_fake
 def _(x, scale, eps=1e-6, impl=None):
     return torch.empty_like(x)
+
+
+# -- autograd -------------------------------------------------------------------
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, softmax_scale, _impl = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal, ctx.softmax_scale = causal, softmax_scale
+
+
+def _flash_backward(ctx, grad):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = _ref.reference_attention_backward(
+        q, k, v, grad, causal=ctx.causal, softmax_scale=ctx.softmax_scale)
+    return dq, dk, dv, None, None, None
+
+
+def _rmsnorm_setup(ctx, inputs, output):
+    x, scale, eps, _impl = inputs
+    ctx.save_for_backward(x, scale)
+    ctx.eps = eps
+
+
+def _rmsnorm_backward(ctx, grad):
+    x, scale = ctx.saved_tensors
+    dx, dscale = _ref.reference_rmsnorm_backward(x, scale, grad, ctx.eps)
+    return dx, dscale, None, None
+
+
+flash_attention.register_autograd(_flash_backward, setup_context=_flash_setup)
+rmsnorm.register_autograd(_rmsnorm_backward, setup_context=_rmsnorm_setup)

@@ -1,4 +1,4 @@
-"""Shared building blocks: normalisation, RoPE and initialisers.
+"""Shared building blocks: normalisation, RoPE, the loss and initialisers.
 
 ``rms_norm`` calls the ``repro_torch::rmsnorm`` kernel op where the
 reference model calls its unfused ``rms_norm`` (``repro/models/common.py``):
@@ -39,6 +39,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# -- loss ------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over valid positions; logits (..., V), labels int (...).
+
+    The reference's form (``repro/models/common.py:112``): log-sum-exp in
+    f32 around the detached row max, the label logit picked by an
+    ``iota == label`` masked reduction."""
+    v = logits.shape[-1]
+    lg = logits.to(torch.float32)
+    m = torch.amax(lg, dim=-1, keepdim=True).detach()
+    shifted = lg - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    iota = torch.arange(v, dtype=torch.int32, device=logits.device)
+    onehot = iota == labels[..., None].to(torch.int32)
+    label_logit = torch.sum(torch.where(onehot, shifted, 0.0), dim=-1)
+    ll = label_logit - lse
+    if mask is None:
+        return -torch.mean(ll)
+    mask = mask.to(torch.float32)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # -- initializers --------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Weights of the reference model in the port's layout.
+"""Weights and optimizer state of the reference model in the port's layout.
 
 ``params_from_jax`` takes the reference's ``init_params`` pytree as numpy
 arrays (``params["layers"]`` stacked on axis 0) and returns the port's
 parameter dict with the stacks split per layer, so the two packages can
-be compared on identical weights.
+be compared on identical weights.  ``opt_state_from_jax`` does the same
+for the reference's ``AdamWState``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
+from ..optim import AdamWState
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -40,3 +42,13 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
                           lambda a, i=i: _to_tensor(np.asarray(a)[i], dev))
                      for i in range(cfg.n_layers)]
     return out
+
+
+def opt_state_from_jax(np_state: Any, cfg: ModelConfig,
+                       device: Any = None) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, and ``m``/``v``
+    laid out as its params) as the port's."""
+    dev = resolve_device(device)
+    return AdamWState(step=_to_tensor(np_state.step, dev),
+                      m=params_from_jax(np_state.m, cfg, dev),
+                      v=params_from_jax(np_state.v, cfg, dev))

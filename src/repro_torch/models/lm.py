@@ -1,4 +1,4 @@
-"""Top-level language model: init / forward / prefill (dense family).
+"""Top-level language model: init / forward / loss / prefill (dense family).
 
 Layers are unrolled in Python, as the reference does with
 ``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
 from .blocks import block_apply, block_init
-from .common import dense_init, embed_init, rms_norm
+from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -62,6 +62,15 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
     for layer_p in params["layers"]:
         x = block_apply(layer_p, cfg, x, impl=impl)
     return _lm_logits(cfg, params, x, impl)
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (``repro/models/lm.py:193``; dense models have no
+    auxiliary loss)."""
+    logits = forward(cfg, params, batch, impl)
+    return softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict,

@@ -147,3 +147,77 @@ def test_serving_path_launches_the_kernels(gen):
         assert st.arena_bytes <= opt.arena_bound_bytes
         torch.testing.assert_close(got, plain(params, {"tokens": tok}),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kernel_ops_backward_on_the_card_matches_the_plain_route(gen, dtype):
+    """The ops' backward is plain PyTorch on every route: through the CUDA
+    forward it gives the plain route's gradients."""
+    q = _randn(gen, (2, 8, 100, 64), dtype).requires_grad_()
+    k = _randn(gen, (2, 4, 100, 64), dtype).requires_grad_()
+    v = _randn(gen, (2, 4, 100, 64), dtype).requires_grad_()
+    do = _randn(gen, (2, 8, 100, 64), dtype)
+    n0 = flash_attention_cuda.launches
+    got = torch.autograd.grad(flash_attention(q, k, v, True, None, None),
+                              (q, k, v), do)
+    assert flash_attention_cuda.launches == n0 + 1
+    want = torch.autograd.grad(flash_attention(q, k, v, True, None, "ref"),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+    x = _randn(gen, (3, 50, 256), dtype).requires_grad_()
+    sc = _randn(gen, (256,), dtype, 0.1).requires_grad_()
+    dy = _randn(gen, (3, 50, 256), dtype)
+    n0 = rmsnorm_cuda.launches
+    got = torch.autograd.grad(rmsnorm(x, sc, 1e-6, None), (x, sc), dy)
+    assert rmsnorm_cuda.launches == n0 + 1
+    want = torch.autograd.grad(rmsnorm(x, sc, 1e-6, "ref"), (x, sc), dy)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,fracs", [(1, (0.95, 0.9)), (4, (0.9, 0.6))],
+                         ids=["1-layer", "4-layer"])
+def test_capped_train_step_on_the_card_equals_uncapped(gen, layers, fracs):
+    """The smoke train step under memory limits: outputs bitwise equal to
+    the uncapped step, device_peak under the limit, evictions to pinned
+    host memory; with 4 layers at 0.6 some victims are recomputed (the
+    full-width ladder in chip_smoke.py offloads every victim)."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.core import (TensorSpec, optimize, spec_like,
+                                  symbolic_dims)
+    from repro_torch.launch.steps import adamw_config_for, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    cfg = dataclasses.replace(SMOKE, n_layers=layers)
+    params = init_params(cfg, seed=0)
+    opt_state = init_state(params, adamw_config_for(cfg))
+    B, S = symbolic_dims("b, s")
+    spec = {"tokens": TensorSpec((B, S), torch.int32),
+            "labels": TensorSpec((B, S), torch.int32)}
+    opt = optimize(make_train_step(cfg), spec_like(params),
+                   spec_like(opt_state), spec,
+                   dynamic_dims={"b": (1, 8), "s": (16, 512)})
+    batch = {k: torch.randint(0, cfg.vocab, (8, 512), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in spec}
+    want = pytree.tree_leaves(opt(params, opt_state, batch))
+    peak = opt.last_report.stats.device_peak
+    for frac in fracs:
+        capped = opt.with_memory_limit(int(frac * peak))
+        n0 = flash_attention_cuda.launches
+        got = pytree.tree_leaves(capped(params, opt_state, batch))
+        st = capped.last_report.stats
+        assert flash_attention_cuda.launches - n0 >= layers
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert st.device_peak <= int(frac * peak)
+        assert st.evictions > 0 and st.offloads > 0
+    if layers == 4:
+        assert st.recomputes > 0

@@ -136,9 +136,9 @@ def test_optimize_refuses_what_is_not_ported(weights):
     _, _, params = weights
     B, S = symbolic_dims("b, s")
     args = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
-    with pytest.raises(NotImplementedError, match="memory_limit"):
+    with pytest.raises(NotImplementedError, match="buckets"):
         optimize(make_prefill_step(SMOKE), *args, device="cpu",
-                 memory_limit=1 << 30)
+                 buckets="geometric")
     with pytest.raises(TypeError, match="unexpected"):
         optimize(make_prefill_step(SMOKE), *args, device="cpu", bogus=1)
     with pytest.raises(ValueError, match="not symbolic dims"):
