@@ -55,8 +55,35 @@ Phases (any failure exits non-zero):
    recompute; ``tests/test_torch_gpu.py`` recomputes on the card at smoke
    widths).
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+7. buckets: (a) the same requests through
+   ``optimize(make_prefill_step(llama2_1b), buckets="geometric")`` on
+   phase 3's weights: 4 x 4 geometric buckets (``b`` edges 2, 3, 5, 8;
+   ``s`` edges 45, 128, 362, 1024), each compiled on its first request
+   from the whole-range capture; per request its bucket and ranges, the
+   bucket's pipeline seconds and reuse of the parent's schedule, its
+   ``peak_bound_bytes`` and ``arena_bound_bytes`` beside the whole range's,
+   the variant selected per kernel node and ``device_peak``; asserts
+   device_peak <= the bucket's guaranteed peak <= the whole range's, the
+   allocator within its slack, launches equal to what the selections
+   imply, and logits bitwise equal to phase 3's where every selection
+   agrees with the whole-range plan's (else within 5e-2 of the plain
+   path); then 10 hits per shape, timed in turns with the unbucketed plan
+   of the same capture (no compile, no capture; dispatch ns per call).
+   (b) the same with ``background_specialize=True``: each first request
+   is served by the whole-range fallback, bitwise equal to phase 3, and
+   after ``drain_specializations()`` hits its bucket with (a)'s logits.
+   (c) a ``BucketBatcher`` whose memory budget lies between the two
+   largest bucket arena bounds holds the (8,1024) group and runs the
+   others with (a)'s logits.  (d) kernel selection on the kernel-bench
+   step (``benchmarks/kernel_bench.py``) at llama2_1b widths, b in [1, 16],
+   s in [1, 2048], buckets on s at 64, f32 and bf16: each bucket's
+   selections with the model's times, and ``remeasure_kernels`` at (4,32)
+   and (4,1024) with every variant's measured time beside the model's.
+
+The line before the last is a JSON object describing each kernel (its
+launches per path, each counted from 0 just before the path: prefill,
+prefill_f32, train, buckets = phase 7 (a)-(c)); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -369,8 +396,10 @@ def phase_main_path():
         t0 = time.perf_counter()
         opt = optimize(make_prefill_step(cfg), *specs,
                        dynamic_dims=DYNAMIC_DIMS)
+        # kernel_select=False: selection would override impl="ref" and
+        # the plain side would launch the kernels it is held against
         opt_ref = optimize(make_prefill_step(cfg, impl="ref"), *specs,
-                           dynamic_dims=DYNAMIC_DIMS)
+                           dynamic_dims=DYNAMIC_DIMS, kernel_select=False)
         log(f"[main] optimize x2 {time.perf_counter() - t0:.2f} s, "
             f"graph {opt.plan.graph.stats()}, guards {opt.report.guards}, "
             f"program {opt.program.counts()}")
@@ -456,9 +485,9 @@ def phase_main_path():
         raise AssertionError("the main path re-captured between requests")
     log(f"[main] one capture per optimize ({len(captures)} for 2 plans); "
         f"launches over the run {launches}")
-    phase_latency(opt, params, batches)
+    medians = phase_latency(opt, params, batches)
     phase_profile(opt, params, batches)
-    return cfg, params, opt_ref, batches, outs, launches, rows
+    return cfg, params, opt_ref, batches, outs, launches, rows, medians
 
 
 def phase_latency(opt, params, batches, reps: int = 10):
@@ -467,6 +496,7 @@ def phase_latency(opt, params, batches, reps: int = 10):
     import statistics
 
     import torch
+    medians = {}
     for (b, s), batch in zip(REQUESTS, batches):
         walls = []
         for _ in range(reps):
@@ -477,6 +507,8 @@ def phase_latency(opt, params, batches, reps: int = 10):
         log(f"[latency] b={b} s={s}: median {statistics.median(walls):.3f} ms "
             f"min {min(walls):.3f} max {max(walls):.3f} over {reps} calls; "
             f"{b * s / statistics.median(walls) * 1e3:.0f} prompt tokens/s")
+        medians[(b, s)] = statistics.median(walls)
+    return medians
 
 
 def phase_profile(opt, params, batches):
@@ -526,8 +558,10 @@ def phase_plain(cfg, params, opt_ref, batches, outs):
     import torch
     from repro_torch.launch.steps import make_prefill_step
     step = make_prefill_step(cfg)
+    refs = []
     for (b, s), batch, got in zip(REQUESTS, batches, outs):
         ref = opt_ref(params, batch)
+        refs.append(ref)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         eager = step(params, batch)
@@ -537,6 +571,7 @@ def phase_plain(cfg, params, opt_ref, batches, outs):
             f"{bool(torch.equal(got, eager))}")
         torch.testing.assert_close(got.float(), ref.float(), rtol=5e-2,
                                    atol=5e-2)
+    return refs
 
 
 def phase_f32_path():
@@ -559,7 +594,7 @@ def phase_f32_path():
     specs = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
     opt = optimize(make_prefill_step(cfg), *specs, dynamic_dims=DYNAMIC_DIMS)
     opt_ref = optimize(make_prefill_step(cfg, impl="ref"), *specs,
-                       dynamic_dims=DYNAMIC_DIMS)
+                       dynamic_dims=DYNAMIC_DIMS, kernel_select=False)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     batches = [{"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
@@ -825,6 +860,371 @@ def compare_train_plain(cfg, params, opt_state, batch, want):
     torch.cuda.empty_cache()
 
 
+# -- phase 7: bucketed dispatch and per-bucket kernel selection --------------
+
+GEOMETRIC_EDGES = {"b": (2, 3, 5, 8), "s": (45, 128, 362, 1024)}
+KB_RANGES = {"b": (1, 16), "s": (1, 2048)}   # benchmarks/kernel_bench.py
+KB_EDGES = {"s": [64]}
+KB_ENVS = [{"b": 4, "s": 32}, {"b": 4, "s": 1024}]
+KB_REPEATS = 10
+# what each kernel variant launches, by the launch counter it moves
+VARIANT_COUNTER = {"sm90_bm128_bn128": "sm90", "simt_f32_bq64_bkv32": "f32",
+                   "cuda_row256": "rmsnorm"}
+
+
+def _launch_counts():
+    from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
+    return {"sm90": flash_attention_cuda.sm90_launches,
+            "f32": flash_attention_cuda.launches
+            - flash_attention_cuda.sm90_launches,
+            "rmsnorm": rmsnorm_cuda.launches}
+
+
+def _expected_launches(plan):
+    """Launches per call that a plan's kernel selections imply."""
+    want = {"sm90": 0, "f32": 0, "rmsnorm": 0}
+    for sel in plan.kernel_selections.values():
+        counter = VARIANT_COUNTER.get(sel.variant.name)
+        if counter is not None:
+            want[counter] += 1
+    return want
+
+
+def _selection_summary(plan):
+    """variant name -> number of kernel nodes that selected it."""
+    out = {}
+    for sel in plan.kernel_selections.values():
+        out[sel.variant.name] = out.get(sel.variant.name, 0) + 1
+    return out
+
+
+def phase_buckets(cfg, batches, outs, plain, medians):
+    """Phase 7 (a)-(c): the llama2_1b prefill through a bucketed plan, the
+    same with background specialization, and the BucketBatcher, on phase
+    3's weights (made again from seed 0) and requests.  Returns the
+    kernels' launches over the three."""
+    import statistics
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    import repro_torch.core.api as api
+    from repro_torch.core import (DynamicShapeFunction, TensorSpec, optimize,
+                                  spec_like, symbolic_dims)
+    from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
+    from repro_torch.kernels.hw_model import HardwareModel
+    from repro_torch.launch.serve import BucketBatcher
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, seed=0, device="cuda")
+    captures = []
+    real_capture = api.capture
+
+    def counted_capture(*a, **kw):
+        captures.append(1)
+        return real_capture(*a, **kw)
+
+    B, S = symbolic_dims("b, s")
+    specs = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
+    api.capture = counted_capture
+    try:
+        t0 = time.perf_counter()
+        opt = optimize(make_prefill_step(cfg), *specs,
+                       dynamic_dims=DYNAMIC_DIMS, buckets="geometric")
+        log(f"[buckets] optimize(buckets='geometric') "
+            f"{time.perf_counter() - t0:.2f} s (whole-range pipeline "
+            f"{opt.report.compile_s:.2f} s); {opt.report.buckets}")
+    finally:
+        api.capture = real_capture
+    table = opt.specialization_table
+    edges = {d.name: tuple(d.uppers) for d in table.space.dims}
+    if edges != GEOMETRIC_EDGES:
+        raise AssertionError(f"geometric bucket edges {edges}")
+    hw = HardwareModel.from_device("cuda")
+    whole = opt.plan
+    log(f"[buckets] cost model of the card {hw}")
+    log(f"[buckets] whole range: guaranteed_peak_bytes "
+        f"{opt.guaranteed_peak_bytes} arena_bound_bytes "
+        f"{opt.arena_bound_bytes} selections {_selection_summary(whole)}")
+    whole_sel = {nid: s.variant.name
+                 for nid, s in whole.kernel_selections.items()}
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    for name in ("launches", "sm90_launches"):
+        setattr(flash_attention_cuda, name, 0)
+    rmsnorm_cuda.launches = 0
+
+    # (a) serve REQUESTS once through the bucketed plan
+    got_a, rows = [], []
+    for i, ((b, s), batch) in enumerate(zip(REQUESTS, batches)):
+        env = {"b": b, "s": s}
+        tokens = batch["tokens"]
+        held = torch.cuda.memory_allocated() - param_bytes - \
+            tokens.numel() * tokens.element_size()
+        c0 = _launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits = opt(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = opt.last_report.stats
+        step_alloc = torch.cuda.max_memory_allocated() - held
+        key = opt.last_bucket
+        bp = table.peek(key)
+        rep = bp.report
+        got = {k: v - c0[k] for k, v in _launch_counts().items()}
+        want = _expected_launches(bp.plan)
+        sel = {nid: s.variant.name
+               for nid, s in bp.plan.kernel_selections.items()}
+        # the plain variants allocate transients the plan does not count,
+        # at most max_transient_bytes (their validity rule) in one op
+        transient = hw.max_transient_bytes if any(
+            v.startswith("ref") for v in sel.values()) else 0
+        slack = allocator_slack(bp.program, env) + transient
+        same = sel == whole_sel
+        if same:
+            equal = torch.equal(logits, outs[i])
+            err = (logits.float() - outs[i].float()).abs().max().item()
+        else:
+            equal = False
+            err = (logits.float() - plain[i].float()).abs().max().item()
+        log(f"[buckets] (a) b={b} s={s}: bucket {key} "
+            f"{table.space.describe(key)}; first call {1e3 * wall:.3f} ms "
+            f"(bucket pipeline {rep.compile_s:.3f} s, reused the parent's "
+            f"schedule {rep.reused_parent_schedule}, its post-pass "
+            f"{rep.reused_parent_postpass}); peak_bound_bytes "
+            f"{rep.peak_bound_bytes} (whole range "
+            f"{opt.guaranteed_peak_bytes}) arena_bound_bytes "
+            f"{rep.arena_bound_bytes} (whole range {opt.arena_bound_bytes}, "
+            f"below it: {rep.arena_bound_bytes <= opt.arena_bound_bytes}); "
+            f"selections per kernel node {sel}; device_peak "
+            f"{st.device_peak} arena_bytes {st.arena_bytes}; allocator peak "
+            f"of the request {step_alloc} (device_peak + "
+            f"{step_alloc - st.device_peak}; slack {slack}); launches {got} "
+            f"(selections imply {want}); logits "
+            + (f"bitwise equal to phase 3's: {equal}" if same else
+               f"max |bucketed - plain path| {err:.4g} (selections differ "
+               f"from the whole-range plan's)"))
+        if not st.device_peak <= rep.peak_bound_bytes <= \
+                opt.guaranteed_peak_bytes:
+            raise AssertionError("bucket guarantee out of order")
+        # a bucket that re-schedules may pack its arena less tightly than
+        # the whole range did: its own bound holds, and is printed beside
+        # the whole range's, but need not be below it
+        if st.arena_bytes > rep.arena_bound_bytes:
+            raise AssertionError("arena_bytes above the bucket's bound")
+        if step_alloc > st.device_peak + slack:
+            raise AssertionError(f"allocator peak {step_alloc} above "
+                                 f"device_peak + {slack}")
+        if got != want:
+            raise AssertionError(f"launches {got}, selections imply {want}")
+        if same and not equal:
+            raise AssertionError("bucketed logits differ from phase 3's")
+        if not same:
+            torch.testing.assert_close(logits.float(), plain[i].float(),
+                                       rtol=5e-2, atol=5e-2)
+        got_a.append(logits)
+        rows.append(dict(b=b, s=s, key=list(key),
+                         ranges=table.space.describe(key),
+                         compile_s=rep.compile_s, first_call_ms=1e3 * wall,
+                         reused_schedule=rep.reused_parent_schedule,
+                         reused_postpass=rep.reused_parent_postpass,
+                         peak_bound_bytes=rep.peak_bound_bytes,
+                         arena_bound_bytes=rep.arena_bound_bytes,
+                         device_peak=st.device_peak,
+                         alloc_peak=step_alloc, alloc_slack=slack,
+                         selections=_selection_summary(bp.plan)))
+
+    # the second pass: hits only, no compile, no capture; timed in turns
+    # with the whole-range plan of the same capture (unbucketed), bucketed
+    # first in even rounds and second in odd ones
+    whole_fn = DynamicShapeFunction(opt.plan, opt.report, device=opt.device)
+    n_spec, n_cap = table.specialize_count, len(captures)
+    for (b, s), batch, want_out in zip(REQUESTS, batches, got_a):
+        walls = {"bucketed": [], "unbucketed": []}
+        ns = []
+        whole_fn(params, batch)
+        for r in range(10):
+            pair = (("bucketed", opt), ("unbucketed", whole_fn))
+            for name, fn in (pair if r % 2 == 0 else pair[::-1]):
+                t0 = time.perf_counter()
+                logits = fn(params, batch)
+                torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.perf_counter() - t0))
+                if fn is opt:
+                    ns.append(opt.last_report.stats.last_dispatch_ns)
+                    if not torch.equal(logits, want_out):
+                        raise AssertionError("a hit changed the logits")
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        log(f"[buckets] (a) hits b={b} s={s}: median {med['bucketed']:.3f} ms "
+            f"(min {min(walls['bucketed']):.3f} max "
+            f"{max(walls['bucketed']):.3f}); in turns with the unbucketed "
+            f"plan: median {med['unbucketed']:.3f} ms (min "
+            f"{min(walls['unbucketed']):.3f} max "
+            f"{max(walls['unbucketed']):.3f}); phase 3, unbucketed: "
+            f"{medians[(b, s)]:.3f} ms; 10 calls each; dispatch median "
+            f"{statistics.median(ns):.0f} ns per call")
+        rows[REQUESTS.index((b, s))].update(
+            hit_median_ms=med["bucketed"],
+            unbucketed_median_ms=med["unbucketed"],
+            phase3_median_ms=medians[(b, s)],
+            dispatch_ns=statistics.median(ns))
+    del whole_fn
+    st = table.stats()
+    if table.specialize_count != n_spec or len(captures) != n_cap or \
+            st["hits"] != 10 * len(REQUESTS):
+        raise AssertionError(f"the second pass recompiled or re-captured: "
+                             f"{st}")
+    log(f"[buckets] (a) table {st}; rows {json.dumps(rows)}")
+
+    # (b) background specialization: misses are served by the whole-range
+    # fallback while the worker compiles; after the drain, hits
+    opt_bg = optimize(make_prefill_step(cfg), *specs,
+                      dynamic_dims=DYNAMIC_DIMS, buckets="geometric",
+                      background_specialize=True)
+    tbg = opt_bg.specialization_table
+    for i, ((b, s), batch) in enumerate(zip(REQUESTS, batches)):
+        t0 = time.perf_counter()
+        logits = opt_bg(params, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        if opt_bg.last_arena_bound != opt_bg.arena_bound_bytes:
+            raise AssertionError("a miss was not served by the fallback")
+        log(f"[buckets] (b) b={b} s={s} miss served by the whole-range "
+            f"fallback in {wall:.3f} ms (fallback_serves "
+            f"{tbg.fallback_serves}, compiles pending {tbg.n_pending}); "
+            f"bitwise equal to phase 3's: {torch.equal(logits, outs[i])}")
+        if not torch.equal(logits, outs[i]):
+            raise AssertionError("the fallback's logits differ from phase 3")
+    t0 = time.perf_counter()
+    drained = opt_bg.drain_specializations()
+    log(f"[buckets] (b) drain_specializations() {time.perf_counter() - t0:.3f}"
+        f" s, drained {drained}")
+    if tbg.fallback_serves != len(REQUESTS):
+        raise AssertionError(f"fallback_serves {tbg.fallback_serves}")
+    for i, ((b, s), batch) in enumerate(zip(REQUESTS, batches)):
+        logits = opt_bg(params, batch)
+        torch.cuda.synchronize()
+        if opt_bg.last_arena_bound != \
+                tbg.peek(opt_bg.last_bucket).report.arena_bound_bytes \
+                or not torch.equal(logits, got_a[i]):
+            raise AssertionError(f"(b) after the drain b={b} s={s} did not "
+                                 f"hit its bucket with (a)'s logits")
+    log(f"[buckets] (b) after the drain: every request hit its bucket, "
+        f"logits bitwise equal to (a)'s; table {tbg.stats()}")
+
+    # (c) the BucketBatcher: admission by bucket arena bound
+    bounds = sorted({table.arena_bound_bytes(table.key_of(
+        {"b": b, "s": s})) for (b, s) in REQUESTS})
+    budget = (bounds[-1] + bounds[-2]) // 2
+    batcher = BucketBatcher(opt, memory_budget=budget)
+    for (b, s), batch in zip(REQUESTS, batches):
+        for _ in range(2):
+            batcher.submit({"b": b, "s": s}, payload=(params, batch))
+    outcomes = batcher.process()
+    for ev in batcher.admission_events:
+        log(f"[buckets] (c) admission: {ev}")
+    held = batcher.pending_by_bucket()
+    big = table.key_of(dict(zip(("b", "s"), REQUESTS[-1])))
+    if held != {big: 2} or len(outcomes) != 2 * (len(REQUESTS) - 1):
+        raise AssertionError(f"batcher held {held}, ran {len(outcomes)}")
+    for oc in outcomes:
+        i = REQUESTS.index((oc["env"]["b"], oc["env"]["s"]))
+        if not oc["ok"] or not torch.equal(oc["value"], got_a[i]):
+            raise AssertionError(f"batcher outcome {oc['env']} differs")
+    log(f"[buckets] (c) budget {budget} between bucket bounds {bounds[-2]} "
+        f"and {bounds[-1]}: ran {len(outcomes)} requests in "
+        f"{len(outcomes) // 2} groups with (a)'s logits; held {held}; "
+        f"held_count {batcher.held_count}")
+    launches = _launch_counts()
+    log(f"[buckets] launches over (a)-(c) {launches}")
+    del params, opt, opt_bg, batcher, outcomes, got_a
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kernel_select():
+    """Phase 7 (d): kernel selection on the kernel_bench step at llama2_1b
+    widths, b in [1, 16], s in [1, 2048], buckets on s at 64, in f32 and
+    bf16; the model's choice against measured times."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import TensorSpec, optimize, symbolic_dims
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels.hw_model import HardwareModel
+    from repro_torch.kernels.variants import (measure_variants, node_shape,
+                                              variant_cost, variants_for)
+
+    def fwd(q, k, v, x, scale):
+        return flash_attention(q, k, v, True, None, None), \
+            rmsnorm(x, scale, 1e-6, None)
+
+    hw = HardwareModel.from_device("cuda")
+    # the plain variants' transients rule them out at these shapes; they
+    # are timed as well, with the limit lifted, to check the model there
+    lifted = dataclasses.replace(hw, max_transient_bytes=1 << 62)
+    B, S = symbolic_dims("b, s")
+    hq, hd, d = 32, 128, 4096          # llama2_1b's widths
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        specs = [TensorSpec(sh, dtype) for sh in
+                 ((B, hq, S, hd), (B, hq, S, hd), (B, hq, S, hd),
+                  (B, S, d), (d,))]
+        fn = optimize(fwd, *specs, dynamic_dims=KB_RANGES, buckets=KB_EDGES)
+        table = fn.specialization_table
+        name = str(dtype).split(".")[1]
+        for key in table.space.keys():
+            bp = table.get(key)
+            for sel in bp.plan.kernel_selections.values():
+                log(f"[select] {name} bucket {key} "
+                    f"{table.space.describe(key)}: {sel.prim_name} -> "
+                    f"{sel.variant.name}; model us over the lo/mid/hi "
+                    f"corners " + ", ".join(
+                        f"{k} {1e6 * v:.1f}" for k, v in sel.scores.items())
+                    + f"; invalid {sel.invalid}")
+        for env in KB_ENVS:
+            key = table.key_of(env)
+            before = {nid: s.variant.name for nid, s in
+                      table.get(key).plan.kernel_selections.items()}
+            forced = fn.remeasure_kernels(env, repeats=KB_REPEATS)
+            after = table.peek(key).plan
+            for nid, sel in after.kernel_selections.items():
+                node = after.node_by_id[nid]
+                shape = node_shape(node, env)
+                timed = measure_variants(sel.prim_name, node, env, lifted,
+                                         repeats=KB_REPEATS,
+                                         device=fn.device)
+                model = {v.name: variant_cost(sel.prim_name, v, shape, dtype,
+                                              {"causal": True}, hw).time_s
+                         for v in variants_for(sel.prim_name)
+                         if v.name in timed}
+                fastest = min(timed, key=timed.get)
+                valid_fastest = min(sel.measured_s, key=sel.measured_s.get)
+                log(f"[select] {name} at {env}: {sel.prim_name} selected "
+                    f"{before[nid]}, measured winner among the valid "
+                    f"{valid_fastest} (forced {forced.get(nid)}); ms measured"
+                    f" (valid) " + ", ".join(
+                        f"{k} {1e3 * v:.4f}" for k, v in sel.measured_s.items())
+                    + "; all variants, measured vs model: " + ", ".join(
+                        f"{k} {1e3 * timed[k]:.4f} vs {1e3 * model[k]:.4f}"
+                        for k in timed)
+                    + f"; the model's pick is the measured fastest of all: "
+                    f"{before[nid] == fastest}")
+                rows.append(dict(dtype=name, env=env, prim=sel.prim_name,
+                                 selected=before[nid], forced=forced.get(nid),
+                                 measured_ms={k: 1e3 * v for k, v in
+                                              timed.items()},
+                                 model_ms={k: 1e3 * v for k, v in
+                                           model.items()},
+                                 picked_fastest=before[nid] == fastest))
+        del fn, table
+        torch.cuda.empty_cache()
+    log(f"[select] rows {json.dumps(rows)}")
+
+
 def main() -> int:
     try:
         import torch
@@ -844,11 +1244,15 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     rows = phase_kernels()
-    cfg, params, opt_ref, batches, outs, launches, req_rows = phase_main_path()
-    phase_plain(cfg, params, opt_ref, batches, outs)
-    del params, opt_ref, outs
+    cfg, params, opt_ref, batches, outs, launches, req_rows, medians = \
+        phase_main_path()
+    plain = phase_plain(cfg, params, opt_ref, batches, outs)
+    del params, opt_ref
     f32_launches = phase_f32_path()
     train = phase_train()
+    buckets = phase_buckets(cfg, batches, outs, plain, medians)
+    del outs, plain
+    phase_kernel_select()
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -857,14 +1261,17 @@ def main() -> int:
             ("flash_bfloat16", "flash_attention_sm90_bf16",
              "src/repro_torch/csrc/flash_attention_sm90.cu", flash_src,
              {"prefill": launches["flash_attention_sm90"],
-              "train": train["flash_attention_sm90"]}),
+              "train": train["flash_attention_sm90"],
+              "buckets": buckets["sm90"]}),
             ("flash_float32", "flash_attention_simt_f32",
              "src/repro_torch/csrc/flash_attention.cu", flash_src,
              {"prefill_f32": f32_launches,
-              "train": train["flash_attention_f32"]}),
+              "train": train["flash_attention_f32"],
+              "buckets": buckets["f32"]}),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:17",
-             {"prefill": launches["rmsnorm"], "train": train["rmsnorm"]})):
+             {"prefill": launches["rmsnorm"], "train": train["rmsnorm"],
+              "buckets": buckets["rmsnorm"]})):
         r = big[key]
         kernels.append({"name": route_name, "route": "cuda",
                         "source": src_path, "replaces": replaces,

@@ -10,23 +10,37 @@
 ``optimize`` performs the paper's pipeline once at "compile" time:
 symbolic capture → symbolic shape graph → op scheduling (§2.2) →
 rematerialization search (§2.3 compile-time half) → memory planning →
-lowering to a flat ``Program``.  Calls then execute through the register
-``ProgramVM`` on the plan's device: the fast stream when the call's
-replayed peak fits the memory limit, else the dynamic stream, whose evict
-checks run the runtime remat policy (§2.3 runtime half).
-``executor="reference"`` runs the op-by-op ``PlanInterpreter`` instead.
+kernel-variant selection → lowering to a flat ``Program``.  Calls then
+execute through the register ``ProgramVM`` on the plan's device: the fast
+stream when the call's replayed peak fits the memory limit, else the
+dynamic stream, whose evict checks run the runtime remat policy (§2.3
+runtime half).  ``executor="reference"`` runs the op-by-op
+``PlanInterpreter`` instead.
 
-Not ported yet, and refused with ``NotImplementedError``: bucketed
-dispatch, kernel-variant selection, resilience and telemetry.
+With ``buckets=...`` the declared shape space is additionally partitioned
+into buckets and the schedule → remat → memplan → kernel-selection
+pipeline re-runs lazily once per bucket under the bucket's tighter bounds
+(incrementally: the whole-range schedule and remat plan are reused where
+no verdict they depended on flips); each call dispatches to its bucket's
+plan in O(log n) per dim through a :class:`SpecializationTable` with LRU
+retention.
+
+Not ported yet, and refused with ``NotImplementedError``: resilience and
+fault injection (``resilience=``, ``fault_plan=``).
 """
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 from torch.utils import _pytree as pytree
 
+from .dispatch import (BucketKey, BucketPlan, BucketSpace, BucketsSpec,
+                       SpecializationTable, build_bucket_space)
 from .executor.interpreter import PlanInterpreter
 from .executor.memory import MemoryLimitExceeded
 from .executor.vm import ProgramVM, RunReport
@@ -35,6 +49,7 @@ from .ir.capture import (TensorSpec, capture, check_declared_ranges,
 from .lowering import Program, lower_plan
 from .memplan import ArenaPlan, build_arena_plan
 from .remat.planner import ExecutionPlan, build_plan
+from .resilience import CircuitBreaker
 from .scheduling.exchange import exchange_pass
 from .scheduling.memsim import simulate_peak, simulate_peak_bound
 from .scheduling.scheduler import ScheduleResult, schedule_graph
@@ -42,12 +57,11 @@ from .symbolic import ShapeGraph, declare_dim_ranges
 
 __all__ = ["optimize", "DynamicShapeFunction", "OptimizeReport",
            "MemoryLimitExceeded", "TensorSpec", "symbolic_dims", "spec_like",
-           "resolve_device"]
+           "resolve_device", "BucketSpace", "SpecializationTable",
+           "BucketPlan", "build_bucket_space"]
 
 # knobs of the reference ``optimize`` that later parts of the port bring
-_NOT_PORTED = ("buckets", "max_cached_plans", "background_specialize",
-               "kernel_select", "kernel_remeasure_after", "resilience",
-               "fault_plan")
+_NOT_PORTED = ("resilience", "fault_plan")
 _EXECUTORS = ("vm", "reference")
 
 
@@ -84,6 +98,52 @@ class OptimizeReport:
     cmp_stats: Dict[str, int] = field(default_factory=dict)
     # the ShapeEnv guards the capture left (strings; for inspection)
     guards: List[str] = field(default_factory=list)
+    # the bucket partition (whole-range report only; None without buckets=)
+    buckets: Optional[BucketSpace] = None
+    # incremental bucket compile: True when this report's schedule + remat
+    # plan were inherited from the whole-range compile because no verdict
+    # they depended on flipped under the bucket's narrowed ranges
+    reused_parent_schedule: bool = False
+    # weaker reuse: the bucket's scheduler re-ran (some remat verdict
+    # flipped) but reproduced the parent's raw order, so the parent's
+    # guard/exchange post-pass result was adopted without re-simulation
+    reused_parent_postpass: bool = False
+    # host seconds this plan's pipeline took (capture excluded)
+    compile_s: float = 0.0
+
+
+@dataclass
+class PipelineArtifacts:
+    """What one ``_compile_pipeline`` run hands to incremental re-runs.
+
+    ``cmp_keys`` is the set of ``ShapeGraph.compare`` keys the scheduling
+    and remat phases consulted (recorded via
+    :meth:`ShapeGraph.record_cmp_keys`); ``sg`` is the graph whose memo
+    holds those verdicts.  A bucket compile under ``sg.specialized(...)``
+    reuses ``sched``/``candidates`` wholesale when
+    :meth:`ShapeGraph.verdicts_match` proves none of those verdicts flip
+    under the narrowed ranges — only the bounds-dependent phases (memory
+    planning, kernel selection, peak bounds, lowering) re-run.
+    """
+
+    sched: ScheduleResult
+    used_sched: bool
+    candidates: Dict[int, Any]            # value id -> CandidateInfo
+    cmp_keys: frozenset
+    sg: ShapeGraph
+    # the scheduler's raw order (node ids, before the best-of guard and
+    # exchange refinement): a bucket whose re-run scheduler reproduces it
+    # adopts the parent's guarded + exchanged final order without re-paying
+    # the probe simulations
+    raw_order_ids: Tuple[int, ...] = ()
+    # shared range-independent expression caches: scheduler impact
+    # polynomials and remat-search (impact, sources)/flops — re-running a
+    # phase under a narrowed graph re-decides verdicts, not expressions
+    sched_expr_cache: Dict = field(default_factory=dict)
+    remat_expr_cache: Dict = field(default_factory=dict)
+    # per-candidate compare keys of the remat search, for candidate-granular
+    # reuse when only some verdicts flip under a bucket
+    cand_cmp_keys: Dict[int, frozenset] = field(default_factory=dict)
 
 
 def _compile_pipeline(graph, sg: ShapeGraph, *,
@@ -94,8 +154,33 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
                       donate_inputs: bool = False,
                       count_inputs: bool = True,
                       guard_env: Optional[Dict[str, int]] = None,
-                      ) -> Tuple[ExecutionPlan, OptimizeReport]:
-    """schedule → remat search → memplan → bounds over a captured graph."""
+                      parent: Optional[PipelineArtifacts] = None,
+                      collect: bool = False,
+                      kernel_select: bool = True,
+                      kernel_forced: Optional[Mapping[int, str]] = None,
+                      hw: Any = None,
+                      ) -> Tuple[ExecutionPlan, OptimizeReport,
+                                 Optional[PipelineArtifacts]]:
+    """schedule → remat search → memplan → kernel selection → bounds over
+    a captured graph.
+
+    Factored out of :func:`optimize` so bucketed specialization can re-run
+    it per bucket: the same graph compiles under a narrowed ``ShapeGraph``
+    (see :meth:`ShapeGraph.specialized`) and the tighter bounds resolve
+    more decisions statically.
+
+    ``collect=True`` records the compare keys the schedule + remat phases
+    depend on and returns them as :class:`PipelineArtifacts` (third tuple
+    element, else ``None``).  ``parent=`` makes this run *incremental*:
+    when no recorded verdict flips under ``sg``'s narrowed ranges, the
+    parent's schedule and remat candidates are reused (intervals refreshed
+    under the tighter bounds) and only memory planning, kernel selection
+    and peak bounds run.  ``hw`` is the kernel cost model's
+    :class:`~repro_torch.kernels.hw_model.HardwareModel`.
+    """
+    from .remat.search import respecialize_candidates
+
+    t_start = time.perf_counter()
 
     def _clamp(name: str, v: int) -> int:
         iv = sg.declared_ranges.get(name)
@@ -107,35 +192,68 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
             v = min(v, iv.hi)
         return v
 
+    candidates: Optional[Dict[int, Any]] = None
     used_sched = False
-    if enable_scheduling:
-        sched = schedule_graph(graph, sg)
-        free_syms = graph.free_symbols()
-        env = dict(guard_env) if guard_env else {n: 64 for n in free_syms}
-        for name in free_syms:
-            env.setdefault(name, 64)
-        env = {k: _clamp(k, v) for k, v in env.items()}
-        probe_envs = [env,
-                      {k: _clamp(k, max(1, v // 4)) for k, v in env.items()},
-                      {k: _clamp(k, v * 4) for k, v in env.items()}]
-        # best-of safeguard: never keep an order that regresses the
-        # program order's peak at the guard env
-        base = simulate_peak(graph, graph.nodes, env,
-                             count_inputs=count_inputs)
-        tuned = simulate_peak(graph, sched.order, env,
-                              count_inputs=count_inputs)
-        used_sched = tuned.peak_bytes <= base.peak_bytes
-        kept_peak = min(tuned.peak_bytes, base.peak_bytes)
-        if not used_sched:
-            sched = ScheduleResult(list(graph.nodes), sched.symbolic_decisions,
+    reused = False
+    reused_postpass = False
+    raw_order_ids: Tuple[int, ...] = ()
+    recorded: set = set()
+    cand_keys: Dict[int, frozenset] = {}
+    sched_cache = parent.sched_expr_cache if parent is not None else {}
+    remat_cache = parent.remat_expr_cache if parent is not None else {}
+    if parent is not None and enable_scheduling and \
+            sg.verdicts_match(parent.sg, parent.cmp_keys):
+        # incremental fast path: every schedule/remat decision would come
+        # out identical — reuse them; bounds-dependent phases still re-run
+        sched = parent.sched
+        used_sched = parent.used_sched
+        candidates = respecialize_candidates(parent.candidates, sg) \
+            if enable_remat else {}
+        reused = True
+    elif enable_scheduling:
+        with sg.record_cmp_keys() as keys:
+            sched = schedule_graph(graph, sg, impact_expr_cache=sched_cache)
+        recorded |= keys
+        raw_order_ids = tuple(n.id for n in sched.order)
+        if parent is not None and parent.raw_order_ids == raw_order_ids:
+            # the narrowed ranges changed some remat verdict but not the
+            # schedule itself: adopt the parent's guarded + exchanged final
+            # order (already proven no worse at the parent's probe envs)
+            sched = ScheduleResult(list(parent.sched.order),
+                                   sched.symbolic_decisions,
                                    sched.tiebreak_decisions)
-        # pairwise-exchange refinement, guarded at the probe envs
-        refined = exchange_pass(graph, sched.order, probe_envs)
-        refined_peak = simulate_peak(graph, refined, env,
-                                     count_inputs=count_inputs).peak_bytes
-        if refined_peak <= kept_peak:
-            sched = ScheduleResult(refined, sched.symbolic_decisions,
-                                   sched.tiebreak_decisions)
+            used_sched = parent.used_sched
+            reused_postpass = True
+        else:
+            free_syms = graph.free_symbols()
+            env = dict(guard_env) if guard_env else \
+                {n: 64 for n in free_syms}
+            for name in free_syms:
+                env.setdefault(name, 64)
+            env = {k: _clamp(k, v) for k, v in env.items()}
+            probe_envs = [env,
+                          {k: _clamp(k, max(1, v // 4))
+                           for k, v in env.items()},
+                          {k: _clamp(k, v * 4) for k, v in env.items()}]
+            # best-of safeguard: never keep an order that regresses the
+            # program order's peak at the guard env
+            base = simulate_peak(graph, graph.nodes, env,
+                                 count_inputs=count_inputs)
+            tuned = simulate_peak(graph, sched.order, env,
+                                  count_inputs=count_inputs)
+            used_sched = tuned.peak_bytes <= base.peak_bytes
+            kept_peak = min(tuned.peak_bytes, base.peak_bytes)
+            if not used_sched:
+                sched = ScheduleResult(list(graph.nodes),
+                                       sched.symbolic_decisions,
+                                       sched.tiebreak_decisions)
+            # pairwise-exchange refinement, guarded at the probe envs
+            refined = exchange_pass(graph, sched.order, probe_envs)
+            refined_peak = simulate_peak(graph, refined, env,
+                                         count_inputs=count_inputs).peak_bytes
+            if refined_peak <= kept_peak:
+                sched = ScheduleResult(refined, sched.symbolic_decisions,
+                                       sched.tiebreak_decisions)
     else:
         sched = ScheduleResult(list(graph.nodes), 0, 0)
 
@@ -143,9 +261,35 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
     if memory_plan == "arena":
         arena_plan = build_arena_plan(graph, sched.order, sg,
                                       donate_inputs=donate_inputs)
-    plan = build_plan(graph, sched, sg, enable_remat=enable_remat,
-                      max_subgraph=max_subgraph, arena_plan=arena_plan,
-                      remat_expr_cache={})
+    if candidates is not None:
+        plan = ExecutionPlan(graph=graph, order=list(sched.order),
+                             shape_graph=sg, candidates=candidates,
+                             arena_plan=arena_plan)
+    else:
+        with sg.record_cmp_keys() as keys:
+            plan = build_plan(graph, sched, sg, enable_remat=enable_remat,
+                              max_subgraph=max_subgraph,
+                              arena_plan=arena_plan,
+                              remat_expr_cache=remat_cache,
+                              cand_keys_out=cand_keys if collect else None,
+                              parent_remat=None if parent is None else
+                              (parent.sg, parent.candidates,
+                               parent.cand_cmp_keys))
+        recorded |= keys
+    if kernel_select:
+        # kernel-variant selection: score every variant of every kernel
+        # node over THIS plan's interval bounds — a bucket's narrowed
+        # ranges may admit a variant the whole range cannot (the plain
+        # version's transients), the whole-range plan keeps whatever stays
+        # valid at its widest corner.  Overrides live on the plan, never
+        # on the shared graph nodes.
+        from ..kernels.hw_model import DEFAULT_HW
+        from ..kernels.variants import select_kernels
+        sels = select_kernels(graph, sg, hw if hw is not None else DEFAULT_HW,
+                              forced=kernel_forced)
+        plan.kernel_selections = sels
+        plan.kernel_overrides = {
+            nid: s.variant.overrides() for nid, s in sels.items()}
     peak_lo = peak_hi = None
     if sg.declared_ranges:  # without ranges the bound is vacuous (hi = None)
         peak_lo, peak_hi = simulate_peak_bound(
@@ -156,13 +300,25 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
                             n_recomputable=plan.n_recomputable,
                             n_static_regen=plan.n_static_regen,
                             peak_bound_bytes=peak_hi, peak_bound_lo=peak_lo,
-                            cmp_stats=dict(sg.cmp_stats))
+                            cmp_stats=dict(sg.cmp_stats),
+                            reused_parent_schedule=reused,
+                            reused_parent_postpass=reused_postpass)
     if arena_plan is not None:
         report.arena_bound_bytes = arena_plan.arena_bound_bytes
         report.n_arena_slots = arena_plan.n_slots
         report.n_provable_reuses = arena_plan.n_provable_reuses
         report.n_checked_reuses = arena_plan.n_checked_reuses
-    return plan, report
+    artifacts = None
+    if collect:
+        artifacts = PipelineArtifacts(sched=sched, used_sched=used_sched,
+                                      candidates=dict(plan.candidates),
+                                      cmp_keys=frozenset(recorded), sg=sg,
+                                      raw_order_ids=raw_order_ids,
+                                      sched_expr_cache=sched_cache,
+                                      remat_expr_cache=remat_cache,
+                                      cand_cmp_keys=cand_keys)
+    report.compile_s = time.perf_counter() - t_start
+    return plan, report, artifacts
 
 
 def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
@@ -175,7 +331,8 @@ def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
     runs it on :class:`ProgramVM`; ``"reference"`` keeps the op-by-op
     :class:`PlanInterpreter` for differential testing.  Returns
     ``(runner, program)`` — ``program`` is ``None`` for the reference
-    interpreter."""
+    interpreter.  Lowering touches no device (it only builds Python
+    structures), so a background worker thread may run it."""
     if executor not in _EXECUTORS:
         raise ValueError(
             f"executor must be one of {_EXECUTORS}, got {executor!r}")
@@ -196,7 +353,14 @@ class DynamicShapeFunction:
     def __init__(self, plan: ExecutionPlan, report: OptimizeReport, *,
                  device: torch.device, memory_limit: Optional[int] = None,
                  donate_inputs: bool = False, count_inputs: bool = True,
-                 executor: str = "vm"):
+                 executor: str = "vm",
+                 table: Optional[SpecializationTable] = None,
+                 table_factory: Optional[
+                     Callable[[Optional[int]], SpecializationTable]] = None,
+                 kernel_forced: Optional[Dict[Optional[BucketKey],
+                                              Dict[int, str]]] = None,
+                 kernel_remeasure_after: Optional[int] = None,
+                 hw: Any = None):
         self.plan = plan
         self.report = report
         self.device = device
@@ -204,14 +368,40 @@ class DynamicShapeFunction:
         self.executor = executor
         self._donate_inputs = donate_inputs
         self._count_inputs = count_inputs
-        self.interp, self._program = _build_executor(
-            plan, report, executor, memory_limit=memory_limit,
-            donate_inputs=donate_inputs, count_inputs=count_inputs)
+        # a background table already lowered the identical whole-range plan
+        # for its fallback: adopt it instead of lowering twice
+        if table is not None and table.fallback is not None:
+            self.interp = table.fallback.interp
+            self._program = table.fallback.program
+        else:
+            self.interp, self._program = _build_executor(
+                plan, report, executor, memory_limit=memory_limit,
+                donate_inputs=donate_inputs, count_inputs=count_inputs)
         self.last_report: Optional[RunReport] = None
         graph = plan.graph
         self._in_tree = graph.in_tree
         self._out_tree = graph.out_tree
         self._in_dtypes = [v.dtype for v in graph.inputs]
+        # bucketed dispatch: the table, the factory that rebuilds it under
+        # another memory limit, and the bucket / arena bound of the plan
+        # the most recent call executed (the whole-range bound on a
+        # fallback or unbucketed call)
+        self._table = table
+        self._table_factory = table_factory
+        self.last_bucket: Optional[BucketKey] = None
+        self.last_arena_bound: Optional[int] = None
+        self._dispatch_ns_total = 0
+        self._stats_lock = threading.Lock()
+        # kernel measured fallback: per-bucket forced variants (shared with
+        # the bucket compile closure — recompiles read it), the auto-trigger
+        # threshold, per-bucket call counts, and in-flight measure threads
+        self._hw = hw
+        self._kernel_forced = kernel_forced if kernel_forced is not None \
+            else {}
+        self._kernel_remeasure_after = kernel_remeasure_after
+        self._kernel_calls: Dict[Optional[BucketKey], int] = {}
+        self._kernel_measured: set = set()
+        self._remeasure_threads: List[threading.Thread] = []
 
     def __call__(self, *args):
         return self.call_donated(list(args))
@@ -233,11 +423,55 @@ class DynamicShapeFunction:
             raise TypeError(f"pytree structure mismatch: traced "
                             f"{self._in_tree}, got {in_tree}")
         self._check_args(flat)
-        env = solve_env(self.plan.graph, flat)
-        check_declared_ranges(self.plan.shape_graph, env)
-        outs, report = self.interp.run(flat, env=env)
-        self.last_report = report
+        outs = self._dispatch(flat)
         return pytree.tree_unflatten(outs, self._out_tree)
+
+    def _dispatch(self, flat: List[Any]) -> List[Any]:
+        """Select a plan and execute once."""
+        env = solve_env(self.plan.graph, flat)
+        # the declared-range contract is checked against the whole-range
+        # graph before bucket dispatch, so an out-of-range dim cannot land
+        # in an edge bucket and fail there with a sub-range message
+        check_declared_ranges(self.plan.shape_graph, env)
+        if self._table is None:
+            self.last_bucket = None
+            self.last_arena_bound = self.report.arena_bound_bytes
+            outs, report = self.interp.run(flat, env=env)
+            self.last_report = report
+            return outs
+        # the began/ended bracket tells the background worker a request is
+        # mid-flight so compiles defer instead of contending for the GIL
+        # (skipped without a worker: two lock round-trips per call).  It
+        # opens before the lookup, which may submit this bucket's compile:
+        # a worker thread started by that submit runs at once, and would
+        # find no request in flight if the bracket opened after it
+        background = self._table.background
+        if background:
+            self._table.request_began()
+        try:
+            t0 = time.perf_counter_ns()
+            bp, _hit = self._table.lookup(env)
+            dispatch_ns = time.perf_counter_ns() - t0
+            # bp.key is None when a background miss served the whole-range
+            # fallback; re-derive the bucket from this request's own env
+            self.last_bucket = bp.key if bp.key is not None \
+                else self._table.key_of(env)
+            self.last_arena_bound = bp.report.arena_bound_bytes
+            outs, report = bp.interp.run(flat, env=env)
+        finally:
+            if background:
+                self._table.request_ended()
+        st = report.stats
+        st.last_dispatch_ns = dispatch_ns
+        with self._stats_lock:
+            self._dispatch_ns_total += dispatch_ns
+            st.dispatch_ns_total = self._dispatch_ns_total
+        st.bucket_hits = self._table.hits
+        st.specialize_count = self._table.specialize_count
+        self.last_report = report
+        if self._kernel_remeasure_after is not None:
+            self._maybe_remeasure(self.last_bucket, env)
+        return outs
 
     def _check_args(self, flat: List[Any]) -> None:
         for x, dt in zip(flat, self._in_dtypes):
@@ -253,19 +487,142 @@ class DynamicShapeFunction:
 
     @property
     def program(self) -> Optional[Program]:
-        """The lowered Program (``None`` under ``executor="reference"``)."""
+        """The lowered Program (``None`` under ``executor="reference"``).
+        With ``buckets=...`` this is the whole-range plan's Program;
+        per-bucket Programs live on the specialization table's
+        ``BucketPlan.program``."""
         return self._program
 
-    def with_memory_limit(self, limit: Optional[int]
-                          ) -> "DynamicShapeFunction":
-        """The same plan under another memory limit, without retracing:
-        only the lowering re-runs, because the limit decides whether the
-        evict path is emitted."""
-        return DynamicShapeFunction(self.plan, self.report,
-                                    device=self.device, memory_limit=limit,
-                                    donate_inputs=self._donate_inputs,
-                                    count_inputs=self._count_inputs,
-                                    executor=self.executor)
+    # -- bucketed specialization ------------------------------------------------
+    @property
+    def specialization_table(self) -> Optional[SpecializationTable]:
+        """The per-bucket plan cache (``None`` without ``buckets=...``)."""
+        return self._table
+
+    def warmup(self, envs: Iterable[Mapping[str, int]]) -> List[BucketKey]:
+        """Compile the buckets containing ``envs`` before serving traffic.
+
+        Synchronous, idempotent, runs nothing — it only specializes plans
+        so first-request latency does not pay the compile.  ``envs`` is an
+        iterable of dim bindings (a single mapping is also accepted);
+        returns the distinct bucket keys now resident.
+        """
+        if self._table is None:
+            raise ValueError(
+                "warmup() requires bucketed dispatch — pass "
+                "optimize(..., buckets=...)")
+        if isinstance(envs, Mapping):
+            envs = [envs]
+        return self._table.warmup(envs)
+
+    def drain_specializations(self, timeout: Optional[float] = None
+                              ) -> List[BucketKey]:
+        """Block until every in-flight background specialization lands.
+
+        The deterministic join for ``background_specialize=True``: after it
+        returns, every bucket that traffic has touched is compiled and the
+        table's ``specialize_count`` matches what synchronous specialization
+        would have produced.  Returns the bucket keys that completed while
+        draining; a no-op (empty list) without bucketed dispatch or with
+        nothing in flight."""
+        if self._table is None:
+            return []
+        for t in list(self._remeasure_threads):
+            t.join(timeout)
+            if not t.is_alive():
+                self._remeasure_threads.remove(t)
+        return self._table.drain_background(timeout=timeout)
+
+    # -- kernel-variant measured fallback ---------------------------------------
+    def _maybe_remeasure(self, key: Optional[BucketKey],
+                         env: Dict[str, int]) -> None:
+        """Auto-trigger: after ``kernel_remeasure_after`` calls land in a
+        bucket, time the variant candidates at that bucket's traffic shape
+        and re-select — once per bucket.  Runs off-thread on a background
+        table (the compile lock serializes the swap); inline otherwise."""
+        n = self._kernel_calls.get(key, 0) + 1
+        self._kernel_calls[key] = n
+        if key in self._kernel_measured or n < self._kernel_remeasure_after:
+            return
+        if not self.plan.kernel_selections:
+            return
+        self._kernel_measured.add(key)
+        if self._table is not None and self._table.background:
+            t = threading.Thread(
+                target=lambda: self.remeasure_kernels(env),
+                name="kernel-remeasure", daemon=True)
+            self._remeasure_threads.append(t)
+            t.start()
+        else:
+            self.remeasure_kernels(env)
+
+    def remeasure_kernels(self, env: Optional[Mapping[str, int]] = None, *,
+                          repeats: int = 3) -> Dict[int, str]:
+        """Measured fallback for kernel-variant selection.
+
+        Times every variant of every kernel node that is valid at the
+        concrete dim binding ``env`` (default: the most recent call's) on
+        this plan's device, forces the per-node winners — restricted to
+        variants that stay valid over the *whole* target range, so the
+        swapped plan keeps the fallback-safety property — and rebuilds the
+        plan: the env's bucket plan under bucketed dispatch (atomically
+        swapped via the table), else the monolithic plan.  Returns node id
+        -> winning variant name; the timings land on the new plan's
+        :class:`~repro_torch.kernels.variants.KernelSelection`\\ s
+        (``measured_s``).
+        """
+        from ..kernels.hw_model import DEFAULT_HW
+        from ..kernels.variants import (measure_variants, node_bounds,
+                                        select_kernels, variant_valid,
+                                        variants_for)
+        if env is None:
+            if self.last_report is None:
+                raise ValueError(
+                    "remeasure_kernels needs an env (no call recorded yet)")
+            env = self.last_report.env
+        env = dict(env)
+        if not self.plan.kernel_selections:
+            return {}
+        hw = self._hw if self._hw is not None else DEFAULT_HW
+        key = None
+        sg = self.plan.shape_graph
+        if self._table is not None:
+            key = self._table.key_of(env)
+            sg = sg.specialized(self._table.space.ranges_of(key))
+        forced: Dict[int, str] = {}
+        timings: Dict[int, Dict[str, float]] = {}
+        for nid, sel in self.plan.kernel_selections.items():
+            node = self.plan.node_by_id[nid]
+            timings[nid] = measure_variants(sel.prim_name, node, env, hw,
+                                            repeats=repeats,
+                                            device=self.device)
+            # the winner must stay valid at the target range's hi corner,
+            # not just at this env — never trade safety for speed
+            hi = {k: h for k, (_lo, h) in node_bounds(node, sg).items()}
+            dtype = node.invals[0].dtype
+            by_name = {v.name: v for v in variants_for(sel.prim_name)}
+            for name, _t in sorted(timings[nid].items(), key=lambda kv: kv[1]):
+                if variant_valid(sel.prim_name, by_name[name], hi, dtype, hw):
+                    forced[nid] = name
+                    break
+        if self._table is not None:
+            self._kernel_forced[key] = forced
+            plan = self._table.recompile(key).plan
+        else:
+            self.plan.kernel_selections = select_kernels(
+                self.plan.graph, sg, hw, forced=forced)
+            self.plan.kernel_overrides = {
+                nid: s.variant.overrides()
+                for nid, s in self.plan.kernel_selections.items()}
+            self.interp, self._program = _build_executor(
+                self.plan, self.report, self.executor,
+                memory_limit=self.memory_limit,
+                donate_inputs=self._donate_inputs,
+                count_inputs=self._count_inputs)
+            plan = self.plan
+        for nid, sel in plan.kernel_selections.items():
+            sel.measured_s = timings.get(nid, {})
+        return forced
 
     @property
     def guaranteed_peak_bytes(self) -> Optional[int]:
@@ -273,7 +630,9 @@ class DynamicShapeFunction:
 
         ``None`` unless every symbolic dim was given an upper bound via
         ``optimize(..., dynamic_dims=...)``.  For every call whose dims lie
-        within the declared ranges, the device peak is <= this."""
+        within the declared ranges, the device peak is <= this.  With
+        ``buckets=...`` each bucket's own bound is tighter:
+        ``specialization_table.peek(key).report.peak_bound_bytes``."""
         return self.report.peak_bound_bytes
 
     @property
@@ -283,8 +642,25 @@ class DynamicShapeFunction:
     @property
     def arena_bound_bytes(self) -> Optional[int]:
         """Compile-time worst-case planned arena size over the declared dim
-        ranges (``None`` without ``memory_plan="arena"`` + bounded dims)."""
+        ranges (``None`` without ``memory_plan="arena"`` + bounded dims).
+        Per-bucket bounds are tighter: see
+        ``specialization_table.arena_bound_bytes(key)``."""
         return self.report.arena_bound_bytes
+
+    def with_memory_limit(self, limit: Optional[int]
+                          ) -> "DynamicShapeFunction":
+        """The same plan under another memory limit, without retracing:
+        only the lowering re-runs, because the limit decides whether the
+        evict path is emitted.  A bucketed function keeps bucketing (its
+        buckets re-lower under the new limit as traffic reaches them)."""
+        table = self._table_factory(limit) if self._table_factory else None
+        return DynamicShapeFunction(
+            self.plan, self.report, device=self.device, memory_limit=limit,
+            donate_inputs=self._donate_inputs,
+            count_inputs=self._count_inputs, executor=self.executor,
+            table=table, table_factory=self._table_factory,
+            kernel_forced=self._kernel_forced,
+            kernel_remeasure_after=self._kernel_remeasure_after, hw=self._hw)
 
 
 def optimize(fn: Callable, *specs,
@@ -297,7 +673,12 @@ def optimize(fn: Callable, *specs,
              count_inputs: bool = True,
              max_subgraph: int = 24,
              guard_env: Optional[Dict[str, int]] = None,
+             buckets: Optional[BucketsSpec] = None,
+             max_cached_plans: int = 16,
+             background_specialize: bool = False,
              executor: str = "vm",
+             kernel_select: bool = True,
+             kernel_remeasure_after: Optional[int] = None,
              device: Any = None,
              **later: Any) -> DynamicShapeFunction:
     """Capture ``fn`` symbolically and build the optimized dynamic-shape plan.
@@ -321,11 +702,40 @@ def optimize(fn: Callable, *specs,
     ``enable_remat`` / ``max_subgraph``: run the recompute-subgraph search
     (subgraphs of at most ``max_subgraph`` nodes); without it every victim
     is offloaded.
+    ``buckets``: partition the declared ranges into shape buckets and
+    specialize the whole pipeline per bucket — ``"geometric"`` / an int
+    count / a per-dim mapping ``{dim: count | [edges...]}`` (see
+    :func:`repro_torch.core.dispatch.build_bucket_space`); requires
+    ``dynamic_dims``.  Calls dispatch to their bucket's plan; buckets
+    compile lazily on first use (or via :meth:`DynamicShapeFunction.warmup`)
+    and at most ``max_cached_plans`` stay resident (LRU).
+    ``background_specialize``: with ``buckets=``, a bucket miss no longer
+    compiles on the request thread — the request is served immediately by
+    the whole-range fallback plan (valid for any in-range env) while a
+    background worker runs the bucket's pipeline and atomically swaps the
+    compiled plan into the table; join deterministically via
+    :meth:`DynamicShapeFunction.warmup` or
+    :meth:`DynamicShapeFunction.drain_specializations`.
     ``executor``: ``"vm"`` (default) runs the lowered Program on the
     register VM; ``"reference"`` runs the op-by-op :class:`PlanInterpreter`
     (differential testing).
+    ``kernel_select``: score the kernel variants of every kernel op
+    (:mod:`repro_torch.kernels.variants`: the CUDA kernels and the plain
+    version) over each plan's interval bounds on the card's cost model
+    and bake the cheapest valid one into the lowered op call, as its
+    ``impl``; per-bucket plans select per bucket, the whole-range plan
+    keeps a variant valid anywhere in its range.  Selection overrides an
+    ``impl`` the step passed (as the reference's does), so a plan that
+    must run the plain version passes ``False``, which leaves every
+    kernel op on its call-site ``impl``.
+    ``kernel_remeasure_after``: measured fallback — after N calls land in
+    a bucket, time the variant candidates at that traffic's shape and
+    atomically swap a re-selected plan if the model mispredicted (see
+    :meth:`DynamicShapeFunction.remeasure_kernels` for the manual form).
     ``device``: where the plan runs — ``cuda`` unless given (the tests pass
-    ``"cpu"``); ``cuda`` without a card raises.
+    ``"cpu"``); ``cuda`` without a card raises.  On ``cuda`` the cost
+    model reads the card (``HardwareModel.from_device``); on the CPU it
+    prices the published H100 constants.
     """
     if later:
         unknown = sorted(set(later) - set(_NOT_PORTED))
@@ -337,10 +747,19 @@ def optimize(fn: Callable, *specs,
     if memory_plan not in ("arena", "none"):
         raise ValueError(
             f"memory_plan must be 'arena' or 'none', got {memory_plan!r}")
+    if background_specialize and buckets is None:
+        raise ValueError(
+            "background_specialize=True requires bucketed dispatch — pass "
+            "optimize(..., buckets=...)")
     if executor not in _EXECUTORS:
         raise ValueError(
             f"executor must be one of {_EXECUTORS}, got {executor!r}")
     dev = resolve_device(device)
+    hw = None
+    if kernel_select:
+        from ..kernels.hw_model import DEFAULT_HW, HardwareModel
+        hw = HardwareModel.from_device(dev) if dev.type == "cuda" \
+            else DEFAULT_HW
     graph, guards = capture(fn, specs, device=dev, ranges=dynamic_dims)
     sg = ShapeGraph()
     if dynamic_dims:
@@ -351,13 +770,57 @@ def optimize(fn: Callable, *specs,
                 f"dynamic_dims names {unknown} are not symbolic dims of the "
                 f"traced function (known: {sorted(known)})")
     declare_dim_ranges(sg, dynamic_dims)
-    plan, report = _compile_pipeline(
-        graph, sg, enable_scheduling=enable_scheduling,
-        enable_remat=enable_remat, max_subgraph=max_subgraph,
-        memory_plan=memory_plan, donate_inputs=donate_inputs,
-        count_inputs=count_inputs, guard_env=guard_env)
+    knobs = dict(enable_scheduling=enable_scheduling,
+                 enable_remat=enable_remat, max_subgraph=max_subgraph,
+                 memory_plan=memory_plan, donate_inputs=donate_inputs,
+                 count_inputs=count_inputs, guard_env=guard_env,
+                 kernel_select=kernel_select, hw=hw)
+    # measured-fallback channel: bucket key -> {node id -> forced variant}.
+    # remeasure_kernels fills it, then a table recompile re-runs the bucket
+    # pipeline, whose selection honors the forced names
+    kernel_forced: Dict[Optional[BucketKey], Dict[int, str]] = {}
+    # collect the schedule/remat artifacts + their compare-key dependencies
+    # so per-bucket specialization can re-run incrementally
+    plan, report, artifacts = _compile_pipeline(
+        graph, sg, collect=buckets is not None, **knobs)
     report.guards = guards
-    return DynamicShapeFunction(plan, report, device=dev,
-                                memory_limit=memory_limit,
-                                donate_inputs=donate_inputs,
-                                count_inputs=count_inputs, executor=executor)
+
+    table_factory = None
+    if buckets is not None:
+        space = build_bucket_space(sg.declared_ranges, buckets)
+        report.buckets = space
+
+        def table_factory(limit: Optional[int],
+                          _space=space) -> SpecializationTable:
+            def compile_bucket(key, ranges) -> BucketPlan:
+                sub_sg = sg.specialized(ranges)
+                b_plan, b_report, _ = _compile_pipeline(
+                    graph, sub_sg, parent=artifacts,
+                    kernel_forced=kernel_forced.get(key), **knobs)
+                runner, b_program = _build_executor(
+                    b_plan, b_report, executor, memory_limit=limit,
+                    donate_inputs=donate_inputs, count_inputs=count_inputs)
+                return BucketPlan(key=key, ranges=ranges, plan=b_plan,
+                                  report=b_report, interp=runner,
+                                  program=b_program)
+            fallback = None
+            if background_specialize:
+                f_runner, f_program = _build_executor(
+                    plan, report, executor, memory_limit=limit,
+                    donate_inputs=donate_inputs, count_inputs=count_inputs)
+                fallback = BucketPlan(key=None,
+                                      ranges=dict(sg.declared_ranges),
+                                      plan=plan, report=report,
+                                      interp=f_runner, program=f_program)
+            return SpecializationTable(
+                _space, compile_bucket, max_live=max_cached_plans,
+                background=background_specialize, fallback=fallback,
+                breaker=CircuitBreaker())
+
+    return DynamicShapeFunction(
+        plan, report, device=dev, memory_limit=memory_limit,
+        donate_inputs=donate_inputs, count_inputs=count_inputs,
+        executor=executor,
+        table=table_factory(memory_limit) if table_factory else None,
+        table_factory=table_factory, kernel_forced=kernel_forced,
+        kernel_remeasure_after=kernel_remeasure_after, hw=hw)

@@ -22,8 +22,8 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from ..ir.capture import (Arg, check_declared_ranges, resolve_leaves,
-                          solve_env)
+from ..ir.capture import (Arg, check_declared_ranges, override_template,
+                          resolve_leaves, solve_env)
 from ..ir.graph import Node, Value
 from ..memplan.arena import ArenaAllocator
 from ..remat.planner import ExecutionPlan
@@ -52,6 +52,12 @@ class PlanInterpreter:
         for v in self.g.values:
             if v.base is not None:
                 self._views_of.setdefault(v.base.id, []).append(v.id)
+        # argument templates: the node's own, or with this plan's kernel
+        # variant baked in (the shared ``node.params`` stay untouched:
+        # other buckets' plans choose their own variants)
+        self._templates: Dict[int, Tuple[List[Any], Any]] = {
+            n.id: override_template(n, plan.kernel_overrides.get(n.id))
+            for n in self.g.nodes}
         # per-env caches reused across calls (training repeats shapes)
         self._size_cache: Dict[Tuple, Dict[int, int]] = {}
         self._leaves_cache: Dict[Tuple, Dict[int, List[Any]]] = {}
@@ -87,7 +93,7 @@ class PlanInterpreter:
 
         def call_node(node: Node, ins: Sequence[Any]) -> List[Any]:
             """Run one node on its argument tensors (``invals[:n_args]``)."""
-            template = node.params["leaves"]
+            template, spec = self._templates[node.id]
             leaves = resolved_leaves.get(node.id)
             if leaves is None:
                 leaves = resolve_leaves(template, env)
@@ -96,7 +102,7 @@ class PlanInterpreter:
             for li, x in enumerate(template):
                 if isinstance(x, Arg):
                     leaves[li] = ins[x.i]
-            out = call_op(node.prim, node.params["spec"], leaves)
+            out = call_op(node.prim, spec, leaves)
             return list(out) if node.params["multi"] else [out]
 
         storage: Dict[int, Any] = {}          # vid -> device tensor

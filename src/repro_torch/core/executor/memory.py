@@ -39,6 +39,19 @@ class MemoryStats:
     fragmentation_bytes: int = 0  # arena size - peak bytes in use at once
     arena_growth_bytes: int = 0   # checked-reuse / dynamic growth beyond plan
     donated_reuses: int = 0       # allocations landing in donated input slots
+    # bucketed-dispatch counters (zero without optimize(..., buckets=...));
+    # every counter here is cumulative over the function's lifetime as of
+    # this call, while last_* fields describe this call alone —
+    # last_dispatch_ns is this call's bucket-resolution time (a miss
+    # includes the bucket's specialization compile), dispatch_ns_total the
+    # lifetime sum of those
+    bucket_hits: int = 0
+    specialize_count: int = 0
+    last_dispatch_ns: int = 0
+    dispatch_ns_total: int = 0
+
+    def as_dict(self) -> Dict[str, int]:
+        return dict(self.__dict__)
 
 
 class MemoryManager:

@@ -108,6 +108,32 @@ def resolve_leaves(leaves: Sequence[Any], env: Mapping[str, int]) -> List[Any]:
             for x in leaves]
 
 
+def override_template(node, overrides: Optional[Mapping[str, Any]]
+                      ) -> Tuple[List[Any], Any]:
+    """``node``'s argument template ``(leaves, spec)`` with the named
+    arguments of its op replaced by ``overrides`` — a kernel variant's
+    ``impl``, say.  The shared ``node.params`` stay as they are.
+
+    The argument is found by name in the op's schema: a positional
+    argument the call passed is replaced in place, one it left defaulted
+    is passed by keyword."""
+    leaves, spec = node.params["leaves"], node.params["spec"]
+    if not overrides:
+        return list(leaves), spec
+    args, kwargs = pytree.tree_unflatten(list(leaves), spec)
+    args, kwargs = list(args), dict(kwargs)
+    schema = node.prim._schema.arguments
+    for name, value in overrides.items():
+        idx = next((i for i, a in enumerate(schema) if a.name == name), None)
+        if idx is None:
+            raise ValueError(f"{node.prim_name} has no argument {name!r}")
+        if idx < len(args) and not schema[idx].kwarg_only:
+            args[idx] = value
+        else:
+            kwargs[name] = value
+    return pytree.tree_flatten((tuple(args), kwargs))
+
+
 # ---------------------------------------------------------------------------
 # Tracing
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ structure:
   instead of per-op refcount bookkeeping;
 * **argument templates** — each op's arguments are pre-flattened, with
   the positions of its tensor inputs recorded, so a call is one list copy
-  and one unflatten;
+  and one unflatten.  A kernel variant that selection chose for this plan
+  is baked in here, as the ``impl`` argument of the node's op (the shared
+  ``node.params`` stay untouched: other buckets' plans choose their own);
 * **evict/regen guards** — ``MaybeEvict``/``Regen`` instructions are
   emitted only when eviction is actually possible: there is a memory
   limit, and the guaranteed worst-case peak (interval bounds over the
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..ir.capture import Arg, has_symbolic
+from ..ir.capture import Arg, has_symbolic, override_template
 from ..ir.graph import Value
 from ..remat.export import export_regen_programs
 from ..remat.planner import ExecutionPlan
@@ -103,18 +105,19 @@ def lower_plan(plan: ExecutionPlan, *,
                                            pinned=pinned))
         store = tuple((oi, new_reg(ov)) for oi, ov in enumerate(node.outvals)
                       if ov.consumers or ov.id in output_ids)
-        leaves = node.params["leaves"]
+        leaves, spec = override_template(
+            node, plan.kernel_overrides.get(node.id))
         comp = Compute(cidx=len(computes), node=node, prim=node.prim,
                        multi=bool(node.params["multi"]),
                        in_regs=tuple(reg_of[iv.id]
                                      for iv in node.invals[:node.n_args]),
                        arg_slots=tuple((li, x.i) for li, x in enumerate(leaves)
                                        if isinstance(x, Arg)),
-                       spec=node.params["spec"], store=store)
+                       spec=spec, store=store, template=tuple(leaves))
         instructions.append(comp)
         computes.append(comp)
         compute_of[node.id] = comp
-        static_leaves.append(None if has_symbolic(leaves) else list(leaves))
+        static_leaves.append(None if has_symbolic(leaves) else leaves)
         for oi, r in store:
             ov = node.outvals[oi]
             if droppable(ov) and ov.base is not None:

@@ -83,8 +83,10 @@ class Compute:
     """Call one op over input registers, store selected outputs.
 
     The op's arguments are ``spec`` unflattened over a leaf list: the
-    per-env resolved template (``ResolvedProgram.leaves[cidx]``) with the
-    tensors of ``in_regs`` written at ``arg_slots``."""
+    per-env resolved ``template`` (``ResolvedProgram.leaves[cidx]``) with
+    the tensors of ``in_regs`` written at ``arg_slots``.  ``template`` is
+    the node's argument template with this plan's kernel variant baked
+    in."""
     cidx: int                  # index into resolved leaves / ensure tables
     node: Node
     prim: Any
@@ -95,6 +97,7 @@ class Compute:
     # (output position, destination register) for outputs that are kept
     # (consumed later or returned); unkept outputs are simply dropped
     store: Tuple[Tuple[int, int], ...]
+    template: Tuple[Any, ...] = ()
     op: int = OP_COMPUTE
 
 
@@ -239,6 +242,10 @@ class Program:
     def __post_init__(self):
         self._resolve_cache: Dict[Tuple, ResolvedProgram] = {}
 
+    @property
+    def n_instructions(self) -> int:
+        return len(self.instructions)
+
     def counts(self) -> Dict[str, int]:
         """Instruction histogram (docs/tests introspection)."""
         names = {OP_BIND_ARG: "BindArg", OP_COMPUTE: "Compute",
@@ -264,7 +271,7 @@ class Program:
 
         nbytes = [expr.evaluate(env) for expr in self.nbytes_exprs]
         leaves = [static if static is not None
-                  else resolve_leaves(comp.node.params["leaves"], env)
+                  else resolve_leaves(comp.template, env)
                   for comp, static in zip(self.computes, self.static_leaves)]
         ensure = [sum(nbytes[r] for _oi, r in comp.store)
                   for comp in self.computes]

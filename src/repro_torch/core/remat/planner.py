@@ -9,7 +9,7 @@ candidate tensor (realised as the executors' materialize-on-demand).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 from ..ir.graph import Graph, Node
 from ..scheduling.scheduler import ScheduleResult
@@ -36,6 +36,11 @@ class ExecutionPlan:
     static_methods: Dict[int, str] = field(default_factory=dict)
     # compile-time buffer-reuse plan (None with memory_plan="none")
     arena_plan: Optional["ArenaPlan"] = None
+    # kernel-variant selection (node id -> param overrides / selection
+    # record); baked into lowered Compute arguments, never into the shared
+    # ``node.params`` — plans for other buckets see their own choices
+    kernel_overrides: Dict[int, Dict[str, object]] = field(default_factory=dict)
+    kernel_selections: Dict[int, object] = field(default_factory=dict)
 
     def __post_init__(self):
         self.node_by_id = {n.id: n for n in self.graph.nodes}
@@ -76,15 +81,29 @@ def build_plan(graph: Graph, schedule: ScheduleResult,
                *, enable_remat: bool = True,
                max_subgraph: int = 24,
                arena_plan: Optional["ArenaPlan"] = None,
-               remat_expr_cache: Optional[Dict] = None) -> ExecutionPlan:
+               remat_expr_cache: Optional[Dict] = None,
+               cand_keys_out: Optional[Dict[int, frozenset]] = None,
+               parent_remat: Optional[Tuple] = None) -> ExecutionPlan:
     """``remat_expr_cache``: the searcher's shareable expression cache
-    (see :class:`RecomputeSearcher`)."""
+    (see :class:`RecomputeSearcher`).  ``cand_keys_out``/``parent_remat``
+    thread the incremental-compile protocol into the search: the former
+    collects each candidate's compare keys, the latter — ``(parent shape
+    graph, parent candidates, parent candidate keys)`` — lets
+    :meth:`RecomputeSearcher.explore` reuse every parent candidate whose
+    verdicts are unchanged under ``shape_graph``."""
     sg = shape_graph if shape_graph is not None else ShapeGraph()
     candidates: Dict[int, CandidateInfo] = {}
     if enable_remat:
         searcher = RecomputeSearcher(graph, sg, max_subgraph=max_subgraph,
                                      expr_cache=remat_expr_cache)
-        candidates = searcher.explore(schedule.order)
+        p_sg = p_cands = p_keys = None
+        if parent_remat is not None:
+            p_sg, p_cands, p_keys = parent_remat
+        candidates = searcher.explore(schedule.order,
+                                      cand_keys_out=cand_keys_out,
+                                      parent_sg=p_sg,
+                                      parent_cands=p_cands,
+                                      parent_cand_keys=p_keys)
     return ExecutionPlan(graph=graph, order=list(schedule.order),
                          shape_graph=sg, candidates=candidates,
                          arena_plan=arena_plan)

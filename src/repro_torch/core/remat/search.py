@@ -234,13 +234,27 @@ class RecomputeSearcher:
                              flops_interval=self.sg.interval_of(best_flops))
 
     # -- full exploration (paper: "explores all rematerialization candidates") --
-    def explore(self, order: Sequence[Node]) -> Dict[int, CandidateInfo]:
+    def explore(self, order: Sequence[Node], *,
+                cand_keys_out: Optional[Dict[int, frozenset]] = None,
+                parent_sg: Optional[ShapeGraph] = None,
+                parent_cands: Optional[Dict[int, CandidateInfo]] = None,
+                parent_cand_keys: Optional[Dict[int, frozenset]] = None,
+                ) -> Dict[int, CandidateInfo]:
         """Search regeneration plans for every remat candidate.
 
         Candidates are intermediate values with at least one consumer that is
         not their producer's immediate successor (i.e. they stay live across
         other ops), that are not graph outputs, and that can hold bytes
         (which rules out views).
+
+        ``cand_keys_out`` (a dict to fill) records, per candidate, the
+        compare keys its search consulted.  With ``parent_*`` set, the
+        exploration is **incremental**: a candidate whose parent search
+        consulted only verdicts that are unchanged under this (narrowed)
+        graph would retrace the identical growth path, so its parent result
+        is reused with intervals refreshed and the bounds prunes re-applied
+        (:func:`respecialize_candidates` logic) — only candidates an
+        actually-flipped verdict touches are re-searched.
         """
         pos = {n.id: i for i, n in enumerate(order)}
         out: Dict[int, CandidateInfo] = {}
@@ -258,7 +272,21 @@ class RecomputeSearcher:
             bytes_iv = self.sg.interval_of(v.nbytes_expr)
             if bytes_iv.hi == 0:
                 continue  # provably empty for every env: never profitable
-            info = CandidateInfo(value=v, recompute=self.search(v, bytes_iv),
+            if parent_cands is not None and v.id in parent_cands:
+                pk = (parent_cand_keys or {}).get(v.id)
+                if pk is not None and self.sg.verdicts_match(parent_sg, pk):
+                    out[v.id] = _respecialize_one(parent_cands[v.id],
+                                                  self.sg, bytes_iv)
+                    if cand_keys_out is not None:
+                        cand_keys_out[v.id] = pk
+                    continue
+            if cand_keys_out is not None:
+                with self.sg.record_cmp_keys() as keys:
+                    rp = self.search(v, bytes_iv)
+                cand_keys_out[v.id] = frozenset(keys)
+            else:
+                rp = self.search(v, bytes_iv)
+            info = CandidateInfo(value=v, recompute=rp,
                                  bytes_interval=bytes_iv)
             if info.recompute is not None and \
                     static_regen_method(info) == "offload":
@@ -270,3 +298,50 @@ class RecomputeSearcher:
                                      recompute_pruned_by_bounds=True)
             out[v.id] = info
         return out
+
+
+def _respecialize_one(info: CandidateInfo, sg: ShapeGraph,
+                      bytes_iv: Interval) -> CandidateInfo:
+    """One candidate's intervals refreshed + bounds prunes re-applied under
+    a narrowed graph (see :func:`respecialize_candidates`)."""
+    from dataclasses import replace
+
+    rp = info.recompute
+    if rp is not None:
+        rp = replace(rp,
+                     impact_interval=sg.interval_of(rp.impact),
+                     flops_interval=sg.interval_of(rp.flops))
+    new = CandidateInfo(value=info.value, recompute=rp,
+                        bytes_interval=bytes_iv,
+                        recompute_pruned_by_bounds=
+                        info.recompute_pruned_by_bounds)
+    if new.recompute is not None and static_regen_method(new) == "offload":
+        new = CandidateInfo(value=info.value, recompute=None,
+                            bytes_interval=bytes_iv,
+                            recompute_pruned_by_bounds=True)
+    return new
+
+
+def respecialize_candidates(candidates: Dict[int, CandidateInfo],
+                            sg: ShapeGraph) -> Dict[int, CandidateInfo]:
+    """Re-derive a candidate set's interval data under a narrowed graph.
+
+    The *structure* of the search result — which subgraph regenerates each
+    candidate — depends only on ``ShapeGraph.compare`` verdicts; when the
+    incremental compile path has proven those unchanged under a bucket's
+    narrowed ranges, re-running :meth:`RecomputeSearcher.explore` would
+    reproduce the same subgraphs.  This reproduces its *output* instead:
+    refresh every stored interval under the narrowed bounds (tighter
+    buckets pin more regen decisions statically) and re-apply the two
+    bounds-based prunes, both of which are monotone under narrowing —
+    ``bytes_interval.hi == 0`` only becomes true as ranges shrink, and a
+    parent-pruned recompute plan (reload provably cheaper everywhere) stays
+    pruned on every sub-range.
+    """
+    out: Dict[int, CandidateInfo] = {}
+    for vid, info in candidates.items():
+        bytes_iv = sg.interval_of(info.value.nbytes_expr)
+        if bytes_iv.hi == 0:
+            continue          # explore() would have skipped it outright
+        out[vid] = _respecialize_one(info, sg, bytes_iv)
+    return out

@@ -6,13 +6,21 @@ graph keeps exactly one node per kernel call — the counterpart of the
 reference's ``flash_attention`` / ``rmsnorm`` primitives
 (``repro/kernels/ops.py:109-128``).
 
-Dispatch rules:
+Dispatch rules (``impl``):
 
-* an explicit ``impl="ref"`` always wins: the plain PyTorch version runs,
-  on any device;
-* otherwise the tensors' device decides: CPU tensors take the plain
-  version, CUDA tensors launch the hand-written kernel.  A CUDA tensor
-  never falls back to the plain version: the wrapper launches or raises.
+* ``"ref"`` and the plain variants' names (``"ref_dense"``,
+  ``"ref_unfused"``) run the plain PyTorch version, on any device;
+* a kernel variant's name (``"sm90_bm128_bn128"`` and
+  ``"simt_f32_bq64_bkv32"`` for flash attention, ``"cuda_row256"`` for
+  RMSNorm; see ``kernels/variants.py``) launches that kernel on a CUDA
+  tensor and raises if the tensor's dtype is not the one the kernel takes;
+  on a CPU tensor it runs the plain version, the stand-in that Pallas
+  interpret mode was for the reference;
+* ``None`` lets the tensors' device decide: CPU tensors take the plain
+  version, CUDA tensors launch the hand-written kernel of their dtype.
+
+A CUDA tensor never falls back to the plain version or to another route:
+the wrapper launches the kernel it was asked for or raises.
 
 Each op returns its output in ``torch.empty_like`` of its first input, on
 every route and in its fake, so a captured graph's strides hold at run
@@ -34,14 +42,23 @@ from . import ref as _ref
 from .flash_attention import flash_attention_cuda
 from .rmsnorm import rmsnorm_cuda
 
-IMPLS = (None, "ref")
+# impl name -> the dtype its kernel takes (None: any); "ref*" are plain
+FLASH_IMPLS = {None: None, "ref": None, "ref_dense": None,
+               "sm90_bm128_bn128": torch.bfloat16,
+               "simt_f32_bq64_bkv32": torch.float32}
+RMSNORM_IMPLS = {None: None, "ref": None, "ref_unfused": None,
+                 "cuda_row256": None}
 
 
-def _route(impl: Optional[str], x: torch.Tensor) -> str:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "ref":
+def _route(impl: Optional[str], x: torch.Tensor, impls) -> str:
+    """``"ref"`` (the plain version) or ``"cuda"`` (the kernel)."""
+    if impl not in impls:
+        raise ValueError(f"impl must be one of {list(impls)}, got {impl!r}")
+    if impl is not None and impl.startswith("ref"):
         return "ref"
+    want = impls[impl]
+    if want is not None and x.dtype != want:
+        raise ValueError(f"impl {impl!r} takes {want}, not {x.dtype}")
     if x.device.type == "cuda":
         return "cuda"
     if x.device.type == "cpu":
@@ -55,7 +72,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softmax_scale: Optional[float] = None,
                     impl: Optional[str] = None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k/v: (B, Hkv, T, hd) -> (B, Hq, S, hd)."""
-    if _route(impl, q) == "ref":
+    if _route(impl, q, FLASH_IMPLS) == "ref":
         return torch.empty_like(q).copy_(_ref.reference_attention(
             q, k, v, causal=causal, softmax_scale=softmax_scale))
     return flash_attention_cuda(q, k, v, causal=causal,
@@ -71,7 +88,7 @@ def _(q, k, v, causal=True, softmax_scale=None, impl=None):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
             impl: Optional[str] = None) -> torch.Tensor:
     """x: (..., d); scale: (d,) -> x's shape and dtype."""
-    if _route(impl, x) == "ref":
+    if _route(impl, x, RMSNORM_IMPLS) == "ref":
         return _ref.reference_rmsnorm(x, scale, eps)
     return rmsnorm_cuda(x, scale, eps=eps)
 

@@ -132,7 +132,8 @@ def test_serving_path_launches_the_kernels(gen):
     opt = optimize(make_prefill_step(SMOKE), *specs,
                    dynamic_dims={"b": (1, 8), "s": (16, 128)})
     plain = optimize(make_prefill_step(SMOKE, impl="ref"), *specs,
-                     dynamic_dims={"b": (1, 8), "s": (16, 128)}, device="cuda")
+                     dynamic_dims={"b": (1, 8), "s": (16, 128)}, device="cuda",
+                     kernel_select=False)
     for b, s in [(1, 16), (3, 96)]:
         tok = torch.randint(0, SMOKE.vocab, (b, s), generator=gen,
                             device="cuda", dtype=torch.int32)
@@ -147,6 +148,67 @@ def test_serving_path_launches_the_kernels(gen):
         assert st.arena_bytes <= opt.arena_bound_bytes
         torch.testing.assert_close(got, plain(params, {"tokens": tok}),
                                    rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_bucketed_prefill_launches_what_each_bucket_selected(gen, dtype):
+    """A bucketed smoke-width prefill on the card: each request launches
+    the kernels its bucket's plan selected, and a plain plan
+    (``kernel_select=False``, ``impl="ref"``) launches none."""
+    import dataclasses
+
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.core import (TensorSpec, optimize, spec_like,
+                                  symbolic_dims)
+    from repro_torch.kernels.hw_model import HardwareModel
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    props = torch.cuda.get_device_properties(0)
+    hw = HardwareModel.from_device("cuda")
+    assert (hw.sm_count, hw.smem_per_block_optin, hw.regs_per_sm) == \
+        (props.multi_processor_count, props.shared_memory_per_block_optin,
+         props.regs_per_multiprocessor)
+    cfg = dataclasses.replace(SMOKE, dtype=str(dtype).split(".")[1])
+    params = init_params(cfg, seed=0)
+    B, S = symbolic_dims("b, s")
+    specs = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
+    dims = {"b": (1, 8), "s": (16, 128)}
+    opt = optimize(make_prefill_step(cfg), *specs, dynamic_dims=dims,
+                   buckets="geometric")
+    plain = optimize(make_prefill_step(cfg, impl="ref"), *specs,
+                     dynamic_dims=dims, buckets="geometric",
+                     kernel_select=False)
+    route = {"sm90_bm128_bn128": "sm90", "simt_f32_bq64_bkv32": "f32",
+             "cuda_row256": "rmsnorm"}
+
+    def counts():
+        return {"sm90": flash_attention_cuda.sm90_launches,
+                "f32": flash_attention_cuda.launches
+                - flash_attention_cuda.sm90_launches,
+                "rmsnorm": rmsnorm_cuda.launches}
+
+    for b, s in [(1, 16), (3, 96), (8, 128)]:
+        tok = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                       device="cuda", dtype=torch.int32)}
+        c0 = counts()
+        got = opt(params, tok)
+        bp = opt.specialization_table.peek(opt.last_bucket)
+        want = {"sm90": 0, "f32": 0, "rmsnorm": 0}
+        for sel in bp.plan.kernel_selections.values():
+            want[route[sel.variant.name]] += 1
+        assert {k: v - c0[k] for k, v in counts().items()} == want
+        assert want["rmsnorm"] == 2 * cfg.n_layers + 1
+        c0 = counts()
+        ref = plain(params, tok)
+        assert counts() == c0                  # the plain plan: no kernel
+        st = opt.last_report.stats
+        assert st.device_peak <= bp.report.peak_bound_bytes <= \
+            opt.guaranteed_peak_bytes
+        tol = TOL[dtype] if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.gpu

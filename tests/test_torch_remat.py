@@ -252,7 +252,8 @@ def test_donated_step_releases_its_inputs(trainer):
     params, opt_state, batch = args
     sg = P.ShapeGraph()
     P.declare_dim_ranges(sg, DYNAMIC_DIMS)
-    plan, report = _compile_pipeline(opt.plan.graph, sg, donate_inputs=True)
+    plan, report, _ = _compile_pipeline(opt.plan.graph, sg,
+                                        donate_inputs=True)
     donated = DynamicShapeFunction(plan, report, device=opt.device,
                                    donate_inputs=True)
     # the inputs die inside the step: old weights and moments no longer

@@ -136,7 +136,15 @@ def test_optimize_refuses_what_is_not_ported(weights):
     _, _, params = weights
     B, S = symbolic_dims("b, s")
     args = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
-    with pytest.raises(NotImplementedError, match="buckets"):
+    for knob in ("resilience", "fault_plan"):
+        with pytest.raises(NotImplementedError, match=knob):
+            optimize(make_prefill_step(SMOKE), *args, device="cpu",
+                     **{knob: True})
+    # bucketed dispatch is ported: buckets= builds a specialization table
+    opt = optimize(make_prefill_step(SMOKE), *args, device="cpu",
+                   dynamic_dims=DYNAMIC_DIMS, buckets="geometric")
+    assert opt.specialization_table.n_buckets == 16
+    with pytest.raises(ValueError, match="dynamic_dims"):
         optimize(make_prefill_step(SMOKE), *args, device="cpu",
                  buckets="geometric")
     with pytest.raises(TypeError, match="unexpected"):
@@ -244,6 +252,7 @@ def test_import_loads_no_jax_and_no_reference():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
+        "import repro_torch.core.dispatch, repro_torch.launch.serve\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
