@@ -80,10 +80,34 @@ Phases (any failure exits non-zero):
    selections with the model's times, and ``remeasure_kernels`` at (4,32)
    and (4,1024) with every variant's measured time beside the model's.
 
+8. bounded: ``examples/ragged_batch.py``'s serve step (``masked_select``
+   -> ``gelu(rows @ w1) @ w2`` -> ``sum``) at llama2_1b widths (D 4096,
+   F 11008, bf16, ``s`` in [1, 8192], geometric buckets), one padded
+   batch of 8192 rows at occupancy 1.0, 0.75, 0.5, 0.25, 0.02 and 0: the
+   measured bounded dim and ``n_valid`` equal the valid rows,
+   ``device_peak`` falls with occupancy and stays under the pad-to-bound
+   peak (the bucket's Program replayed at the cap), the arena within its
+   bound, the caching allocator's peak of the call within ``device_peak``
+   plus block overheads and the boolean index's indices (the payload is
+   tight on the card), the output within 5e-2 of the eager step
+   (``torch.masked_select``); median of 10 calls and the BindDim count
+   read in us; a profile at occupancy 1.0 and 0.02;
+9. loop: ``examples/serve_decode.py``'s rolled decode loop
+   (``h = tanh(h @ wh + p)``, ``argmax(h @ wv)``) at llama2_1b widths (D
+   4096, vocab 32000, batch 4, f32), ``t`` in [1, 512] bucketed at 16 and
+   64: one ``Loop`` instruction, instruction counts equal under t in
+   [1, 64] and [1, 4096], rolled bitwise equal to the unrolled plan at
+   T = 1 and 17 (per-step times of both), the hidden state at T = 512
+   within 2e-4 of the eager loop, device_peak(512) - device_peak(17)
+   equal to the xs and ys bytes, the arena within its bound and the
+   allocator within its slack; compile seconds per trip range; a profile
+   of the rolled and the unrolled plan at T = 17.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
-prefill_f32, train, buckets = phase 7 (a)-(c)); the last line is
-``{"ok": true, "device": {...}}``.
+prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop; the last
+two launch none: their ops are plain PyTorch, as the reference's are
+plain jnp); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1225,6 +1249,312 @@ def phase_kernel_select():
     log(f"[select] rows {json.dumps(rows)}")
 
 
+def counted_launches(phase):
+    """Run ``phase`` with the kernel launch counters set to 0 just before
+    it; the launches per route it made, and its result."""
+    from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.sm90_launches = 0
+    rmsnorm_cuda.launches = 0
+    result = phase()
+    sm90 = flash_attention_cuda.sm90_launches
+    return {"sm90": sm90, "f32": flash_attention_cuda.launches - sm90,
+            "rmsnorm": rmsnorm_cuda.launches}, result
+
+
+# -- phase 8: bounded value-dependent dims (the ragged-batch serve step) -----
+
+# phases 8 and 9 run on DEV (a CPU rehearsal at small widths sets it)
+DEV = "cuda"
+BOUNDED_D, BOUNDED_F = 4096, 11008          # llama2_1b d_model, d_ff
+BOUNDED_ROWS = 8192
+BOUNDED_RANGE = (1, 8192)
+BOUNDED_OCCS = [1.0, 0.75, 0.5, 0.25, 0.02, 0.0]
+BOUNDED_TOL = 5e-2
+
+
+def _ragged_serve_step(x, mask, w1, w2):
+    """``examples/ragged_batch.py``'s serve step: run the FFN on the valid
+    rows only (``jax.nn.gelu`` is the tanh approximation)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import masked_select
+    rows, n_valid = masked_select(x, mask)
+    h = F.gelu(rows @ w1, approximate="tanh")
+    return (h @ w2).sum(0), n_valid
+
+
+def _eager_serve_step(x, mask, w1, w2):
+    import torch
+    import torch.nn.functional as F
+    rows = torch.masked_select(x, mask[:, None]).view(-1, x.shape[1])
+    h = F.gelu(rows @ w1, approximate="tanh")
+    return (h @ w2).sum(0)
+
+
+def phase_bounded():
+    """Phase 8: a bounded dim from ``masked_select`` at llama2_1b widths,
+    bf16, one padded batch of 8192 rows at falling occupancy."""
+    import torch
+
+    from repro_torch.core import TensorSpec, optimize, symbolic_dims
+    from repro_torch.core.ir.dynamism import complete_bound_env
+
+    S, = symbolic_dims("s")
+    bf16 = torch.bfloat16
+    D, F, n = BOUNDED_D, BOUNDED_F, BOUNDED_ROWS
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8)
+    x = torch.randn(n, D, generator=gen, device=DEV).to(bf16)
+    w1 = (torch.randn(D, F, generator=gen, device=DEV) * 0.02).to(bf16)
+    w2 = (torch.randn(F, D, generator=gen, device=DEV) * 0.02).to(bf16)
+    in_bytes = x.nbytes + n + w1.nbytes + w2.nbytes
+    t0 = time.perf_counter()
+    fn = optimize(_ragged_serve_step, TensorSpec((S, D), bf16),
+                  TensorSpec((S,), torch.bool), TensorSpec((D, F), bf16),
+                  TensorSpec((F, D), bf16),
+                  dynamic_dims={"s": BOUNDED_RANGE}, buckets="geometric",
+                  device=DEV)
+    compile_s = time.perf_counter() - t0
+    (bname, cap), = fn.plan.graph.bound_dims.items()
+    log(f"[bounded] optimize {compile_s:.3f} s, bounded dim {bname} <= "
+        f"{cap}, graph {fn.plan.graph.stats()}, program "
+        f"{fn.program.counts()}, {fn.report.buckets.n_buckets} buckets")
+    # warm up cuBLAS and the allocator outside the measured calls
+    full = torch.ones(n, dtype=torch.bool, device=DEV)
+    fn(x, full, w1, w2)
+    torch.cuda.synchronize()
+    env = {"s": n}
+    rows_out, last_peak = [], None
+    for occ in BOUNDED_OCCS:
+        keep = int(round(n * occ))
+        mask = torch.arange(n, device=DEV) < keep
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - in_bytes
+        torch.cuda.reset_peak_memory_stats()
+        out, n_valid = fn(x, mask, w1, w2)
+        torch.cuda.synchronize()
+        peak_alloc = torch.cuda.max_memory_allocated()
+        step_alloc = peak_alloc - held
+        rep = fn.last_report
+        st = rep.stats
+        bp = fn.specialization_table.peek(fn.last_bucket)
+        prog = bp.program
+        measured = st.measured_dims[bname]
+        pad = prog.stats_for(prog.resolve(
+            complete_bound_env(prog.graph, env))).device_peak
+        slack = allocator_slack(prog, rep.env)
+        temps = n * 8 + LARGE_OVERHEAD       # the boolean index's indices
+        want = _eager_serve_step(x, mask, w1, w2)
+        err = (out.float() - want.float()).abs().max().item() \
+            if keep else 0.0
+        times, syncs = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x, mask, w1, w2)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            syncs.append(fn.last_report.bind_dim_s)
+        med = 1e3 * sorted(times)[len(times) // 2]
+        sync_us = 1e6 * sorted(syncs)[len(syncs) // 2]
+        if occ in (1.0, 0.02):
+            profile_once(f"bounded occ={occ}", lambda: fn(x, mask, w1, w2))
+        log(f"[bounded] occ {occ}: {bname} measured {measured} n_valid "
+            f"{int(n_valid)} bucket {fn.last_bucket} device_peak "
+            f"{st.device_peak} pad-to-bound peak {pad} tight/pad "
+            f"{st.device_peak / pad:.4f} arena_bytes {st.arena_bytes} "
+            f"arena_bound_bytes {fn.last_arena_bound} allocator peak of the "
+            f"call {step_alloc} = device_peak + "
+            f"{step_alloc - st.device_peak} (slack {slack} + index "
+            f"temporaries {temps}) max|out - eager| {err:.3e} median "
+            f"{med:.3f} ms BindDim sync {sync_us:.1f} us")
+        if measured != keep or int(n_valid) != keep:
+            raise AssertionError(f"measured {measured}, n_valid "
+                                 f"{int(n_valid)}, want {keep}")
+        if last_peak is not None and st.device_peak > last_peak:
+            raise AssertionError("device_peak rose as occupancy fell")
+        if occ < 1.0 and st.device_peak >= pad:
+            raise AssertionError("tight peak not below the pad-to-bound one")
+        if st.arena_bytes > fn.last_arena_bound:
+            raise AssertionError("arena_bytes above arena_bound_bytes")
+        if step_alloc > st.device_peak + slack + temps:
+            raise AssertionError(
+                f"the allocator's peak of the call, {step_alloc}, is above "
+                f"device_peak {st.device_peak} + {slack} + {temps}")
+        if keep:
+            agree(out, want, BOUNDED_TOL, f"bounded occ {occ} output")
+        if tuple(out.shape) != (D,) or not torch.isfinite(out.float()).all():
+            raise AssertionError("bad output")
+        last_peak = st.device_peak
+        rows_out.append(dict(occ=occ, measured=measured,
+                             device_peak=st.device_peak, pad_peak=pad,
+                             step_alloc=step_alloc, median_ms=med,
+                             bind_dim_us=sync_us))
+        del out, n_valid, want
+    return rows_out
+
+
+# -- phase 9: a rolled decode loop (serve_decode's decode_loop) --------------
+
+LOOP_D, LOOP_VOCAB, LOOP_B = 4096, 32000, 4     # llama2_1b widths
+LOOP_RANGE = (1, 512)
+LOOP_WIDE = (1, 4096)
+LOOP_EDGES = {"t": [16, 64]}
+LOOP_TOL = 2e-4
+
+
+def _decode_cell(w, h, p):
+    import torch
+    h = torch.tanh(h @ w["wh"] + p)
+    return h, (h @ w["wv"]).argmax(-1)
+
+
+def _decode_loop(w, h0, pos):
+    from repro_torch.core import scan
+    return scan(lambda h, p: _decode_cell(w, h, p), h0.tanh(), pos)
+
+
+def _decode_unrolled(T):
+    def f(w, h0, pos):
+        import torch
+        h, toks = h0.tanh(), []
+        for i in range(T):
+            h, tok = _decode_cell(w, h, pos[i])
+            toks.append(tok)
+        return h, torch.stack(toks)
+    return f
+
+
+def loop_allocator_slack(program, env) -> int:
+    """``allocator_slack`` with the loop's outputs and, inside it, the
+    body's live values and the second carry generation."""
+    from repro_torch.core.lowering.program import OP_LOOP
+    extra = 0
+    for inst in program.instructions:
+        if inst.op != OP_LOOP:
+            continue
+        nbytes = program.resolve(env).nbytes
+        info = program.loops[inst.lidx]
+        extra += sum(LARGE_OVERHEAD if nbytes[r] > SMALL_BLOCK
+                     else SMALL_OVERHEAD for _oi, r in inst.store)
+        extra += allocator_slack(info.body_program, env) + \
+            info.body.num_carry * LARGE_OVERHEAD
+    return allocator_slack(program, env) + extra
+
+
+def phase_loop():
+    """Phase 9: the rolled decode loop at llama2_1b widths, f32."""
+    import torch
+
+    from repro_torch.core import TensorSpec, optimize, scan, symbolic_dims
+
+    D, V, B = LOOP_D, LOOP_VOCAB, LOOP_B
+    f32 = torch.float32
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    w = {"wh": torch.randn(D, D, generator=gen, device=DEV) * 0.02,
+         "wv": torch.randn(D, V, generator=gen, device=DEV) * 0.02}
+    h0 = torch.randn(B, D, generator=gen, device=DEV) * 0.2
+    w_specs = {k: TensorSpec(tuple(v.shape), f32) for k, v in w.items()}
+    in_bytes = sum(v.nbytes for v in w.values()) + h0.nbytes
+
+    def compile_rolled(t_range, **kw):
+        t, = symbolic_dims("t")
+        t0 = time.perf_counter()
+        fn = optimize(_decode_loop, w_specs, TensorSpec((B, D), f32),
+                      TensorSpec((t, D), f32), dynamic_dims={"t": t_range},
+                      device=DEV, **kw)
+        return fn, time.perf_counter() - t0
+
+    rolled, narrow_s = compile_rolled(LOOP_RANGE, buckets=LOOP_EDGES)
+    counts = rolled.program.counts()
+    c64, c64_s = compile_rolled((1, 64))
+    c4096, c4096_s = compile_rolled(LOOP_WIDE)
+    log(f"[loop] optimize t in {LOOP_RANGE} (buckets {LOOP_EDGES}) "
+        f"{narrow_s:.3f} s, t in (1, 64) {c64_s:.3f} s, t in {LOOP_WIDE} "
+        f"{c4096_s:.3f} s; program {counts}; (1, 64) "
+        f"{c64.program.counts()}; {LOOP_WIDE} {c4096.program.counts()}; "
+        f"guaranteed_peak_bytes {rolled.guaranteed_peak_bytes} "
+        f"arena_bound_bytes {rolled.arena_bound_bytes}")
+    if counts["Loop"] != 1:
+        raise AssertionError(f"rolled program has {counts['Loop']} Loops")
+    if c64.program.counts() != c4096.program.counts():
+        raise AssertionError("instruction counts depend on the trip range")
+    del c64, c4096
+
+    out = {}
+    for T in (1, 17, 512):
+        pos = torch.randn(T, D, generator=gen, device=DEV) * 0.1
+        rolled(w, h0, pos)                       # bucket compile, warm-up
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - in_bytes - pos.nbytes
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h, toks = rolled(w, h0, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = rolled.last_report.stats
+        step_alloc = torch.cuda.max_memory_allocated() - held
+        prog = rolled.specialization_table.peek(rolled.last_bucket).program
+        slack = loop_allocator_slack(prog, {"t": T})
+        log(f"[loop] T={T}: bucket {rolled.last_bucket} wall "
+            f"{1e3 * wall:.3f} ms device_peak {st.device_peak} arena_bytes "
+            f"{st.arena_bytes} arena_bound_bytes {rolled.last_arena_bound} "
+            f"allocator peak of the call {step_alloc} = device_peak + "
+            f"{step_alloc - st.device_peak} (slack {slack}) tokens "
+            f"{toks[:4, 0].tolist()}")
+        if st.arena_bytes > rolled.last_arena_bound:
+            raise AssertionError("arena_bytes above arena_bound_bytes")
+        if step_alloc > st.device_peak + slack:
+            raise AssertionError(
+                f"the allocator's peak of the call, {step_alloc}, is above "
+                f"device_peak {st.device_peak} + {slack}")
+        if tuple(toks.shape) != (T, B) or not torch.isfinite(h).all():
+            raise AssertionError("bad loop outputs")
+        out[T] = (pos, h, toks, st.device_peak)
+
+    rows = {}
+    for T in (1, 17):
+        pos, h, toks, _ = out[T]
+        t0 = time.perf_counter()
+        unrolled = optimize(_decode_unrolled(T), w_specs,
+                            TensorSpec((B, D), f32), TensorSpec((T, D), f32),
+                            device=DEV)
+        un_s = time.perf_counter() - t0
+        uh, utoks = unrolled(w, h0, pos)
+        same = torch.equal(uh, h) and torch.equal(utoks, toks)
+        reps = 10
+        r_ms = time_ms(lambda: rolled(w, h0, pos), reps=reps) / T
+        u_ms = time_ms(lambda: unrolled(w, h0, pos), reps=reps) / T
+        log(f"[loop] T={T}: rolled == unrolled bitwise {same}; unrolled "
+            f"optimize {un_s:.3f} s, program {unrolled.program.counts()}; "
+            f"per step rolled {r_ms:.4f} ms unrolled {u_ms:.4f} ms")
+        if not same:
+            raise AssertionError(f"T={T}: rolled and unrolled differ")
+        if T == 17:
+            profile_once("loop rolled T=17", lambda: rolled(w, h0, pos))
+            profile_once("loop unrolled T=17", lambda: unrolled(w, h0, pos))
+        rows[T] = dict(rolled_ms=r_ms, unrolled_ms=u_ms,
+                       unrolled_compile_s=un_s)
+        del unrolled
+    pos, h, toks, peak512 = out[512]
+    eh, etoks = scan(lambda hh, p: _decode_cell(w, hh, p), h0.tanh(), pos)
+    err = (h - eh).abs().max().item()
+    log(f"[loop] T=512: max|h - eager loop| {err:.3e}, tokens equal "
+        f"{torch.equal(toks, etoks)}")
+    if err > LOOP_TOL:
+        raise AssertionError(f"T=512 hidden state {err} from the eager loop")
+    step = D * 4 + B * 8                 # one pos row + one int64 token row
+    delta = peak512 - out[17][3]
+    log(f"[loop] device_peak T=512 - T=17 = {delta}; xs and ys bytes "
+        f"{(512 - 17) * step}")
+    if delta != (512 - 17) * step:
+        raise AssertionError("the peak grew by more than the xs and ys")
+    return dict(compile_s={"narrow": narrow_s, "(1,64)": c64_s,
+                           "wide": c4096_s}, steps=rows)
+
+
 def main() -> int:
     try:
         import torch
@@ -1253,6 +1583,8 @@ def main() -> int:
     buckets = phase_buckets(cfg, batches, outs, plain, medians)
     del outs, plain
     phase_kernel_select()
+    bounded_launches, _ = counted_launches(phase_bounded)
+    loop_launches, _ = counted_launches(phase_loop)
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -1262,16 +1594,22 @@ def main() -> int:
              "src/repro_torch/csrc/flash_attention_sm90.cu", flash_src,
              {"prefill": launches["flash_attention_sm90"],
               "train": train["flash_attention_sm90"],
-              "buckets": buckets["sm90"]}),
+              "buckets": buckets["sm90"],
+              "bounded": bounded_launches["sm90"],
+              "loop": loop_launches["sm90"]}),
             ("flash_float32", "flash_attention_simt_f32",
              "src/repro_torch/csrc/flash_attention.cu", flash_src,
              {"prefill_f32": f32_launches,
               "train": train["flash_attention_f32"],
-              "buckets": buckets["f32"]}),
+              "buckets": buckets["f32"],
+              "bounded": bounded_launches["f32"],
+              "loop": loop_launches["f32"]}),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:17",
              {"prefill": launches["rmsnorm"], "train": train["rmsnorm"],
-              "buckets": buckets["rmsnorm"]})):
+              "buckets": buckets["rmsnorm"],
+              "bounded": bounded_launches["rmsnorm"],
+              "loop": loop_launches["rmsnorm"]})):
         r = big[key]
         kernels.append({"name": route_name, "route": "cuda",
                         "source": src_path, "replaces": replaces,

@@ -10,7 +10,7 @@ specialization (``repro_torch.core.dispatch``), wired together by
 :func:`optimize`.
 """
 from .api import (DynamicShapeFunction, MemoryLimitExceeded, OptimizeReport,
-                  TensorSpec, optimize, resolve_device, spec_like,
+                  TensorSpec, optimize, resolve_device, scan, spec_like,
                   symbolic_dims)
 from .dispatch import (BucketPlan, BucketSpace, SpecializationTable,
                        build_bucket_space)
@@ -21,4 +21,4 @@ __all__ = ["BucketPlan", "BucketSpace", "DynamicShapeFunction",
            "MemoryLimitExceeded", "OptimizeReport", "PlanInterpreter",
            "Program", "ProgramVM", "SpecializationTable", "TensorSpec",
            "build_bucket_space", "lower_plan", "optimize", "resolve_device",
-           "spec_like", "symbolic_dims"]
+           "scan", "spec_like", "symbolic_dims"]

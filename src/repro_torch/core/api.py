@@ -44,6 +44,7 @@ from .dispatch import (BucketKey, BucketPlan, BucketSpace, BucketsSpec,
 from .executor.interpreter import PlanInterpreter
 from .executor.memory import MemoryLimitExceeded
 from .executor.vm import ProgramVM, RunReport
+from .ir.dynamism import complete_bound_env
 from .ir.capture import (TensorSpec, capture, check_declared_ranges,
                          solve_env, spec_like, symbolic_dims)
 from .lowering import Program, lower_plan
@@ -56,7 +57,8 @@ from .scheduling.scheduler import ScheduleResult, schedule_graph
 from .symbolic import ShapeGraph, declare_dim_ranges
 
 __all__ = ["optimize", "DynamicShapeFunction", "OptimizeReport",
-           "MemoryLimitExceeded", "TensorSpec", "symbolic_dims", "spec_like",
+           "MemoryLimitExceeded", "TensorSpec", "scan", "symbolic_dims",
+           "spec_like",
            "resolve_device", "BucketSpace", "SpecializationTable",
            "BucketPlan", "build_bucket_space"]
 
@@ -73,6 +75,44 @@ def resolve_device(device: Any = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def scan(body: Callable, init: Any, xs: Any) -> Tuple[Any, Any]:
+    """``carry, ys = scan(body, init, xs)`` with rolled-loop compilation
+    under :func:`optimize`; ``body(carry, x) -> (carry, y)`` over the
+    leading dim of ``xs``.
+
+    Inside a function passed to :func:`optimize`, a scan whose ``xs`` have
+    a *symbolic* length is captured once as a sub-graph (torch's
+    ``torch.ops.higher_order.scan`` is the capture marker) and compiled to
+    a single ``Loop`` instruction: the lowered ``Program`` stays O(body
+    size) and the planned arena bound is independent of the trip count
+    (carried values ping-pong between two slot generations across the
+    back-edge; per-iteration temporaries die and their slots are reused
+    every iteration).  A scan the roll gate refuses (a static length, a
+    body with a bounded dim, a carry passed through to another slot)
+    raises ``NotImplementedError`` at capture.  Outside ``optimize`` this
+    runs the body in a Python loop and stacks the ``ys``.
+    """
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    leaves = pytree.tree_leaves((init, xs))
+    if any(isinstance(t, FakeTensor) for t in leaves):
+        from torch._higher_order_ops.scan import scan as torch_scan
+        return torch_scan(body, init, xs)
+    x_leaves, x_tree = pytree.tree_flatten(xs)
+    n = x_leaves[0].shape[0] if x_leaves else 0
+    if n == 0:
+        raise ValueError("scan needs xs with a nonzero leading dim")
+    carry, ys = init, []
+    for i in range(n):
+        carry, y = body(carry, pytree.tree_unflatten(
+            [x[i] for x in x_leaves], x_tree))
+        ys.append(y)
+    y_leaves = [pytree.tree_flatten(y)[0] for y in ys]
+    y_tree = pytree.tree_flatten(ys[0])[1]
+    return carry, pytree.tree_unflatten(
+        [torch.stack(col) for col in zip(*y_leaves)], y_tree)
 
 
 @dataclass
@@ -225,16 +265,20 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
             used_sched = parent.used_sched
             reused_postpass = True
         else:
-            free_syms = graph.free_symbols()
+            # guard envs bind the *declared* dims only; value-dependent
+            # bounded dims complete to their caps per probe env (a bounded
+            # dim's guard value must track its cap, not a fixed 64)
+            free_syms = graph.free_symbols() - set(graph.bound_dims)
             env = dict(guard_env) if guard_env else \
                 {n: 64 for n in free_syms}
             for name in free_syms:
                 env.setdefault(name, 64)
             env = {k: _clamp(k, v) for k, v in env.items()}
-            probe_envs = [env,
-                          {k: _clamp(k, max(1, v // 4))
-                           for k, v in env.items()},
-                          {k: _clamp(k, v * 4) for k, v in env.items()}]
+            probe_envs = [complete_bound_env(graph, e) for e in (
+                env,
+                {k: _clamp(k, max(1, v // 4)) for k, v in env.items()},
+                {k: _clamp(k, v * 4) for k, v in env.items()})]
+            env = probe_envs[0]
             # best-of safeguard: never keep an order that regresses the
             # program order's peak at the guard env
             base = simulate_peak(graph, graph.nodes, env,
@@ -348,7 +392,12 @@ def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
 
 
 class DynamicShapeFunction:
-    """A compiled-once, run-any-shape callable with memory optimization."""
+    """A compiled-once, run-any-shape callable with memory optimization.
+
+    A returned tensor with a value-dependent bounded dim (``__b<k>``, from
+    ``masked_select`` and the like) comes back at its measured extent; the
+    reference's comes back padded to the cap.  The measured extents are in
+    ``last_report.stats.measured_dims`` and ``last_report.env``."""
 
     def __init__(self, plan: ExecutionPlan, report: OptimizeReport, *,
                  device: torch.device, memory_limit: Optional[int] = None,
@@ -770,6 +819,11 @@ def optimize(fn: Callable, *specs,
                 f"dynamic_dims names {unknown} are not symbolic dims of the "
                 f"traced function (known: {sorted(known)})")
     declare_dim_ranges(sg, dynamic_dims)
+    # value-dependent bounded dims: capture introduced fresh symbols with a
+    # cap expression over input dims — declare each so interval/compare
+    # queries answer through the cap without a user-declared range
+    for bname, cap in graph.bound_dims.items():
+        sg.declare_bound(bname, cap)
     knobs = dict(enable_scheduling=enable_scheduling,
                  enable_remat=enable_remat, max_subgraph=max_subgraph,
                  memory_plan=memory_plan, donate_inputs=donate_inputs,
@@ -787,7 +841,12 @@ def optimize(fn: Callable, *specs,
 
     table_factory = None
     if buckets is not None:
-        space = build_bucket_space(sg.declared_ranges, buckets)
+        # the bucket space spans declared (call-entry) dims only: bound dims
+        # are measured mid-call, so dispatch can never key on them — each
+        # bucket re-derives their caps from its narrowed ranges
+        space = build_bucket_space(
+            {k: v for k, v in sg.declared_ranges.items()
+             if k not in graph.bound_dims}, buckets)
         report.buckets = space
 
         def table_factory(limit: Optional[int],

@@ -24,10 +24,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..ir.capture import (Arg, check_declared_ranges, override_template,
                           resolve_leaves, solve_env)
+from ..ir.dynamism import complete_bound_env
 from ..ir.graph import Node, Value
+from ..ir.loop import loop_body_of
 from ..memplan.arena import ArenaAllocator
 from ..remat.planner import ExecutionPlan
 from ..remat.runtime import RuntimeRematPolicy
+from ..symbolic.expr import SymbolicExpr
 from .memory import MemoryManager
 from .vm import RunReport, call_op, offload, reload, take
 
@@ -57,7 +60,17 @@ class PlanInterpreter:
         # other buckets' plans choose their own variants)
         self._templates: Dict[int, Tuple[List[Any], Any]] = {
             n.id: override_template(n, plan.kernel_overrides.get(n.id))
-            for n in self.g.nodes}
+            for n in self.g.nodes if loop_body_of(n) is None}
+        # values whose byte size mentions a bounded dim, and nodes whose
+        # arguments do: both are re-evaluated per call at the live env
+        # (the measured value) and never enter the per-env caches
+        names = frozenset(self.g.bound_dims)
+        self._bound_dep_vids = {v.id for v in self.g.values
+                                if v.nbytes_expr.free_vars() & names}
+        self._bound_dep_nodes = {
+            nid for nid, (leaves, _spec) in self._templates.items()
+            if any(isinstance(x, SymbolicExpr) and x.free_vars() & names
+                   for x in leaves)}
         # per-env caches reused across calls (training repeats shapes)
         self._size_cache: Dict[Tuple, Dict[int, int]] = {}
         self._leaves_cache: Dict[Tuple, Dict[int, List[Any]]] = {}
@@ -71,7 +84,15 @@ class PlanInterpreter:
         if env is None:
             env = solve_env(g, flat_args)
             check_declared_ranges(plan.shape_graph, env)
+        # keyed by the *declared* env: bounded dims complete to caps
+        # deterministically, and measured values stay out of the caches
         key = tuple(sorted(env.items()))
+        env_decl = env
+        env = complete_bound_env(g, env) if g.bound_dims else env
+        # the live env: each BindDim step rebinds its bounded dim here
+        # mid-call (a private copy; ``env`` keeps the caps)
+        env_run = dict(env) if g.bound_dims else env
+        bound_dep = self._bound_dep_vids
         if len(self._size_cache) > 64:  # bound the per-shape caches
             self._size_cache.clear()
             self._leaves_cache.clear()
@@ -85,6 +106,9 @@ class PlanInterpreter:
         mm = MemoryManager(self.memory_limit, arena=arena)
 
         def bytes_of(v: Value) -> int:
+            if v.id in bound_dep:
+                # tight size at the live env; bypasses the cache
+                return v.nbytes_expr.evaluate(env_run)
             b = nbytes.get(v.id)
             if b is None:
                 b = v.nbytes_expr.evaluate(env)
@@ -94,16 +118,41 @@ class PlanInterpreter:
         def call_node(node: Node, ins: Sequence[Any]) -> List[Any]:
             """Run one node on its argument tensors (``invals[:n_args]``)."""
             template, spec = self._templates[node.id]
-            leaves = resolved_leaves.get(node.id)
-            if leaves is None:
-                leaves = resolve_leaves(template, env)
-                resolved_leaves[node.id] = leaves
+            if node.id in self._bound_dep_nodes:
+                leaves = resolve_leaves(template, env_run)
+            else:
+                leaves = resolved_leaves.get(node.id)
+                if leaves is None:
+                    leaves = resolve_leaves(template, env)
+                    resolved_leaves[node.id] = leaves
             leaves = list(leaves)
             for li, x in enumerate(template):
                 if isinstance(x, Arg):
                     leaves[li] = ins[x.i]
             out = call_op(node.prim, spec, leaves)
             return list(out) if node.params["multi"] else [out]
+
+        def body_call(body) -> Any:
+            """``call(node, args)`` for a loop body's nodes (arguments
+            resolved once per env, kept in the per-env cache)."""
+            templates = {bn.id: override_template(bn, None)
+                         for bn in body.graph.nodes}
+            cache = self._leaves_cache.setdefault(
+                (body.graph.uid,) + key, {})
+
+            def call(bn: Node, bins: List[Any]) -> List[Any]:
+                template, spec = templates[bn.id]
+                leaves = cache.get(bn.id)
+                if leaves is None:
+                    leaves = resolve_leaves(template, env)
+                    cache[bn.id] = leaves
+                leaves = list(leaves)
+                for li, x in enumerate(template):
+                    if isinstance(x, Arg):
+                        leaves[li] = bins[x.i]
+                out = call_op(bn.prim, spec, leaves)
+                return list(out) if bn.params["multi"] else [out]
+            return call
 
         storage: Dict[int, Any] = {}          # vid -> device tensor
         host_storage: Dict[int, Any] = {}     # vid -> (host copy, device)
@@ -269,13 +318,49 @@ class PlanInterpreter:
                 materialize(iv)
             kept = [ov for ov in node.outvals
                     if ov.consumers or ov.id in self._output_ids]
-            mm.ensure(sum(bytes_of(ov) for ov in kept))  # Remat::EvictOp
-            outs = call_node(node, ins)
-            del ins
-            for ov in kept:
-                storage[ov.id] = outs[ov.out_index]
-                mm.alloc(ov.id, bytes_of(ov))
-            del outs
+            body = loop_body_of(node)
+            if body is not None:
+                # rolled loop: one ensure for the loop's whole internal peak
+                # (Remat::EvictOp hoisted out of the body), then the shared
+                # account() event replay drives the MemoryManager — the
+                # same engine the VM and the resolve-time stats replay use
+                lp = body.plan(plan.shape_graph)
+                trip = body.length_expr.evaluate(env)
+                kept_flags = [ov in kept for ov in node.outvals]
+                nk = body.num_carry
+                outer_y = [(ov.id, bytes_of(ov)) for ov, k in
+                           zip(node.outvals[nk:], kept_flags[nk:]) if k]
+                outer_carry = [(ov.id, bytes_of(ov)) if k else None
+                               for ov, k in zip(node.outvals[:nk],
+                                                kept_flags[:nk])]
+                mm.ensure(lp.peak_expr_for(node, kept_flags,
+                                           trip).evaluate(env))
+                lp.account(mm, node.id, trip,
+                           lambda bvid: lp.sizes[bvid].evaluate(env),
+                           outer_y, outer_carry)
+                outs = lp.execute(ins, trip, env, body_call(body))
+                del ins
+                for ov in kept:   # account() already allocated them
+                    storage[ov.id] = outs[ov.out_index]
+                del outs
+            else:
+                mm.ensure(sum(bytes_of(ov) for ov in kept))  # EvictOp
+                outs = call_node(node, ins)
+                del ins
+                intro = g.bound_intros.get(node.id)
+                if intro is not None:
+                    # the BindDim step: measure, clamp to the cap at the
+                    # live env, publish — the kept-output allocs below
+                    # then see the tight size through bytes_of
+                    measured = int(outs[intro.count_out])
+                    measured = min(max(measured, 0),
+                                   int(intro.cap.evaluate(env_run)))
+                    env_run[intro.name] = measured
+                    mm.stats.measured_dims[intro.name] = measured
+                for ov in kept:
+                    storage[ov.id] = outs[ov.out_index]
+                    mm.alloc(ov.id, bytes_of(ov))
+                del outs
             # free dead values (buffer lifetime = last consumer)
             seen = set()
             for iv in node.invals:
@@ -289,4 +374,6 @@ class PlanInterpreter:
         if arena is not None:
             arena.write_stats(mm.stats)
         wall = time.perf_counter() - t0
-        return outputs, RunReport(stats=mm.stats, wall_s=wall, env=env)
+        # bound graphs report the live env (measured extents, not caps)
+        return outputs, RunReport(stats=mm.stats, wall_s=wall,
+                                  env=env_run if g.bound_dims else env_decl)

@@ -9,7 +9,7 @@ tensors wait in (plain host memory on the CPU).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 
@@ -49,6 +49,10 @@ class MemoryStats:
     specialize_count: int = 0
     last_dispatch_ns: int = 0
     dispatch_ns_total: int = 0
+    # value-dependent bounded dims: the extents measured by this call's
+    # BindDim steps (bound symbol -> measured value, not the cap).  Empty
+    # for purely range-dynamic graphs.
+    measured_dims: Dict[str, int] = field(default_factory=dict)
 
     def as_dict(self) -> Dict[str, int]:
         return dict(self.__dict__)

@@ -31,6 +31,22 @@ Under ``donate_inputs`` the VM takes each input out of ``flat_args`` as
 it binds it, so its register is the executor's only reference and the
 ``Donate`` at the input's death point releases it (if the caller holds
 none: ``DynamicShapeFunction.call_donated``).
+
+A ``Loop`` runs the lowered body sub-Program per iteration on the same
+fast stream (bodies have no evict path): the stacked ``ys`` are allocated
+on entry and each iteration's ``y`` is copied into its row, and the body
+takes its carries over (its inputs are donated), so the previous
+generation is released at its last use — the memory the loop plan
+accounts.  On the dynamic stream the evict check is hoisted: one
+``ensure`` of the loop's exact internal peak before it runs.
+
+A ``BindDim`` (bounded dims) reads the introducer's count — one
+device-to-host sync, timed in ``RunReport.bind_dim_s`` — and publishes
+it into per-call overlays of the env, the register sizes and the op
+arguments: the introducer returned its payload tight, so every later op
+runs on tight tensors with arguments resolved at the measured extent.
+The fast stream's stats are then the resolve replay at the measured
+extents, which is the dynamic stream's accounting of the same run.
 """
 from __future__ import annotations
 
@@ -41,10 +57,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
-from ..ir.capture import check_declared_ranges, solve_env
-from ..lowering.program import (OP_BIND_ARG, OP_COMPUTE, OP_DONATE,
-                                OP_FREE_SLOT, OP_MAYBE_EVICT, OP_REGEN,
-                                Program, ResolvedProgram)
+from ..ir.capture import check_declared_ranges, resolve_leaves, solve_env
+from ..ir.loop import stacked_outputs
+from ..lowering.program import (OP_BIND_ARG, OP_BIND_DIM, OP_COMPUTE,
+                                OP_DONATE, OP_FREE_SLOT, OP_LOOP,
+                                OP_MAYBE_EVICT, OP_REGEN, Program,
+                                ResolvedProgram)
 from ..memplan.arena import ArenaAllocator
 from ..remat.runtime import RuntimeRematPolicy
 from .memory import MemoryManager, MemoryStats
@@ -55,6 +73,9 @@ class RunReport:
     stats: MemoryStats
     wall_s: float
     env: Dict[str, int] = field(default_factory=dict)
+    # host seconds the BindDim steps spent reading their counts (each a
+    # device-to-host sync); 0 without bounded dims
+    bind_dim_s: float = 0.0
 
 
 def call_op(prim: Any, spec: Any, leaves: List[Any]) -> Any:
@@ -89,6 +110,122 @@ def take(flat_args: List[Any], index: int, donate: bool) -> Any:
     return x
 
 
+class _BoundRun:
+    """Per-call overlays of a bounded program: the live env, register sizes
+    and op arguments, rebound by each ``BindDim``."""
+
+    def __init__(self, prog: Program, resolved: ResolvedProgram):
+        self.prog = prog
+        self.env = dict(resolved.env)
+        self.nbytes = list(resolved.nbytes)
+        self.leaves = list(resolved.leaves)
+        self.measured: Dict[str, int] = {}
+        self.sync_s = 0.0
+
+    def bind(self, inst, storage: List[Any]) -> int:
+        """Measure, clamp to the cap at the live env, and publish."""
+        t0 = time.perf_counter()
+        measured = int(storage[inst.count_reg])
+        self.sync_s += time.perf_counter() - t0
+        measured = min(max(measured, 0),
+                       int(inst.cap_expr.evaluate(self.env)))
+        if inst.payload_reg >= 0:
+            got = storage[inst.payload_reg].shape[inst.axis]
+            if got != measured:
+                raise RuntimeError(
+                    f"bounded dim {inst.name}: the payload has {got} rows "
+                    f"on dim {inst.axis}, its count says {measured}")
+        prog = self.prog
+        self.env[inst.name] = measured
+        self.measured[inst.name] = measured
+        exprs = prog.nbytes_exprs
+        for r in prog.bound_dep_regs[inst.name]:
+            self.nbytes[r] = exprs[r].evaluate(self.env)
+        for c in prog.bound_dep_cidx[inst.name]:
+            self.leaves[c] = resolve_leaves(prog.computes[c].template,
+                                            self.env)
+        if inst.drop_count:
+            storage[inst.count_reg] = None
+        return measured
+
+
+def run_fast(prog: Program, flat_args: List[Any], resolved: ResolvedProgram,
+             bound: Optional[_BoundRun] = None) -> List[Any]:
+    """The fast stream: call ops, null dead registers (see module doc)."""
+    storage: List[Any] = [None] * prog.n_regs
+    all_leaves = bound.leaves if bound is not None else resolved.leaves
+    unflatten = pytree.tree_unflatten
+    for inst in prog.fast_instructions:
+        op = inst.op
+        if op == OP_COMPUTE:
+            leaves = list(all_leaves[inst.cidx])
+            in_regs = inst.in_regs
+            for li, k in inst.arg_slots:
+                leaves[li] = storage[in_regs[k]]
+            args, kwargs = unflatten(leaves, inst.spec)
+            out = inst.prim(*args, **kwargs)
+            del leaves, args, kwargs
+            if inst.multi:
+                for oi, r in inst.store:
+                    storage[r] = out[oi]
+                for oi, r in inst.extra_store:
+                    storage[r] = out[oi]
+            else:
+                for _oi, r in inst.store:
+                    storage[r] = out
+            del out
+        elif op == OP_BIND_ARG:
+            storage[inst.reg] = (
+                take(flat_args, inst.index, prog.donate_inputs)
+                if inst.index >= 0 else inst.const)
+        elif op == OP_FREE_SLOT or op == OP_DONATE:
+            storage[inst.reg] = None
+        elif op == OP_LOOP:
+            outs = exec_loop(prog.loops[inst.lidx],
+                             resolved.loops[inst.lidx],
+                             [storage[r] for r in inst.in_regs],
+                             resolved.env)
+            for oi, r in inst.store:
+                storage[r] = outs[oi]
+            del outs
+        elif op == OP_BIND_DIM:
+            bound.bind(inst, storage)
+    return [storage[r] for r in prog.out_regs]
+
+
+def exec_loop(info, rl, ins: List[Any], env: Dict[str, int]) -> List[Any]:
+    """Run one rolled loop: the lowered body sub-Program per iteration on
+    the fast stream, registers rebound (carries from the previous
+    iteration's outputs, ``xs`` slices by index).  Takes ``ins`` over.
+
+    Pure execution — memory accounting happens through the shared
+    ``LoopPlanInfo.account`` engine.  The body runs the same nodes in the
+    same order with the same arguments as the interpreter's op-by-op loop,
+    so outputs are bitwise-identical."""
+    body, lp = info.body, info.lp
+    bprog, rbody = info.body_program, rl.rbody
+    nc, nk = body.num_consts, body.num_carry
+    consts = ins[:nc]
+    carries = ins[nc:nc + nk]
+    xs = [x.unbind(0) if lp.x_used[j] else None
+          for j, x in enumerate(ins[nc + nk:])]
+    ins.clear()
+    ys = stacked_outputs(lp.y_out, rl.trip, env, carries[0].device)
+    for i in range(rl.trip):
+        flat = consts + carries + [x[i] if x is not None else None
+                                   for x in xs]
+        # the body takes the carries over: its donated input registers
+        # are the only references, dropped at their last use
+        carries = None
+        outs = run_fast(bprog, flat, rbody)
+        del flat
+        carries = outs[:nk]
+        for y, t in zip(ys, outs[nk:]):
+            y[i].copy_(t)
+        del outs
+    return carries + ys
+
+
 class ProgramVM:
     """Executes a lowered Program; drop-in for ``PlanInterpreter.run``."""
 
@@ -105,56 +242,34 @@ class ProgramVM:
             env = solve_env(prog.graph, flat_args)
             check_declared_ranges(prog.plan.shape_graph, env)
         resolved = prog.resolve(env)
+        bound = _BoundRun(prog, resolved) if prog.has_bound_dims else None
         if resolved.fast_ok:
-            outs = self._run_fast(flat_args, resolved)
-            stats = prog.stats_for(resolved)
+            outs = run_fast(prog, flat_args, resolved, bound)
+            stats = prog.stats_for(
+                resolved, bound.measured if bound is not None else None)
         else:
-            outs, stats = self._run_dynamic(flat_args, resolved)
-        wall = time.perf_counter() - t0
-        return outs, RunReport(stats=stats, wall_s=wall, env=env)
-
-    # ------------------------------------------------------------ fast path
-    def _run_fast(self, flat_args: Sequence[Any],
-                  resolved: ResolvedProgram) -> List[Any]:
-        prog = self.program
-        storage: List[Any] = [None] * prog.n_regs
-        all_leaves = resolved.leaves
-        unflatten = pytree.tree_unflatten
-        for inst in prog.fast_instructions:
-            op = inst.op
-            if op == OP_COMPUTE:
-                leaves = list(all_leaves[inst.cidx])
-                in_regs = inst.in_regs
-                for li, k in inst.arg_slots:
-                    leaves[li] = storage[in_regs[k]]
-                args, kwargs = unflatten(leaves, inst.spec)
-                out = inst.prim(*args, **kwargs)
-                del leaves, args, kwargs
-                if inst.multi:
-                    for oi, r in inst.store:
-                        storage[r] = out[oi]
-                else:
-                    for _oi, r in inst.store:
-                        storage[r] = out
-                del out
-            elif op == OP_BIND_ARG:
-                storage[inst.reg] = (
-                    take(flat_args, inst.index, prog.donate_inputs)
-                    if inst.index >= 0 else inst.const)
-            elif op == OP_FREE_SLOT or op == OP_DONATE:
-                storage[inst.reg] = None
-        return [storage[r] for r in prog.out_regs]
+            outs, stats = self._run_dynamic(flat_args, resolved, bound)
+        report = RunReport(stats=stats, wall_s=0.0, env=env)
+        if bound is not None:
+            # surface the measured (not cap) bound dims in the report env
+            report.env = {**resolved.env, **bound.measured}
+            report.bind_dim_s = bound.sync_s
+        report.wall_s = time.perf_counter() - t0
+        return outs, report
 
     # --------------------------------------------------------- dynamic path
     def _run_dynamic(self, flat_args: Sequence[Any],
-                     resolved: ResolvedProgram
+                     resolved: ResolvedProgram,
+                     bound: Optional[_BoundRun] = None
                      ) -> Tuple[List[Any], MemoryStats]:
         prog = self.program
         plan = prog.plan
         vid_of = prog.vid_of
         reg_of = prog.reg_of
-        nbytes = resolved.nbytes
-        all_leaves = resolved.leaves
+        # bounded dims: the per-call overlays (measured sizes and arguments
+        # never leak into the shared resolve, which holds the caps)
+        nbytes = bound.nbytes if bound is not None else resolved.nbytes
+        all_leaves = bound.leaves if bound is not None else resolved.leaves
         death = prog.death_step
         view_src = prog.view_src
 
@@ -326,9 +441,15 @@ class ProgramVM:
                 out = call_op(inst.prim, inst.spec, leaves)
                 del leaves
                 if inst.multi:
+                    # an introducer's payload alloc waits for its BindDim
+                    # (tight size); an unconsumed count reaches its
+                    # register unaccounted
                     for oi, r in inst.store:
                         storage[r] = out[oi]
-                        mm.alloc(vid_of[r], nbytes[r])
+                        if r not in inst.defer_regs:
+                            mm.alloc(vid_of[r], nbytes[r])
+                    for oi, r in inst.extra_store:
+                        storage[r] = out[oi]
                 else:
                     for _oi, r in inst.store:
                         storage[r] = out
@@ -342,7 +463,37 @@ class ProgramVM:
             elif op == OP_MAYBE_EVICT:   # Remat::EvictOp check
                 state["step"] = inst.step
                 state["pinned"] = inst.pinned
-                mm.ensure(resolved.ensure_bytes[inst.cidx])
+                if bound is not None:
+                    # the resolved ensure table holds cap sizes; sum the
+                    # live overlay so pressure checks see measured sizes
+                    comp = prog.computes[inst.cidx]
+                    mm.ensure(sum(nbytes[r] for _oi, r in comp.store))
+                else:
+                    mm.ensure(resolved.ensure_bytes[inst.cidx])
+            elif op == OP_BIND_DIM:
+                # measure, clamp, publish, refresh the bound-dependent
+                # sizes and arguments, then the deferred payload alloc at
+                # the tight size
+                mm.stats.measured_dims[inst.name] = bound.bind(inst, storage)
+                for _oi, r in inst.alloc_store:
+                    mm.alloc(vid_of[r], nbytes[r])
+            elif op == OP_LOOP:
+                # the evict check is hoisted — one ensure() for the loop's
+                # exact internal peak — then the shared account() engine
+                # drives the MemoryManager while the body runs
+                state["step"] = inst.step
+                state["pinned"] = inst.pinned
+                ins = [arg(r) for r in inst.in_regs]
+                rl = resolved.loops[inst.lidx]
+                info = prog.loops[inst.lidx]
+                mm.ensure(rl.extra_bytes)
+                info.lp.account(mm, info.node.id, rl.trip,
+                                rl.sizes.__getitem__, rl.outer_y,
+                                rl.outer_carry)
+                out = exec_loop(info, rl, ins, resolved.env)
+                for oi, r in inst.store:   # account() allocated them
+                    storage[r] = out[oi]
+                del out
             elif op == OP_BIND_ARG:
                 storage[inst.reg] = (
                     take(flat_args, inst.index, prog.donate_inputs)

@@ -26,6 +26,23 @@ The fx graph is converted node by node (see ``ir.graph`` for how views and
 shape arithmetic are counted).  Each op node keeps its argument structure
 as a flat template whose leaves are constants, ``SymbolicExpr`` sizes
 (resolved per call) or references to the node's tensor inputs.
+
+Two node kinds get more than a template:
+
+* **bounded-dim introducers** (``ir.dynamism``): the op's fake gives its
+  payload an unbacked size ``u<k>``; capture renames it to the bound
+  symbol ``__b<k>`` (in introduction order) with the cap read off the
+  introducer's input, and torch's fake tensors carry it through every
+  consumer (``mm``, ``tanh``, ``cumsum``...).  An op that equates a bound
+  dim with a full-extent dim (``rows + x``) makes the ShapeEnv replace
+  ``u<k>`` by that dim; tight tensors would then meet at run time, so
+  capture raises instead.  An introducer whose input carries a bound dim
+  gets that dim's declared extent as its ``pad_to`` argument: it pads the
+  tight input with zeros to that length, which is what the reference's
+  op sees there.
+* **rolled loops** (``ir.loop``): a ``torch.ops.higher_order.scan`` whose
+  ``xs`` have a symbolic length becomes one loop node, its body converted
+  once (with the outer dim names) into a sub-``Graph``.
 """
 from __future__ import annotations
 
@@ -38,8 +55,11 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..symbolic import SymbolicExpr
+from ..symbolic.expr import Atom
 from ..symbolic.from_torch import dim_to_expr, parse_range_spec
+from .dynamism import BoundIntro, introduces_dim
 from .graph import Graph, Value
+from .loop import LOOP_PARAM, LoopBody, rollable_body
 
 _CLONE = torch.ops.aten.clone.default
 # ops that return their input's storage without the schema marking an alias
@@ -222,47 +242,137 @@ def capture(fn: Callable, specs: Sequence[Any], *,
                 f"tracing specialised dim {name!r} to {rep}: the step "
                 f"branches on its size, so no single plan covers its range")
 
-    g = _convert(gm, flat_specs, names)
+    _name_bound_symbols(gm, shape_env, names)
+    g = _convert(gm, [(s.dim_exprs(), s.dtype) for s in flat_specs], names)
     g.in_tree = in_tree
     g.out_tree = out_tree_box[-1]
     return g, [str(gd.expr) for gd in shape_env.guards]
 
 
-def _convert(gm, flat_specs: Sequence[TensorSpec],
-             names: Mapping[Any, str]) -> Graph:
+def _introduced_symbol(node) -> Any:
+    """The unbacked size symbol an introducer's fake created."""
+    bindings = node.meta.get("unbacked_bindings")
+    if not bindings:
+        raise NotImplementedError(
+            f"{node.target} introduces a bounded dim, but its fake made no "
+            f"unbacked size")
+    return next(iter(bindings))
+
+
+def _name_bound_symbols(gm, shape_env, names: Dict[Any, str]) -> None:
+    """Map each introducer's unbacked size onto ``__b<k>`` (in ``names``),
+    in introduction order; raise where the trace equated one with another
+    dim (an op mixing a tight payload with a full-extent tensor)."""
+    bound: Dict[Any, str] = {}
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        if introduces_dim(str(node.target)) is not None:
+            bound[_introduced_symbol(node)] = f"__b{len(bound)}"
+    names.update(bound)
+    for sym, bname in bound.items():
+        rep = shape_env.replacements.get(sym)
+        if rep is None:
+            continue
+        other = dim_to_expr(rep, names)
+        op = _mixing_op(gm, sym, rep)
+        raise NotImplementedError(
+            f"{op or 'an op'} mixes the bounded dim {bname} with the "
+            f"full-extent dim {other}: the bounded tensor is tight at run "
+            f"time, so the two cannot meet; padding back to the cap at such "
+            f"a consumer is not supported")
+
+
+def _mixing_op(gm, sym, rep) -> Optional[str]:
+    """The first op reading one tensor sized by ``sym`` and another sized
+    by ``rep`` (raw, unreplaced sizes)."""
+    for node in gm.graph.nodes:
+        if node.op != "call_function":
+            continue
+        bounded = full = False
+        for x in pytree.tree_leaves((node.args, node.kwargs)):
+            val = getattr(x, "meta", {}).get("val")
+            if not isinstance(val, torch.Tensor):
+                continue
+            for d in val.shape:
+                if not isinstance(d, torch.SymInt):
+                    continue
+                raw = d.node._expr
+                if sym in raw.free_symbols:
+                    bounded = True
+                elif raw == rep:
+                    full = True
+        if bounded and full:
+            return str(node.target)
+    return None
+
+
+def _convert(gm, in_dims: Sequence[Any], names: Mapping[Any, str], *,
+             positions: Optional[Sequence[int]] = None,
+             is_body: bool = False) -> Graph:
+    """Convert one fx graph.  ``in_dims`` holds each placeholder's dims and
+    dtype, or a ``SymbolicExpr`` for a size a scan passes its body;
+    ``positions`` a tensor placeholder's index in ``Graph.inputs``
+    (default: in order).  A loop body (``is_body``) returns an owning copy
+    of every view."""
     g = Graph()
     env: Dict[Any, Any] = {}      # fx node -> Value | SymbolicExpr | [Value]
+    # bound symbol -> the declared extent its dim has in the reference
+    # (where the payload is padded to it)
+    extent_of: Dict[Atom, SymbolicExpr] = {}
 
     def exprs_of(shape) -> Tuple[SymbolicExpr, ...]:
         return tuple(dim_to_expr(d, names) for d in shape)
 
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
-    for i, (node, spec) in enumerate(zip(placeholders, flat_specs)):
-        v = g.new_value(spec.dim_exprs(), spec.dtype, kind="input",
-                        name=f"in{i}")
-        g.inputs.append(v)
+    n_tensors = sum(1 for x in in_dims if not isinstance(x, SymbolicExpr))
+    if positions is None:
+        positions = range(n_tensors)
+    slots: List[Optional[Value]] = [None] * n_tensors
+    pos_iter = iter(positions)
+    for node, spec in zip(placeholders, in_dims):
+        if isinstance(spec, SymbolicExpr):
+            env[node] = spec
+            continue
+        pos = next(pos_iter)
+        v = g.new_value(spec[0], spec[1], kind="input", name=f"in{pos}")
+        slots[pos] = v
         env[node] = v
+    g.inputs.extend(slots)
 
     for node in gm.graph.nodes:
         if node.op == "placeholder":
             continue
         if node.op == "get_attr":
             t = getattr(gm, node.target)
+            if not isinstance(t, torch.Tensor):
+                # a scan body: converted with the scan node that reads it
+                env[node] = t
+                continue
             v = g.new_value(exprs_of(t.shape), t.dtype, kind="const",
                             const_val=t, name=str(node.target))
             g.consts.append(v)
             env[node] = v
         elif node.op == "call_function":
-            _convert_call(g, node, env, exprs_of)
+            if node.target is torch.ops.higher_order.scan:
+                if is_body:
+                    raise NotImplementedError(
+                        "a scan inside a scan body is not rolled")
+                _convert_scan(g, node, env, names)
+            else:
+                _convert_call(g, node, env, exprs_of)
+                _record_intro(g, node, env, extent_of)
         elif node.op == "output":
             for x in pytree.tree_leaves(node.args[0]):
                 v = env.get(x)
                 if not isinstance(v, Value):
                     raise NotImplementedError(
                         f"step output {x} is not a tensor")
-                if v.base is not None and v.base.kind == "intermediate":
+                if v.base is not None and (is_body
+                                           or v.base.kind == "intermediate"):
                     # a returned view would pin its whole base to the end
-                    # of the run: return an owning copy instead
+                    # of the run (or, from a loop body, alias a carry
+                    # across iterations): return an owning copy instead
                     out = g.new_value(v.dims, v.dtype)
                     g.add_node(_CLONE, [v, v.base], [out],
                                {"leaves": [Arg(0)],
@@ -274,6 +384,104 @@ def _convert(gm, flat_specs: Sequence[TensorSpec],
         else:
             raise NotImplementedError(f"fx node kind {node.op!r}")
     return g
+
+
+def _record_intro(g: Graph, node, env: Dict[Any, Any],
+                  extent_of: Dict[Atom, SymbolicExpr]) -> None:
+    """Record a bounded-dim introducer's ``BoundIntro`` and cap; give a
+    chained one its ``pad_to`` (the declared extent of its input there)."""
+    spec = introduces_dim(str(node.target))
+    if spec is None:
+        return
+    outs = env[node]
+    n = outs[0].producer
+    pv = n.outvals[spec.padded_out]
+    bdim = pv.dims[spec.axis]
+    (bname,) = bdim.free_vars()
+    cap = n.invals[spec.cap_arg].dims[spec.cap_axis]
+    bound = {Atom(b) for b in g.bound_dims}
+    extent = cap.substitute({a: extent_of[a] for a in bound
+                             if a.name in cap.free_vars()})
+    if extent != cap:
+        leaves, tspec = override_template(n, {"pad_to": extent})
+        n.params["leaves"], n.params["spec"] = leaves, tspec
+    extent_of[Atom(bname)] = extent
+    g.bound_dims[bname] = cap
+    g.bound_intros[n.id] = BoundIntro(
+        name=bname, cap=cap, node_id=n.id, padded_out=spec.padded_out,
+        count_out=spec.count_out, axis=spec.axis)
+
+
+def _convert_scan(g: Graph, node, env: Dict[Any, Any],
+                  names: Mapping[Any, str]) -> None:
+    """A symbolic-length forward scan -> one rolled loop node."""
+    import torch.fx
+
+    args = node.args
+    if len(args) != 4 or node.kwargs or \
+            not isinstance(args[1], (list, tuple)) or \
+            not isinstance(args[2], (list, tuple)) or \
+            not isinstance(args[3], (list, tuple)) or \
+            not isinstance(env.get(args[0]), torch.fx.GraphModule):
+        raise NotImplementedError(
+            f"scan node with args {args} kwargs {node.kwargs}: expected "
+            f"(combine_graph, init, xs, additional_inputs)")
+    sub = env[args[0]]
+    carries, xs = ([env[x] for x in group] for group in args[1:3])
+    # additional inputs: the body's tensor constants, and sizes the body
+    # reads (ints, or symbolic sizes of the outer graph)
+    extra = [env[x] if isinstance(x, torch.fx.Node) else
+             SymbolicExpr.constant(int(x)) for x in args[3]]
+    consts = [v for v in extra if isinstance(v, Value)]
+    ins = consts + carries + xs
+    if not all(isinstance(v, Value) for v in carries + xs) or not all(
+            isinstance(v, (Value, SymbolicExpr)) for v in extra):
+        raise NotImplementedError("scan over a non-tensor input")
+    nc, nk, nx = len(consts), len(carries), len(xs)
+    if nx == 0 or not xs[0].dims or not xs[0].dims[0].free_vars():
+        raise NotImplementedError(
+            "a scan whose xs length is static is not rolled")
+    holders = [n for n in sub.graph.nodes if n.op == "placeholder"]
+    if len(holders) != nk + nx + len(extra):
+        raise NotImplementedError(
+            f"scan body takes {len(holders)} inputs, expected "
+            f"{nk + nx + len(extra)}")
+    # torch's body order is (carries, xs slices, additional inputs); ours
+    # (consts, carries, xs)
+    positions = [nc + i for i in range(nk + nx)] + list(range(nc))
+    in_dims = [(tuple(dim_to_expr(d, names) for d in h.meta["val"].shape),
+                h.meta["val"].dtype) for h in holders[:nk + nx]]
+    in_dims += [v if isinstance(v, SymbolicExpr) else
+                (v.dims, v.dtype) for v in extra]
+    if any(introduces_dim(str(n.target)) for n in sub.graph.nodes
+           if n.op == "call_function"):
+        raise NotImplementedError(
+            "a bounded dim inside a scan body is not supported")
+    bg = _convert(sub, in_dims, names, positions=positions, is_body=True)
+    if not rollable_body(bg, nc, nk):
+        raise NotImplementedError(
+            "the scan body passes a carry through to another slot, so it "
+            "cannot be rolled")
+    tensor_holders = list(range(nk + nx)) + [
+        nk + nx + i for i, v in enumerate(extra) if isinstance(v, Value)]
+    torch_index = [0] * len(positions)
+    for ti, pos in zip(tensor_holders, positions):
+        torch_index[pos] = ti
+    body = LoopBody(graph=bg, num_consts=nc, num_carry=nk, num_xs=nx,
+                    length_expr=xs[0].dims[0],
+                    torch_index=tuple(torch_index))
+    invals = list(ins)
+    for v in ins:
+        if v.base is not None and v.base not in invals:
+            invals.append(v.base)
+    fakes = list(node.meta["val"])
+    if len(fakes) != len(bg.outputs):
+        raise NotImplementedError("scan outputs do not match its body")
+    outs = [g.new_value(tuple(dim_to_expr(d, names) for d in f.shape),
+                        f.dtype) for f in fakes]
+    g.add_node(node.target, invals, outs, {LOOP_PARAM: body, "multi": True},
+               prim_name="scan", n_args=len(ins))
+    env[node] = outs
 
 
 def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of) -> None:

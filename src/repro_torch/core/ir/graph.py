@@ -129,6 +129,11 @@ class Graph:
     in_tree: Any = None
     out_tree: Any = None
     uid: int = field(default_factory=lambda: next(_GRAPH_UIDS))
+    # value-dependent bounded dims (ir.dynamism): insertion-ordered
+    # bound-symbol name -> symbolic cap, and introducing node id ->
+    # BoundIntro record.  Empty for purely range-dynamic graphs.
+    bound_dims: Dict[str, SymbolicExpr] = field(default_factory=dict)
+    bound_intros: Dict[int, Any] = field(default_factory=dict)
 
     _vid: itertools.count = field(default_factory=lambda: itertools.count())
     _nid: itertools.count = field(default_factory=lambda: itertools.count())
@@ -183,4 +188,5 @@ class Graph:
             "consts": len(self.consts),
             "outputs": len(self.outputs),
             "views": sum(1 for v in self.values if v.base is not None),
+            "bound_dims": len(self.bound_dims),
         }

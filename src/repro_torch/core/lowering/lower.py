@@ -21,7 +21,14 @@ structure:
   under it.  With no limit — or a proven-safe one — the stream contains
   no runtime remat machinery at all;
 * **regen sub-programs** — candidates' recompute subgraphs are lowered
-  inline by ``repro_torch.core.remat.export.export_regen_programs``.
+  inline by ``repro_torch.core.remat.export.export_regen_programs``;
+* **rolled loops** — a loop node lowers to one ``Loop`` instruction over
+  its body, lowered once as a sub-``Program`` (with its inputs donated,
+  so a carry's previous generation is released at its last use in the
+  next iteration);
+* **bounded dims** — an introducer's Compute is followed by a ``BindDim``
+  that measures the dim and then makes the payload's deferred accounting
+  alloc at the tight size.
 """
 from __future__ import annotations
 
@@ -29,10 +36,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..ir.capture import Arg, has_symbolic, override_template
 from ..ir.graph import Value
+from ..ir.loop import loop_body_of
 from ..remat.export import export_regen_programs
 from ..remat.planner import ExecutionPlan
-from .program import (BindArg, Compute, Donate, FreeSlot, MaybeEvict, Program,
-                      Regen, Return)
+from ..symbolic.expr import SymbolicExpr
+from .program import (BindArg, BindDim, Compute, Donate, FreeSlot, Loop,
+                      LoopInfo, MaybeEvict, Program, Regen, Return)
 
 
 def lower_plan(plan: ExecutionPlan, *,
@@ -89,10 +98,12 @@ def lower_plan(plan: ExecutionPlan, *,
     compute_of: Dict[int, Compute] = {}
     view_src: Dict[int, Tuple[Compute, int]] = {}
     views_of: Dict[int, List[int]] = {}
+    loops: List[LoopInfo] = []
     for step, node in enumerate(plan.order):
+        body = loop_body_of(node)
+        pinned = frozenset(
+            [iv.id for iv in node.invals] + [ov.id for ov in node.outvals])
         if has_evict_path:
-            pinned = frozenset(
-                [iv.id for iv in node.invals] + [ov.id for ov in node.outvals])
             # roots first: a view rebuilds over its materialized root
             regen = [iv for iv in node.invals if iv.id in cands] + \
                 [iv for iv in node.invals[:node.n_args]
@@ -101,28 +112,72 @@ def lower_plan(plan: ExecutionPlan, *,
             if regen_regs:
                 instructions.append(Regen(regs=regen_regs, step=step,
                                           pinned=pinned))
-            instructions.append(MaybeEvict(cidx=len(computes), step=step,
-                                           pinned=pinned))
+            if body is None:
+                # a rolled loop does its own hoisted ensure (the resolved
+                # internal peak delta) inside the Loop handler
+                instructions.append(MaybeEvict(cidx=len(computes), step=step,
+                                               pinned=pinned))
         store = tuple((oi, new_reg(ov)) for oi, ov in enumerate(node.outvals)
                       if ov.consumers or ov.id in output_ids)
-        leaves, spec = override_template(
-            node, plan.kernel_overrides.get(node.id))
-        comp = Compute(cidx=len(computes), node=node, prim=node.prim,
-                       multi=bool(node.params["multi"]),
-                       in_regs=tuple(reg_of[iv.id]
-                                     for iv in node.invals[:node.n_args]),
-                       arg_slots=tuple((li, x.i) for li, x in enumerate(leaves)
-                                       if isinstance(x, Arg)),
-                       spec=spec, store=store, template=tuple(leaves))
-        instructions.append(comp)
-        computes.append(comp)
-        compute_of[node.id] = comp
-        static_leaves.append(None if has_symbolic(leaves) else leaves)
-        for oi, r in store:
-            ov = node.outvals[oi]
-            if droppable(ov) and ov.base is not None:
-                view_src[r] = (comp, oi)
-                views_of.setdefault(reg_of[ov.base.id], []).append(r)
+        if body is not None:
+            # rolled loop: lower the captured body ONCE as a sub-Program —
+            # the outer stream stays O(body) regardless of the trip count
+            lp = body.plan(plan.shape_graph)
+            body_plan = ExecutionPlan(graph=body.graph, order=list(lp.order),
+                                      shape_graph=plan.shape_graph)
+            body_program = lower_plan(body_plan, donate_inputs=True)
+            kept = tuple(bool(ov.consumers) or ov.id in output_ids
+                         for ov in node.outvals)
+            instructions.append(Loop(
+                lidx=len(loops),
+                in_regs=tuple(reg_of[iv.id]
+                              for iv in node.invals[:node.n_args]),
+                store=store, step=step, pinned=pinned))
+            loops.append(LoopInfo(node=node, body=body, lp=lp,
+                                  body_program=body_program, kept=kept))
+        else:
+            intro = g.bound_intros.get(node.id)
+            defer_regs: Tuple[int, ...] = ()
+            extra_store: Tuple[Tuple[int, int], ...] = ()
+            if intro is not None:
+                # the payload's accounting alloc moves to the BindDim below
+                # (its tight size needs the measured count); the count
+                # scalar must reach a register either way
+                defer_regs = tuple(r for oi, r in store
+                                   if oi == intro.padded_out)
+                count_reg = new_reg(node.outvals[intro.count_out])
+                count_kept = any(oi == intro.count_out for oi, _r in store)
+                if not count_kept:
+                    extra_store = ((intro.count_out, count_reg),)
+            leaves, spec = override_template(
+                node, plan.kernel_overrides.get(node.id))
+            comp = Compute(cidx=len(computes), node=node, prim=node.prim,
+                           multi=bool(node.params["multi"]),
+                           in_regs=tuple(reg_of[iv.id]
+                                         for iv in node.invals[:node.n_args]),
+                           arg_slots=tuple((li, x.i)
+                                           for li, x in enumerate(leaves)
+                                           if isinstance(x, Arg)),
+                           spec=spec, store=store, template=tuple(leaves),
+                           defer_regs=defer_regs, extra_store=extra_store)
+            instructions.append(comp)
+            computes.append(comp)
+            compute_of[node.id] = comp
+            static_leaves.append(None if has_symbolic(leaves) else leaves)
+            for oi, r in store:
+                ov = node.outvals[oi]
+                if droppable(ov) and ov.base is not None:
+                    view_src[r] = (comp, oi)
+                    views_of.setdefault(reg_of[ov.base.id], []).append(r)
+            if intro is not None:
+                instructions.append(BindDim(
+                    name=intro.name, cap_expr=intro.cap, count_reg=count_reg,
+                    alloc_store=tuple((oi, r) for oi, r in store
+                                      if r in defer_regs),
+                    drop_count=not count_kept, step=step,
+                    payload_reg=next((r for oi, r in store
+                                      if oi == intro.padded_out), -1),
+                    axis=intro.axis))
 
         # frees, in first-occurrence order
         seen = set()
@@ -158,6 +213,19 @@ def lower_plan(plan: ExecutionPlan, *,
     fast = [inst for inst in instructions
             if inst.op not in (Regen.op, MaybeEvict.op)]
 
+    # bounded dim -> every register whose byte size mentions it, and every
+    # Compute whose arguments do; the BindDim publishing that dim
+    # refreshes exactly these
+    bound_dep_regs: Dict[str, Tuple[int, ...]] = {}
+    bound_dep_cidx: Dict[str, Tuple[int, ...]] = {}
+    for name in g.bound_dims:
+        bound_dep_regs[name] = tuple(
+            r for r, e in enumerate(nbytes_exprs) if name in e.free_vars())
+        bound_dep_cidx[name] = tuple(
+            c.cidx for c in computes
+            if any(isinstance(x, SymbolicExpr) and name in x.free_vars()
+                   for x in c.template))
+
     return Program(plan=plan, graph=g, n_regs=len(vid_of), reg_of=reg_of,
                    vid_of=vid_of, nbytes_exprs=nbytes_exprs,
                    instructions=instructions, fast_instructions=fast,
@@ -167,4 +235,6 @@ def lower_plan(plan: ExecutionPlan, *,
                    death_step=death_step, candidate_regs=candidate_regs,
                    view_src=view_src,
                    views_of={r: tuple(vs) for r, vs in views_of.items()},
-                   has_evict_path=has_evict_path, memory_limit=memory_limit)
+                   has_evict_path=has_evict_path, memory_limit=memory_limit,
+                   loops=loops, bound_dep_regs=bound_dep_regs,
+                   bound_dep_cidx=bound_dep_cidx)

@@ -25,8 +25,7 @@ stream, so the per-call work left is calling ops.
   sequence that precomputes the call's entire :class:`MemoryStats` when
   eviction is provably off the table for that env.
 
-The instruction set (the loop and bound-dim instructions of the reference
-arrive with their features):
+The instruction set:
 
 ========== =================================================================
 BindArg     place a caller input / trace constant into its register
@@ -38,6 +37,9 @@ Regen       the paper's ``Remat::RegenerateOp`` guard — rematerialize the
             rebuilt over its regenerated root) if evicted
 FreeSlot    release a dead intermediate's buffer (statically placed)
 Donate      release a dead caller buffer (only under ``donate_inputs``)
+Loop        run a rolled ``scan``: the lowered body sub-Program per
+            iteration, registers rebound (see ``ir.loop``)
+BindDim     publish a just-measured bounded dim into the call env
 Return      gather the output registers
 ========== =================================================================
 
@@ -53,6 +55,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ..executor.memory import MemoryManager, MemoryStats
 from ..ir.capture import resolve_leaves
+from ..ir.dynamism import complete_bound_env
 from ..ir.graph import Graph, Node
 from ..memplan.arena import ArenaAllocator
 from ..remat.planner import ExecutionPlan
@@ -66,6 +69,8 @@ OP_REGEN = 3
 OP_FREE_SLOT = 4
 OP_DONATE = 5
 OP_RETURN = 6
+OP_LOOP = 7
+OP_BIND_DIM = 8
 
 
 @dataclass(frozen=True)
@@ -98,6 +103,13 @@ class Compute:
     # (consumed later or returned); unkept outputs are simply dropped
     store: Tuple[Tuple[int, int], ...]
     template: Tuple[Any, ...] = ()
+    # value-dependent bounded ops only: registers in ``store`` whose
+    # accounting alloc is deferred to the following BindDim (the payload —
+    # its tight size is only known after measuring), and outputs stored
+    # for the BindDim to read but never accounted (the int32 count scalar
+    # when nothing downstream consumes it)
+    defer_regs: Tuple[int, ...] = ()
+    extra_store: Tuple[Tuple[int, int], ...] = ()
     op: int = OP_COMPUTE
 
 
@@ -155,6 +167,72 @@ class Return:
 
 
 @dataclass(frozen=True)
+class BindDim:
+    """Publish a just-measured bounded dim into the call env (mid-call).
+
+    Emitted immediately after the Compute that *introduces* bounded dim
+    ``name`` (``ir.dynamism``): read the int32 count from ``count_reg`` (a
+    device-to-host sync), clamp it to the cap evaluated at the current env
+    (a chained introducer counts over its padded input, so the raw count
+    may exceed a chained cap), rebind ``name`` in the per-call env,
+    refresh the byte sizes of every bound-dependent register and the
+    arguments of every bound-dependent Compute, and only *then* run the
+    deferred accounting alloc of the payload (``alloc_store``) — so the
+    arena records the tight size and every later fit/free/peak sees it.
+    The payload in ``payload_reg`` (-1 when unkept) must have the measured
+    extent on dim ``axis``.  With ``drop_count`` the count scalar's
+    register is nulled after reading (nothing downstream consumes it)."""
+    name: str
+    cap_expr: SymbolicExpr
+    count_reg: int
+    alloc_store: Tuple[Tuple[int, int], ...]   # deferred (out pos, reg)
+    drop_count: bool
+    step: int
+    payload_reg: int = -1
+    axis: int = 0
+    op: int = OP_BIND_DIM
+
+
+@dataclass(frozen=True)
+class Loop:
+    """Run a rolled ``scan`` loop: one instruction for the whole trip.
+
+    The body is a lowered sub-:class:`Program` executed once per
+    iteration with registers rebound (carries from the previous
+    iteration's outputs, ``xs`` slices by index); ``lidx`` indexes the
+    owning Program's ``loops`` table.  ``store`` routes the loop's kept
+    outer outputs (final carries, stacked ``ys``); ``pinned`` mirrors
+    ``MaybeEvict.pinned`` for the hoisted evict check."""
+    lidx: int
+    in_regs: Tuple[int, ...]
+    store: Tuple[Tuple[int, int], ...]
+    step: int
+    pinned: frozenset
+    op: int = OP_LOOP
+
+
+@dataclass
+class LoopInfo:
+    """Compile-time half of one rolled loop inside a Program."""
+    node: Node                 # the outer loop node
+    body: Any                  # ir.loop.LoopBody
+    lp: Any                    # ir.loop.LoopPlanInfo (schedule + events)
+    body_program: "Program"    # the body lowered once (O(body) size)
+    kept: Tuple[bool, ...]     # per outer output: consumed or returned
+
+
+@dataclass
+class ResolvedLoop:
+    """One rolled loop realized for a concrete env."""
+    trip: int                               # trip count t at this env
+    rbody: "ResolvedProgram"                # body program resolve (cached)
+    extra_bytes: int                        # exact internal peak delta
+    sizes: Dict[int, int]                   # body value id -> bytes
+    outer_y: List[Tuple[int, int]]          # kept stacked ys: (vid, bytes)
+    outer_carry: List[Optional[Tuple[int, int]]]   # per carry slot
+
+
+@dataclass(frozen=True)
 class RegenStep:
     """One lowered node of a regeneration sub-program.
 
@@ -206,8 +284,12 @@ class ResolvedProgram:
     # replay result: the exact free-run stats of this env's call
     stats_template: Optional[MemoryStats] = None
     # True when no MaybeEvict can fire at this env (no limit, or the
-    # replayed peak fits it): the VM may run the fast stream
+    # replayed peak fits it): the VM may run the fast stream.  With bounded
+    # dims the replay is at the caps, which bound every measured run
     fast_ok: bool = True
+    # per rolled loop (index = Loop.lidx): trip count, body resolve,
+    # exact internal peak delta, and the accounting size tables
+    loops: List[ResolvedLoop] = field(default_factory=list)
 
 
 @dataclass
@@ -238,9 +320,21 @@ class Program:
     views_of: Dict[int, Tuple[int, ...]] = field(default_factory=dict)
     has_evict_path: bool = False
     memory_limit: Optional[int] = None
+    # rolled loops (index = Loop.lidx); each body is itself a Program,
+    # lowered once — the stream stays O(body), not O(t·body)
+    loops: List[LoopInfo] = field(default_factory=list)
+    # bounded dim name -> registers whose byte size mentions it, and the
+    # Computes whose arguments do (refreshed by the BindDim that publishes
+    # the measured value)
+    bound_dep_regs: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
+    bound_dep_cidx: Dict[str, Tuple[int, ...]] = field(default_factory=dict)
 
     def __post_init__(self):
         self._resolve_cache: Dict[Tuple, ResolvedProgram] = {}
+
+    @property
+    def has_bound_dims(self) -> bool:
+        return bool(self.graph.bound_dims)
 
     @property
     def n_instructions(self) -> int:
@@ -251,7 +345,8 @@ class Program:
         names = {OP_BIND_ARG: "BindArg", OP_COMPUTE: "Compute",
                  OP_MAYBE_EVICT: "MaybeEvict", OP_REGEN: "Regen",
                  OP_FREE_SLOT: "FreeSlot", OP_DONATE: "Donate",
-                 OP_RETURN: "Return"}
+                 OP_RETURN: "Return", OP_LOOP: "Loop",
+                 OP_BIND_DIM: "BindDim"}
         out = {name: 0 for name in names.values()}
         for inst in self.instructions:
             out[names[inst.op]] += 1
@@ -268,6 +363,14 @@ class Program:
             return out
         if len(self._resolve_cache) > 64:
             self._resolve_cache.clear()
+        # value-dependent bounded dims absent from the env evaluate at
+        # their cap.  Completion is deterministic in the declared env, so
+        # the declared-env cache key stays sound: cached sizes are cap
+        # sizes, and measured values live only in per-call overlays (the
+        # VM's env/size/argument overlays) — two calls with equal declared
+        # dims but different measured bounds never alias each other.
+        if self.graph.bound_dims:
+            env = complete_bound_env(self.graph, env)
 
         nbytes = [expr.evaluate(env) for expr in self.nbytes_exprs]
         leaves = [static if static is not None
@@ -283,32 +386,72 @@ class Program:
         arena = None
         if self.plan.arena_plan is not None:
             arena = self.plan.arena_plan.resolve(env)
+
+        # rolled loops: resolve each body sub-program (its own cache), and
+        # evaluate the loop's trip count, exact internal peak delta, and
+        # accounting size tables
+        rloops: List[ResolvedLoop] = []
+        for info in self.loops:
+            trip = info.body.length_expr.evaluate(env)
+            rbody = info.body_program.resolve(env)
+            bsizes = {bvid: e.evaluate(env)
+                      for bvid, e in info.lp.sizes.items()}
+            nk = info.body.num_carry
+            node = info.node
+            outer_y = [(ov.id, nbytes[self.reg_of[ov.id]])
+                       for ov, k in zip(node.outvals[nk:], info.kept[nk:])
+                       if k]
+            outer_carry = [(ov.id, nbytes[self.reg_of[ov.id]]) if k else None
+                           for ov, k in zip(node.outvals[:nk],
+                                            info.kept[:nk])]
+            extra = info.lp.peak_expr_for(node, info.kept,
+                                          trip).evaluate(env)
+            rloops.append(ResolvedLoop(trip=trip, rbody=rbody,
+                                       extra_bytes=extra, sizes=bsizes,
+                                       outer_y=outer_y,
+                                       outer_carry=outer_carry))
+
         out = ResolvedProgram(env=dict(env), nbytes=nbytes, leaves=leaves,
                               ensure_bytes=ensure, regen_flops=regen_flops,
-                              regen_step_bytes=regen_step_bytes, arena=arena)
-        out.stats_template = self._replay_stats(nbytes, arena)
+                              regen_step_bytes=regen_step_bytes, arena=arena,
+                              loops=rloops)
+        out.stats_template = self._replay_stats(out)
         out.fast_ok = (self.memory_limit is None or
                        out.stats_template.device_peak <= self.memory_limit)
         self._resolve_cache[key] = out
         return out
 
-    def _replay_stats(self, nbytes: List[int], arena_resolved) -> MemoryStats:
+    def _replay_stats(self, resolved: ResolvedProgram,
+                      measured: Optional[Dict[str, int]] = None
+                      ) -> MemoryStats:
         """Replay the static alloc/free sequence once for this env.
 
         The fast stream's memory traffic is fully determined by the env
         (no eviction can reorder it), so the whole run's MemoryStats —
         device peak, arena size, reuse ratio, fragmentation — is a
-        compile-side fact the hot path copies instead of recomputing."""
+        compile-side fact the hot path copies instead of recomputing.
+
+        ``measured`` (bounded dims only) gives each BindDim its measured
+        extent: the replay then refreshes the bound-dependent sizes there,
+        exactly as the dynamic stream does mid-call.  Without it the
+        deferred payload allocs land at the resolving env's sizes (the
+        caps for a declared env)."""
+        nbytes = resolved.nbytes
+        env_run = resolved.env
+        if measured is not None:
+            nbytes = list(nbytes)
+            env_run = dict(env_run)
         arena = None
-        if arena_resolved is not None:
-            arena = ArenaAllocator(self.plan.arena_plan, arena_resolved)
+        if resolved.arena is not None:
+            arena = ArenaAllocator(self.plan.arena_plan, resolved.arena)
         mm = MemoryManager(arena=arena)
         vid_of = self.vid_of
         for inst in self.fast_instructions:
             op = inst.op
             if op == OP_COMPUTE:
                 for _oi, r in inst.store:
-                    mm.alloc(vid_of[r], nbytes[r])
+                    if r not in inst.defer_regs:
+                        mm.alloc(vid_of[r], nbytes[r])
             elif op == OP_BIND_ARG:
                 if arena is not None:
                     arena.place_external(inst.vid, nbytes[inst.reg])
@@ -321,10 +464,32 @@ class Program:
                     mm.free(inst.vid)
                 else:
                     mm.arena_release(inst.vid)
+            elif op == OP_BIND_DIM:
+                if measured is not None:
+                    env_run[inst.name] = measured[inst.name]
+                    mm.stats.measured_dims[inst.name] = measured[inst.name]
+                    for r in self.bound_dep_regs[inst.name]:
+                        nbytes[r] = self.nbytes_exprs[r].evaluate(env_run)
+                for _oi, r in inst.alloc_store:
+                    mm.alloc(vid_of[r], nbytes[r])
+            elif op == OP_LOOP:
+                # the shared event engine replays the loop's alloc/free
+                # sequence — identical to what the interpreter and the VM
+                # dynamic stream drive through their MemoryManagers
+                rl = resolved.loops[inst.lidx]
+                info = self.loops[inst.lidx]
+                info.lp.account(mm, info.node.id, rl.trip,
+                                rl.sizes.__getitem__, rl.outer_y,
+                                rl.outer_carry)
         if arena is not None:
             arena.write_stats(mm.stats)
         return mm.stats
 
-    def stats_for(self, resolved: ResolvedProgram) -> MemoryStats:
-        """A fresh per-call copy of the precomputed stats template."""
-        return replace(resolved.stats_template)
+    def stats_for(self, resolved: ResolvedProgram,
+                  measured: Optional[Dict[str, int]] = None) -> MemoryStats:
+        """A fresh per-call copy of the precomputed stats template; with
+        ``measured`` (a bounded program's BindDim values), the replay at
+        those extents."""
+        if measured is None:
+            return replace(resolved.stats_template, measured_dims={})
+        return self._replay_stats(resolved, measured)

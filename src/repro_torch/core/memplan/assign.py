@@ -376,6 +376,7 @@ def build_arena_plan(graph: Graph, order: Sequence[Node],
                                             donated=chosen.external)
 
     _recount(plan)
+    _add_loop_slots(plan, graph, order, sg, rep_eval)
 
     # hi: every resolved arena is capped by Σ non-external slot capacities,
     # so Σ per-slot interval highs is a guaranteed upper bound.  lo: the
@@ -390,7 +391,9 @@ def build_arena_plan(graph: Graph, order: Sequence[Node],
         hi_sum = None if (hi_sum is None or s.size_hi is None) \
             else hi_sum + s.size_hi
     for vid, asg in assignment.items():
-        iv = liveness[vid]
+        iv = liveness.get(vid)
+        if iv is None:  # loop-internal runtime keys have no outer interval
+            continue
         if iv.external or plan.slots[asg.sid].external:
             continue  # served from caller buffers, not the arena
         lo = sg.bounds_of(iv.nbytes_expr)[0]
@@ -415,3 +418,80 @@ def _recount(plan: ArenaPlan) -> None:
             plan.n_checked_reuses += 1
         if asg.donated:
             plan.n_donated_reuses += 1
+
+
+def _add_loop_slots(plan: ArenaPlan, graph: Graph, order: Sequence[Node],
+                    sg: ShapeGraph, rep_eval) -> None:
+    """Project each rolled loop's *body* arena plan into the outer plan.
+
+    Every non-external body slot becomes an outer slot reserved at the
+    loop's position — doubled when it hosts a produced loop carry, because
+    two carry generations (iterations ``i-1`` and ``i``) are live at once
+    across the back-edge.  Used ``xs`` slices and body constants get one
+    slot each.  The runtime addresses these buffers with tuple keys
+    ``(loop_node_id, parity, body_value_id)`` (parity 2 = loop constants);
+    the key-agnostic ``assignment`` dict routes them to their outer slot,
+    so cross-iteration reuse falls out of the ordinary slot discipline and
+    the steady-state arena contribution is independent of the trip count.
+
+    Slot members being freed and re-allocated every iteration is exactly
+    the in-place update pattern the paper targets: the loop's footprint is
+    one iteration's worth of buffers (×2 for carries), not ``t``'s worth.
+    """
+    from ..ir.loop import loop_body_of
+
+    # synthetic vids index the pseudo liveness entries used for address
+    # packing; real value ids are dense [0, len(values)), so this is free
+    next_vid = len(graph.values)
+
+    for p, n in enumerate(order):
+        body = loop_body_of(n)
+        if body is None:
+            continue
+        lp = body.plan(sg)
+
+        def add_slot(size_exprs, size_lo, size_hi, rep_size) -> int:
+            nonlocal next_vid
+            svid = next_vid
+            next_vid += 1
+            s = SlotInfo(sid=len(plan.slots), external=False,
+                         size_exprs=list(size_exprs),
+                         size_lo=size_lo, size_hi=size_hi, rep_size=rep_size)
+            s.add_member(svid, p, p)
+            plan.slots.append(s)
+            plan.liveness[svid] = LiveInterval(
+                vid=svid, start=p, end=p, nbytes_expr=s.size_expr,
+                kind="intermediate", is_output=False)
+            plan.assignment[svid] = SlotAssignment(
+                svid, s.sid, provable=True, reused=False, donated=False)
+            return s.sid
+
+        for s in lp.body_arena.slots:
+            if s.external:
+                continue
+            doubled = any(m in lp.carry_member_ids for m in s.members)
+            sids = [add_slot(s.size_exprs, s.size_lo, s.size_hi, s.rep_size)
+                    for _ in range(2 if doubled else 1)]
+            for m in s.members:
+                for par in (0, 1):
+                    key = (n.id, par, m)
+                    plan.assignment[key] = SlotAssignment(
+                        key, sids[par] if doubled else sids[0],
+                        provable=True, reused=False, donated=False)
+        for j, x in enumerate(lp.x_in):
+            if not lp.x_used[j]:
+                continue
+            e = lp.sizes[x.id]
+            lo, hi = sg.bounds_of(e)
+            sid = add_slot([e], lo, hi, rep_eval(e))
+            for par in (0, 1):
+                key = (n.id, par, x.id)
+                plan.assignment[key] = SlotAssignment(
+                    key, sid, provable=True, reused=False, donated=False)
+        for cid in lp.const_ids:
+            e = lp.sizes[cid]
+            lo, hi = sg.bounds_of(e)
+            sid = add_slot([e], lo, hi, rep_eval(e))
+            key = (n.id, 2, cid)
+            plan.assignment[key] = SlotAssignment(
+                key, sid, provable=True, reused=False, donated=False)

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Set, Tuple
 
 from ..ir.graph import Graph, Node, Value
+from ..ir.loop import is_loop_node
 from ..symbolic import Cmp, Interval, ShapeGraph, SymbolicExpr, ZERO
 
 # Relative cost model shared by compile-time pruning (here) and runtime victim
@@ -145,7 +146,10 @@ class RecomputeSearcher:
         ``p``'s own unproduced inputs — and each grown state is memoized in
         ``expr_cache`` keyed on ``(target, subgraph)``.
         """
-        if target.producer is None:
+        if target.producer is None or is_loop_node(target.producer):
+            # rolled loops are remat barriers: re-running a trip-count-many
+            # iteration body is never the cheap side of the trade, and remat
+            # decisions are hoisted out of the body by construction
             return None
         # bounds-based compile-time prune: a target whose worst-case byte
         # count is zero can never free memory, skip the subgraph search
@@ -177,7 +181,8 @@ class RecomputeSearcher:
         while len(sub_ids) < self.max_subgraph:
             # pick the most expensive non-always-live source to absorb
             cand = [s for s in srcs.values()
-                    if not s.is_materialized_input() and s.producer is not None]
+                    if not s.is_materialized_input() and s.producer is not None
+                    and not is_loop_node(s.producer)]    # loops don't absorb
             if not cand:
                 break
             sizes = tuple(s.nbytes_expr.uid for s in cand)
@@ -265,6 +270,15 @@ class RecomputeSearcher:
                 continue
             p = pos.get(v.producer.id)
             if p is None:
+                continue
+            if is_loop_node(v.producer):
+                continue  # loop outputs are remat barriers
+            if self.g.bound_dims and \
+                    v.nbytes_expr.free_vars() & set(self.g.bound_dims):
+                # bound-dependent values are remat barriers too: their
+                # tight size exists only in the live call env, and
+                # re-running the introducing op re-measures — the planner
+                # cannot price or replay that statically
                 continue
             last_use = max(pos[c.id] for c in v.consumers if c.id in pos)
             if last_use <= p + 1:

@@ -15,7 +15,9 @@ lets a bounded-dynamic-shape deployment size its arena at compile time.
 When a ``shape_graph`` is passed to ``simulate_peak`` the bound is attached
 to the timeline as ``peak_bound_bytes`` / ``peak_bound_lo``.
 
-Rolled loops are not part of this package yet: every node is a plain op.
+A rolled loop node contributes its internal peak (both carry generations,
+the iteration's temporaries and the kept outputs) from the loop plan's
+event replay (``ir.loop``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..ir.graph import Graph, Node
+from ..ir.loop import loop_body_of
 from ..symbolic import ShapeGraph, SymbolicExpr, ZERO
 
 
@@ -80,17 +83,38 @@ def simulate_peak(graph: Graph, order: Sequence[Node], env: Dict[str, int],
     steps: List[int] = []
     live_intermediate: Dict[int, int] = {}
 
+    # rolled loops plan against a shape graph; a throwaway default suffices
+    # for exact simulation (peak exprs are evaluated at the concrete env)
+    sg_loops = shape_graph if shape_graph is not None else ShapeGraph()
+
     for n in order:
-        # allocate outputs (dead outputs are transient: alloc + free same step)
-        transient = 0
-        for ov in n.outvals:
-            b = nbytes[ov.id]
-            if ov.consumers or ov.id in output_ids:
-                usage += b
-                live_intermediate[ov.id] = b
-            else:
-                transient += b
-        peak = max(peak, usage + transient)
+        body = loop_body_of(n)
+        if body is not None:
+            # rolled loop: internal peak comes from the loop plan's event
+            # replay (covers temps, both carry generations, and the kept
+            # output allocations at their in-loop alloc points)
+            lp = body.plan(sg_loops)
+            trip = body.length_expr.evaluate(env)
+            kept = [bool(ov.consumers) or ov.id in output_ids
+                    for ov in n.outvals]
+            extra = lp.peak_expr_for(n, kept, trip).evaluate(env)
+            peak = max(peak, usage + extra)
+            for ov, k in zip(n.outvals, kept):
+                if k:
+                    usage += nbytes[ov.id]
+                    live_intermediate[ov.id] = nbytes[ov.id]
+        else:
+            # allocate outputs (dead outputs are transient: alloc + free
+            # same step)
+            transient = 0
+            for ov in n.outvals:
+                b = nbytes[ov.id]
+                if ov.consumers or ov.id in output_ids:
+                    usage += b
+                    live_intermediate[ov.id] = b
+                else:
+                    transient += b
+            peak = max(peak, usage + transient)
         # free inputs whose last consumer just ran
         seen = set()
         for iv in n.invals:
@@ -147,15 +171,29 @@ def simulate_peak_bound(graph: Graph, order: Sequence[Node],
     live: Dict[int, SymbolicExpr] = {}
 
     for n in order:
-        transient = ZERO
-        for ov in n.outvals:
-            e = nbytes_expr[ov.id]
-            if ov.consumers or ov.id in output_ids:
-                usage = usage + e
-                live[ov.id] = e
-            else:
-                transient = transient + e
-        iv_step = (usage + transient).interval(bounds_env)
+        body = loop_body_of(n)
+        if body is not None:
+            # rolled loop: bound the internal peak by the max of the
+            # trip-count models the declared range of t admits
+            lp = body.plan(shape_graph)
+            kept = [bool(ov.consumers) or ov.id in output_ids
+                    for ov in n.outvals]
+            transient = lp.peak_bound_expr(n, kept, shape_graph)
+            iv_step = (usage + transient).interval(bounds_env)
+            for ov, k in zip(n.outvals, kept):
+                if k:
+                    usage = usage + nbytes_expr[ov.id]
+                    live[ov.id] = nbytes_expr[ov.id]
+        else:
+            transient = ZERO
+            for ov in n.outvals:
+                e = nbytes_expr[ov.id]
+                if ov.consumers or ov.id in output_ids:
+                    usage = usage + e
+                    live[ov.id] = e
+                else:
+                    transient = transient + e
+            iv_step = (usage + transient).interval(bounds_env)
         # peak = max over steps, bounded per side (None = unbounded above;
         # a None step lower bound cannot happen for sums of dims >= 0)
         if iv_step.lo is not None and (peak_lo is None or iv_step.lo > peak_lo):

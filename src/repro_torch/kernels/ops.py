@@ -31,13 +31,23 @@ Both ops are differentiable (``register_autograd``): the backward is the
 plain PyTorch gradient of the op's function (``ref.*_backward``) on every
 route, so a captured train step records it as aten nodes.  The reference
 has no backward kernel (its primitives define no JVP), so none is owed.
+
+The four value-dependent ops (``nonzero_pad``, ``masked_select``,
+``topk_dynamic``, ``unique_bounded``) are ``repro_torch::<name>`` custom
+ops that *introduce* a bounded dim (``core.ir.dynamism``): each returns
+``(payload, count)``, with the payload tight (``count`` rows, not the
+cap) on every device, and a fake whose payload's leading dim is a fresh
+unbacked size, which capture turns into a bound symbol ``__b<k>``.  The
+reference implements them in plain jnp, so plain PyTorch is their port.
+Their ``pad_to`` argument is set by capture only (see ``ref.tight_*``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from ..core.ir.dynamism import DimIntroSpec, register_introduces_dim
 from . import ref as _ref
 from .flash_attention import flash_attention_cuda
 from .rmsnorm import rmsnorm_cuda
@@ -128,3 +138,74 @@ def _rmsnorm_backward(ctx, grad):
 
 flash_attention.register_autograd(_flash_backward, setup_context=_flash_setup)
 rmsnorm.register_autograd(_rmsnorm_backward, setup_context=_rmsnorm_setup)
+
+
+# -- value-dependent bounded ops (dynamism introducers) -------------------------
+
+
+def _bounded_fake(x: torch.Tensor, dtype: Optional[torch.dtype] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A payload whose leading dim is a fresh unbacked size, and the int32
+    count scalar."""
+    n = torch.library.get_ctx().new_dynamic_size()
+    return (x.new_empty((n,) + tuple(x.shape[1:]),
+                        dtype=dtype if dtype is not None else x.dtype),
+            x.new_empty((), dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::nonzero_pad", mutates_args=())
+def nonzero_pad(x: torch.Tensor, pad_to: int = -1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Indices of the nonzero entries of 1-D ``x`` -> ``(idx, count)``:
+    ``idx`` is int32 with ``count`` entries.  Under ``optimize`` its length
+    is a bounded dim ``b <= len(x)``."""
+    return _ref.tight_nonzero(x, pad_to)
+
+
+@nonzero_pad.register_fake
+def _(x, pad_to=-1):
+    return _bounded_fake(x, torch.int32)
+
+
+@torch.library.custom_op("repro_torch::masked_select", mutates_args=())
+def masked_select(x: torch.Tensor, mask: torch.Tensor, pad_to: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of ``x`` (leading axis) where 1-D ``mask`` holds, in order ->
+    ``(rows, count)``."""
+    return _ref.tight_masked_select(x, mask, pad_to)
+
+
+@masked_select.register_fake
+def _(x, mask, pad_to=-1):
+    return _bounded_fake(x)
+
+
+@torch.library.custom_op("repro_torch::topk_dynamic", mutates_args=())
+def topk_dynamic(x: torch.Tensor, k: torch.Tensor, pad_to: int = -1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The largest ``k`` values of 1-D ``x`` with a *data-dependent* ``k``
+    (an int32 scalar tensor), descending -> ``(vals, count)``."""
+    return _ref.tight_topk_dynamic(x, k, pad_to)
+
+
+@topk_dynamic.register_fake
+def _(x, k, pad_to=-1):
+    return _bounded_fake(x)
+
+
+@torch.library.custom_op("repro_torch::unique_bounded", mutates_args=())
+def unique_bounded(x: torch.Tensor, pad_to: int = -1
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted distinct values of 1-D ``x`` -> ``(unique, count)``."""
+    return _ref.tight_unique_bounded(x, pad_to)
+
+
+@unique_bounded.register_fake
+def _(x, pad_to=-1):
+    return _bounded_fake(x)
+
+
+# the reference's spec for all four: payload out 0, count out 1, the
+# payload's dim 0 bounded by input 0's dim 0
+for _op in (nonzero_pad, masked_select, topk_dynamic, unique_bounded):
+    register_introduces_dim(str(_op._opoverload), DimIntroSpec())

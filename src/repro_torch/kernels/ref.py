@@ -101,3 +101,113 @@ def reference_rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
     dx = r * g - xf * (r * r * r) * torch.mean(g * xf, dim=-1, keepdim=True)
     dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Value-dependent bounded ops (``kernels.ops``): the tight run versions and
+# the reference's padded-to-bound oracles.
+#
+# The ``tight_*`` functions are what the ops run: the payload holds only
+# its ``count`` valid rows, so the tensors downstream of an introducer are
+# tight on the device too.  ``pad_to`` (>= the input's length, or -1) pads
+# the input with zeros to that length first, as a transient: the extent
+# the reference's padded input has there when the op is chained after
+# another introducer.  The count is computed over the padded input, and
+# the payload keeps at most the input's own length of rows (the bounded
+# dim's cap in a chain, which ``BindDim`` clamps to as well).
+#
+# The ``padded_*`` functions are the torch counterparts of the reference's
+# oracles (``repro/kernels/ref.py:46-81``): every payload keeps the input's
+# shape, the valid prefix holds the result and the tail is zeros.  The
+# tests hold the tight ops against them.
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``n`` rows (itself if not
+    shorter)."""
+    if n <= x.shape[0]:
+        return x
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def _count(n: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32, device=device)
+
+
+def tight_nonzero(x: torch.Tensor, pad_to: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 indices of the nonzero entries of 1-D ``x``, and their count
+    (zero padding adds none, so ``pad_to`` changes nothing)."""
+    idx = torch.nonzero(x).reshape(-1).to(torch.int32)
+    return idx, _count(idx.shape[0], x.device)
+
+
+def tight_masked_select(x: torch.Tensor, mask: torch.Tensor,
+                        pad_to: int = -1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of ``x`` (leading axis) where 1-D ``mask`` holds, in order, and
+    their count (padding rows are unselected, so ``pad_to`` changes
+    nothing)."""
+    rows = x[mask]
+    return rows, _count(rows.shape[0], x.device)
+
+
+def tight_topk_dynamic(x: torch.Tensor, k: torch.Tensor, pad_to: int = -1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The largest ``k`` values of 1-D ``x`` (``k`` an int32 scalar tensor),
+    descending, and ``clip(k, 0, len)`` over the padded input."""
+    xp = _pad_rows(x, pad_to)
+    vals = torch.sort(xp, descending=True).values
+    count = int(k.clamp(0, xp.shape[0]))
+    return vals[:min(count, x.shape[0])], _count(count, x.device)
+
+
+def tight_unique_bounded(x: torch.Tensor, pad_to: int = -1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sorted distinct values of 1-D ``x`` (zeros padded to ``pad_to``
+    count as values), and their count."""
+    uniq = torch.unique(_pad_rows(x, pad_to), sorted=True)
+    return uniq[:x.shape[0]], _count(uniq.shape[0], x.device)
+
+
+def _keep_prefix(x: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Zero out rows at index >= count (rows = leading axis)."""
+    keep = torch.arange(x.shape[0], device=x.device) < count
+    keep = keep.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def padded_nonzero(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Indices of nonzero entries of 1-D ``x``, zero-padded to len(x)."""
+    nz = x != 0
+    idx = torch.nonzero(nz).reshape(-1).to(torch.int32)
+    out = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    out[:idx.shape[0]] = idx
+    return out, nz.sum(dtype=torch.int32)
+
+
+def padded_masked_select(x: torch.Tensor, mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of ``x`` where 1-D ``mask`` holds, compacted to the front."""
+    count = mask.sum(dtype=torch.int32)
+    perm = torch.argsort((~mask).to(torch.int8), stable=True)
+    return _keep_prefix(x[perm], count), count
+
+
+def padded_topk_dynamic(x: torch.Tensor, k: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest ``k`` values of 1-D ``x`` (k data-dependent), descending."""
+    count = k.to(torch.int32).clamp(0, x.shape[0])
+    return _keep_prefix(torch.sort(x, descending=True).values, count), count
+
+
+def padded_unique_bounded(x: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted distinct values of 1-D ``x``, zero-padded to len(x)."""
+    s = torch.sort(x).values
+    isnew = torch.cat([torch.ones(1, dtype=torch.bool, device=x.device),
+                       s[1:] != s[:-1]])
+    count = isnew.sum(dtype=torch.int32)
+    perm = torch.argsort((~isnew).to(torch.int8), stable=True)
+    return _keep_prefix(s[perm], count), count

@@ -283,3 +283,93 @@ def test_capped_train_step_on_the_card_equals_uncapped(gen, layers, fracs):
         assert st.evictions > 0 and st.offloads > 0
     if layers == 4:
         assert st.recomputes > 0
+
+
+LARGE_OVERHEAD = (1 << 20) + 512   # the caching allocator's most per block
+
+
+@pytest.mark.gpu
+def test_bounded_ffn_allocator_holds_the_tight_peak(gen):
+    """The ragged-batch serve step at a reduced width and a quarter of the
+    rows valid: the allocator's peak of the call stays within device_peak
+    (tight) plus block overheads and the boolean index's indices, well
+    below the pad-to-bound peak; the output equals the eager step."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import TensorSpec, optimize, symbolic_dims
+    from repro_torch.core.ir.dynamism import complete_bound_env
+    from repro_torch.kernels import masked_select
+
+    def step(x, mask, w1, w2):
+        rows, n = masked_select(x, mask)
+        return (F.gelu(rows @ w1, approximate="tanh") @ w2).sum(0), n
+
+    n, d, f = 4096, 512, 1376
+    bf16 = torch.bfloat16
+    S, = symbolic_dims("s")
+    fn = optimize(step, TensorSpec((S, d), bf16), TensorSpec((S,), torch.bool),
+                  TensorSpec((d, f), bf16), TensorSpec((f, d), bf16),
+                  dynamic_dims={"s": (1, n)})
+    x, w1 = _randn(gen, (n, d), bf16), _randn(gen, (d, f), bf16, 0.05)
+    w2 = _randn(gen, (f, d), bf16, 0.05)
+    fn(x, torch.ones(n, dtype=torch.bool, device="cuda"), w1, w2)  # warm-up
+    mask = torch.arange(n, device="cuda") < n // 4
+    in_bytes = x.nbytes + n + w1.nbytes + w2.nbytes
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - in_bytes
+    torch.cuda.reset_peak_memory_stats()
+    out, cnt = fn(x, mask, w1, w2)
+    torch.cuda.synchronize()
+    step_alloc = torch.cuda.max_memory_allocated() - held
+    st = fn.last_report.stats
+    prog = fn.program
+    stored = sum(len(c.store) for c in prog.computes)
+    assert st.measured_dims == {"__b0": n // 4} and int(cnt) == n // 4
+    assert step_alloc <= st.device_peak + stored * LARGE_OVERHEAD + \
+        n * 8 + LARGE_OVERHEAD
+    pad = prog.stats_for(prog.resolve(complete_bound_env(
+        prog.graph, {"s": n}))).device_peak
+    assert st.device_peak < pad
+    rows = torch.masked_select(x, mask[:, None]).view(-1, d)
+    want = (F.gelu(rows @ w1, approximate="tanh") @ w2).sum(0)
+    torch.testing.assert_close(out, want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.gpu
+def test_rolled_decode_equals_unrolled_on_the_card(gen):
+    """The rolled decode loop at a reduced width: bitwise equal to the
+    unrolled plan at T = 17, one Loop instruction."""
+    from repro_torch.core import TensorSpec, optimize, scan, symbolic_dims
+
+    d, vocab, b, T = 512, 4000, 4, 17
+    f32 = torch.float32
+
+    def cell(w, h, p):
+        h = torch.tanh(h @ w["wh"] + p)
+        return h, (h @ w["wv"]).argmax(-1)
+
+    def rolled_fn(w, h0, pos):
+        return scan(lambda h, p: cell(w, h, p), h0.tanh(), pos)
+
+    def unrolled_fn(w, h0, pos):
+        h, toks = h0.tanh(), []
+        for i in range(T):
+            h, tok = cell(w, h, pos[i])
+            toks.append(tok)
+        return h, torch.stack(toks)
+
+    w = {"wh": _randn(gen, (d, d), f32, 0.05),
+         "wv": _randn(gen, (d, vocab), f32, 0.05)}
+    h0, pos = _randn(gen, (b, d), f32, 0.2), _randn(gen, (T, d), f32, 0.1)
+    w_specs = {k: TensorSpec(tuple(v.shape), f32) for k, v in w.items()}
+    t, = symbolic_dims("t")
+    rolled = optimize(rolled_fn, w_specs, TensorSpec((b, d), f32),
+                      TensorSpec((t, d), f32), dynamic_dims={"t": (1, 64)})
+    unrolled = optimize(unrolled_fn, w_specs, TensorSpec((b, d), f32),
+                        TensorSpec((T, d), f32))
+    assert rolled.program.counts()["Loop"] == 1
+    h, toks = rolled(w, h0, pos)
+    uh, utoks = unrolled(w, h0, pos)
+    assert torch.equal(h, uh) and torch.equal(toks, utoks)
+    st = rolled.last_report.stats
+    assert st.arena_bytes <= rolled.arena_bound_bytes

@@ -2,7 +2,9 @@
 
 A test-only bridge turns the reference's traced ``Graph`` of the smoke
 ``llama2_1b`` train step (``benchmarks/memplan_bench.py``) into a port
-``Graph`` with the same value and node ids, sizes and edges.  The copied
+``Graph`` with the same value and node ids, sizes and edges (bounded dims
+and rolled loops included: ``test_torch_bounded`` and ``test_torch_loops``
+bridge those graphs).  The copied
 scheduler, simulators and memory planner must then decide identically:
 scheduled order, ``symbolic_decisions``, exact peaks, the guaranteed peak
 bound, the exchange post-pass, arena slots and ``arena_bound_bytes``.
@@ -30,12 +32,18 @@ ENVS = [{"b": 1, "s": 16}, {"b": 8, "s": 512}, {"b": 64, "s": 4096}]
 
 
 def bridge(ref_graph) -> Graph:
-    """Reference ``Graph`` -> port ``Graph`` (same ids, sizes and edges)."""
+    """Reference ``Graph`` -> port ``Graph`` (same ids, sizes and edges).
+
+    Bounded dims (``bound_dims``, ``bound_intros``) and rolled loops (a
+    ``LoopBody`` over the bridged body graph) come along.  Each node gets
+    an argument template naming its inputs in order, so the port can lower
+    (not run) the graph."""
     from repro.core.ir.loop import loop_body_of
     from repro.core.symbolic.expr import Atom as RAtom
-
-    if ref_graph.bound_dims or any(loop_body_of(n) for n in ref_graph.nodes):
-        raise NotImplementedError("bridge covers plain op graphs only")
+    from repro_torch.core.ir.capture import Arg
+    from repro_torch.core.ir.dynamism import BoundIntro
+    from repro_torch.core.ir.loop import LOOP_PARAM, LoopBody
+    from torch.utils import _pytree as pytree
 
     def atom(a):
         if isinstance(a, RAtom):
@@ -56,10 +64,27 @@ def bridge(ref_graph) -> Graph:
     g.consts = [g.values[v.id] for v in ref_graph.consts]
     g.outputs = [g.values[v.id] for v in ref_graph.outputs]
     for n in ref_graph.nodes:
+        body = loop_body_of(n)
+        if body is not None:
+            params = {LOOP_PARAM: LoopBody(
+                graph=bridge(body.graph), num_consts=body.num_consts,
+                num_carry=body.num_carry, num_xs=body.num_xs,
+                length_expr=expr(body.length_expr)), "multi": True}
+        else:
+            leaves, spec = pytree.tree_flatten(
+                (tuple(Arg(i) for i in range(len(n.invals))), {}))
+            params = {"leaves": leaves, "spec": spec,
+                      "multi": len(n.outvals) != 1}
         pn = g.add_node(None, [g.values[v.id] for v in n.invals],
-                        [g.values[v.id] for v in n.outvals], {},
+                        [g.values[v.id] for v in n.outvals], params,
                         prim_name=n.prim_name)
         assert pn.id == n.id
+    for name, cap in ref_graph.bound_dims.items():
+        g.bound_dims[name] = expr(cap)
+    for nid, bi in ref_graph.bound_intros.items():
+        g.bound_intros[nid] = BoundIntro(
+            name=bi.name, cap=expr(bi.cap), node_id=bi.node_id,
+            padded_out=bi.padded_out, count_out=bi.count_out, axis=bi.axis)
     return g
 
 
