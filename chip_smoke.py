@@ -102,6 +102,28 @@ Phases (any failure exits non-zero):
    equal to the xs and ys bytes, the arena within its bound and the
    allocator within its slack; compile seconds per trip range; a profile
    of the rolled and the unrolled plan at T = 17.
+10. obs (``[obs]`` lines): (a) the compile spans of phase 3's prefill,
+   phase 6's train step and phase 7's bucketed plan (seconds per phase),
+   each exported with ``chrome_trace_json`` to ``build/`` and checked
+   (parses; ts, dur, pid, tid on every event; children inside their
+   parents); (b) ``memory_timeline(env)`` at every call phases 3, 6, 8
+   and 9 observed (the four requests, the uncapped train step at three
+   shapes, each bounded occupancy with its measured ``__b0``, the loop at
+   T = 1, 17, 512): no drift, replayed peak = predicted = the call's
+   ``device_peak``, the allocator's peak within the phase's slack of it;
+   (c) inside phase 6, the 0.85 rung's dynamic stream with the VM's
+   ``timeline_hook``: the allocator's counter within ``device_used`` +
+   slack after every instruction, and the hook's cost per step; (d) the
+   disabled telemetry check <= 2% of the (1,16) call, unbucketed and
+   bucketed, with interleaved medians (reported only); (e) telemetry on
+   the bucketed plan: ring records = the calls' reports, sampled
+   timelines, ``wall_s`` (host) beside CUDA-event time, ``kernel-select``
+   decisions = the plans' selections, ``BucketBatcher.metrics_text()``
+   parses as Prometheus text; (f) the first bucketed call of the run taken
+   apart (specialize spans, dispatch, VM host time, device time, garbage
+   collections); (g) ``explain(b=8, s=1024)`` of the prefill plan has
+   every section heading.  Phase 10 launches kernels after every path's
+   launch count has been read.
 
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
@@ -111,6 +133,8 @@ plain jnp); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -157,6 +181,13 @@ CAP_STEP = 0.05     # the ladder's rungs: 0.95, 0.90, ... of the peak
 MAX_SUBGRAPH = 24   # optimize's default recompute-subgraph size
 RMSNORM_TEST_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128),
                        (2, 33, 160)]
+
+
+# what phase 10 ([obs]) reads from the phases it observes: the functions
+# whose compile spans it reports, and per observed call (path, function,
+# env, the call's device_peak, the allocator's peak of the call less what
+# was held outside it, the allocator slack that phase allows)
+OBS = {"timelines": []}
 
 
 def log(*parts) -> None:
@@ -496,6 +527,8 @@ def phase_main_path():
                 f"device_peak + {slack} of block overhead")
         if st.arena_bytes > opt.arena_bound_bytes:
             raise AssertionError("arena_bytes above arena_bound_bytes")
+        OBS["timelines"].append(("prefill", opt, {"b": b, "s": s},
+                                 st.device_peak, step_alloc, slack))
         outs.append(logits)
         rows.append(dict(b=b, s=s, wall_ms=1e3 * wall,
                          device_peak=st.device_peak,
@@ -509,6 +542,7 @@ def phase_main_path():
         raise AssertionError("the main path re-captured between requests")
     log(f"[main] one capture per optimize ({len(captures)} for 2 plans); "
         f"launches over the run {launches}")
+    OBS["prefill"] = opt
     medians = phase_latency(opt, params, batches)
     phase_profile(opt, params, batches)
     return cfg, params, opt_ref, batches, outs, launches, rows, medians
@@ -576,6 +610,25 @@ def profile_once(label: str, run) -> None:
     for us, count, key in rows[:10]:
         log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
             f"x{count:<4d} {key[:90]}")
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Yields a list that collects (generation, seconds) of every garbage
+    collection that runs inside the block."""
+    pauses, t0 = [], [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - t0[0]))
+
+    gc.callbacks.append(cb)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(cb)
 
 
 def phase_plain(cfg, params, opt_ref, batches, outs):
@@ -755,6 +808,8 @@ def phase_train():
                    device_peak=st.device_peak, alloc_peak=alloc,
                    alloc_slack=slack, flash=fl, rmsnorm=nl)
         rows["uncapped"].append(row)
+        OBS["timelines"].append(("train", opt, env, st.device_peak, alloc,
+                                 slack))
         log(f"[train] ({b},{s}) uncapped: median {row['median_ms']:.3f} ms "
             f"(min {min(walls):.3f}, max {max(walls):.3f}) over "
             f"{TRAIN_REPS} steps, loss {loss:.6f}, device_peak "
@@ -836,6 +891,9 @@ def phase_train():
         raise AssertionError("the bf16 train path took the f32 flash route")
     profile_once(f"train ({b},{s}) at cap {rows['ladder'][-1]['frac']:.2f}",
                  lambda: step(last, batch))
+    observe_dynamic_stream(opt, step, params, opt_state, batch, state_bytes,
+                           int(OBS_RUNG * peak), want[0])
+    OBS["train"] = opt
     compare_train_plain(cfg, params, opt_state, batch, want)
     del params, opt_state, want, want_leaves, opt, fn, last
     torch.cuda.empty_cache()
@@ -882,6 +940,105 @@ def compare_train_plain(cfg, params, opt_state, batch, want):
         raise AssertionError(f"train step differs from the plain step: {bad}")
     del ref, r_params, r_opt
     torch.cuda.empty_cache()
+
+
+OBS_RUNG = 0.85    # phase 10 (c): the ladder rung whose dynamic stream is read
+
+
+def observe_dynamic_stream(opt, step, params, opt_state, batch, state_bytes,
+                           cap, want_loss):
+    """Phase 10 (c), run inside phase 6 after its launch counts are read:
+    the train step at (8,1024) under ``cap`` (the 0.85 rung) with the VM's
+    ``timeline_hook`` attached.  After every instruction of the dynamic
+    stream the hook reads the plan's ``device_used`` and the caching
+    allocator's host-side counter (``memory_allocated()``'s: no sync) less
+    what was held outside the step and the inputs not yet bound; the
+    allocator must stay within ``device_used`` + the slack of a step under
+    a limit at every instruction.  Also the hook's cost per step, between
+    two steps of the same rung without it."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.lowering.program import BindArg
+
+    b, s = batch["tokens"].shape
+    env = {"b": b, "s": s}
+    fn = opt.with_memory_limit(cap)
+    prog = fn.program
+    slack = allocator_slack(prog, env) + MAX_SUBGRAPH * LARGE_OVERHEAD
+    nbytes = prog.resolve(env).nbytes
+    arg_bytes = {inst.reg: nbytes[inst.reg] for inst in prog.instructions
+                 if isinstance(inst, BindArg) and inst.index >= 0}
+    batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
+    pending = [sum(arg_bytes.values())]       # inputs not bound yet
+    rows = []
+    # memory_allocated()'s own counter, read without memory_stats()'s
+    # Python flattening of every other statistic (~100 us a call)
+    stats, dev = torch._C._cuda_memoryStats, torch.cuda.current_device()
+
+    def allocated():
+        return stats(dev)["allocated_bytes"]["all"]["current"]
+
+    if allocated() != torch.cuda.memory_allocated():
+        raise AssertionError("the allocator counter differs from "
+                             "memory_allocated()")
+
+    def hook(idx, inst, mm):
+        if isinstance(inst, BindArg):
+            pending[0] -= arg_bytes.get(inst.reg, 0)
+        rows.append((idx, mm.stats.device_used, allocated() - pending[0]))
+
+    walls = {"without": [], "with": []}
+    walls["without"].append(step(fn, batch)[2])
+    args = [pytree.tree_map(torch.clone, params),
+            pytree.tree_map(torch.clone, opt_state), batch]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - state_bytes - batch_bytes
+    fn.interp.timeline_hook = hook
+    try:
+        t0 = time.perf_counter()
+        out = fn.call_donated(args)
+        torch.cuda.synchronize()
+        walls["with"].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        fn.interp.timeline_hook = None
+    st = fn.last_report.stats
+    same_loss = torch.equal(out[0], want_loss)
+    del out
+    walls["without"].append(step(fn, batch)[2])
+    gaps = [(alloc - held - used, idx) for idx, used, alloc in rows]
+    up, up_idx = max(gaps)
+    down, down_idx = min(gaps)
+
+    def name(idx):
+        return type(prog.instructions[idx]).__name__
+
+    without = sum(walls["without"]) / len(walls["without"])
+    log(f"[obs] (c) train ({b},{s}) at cap {OBS_RUNG} x peak = {cap}: "
+        f"dynamic stream, {len(rows)} instructions hooked of "
+        f"{len(prog.instructions)}, evictions {st.evictions}, device_peak "
+        f"{st.device_peak}; allocator - device_used per instruction: most "
+        f"above {up} at #{up_idx} {name(up_idx)}, most below {-down} at "
+        f"#{down_idx} {name(down_idx)} (slack {slack}); step with the hook "
+        f"{walls['with'][0]:.3f} ms, without {walls['without'][0]:.3f} / "
+        f"{walls['without'][1]:.3f} ms: hook cost "
+        f"{walls['with'][0] - without:.3f} ms per step "
+        f"({1e3 * (walls['with'][0] - without) / len(rows):.2f} us per "
+        f"instruction); loss bitwise equal to the uncapped step: "
+        f"{same_loss}")
+    if len(rows) != len(prog.instructions) or not st.evictions:
+        raise AssertionError("the hook did not see a dynamic stream")
+    if up > slack:
+        raise AssertionError(
+            f"at #{up_idx} {name(up_idx)} the allocator holds {up} B above "
+            f"the plan's device_used (slack {slack})")
+    if not same_loss:
+        raise AssertionError("the hooked step changed the loss")
+    OBS["dynamic"] = dict(cap=cap, n=len(rows), evictions=st.evictions,
+                          above=up, above_at=[up_idx, name(up_idx)],
+                          below=-down, below_at=[down_idx, name(down_idx)],
+                          slack=slack, with_ms=walls["with"][0],
+                          without_ms=walls["without"])
 
 
 # -- phase 7: bucketed dispatch and per-bucket kernel selection --------------
@@ -988,10 +1145,22 @@ def phase_buckets(cfg, batches, outs, plain, medians):
             tokens.numel() * tokens.element_size()
         c0 = _launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        logits = opt(params, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        # phase 10 (f): the first bucketed call of the run, taken apart
+        # (GC pauses inside it, device time by CUDA events)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            ev[0].record()
+            logits = opt(params, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if i == 0:
+            OBS["first_call"] = dict(
+                env=env, wall_s=wall, gc=pauses,
+                device_ms=ev[0].elapsed_time(ev[1]),
+                dispatch_ns=opt.last_report.stats.last_dispatch_ns,
+                run_s=opt.last_report.wall_s)
         st = opt.last_report.stats
         step_alloc = torch.cuda.max_memory_allocated() - held
         key = opt.last_bucket
@@ -1137,6 +1306,7 @@ def phase_buckets(cfg, batches, outs, plain, medians):
                                  f"hit its bucket with (a)'s logits")
     log(f"[buckets] (b) after the drain: every request hit its bucket, "
         f"logits bitwise equal to (a)'s; table {tbg.stats()}")
+    OBS["background_trace"] = opt_bg.trace
 
     # (c) the BucketBatcher: admission by bucket arena bound
     bounds = sorted({table.arena_bound_bytes(table.key_of(
@@ -1163,6 +1333,7 @@ def phase_buckets(cfg, batches, outs, plain, medians):
         f"held_count {batcher.held_count}")
     launches = _launch_counts()
     log(f"[buckets] launches over (a)-(c) {launches}")
+    OBS["buckets"] = (opt, params, batches)
     del params, opt, opt_bg, batcher, outcomes, got_a
     torch.cuda.empty_cache()
     return launches
@@ -1387,6 +1558,8 @@ def phase_bounded():
         if tuple(out.shape) != (D,) or not torch.isfinite(out.float()).all():
             raise AssertionError("bad output")
         last_peak = st.device_peak
+        OBS["timelines"].append(("bounded", fn, dict(rep.env),
+                                 st.device_peak, step_alloc, slack + temps))
         rows_out.append(dict(occ=occ, measured=measured,
                              device_peak=st.device_peak, pad_peak=pad,
                              step_alloc=step_alloc, median_ms=med,
@@ -1512,6 +1685,8 @@ def phase_loop():
                 f"device_peak {st.device_peak} + {slack}")
         if tuple(toks.shape) != (T, B) or not torch.isfinite(h).all():
             raise AssertionError("bad loop outputs")
+        OBS["timelines"].append(("loop", rolled, {"t": T}, st.device_peak,
+                                 step_alloc, slack))
         out[T] = (pos, h, toks, st.device_peak)
 
     rows = {}
@@ -1555,6 +1730,315 @@ def phase_loop():
                            "wide": c4096_s}, steps=rows)
 
 
+# -- phase 10: observability (spans, timelines, telemetry, exports) ---------
+
+OBS_ROUNDS = 100        # (d): interleaved single-call samples per label
+OBS_CHECK_ITERS = 100_000
+OBS_TOL = 0.02          # (d): the disabled check's share of a call
+EXPLAIN_HEADINGS = ("-- compile phases", "-- decisions", "-- arena slots",
+                    "-- rematerialization", "-- kernel selection",
+                    "-- resilience", "-- plan vs actual @ env")
+PROM_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? (\S+)$")
+
+
+def span_summary(tracer) -> str:
+    """Seconds of the first top-level span of each name (the first
+    compile), its children in brackets, and the count and seconds of the
+    later ones (a recompile, each ``with_memory_limit``'s lowering)."""
+    first, later = {}, {}
+    for root in tracer.roots:
+        if root.name in first:
+            n, sec = later.get(root.name, (0, 0.0))
+            later[root.name] = (n + 1, sec + root.duration_ns / 1e9)
+        else:
+            first[root.name] = root
+    parts = []
+    for name, sp in first.items():
+        kids = ", ".join(f"{c.name} {c.duration_ns / 1e9:.3f}"
+                         for c in sp.children)
+        parts.append(f"{name} {sp.duration_ns / 1e9:.3f} s"
+                     + (f" ({kids})" if kids else ""))
+    parts += [f"+{n} later {name} {sec:.3f} s"
+              for name, (n, sec) in later.items()]
+    return "; ".join(parts)
+
+
+def check_chrome_trace(tracer, path: Path) -> int:
+    """Write ``chrome_trace_json(tracer)`` to ``path`` and check it: it
+    parses, every complete event carries ts, dur, pid and tid, and every
+    child span lies inside its parent's window.  Returns the events."""
+    from repro_torch.core.obs import chrome_trace_json
+    text = chrome_trace_json(tracer)
+    path.write_text(text)
+    events = json.loads(text)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    if not spans:
+        raise AssertionError(f"{path.name}: no complete events")
+    for e in spans:
+        if not {"name", "ts", "dur", "pid", "tid"} <= set(e) or e["dur"] < 0:
+            raise AssertionError(f"{path.name}: malformed event {e}")
+    for root in tracer.roots:
+        for sp in root.walk():
+            for c in sp.children:
+                if not sp.t0_ns <= c.t0_ns <= c.t1_ns <= sp.t1_ns:
+                    raise AssertionError(f"span {c.name} outside {sp.name}")
+    return len(events)
+
+
+def disabled_path(label, fn, params, batch):
+    """(d): the isolated cost of the disabled telemetry check against the
+    median call, and interleaved single-call medians of never enabled,
+    enabled and re-disabled telemetry (reported only)."""
+    import statistics
+
+    import torch
+
+    def sample():
+        t0 = time.perf_counter()
+        fn(params, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(5):
+        sample()
+    sinks = {"base": [], "dis": [], "en": []}
+    labels = list(sinks)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for r in range(OBS_ROUNDS):
+            k = r % 3
+            for lab in labels[k:] + labels[:k]:
+                if lab == "en":
+                    fn.enable_telemetry(capacity=256)
+                sinks[lab].append(sample())
+                if lab == "en":
+                    fn.disable_telemetry()
+    finally:
+        if enabled:
+            gc.enable()
+    med = {k: statistics.median(v) for k, v in sinks.items()}
+    t0 = time.perf_counter()
+    for _ in range(OBS_CHECK_ITERS):
+        tel = fn._telemetry
+        if tel is not None:
+            raise AssertionError("telemetry unexpectedly enabled")
+    check_ns = (time.perf_counter() - t0) / OBS_CHECK_ITERS * 1e9
+    share = check_ns / (med["dis"] * 1e9)
+    row = dict(check_ns=check_ns, share=share,
+               base_ms=1e3 * med["base"], dis_ms=1e3 * med["dis"],
+               en_ms=1e3 * med["en"],
+               disabled_over_base=med["dis"] / med["base"],
+               enabled_over_disabled=med["en"] / med["dis"])
+    log(f"[obs] (d) {label} (1,16): disabled check {check_ns:.1f} ns = "
+        f"{100 * share:.5f}% of the {1e3 * med['dis']:.3f} ms median call "
+        f"(contract <= {100 * OBS_TOL:.0f}%); medians over {OBS_ROUNDS} "
+        f"interleaved rounds: never enabled {1e3 * med['base']:.3f} ms, "
+        f"enabled {1e3 * med['en']:.3f} ms, re-disabled "
+        f"{1e3 * med['dis']:.3f} ms; disabled_over_base "
+        f"{row['disabled_over_base']:.4f} enabled_over_disabled "
+        f"{row['enabled_over_disabled']:.4f} (reported only)")
+    if share > OBS_TOL:
+        raise AssertionError(f"the disabled check is {100 * share:.3f}% of "
+                             f"the call")
+    return row
+
+
+def profile_host(label: str, run) -> None:
+    """torch.profiler over one call of ``run``: host time by op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    for us, count, key in rows[:10]:
+        log(f"[obs] (f) {label}: {us:10.1f} us host x{count:<4d} {key[:80]}")
+
+
+def phase_obs():
+    """Phase 10: compile spans, plan-vs-actual timelines at every observed
+    call, the disabled path's cost, telemetry and exports on the bucketed
+    path, the first bucketed call taken apart, and explain."""
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+    from repro_torch.core import TensorSpec, optimize, spec_like, symbolic_dims
+    from repro_torch.launch.serve import BucketBatcher
+    from repro_torch.launch.steps import make_prefill_step
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    prefill, train = OBS["prefill"], OBS["train"]
+    bucketed, params, batches = OBS["buckets"]
+    out = {}
+
+    # (a) compile spans and the Chrome trace
+    for name, fn in (("prefill", prefill), ("train", train),
+                     ("buckets", bucketed)):
+        n = check_chrome_trace(fn.trace, build / f"obs_trace_{name}.json")
+        log(f"[obs] (a) {name} spans: {span_summary(fn.trace)}; chrome "
+            f"trace {n} events, valid and nested "
+            f"(build/obs_trace_{name}.json)")
+        out[f"spans_{name}"] = {r.name: r.duration_ns / 1e9
+                                for r in reversed(fn.trace.roots)}
+
+    # (b) the replayed timeline of every observed call
+    rows = []
+    for label, fn, env, peak, alloc, slack in OBS["timelines"]:
+        d = fn.memory_timeline(env)
+        a = d.actual
+        log(f"[obs] (b) {label} {env}: {len(a.points)} points, replayed "
+            f"peak {a.peak_device} predicted {d.predicted_peak_device} live "
+            f"device_peak {peak}; allocator peak of the call {alloc} = "
+            f"replayed + {alloc - a.peak_device} (slack {slack}); arena "
+            f"{a.arena_bytes} <= bound {d.arena_bound_bytes}; unexplained "
+            f"{len(d.unexplained)}")
+        if not d.ok or d.unexplained:
+            raise AssertionError(f"{label} {env}: {d.summary()}")
+        if not a.peak_device == d.predicted_peak_device == peak:
+            raise AssertionError(f"{label} {env}: replayed {a.peak_device}, "
+                                 f"predicted {d.predicted_peak_device}, "
+                                 f"live {peak}")
+        if alloc > a.peak_device + slack:
+            raise AssertionError(f"{label} {env}: allocator {alloc} above "
+                                 f"{a.peak_device} + {slack}")
+        rows.append(dict(path=label, env=env, points=len(a.points),
+                         peak=a.peak_device, alloc=alloc, slack=slack))
+    out["timelines"] = rows
+
+    # (d) the disabled path at the host-bound request (1,16)
+    small = batches[REQUESTS.index((1, 16))]
+    out["disabled"] = {
+        "unbucketed": disabled_path("unbucketed", prefill, params, small),
+        "bucketed": disabled_path("bucketed", bucketed, params, small)}
+
+    # (e) telemetry and export on the bucketed path
+    tel = bucketed.enable_telemetry(capacity=64, sample_timeline_every=2)
+    calls = []
+    for _ in range(2):
+        for batch in batches:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            bucketed(params, batch)
+            ev[1].record()
+            calls.append((bucketed.last_report, bucketed.last_bucket, ev))
+    torch.cuda.synchronize()
+    bucketed.disable_telemetry()
+    recs = tel.ring.records()
+    if len(recs) != len(calls):
+        raise AssertionError(f"ring holds {len(recs)} of {len(calls)} calls")
+    for rec, (rep, key, ev) in zip(recs, calls):
+        st = rep.stats
+        if (rec.env, rec.bucket_key, rec.device_peak, rec.arena_bytes) != \
+                (tuple(sorted(rep.env.items())), key, st.device_peak,
+                 st.arena_bytes):
+            raise AssertionError(f"call {rec.seq}: {rec} against {rep}")
+        log(f"[obs] (e) call {rec.seq} {dict(rec.env)} bucket "
+            f"{rec.bucket_key}: CallRecord.wall_s {1e3 * rec.wall_s:.3f} ms "
+            f"(host) vs CUDA events {ev[0].elapsed_time(ev[1]):.3f} ms; "
+            f"dispatch {rec.dispatch_ns} ns; device_peak {rec.device_peak}")
+    if [seq for seq, _ in tel.timelines] != list(range(0, len(calls), 2)) \
+            or any(tl.peak_device != recs[seq].device_peak
+                   for seq, tl in tel.timelines):
+        raise AssertionError("sampled timelines do not match the calls")
+    log(f"[obs] (e) ring summary {tel.summary()}")
+    table = bucketed.specialization_table
+    plans = [bucketed.plan] + [table.peek(sp.attrs["bucket"]).plan
+                               for sp in bucketed.trace.find("specialize")]
+    entries = bucketed.decisions.entries("kernel-select")
+    k = len(bucketed.plan.kernel_selections)
+    if len(entries) != k * len(plans):
+        raise AssertionError(f"{len(entries)} kernel-select decisions for "
+                             f"{len(plans)} plans of {k} kernel nodes")
+    for i, plan in enumerate(plans):
+        chunk = entries[i * k:(i + 1) * k]
+        got = {}
+        for d in chunk:
+            got[d.choice] = got.get(d.choice, 0) + 1
+        subjects = [f"%{nid} {sel.prim_name}"
+                    for nid, sel in plan.kernel_selections.items()]
+        if got != _selection_summary(plan) or \
+                [d.subject for d in chunk] != subjects:
+            raise AssertionError(f"plan {i}: kernel-select decisions {got} "
+                                 f"against selections "
+                                 f"{_selection_summary(plan)}")
+    log(f"[obs] (e) kernel-select decisions equal the selections of "
+        f"{len(plans)} plans (whole range + buckets "
+        f"{[sp.attrs['bucket'] for sp in bucketed.trace.find('specialize')]})"
+        f"; e.g. {entries[0].subject} -> {entries[0].choice}: "
+        f"{entries[0].why}")
+    batcher = BucketBatcher(bucketed)
+    for (b, s) in REQUESTS:
+        batcher.submit({"b": b, "s": s})
+    batcher.drain()
+    text = batcher.metrics_text()
+    kinds, n_samples = {}, 0
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split()
+            kinds[name] = kind
+        elif ln and not ln.startswith("#"):
+            m = PROM_SAMPLE.match(ln)
+            if m is None or m.group(1) not in kinds:
+                raise AssertionError(f"not Prometheus text: {ln!r}")
+            float(m.group(3))
+            n_samples += 1
+    (build / "obs_metrics.txt").write_text(text)
+    log(f"[obs] (e) metrics_text: {len(kinds)} families, {n_samples} "
+        f"samples, every sample typed and parsed ({sorted(kinds)})")
+
+    # (f) where the first bucketed call's time went
+    fc = OBS["first_call"]
+    specs = bucketed.trace.find("specialize")
+    for sp in specs + OBS["background_trace"].find("specialize"):
+        log(f"[obs] (f) specialize bucket {sp.attrs['bucket']} background "
+            f"{sp.attrs['background']}: {sp.duration_ns / 1e9:.3f} s "
+            f"({', '.join(f'{c.name} {c.duration_ns / 1e9:.3f}' for c in sp.children)})")
+    spec_s = specs[0].duration_ns / 1e9
+    gc_s = sum(sec for _, sec in fc["gc"])
+    rest = fc["wall_s"] - fc["dispatch_ns"] / 1e9 - fc["run_s"]
+    log(f"[obs] (f) first bucketed call of the run {fc['env']}: wall "
+        f"{fc['wall_s']:.3f} s = dispatch {fc['dispatch_ns'] / 1e9:.3f} s "
+        f"(its bucket's specialize span {spec_s:.3f} s) + VM run (host) "
+        f"{fc['run_s']:.3f} s + the rest {rest:.3f} s (arguments, the wait "
+        f"for the card); device time {fc['device_ms']:.3f} ms by CUDA "
+        f"events; {len(fc['gc'])} garbage collections inside the call, "
+        f"{gc_s:.3f} s (the longest "
+        f"{max(fc['gc'], key=lambda g: g[1], default=(None, 0.0))})")
+    out["first_call"] = dict(fc, gc=len(fc["gc"]), specialize_s=spec_s,
+                             gc_s=gc_s, rest_s=rest)
+    unexplained = fc["wall_s"] - spec_s - fc["device_ms"] / 1e3
+    if unexplained > 0.1:
+        B, S = symbolic_dims("b, s")
+        fresh = optimize(make_prefill_step(CONFIG), spec_like(params),
+                         {"tokens": TensorSpec((B, S), torch.int32)},
+                         dynamic_dims=DYNAMIC_DIMS, buckets="geometric")
+        profile_host("a fresh bucketed plan's first call",
+                     lambda: fresh(params, small))
+        del fresh
+
+    # (g) explain at the largest request
+    big = dict(zip(("b", "s"), REQUESTS[-1]))
+    text = prefill.explain(big)
+    (build / "obs_explain_prefill.txt").write_text(text)
+    heads = [ln for ln in text.splitlines() if ln.startswith("-- ")]
+    log(f"[obs] (g) explain({big}) of the prefill plan: "
+        f"{len(text.splitlines())} lines (build/obs_explain_prefill.txt); "
+        f"headings {[h.rstrip(' -') for h in heads]}")
+    missing = [h for h in EXPLAIN_HEADINGS
+               if not any(x.startswith(h) for x in heads)]
+    if missing or "verdict: OK" not in text:
+        raise AssertionError(f"explain lacks {missing} or its verdict")
+    log(f"[obs] phase 10 {time.perf_counter() - t_phase:.1f} s; rows "
+        f"{json.dumps(out, default=str)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1585,6 +2069,7 @@ def main() -> int:
     phase_kernel_select()
     bounded_launches, _ = counted_launches(phase_bounded)
     loop_launches, _ = counted_launches(phase_loop)
+    phase_obs()
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"

@@ -5,9 +5,10 @@ The paper's primary contribution lives here: symbolic shape analysis
 (``repro_torch.core.ir``), op scheduling (``repro_torch.core.scheduling``),
 rematerialization (``repro_torch.core.remat``), the symbolic memory planner
 (``repro_torch.core.memplan``), the executors — the register VM and the
-op-by-op interpreter (``repro_torch.core.executor``) — and bucketed
-specialization (``repro_torch.core.dispatch``), wired together by
-:func:`optimize`.
+op-by-op interpreter (``repro_torch.core.executor``) — bucketed
+specialization (``repro_torch.core.dispatch``) and observability
+(``repro_torch.core.obs``: compile spans, the decision log, per-call
+telemetry, memory timelines), wired together by :func:`optimize`.
 """
 from .api import (DynamicShapeFunction, MemoryLimitExceeded, OptimizeReport,
                   TensorSpec, optimize, resolve_device, scan, spec_like,

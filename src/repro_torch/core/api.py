@@ -25,6 +25,12 @@ no verdict they depended on flips); each call dispatches to its bucket's
 plan in O(log n) per dim through a :class:`SpecializationTable` with LRU
 retention.
 
+Every ``optimize`` records its compile phases as spans (``fn.trace``) and
+the decisions only observable while they happen (``fn.decisions``);
+``enable_telemetry`` attaches a per-call ring, ``memory_timeline(env)``
+replays a lowered Program into a plan-vs-actual memory curve, and
+``explain`` renders all of it (:mod:`repro_torch.core.obs`).
+
 Not ported yet, and refused with ``NotImplementedError``: resilience and
 fault injection (``resilience=``, ``fault_plan=``).
 """
@@ -49,6 +55,7 @@ from .ir.capture import (TensorSpec, capture, check_declared_ranges,
                          solve_env, spec_like, symbolic_dims)
 from .lowering import Program, lower_plan
 from .memplan import ArenaPlan, build_arena_plan
+from .obs import NULL_TRACER, DecisionLog, Telemetry, Tracer
 from .remat.planner import ExecutionPlan, build_plan
 from .resilience import CircuitBreaker
 from .scheduling.exchange import exchange_pass
@@ -196,6 +203,8 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
                       guard_env: Optional[Dict[str, int]] = None,
                       parent: Optional[PipelineArtifacts] = None,
                       collect: bool = False,
+                      tracer: Any = NULL_TRACER,
+                      decisions: Optional[DecisionLog] = None,
                       kernel_select: bool = True,
                       kernel_forced: Optional[Mapping[int, str]] = None,
                       hw: Any = None,
@@ -216,11 +225,20 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
     parent's schedule and remat candidates are reused (intervals refreshed
     under the tighter bounds) and only memory planning, kernel selection
     and peak bounds run.  ``hw`` is the kernel cost model's
-    :class:`~repro_torch.kernels.hw_model.HardwareModel`.
+    :class:`~repro_torch.kernels.hw_model.HardwareModel`.  Each phase runs
+    under a ``tracer`` span; the decisions only observable while they
+    happen land in ``decisions`` (a fresh log when ``None``).
     """
     from .remat.search import respecialize_candidates
 
     t_start = time.perf_counter()
+    dl = decisions if decisions is not None else DecisionLog()
+
+    def _cmp_delta(before: Dict[str, int]) -> Dict[str, int]:
+        """How many comparisons this phase resolved per layer."""
+        return {k: sg.cmp_stats.get(k, 0) - before.get(k, 0)
+                for k in set(sg.cmp_stats) | set(before)
+                if sg.cmp_stats.get(k, 0) != before.get(k, 0)}
 
     def _clamp(name: str, v: int) -> int:
         iv = sg.declared_ranges.get(name)
@@ -241,85 +259,143 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
     cand_keys: Dict[int, frozenset] = {}
     sched_cache = parent.sched_expr_cache if parent is not None else {}
     remat_cache = parent.remat_expr_cache if parent is not None else {}
-    if parent is not None and enable_scheduling and \
-            sg.verdicts_match(parent.sg, parent.cmp_keys):
-        # incremental fast path: every schedule/remat decision would come
-        # out identical — reuse them; bounds-dependent phases still re-run
-        sched = parent.sched
-        used_sched = parent.used_sched
-        candidates = respecialize_candidates(parent.candidates, sg) \
-            if enable_remat else {}
-        reused = True
-    elif enable_scheduling:
-        with sg.record_cmp_keys() as keys:
-            sched = schedule_graph(graph, sg, impact_expr_cache=sched_cache)
-        recorded |= keys
-        raw_order_ids = tuple(n.id for n in sched.order)
-        if parent is not None and parent.raw_order_ids == raw_order_ids:
-            # the narrowed ranges changed some remat verdict but not the
-            # schedule itself: adopt the parent's guarded + exchanged final
-            # order (already proven no worse at the parent's probe envs)
-            sched = ScheduleResult(list(parent.sched.order),
-                                   sched.symbolic_decisions,
-                                   sched.tiebreak_decisions)
+    cmp0 = dict(sg.cmp_stats)
+    with tracer.span("schedule", n_nodes=len(graph.nodes)) as _ssp:
+        if parent is not None and enable_scheduling and \
+                sg.verdicts_match(parent.sg, parent.cmp_keys):
+            # incremental fast path: every schedule/remat decision would
+            # come out identical — reuse them; bounds-dependent phases
+            # still re-run
+            sched = parent.sched
             used_sched = parent.used_sched
-            reused_postpass = True
-        else:
-            # guard envs bind the *declared* dims only; value-dependent
-            # bounded dims complete to their caps per probe env (a bounded
-            # dim's guard value must track its cap, not a fixed 64)
-            free_syms = graph.free_symbols() - set(graph.bound_dims)
-            env = dict(guard_env) if guard_env else \
-                {n: 64 for n in free_syms}
-            for name in free_syms:
-                env.setdefault(name, 64)
-            env = {k: _clamp(k, v) for k, v in env.items()}
-            probe_envs = [complete_bound_env(graph, e) for e in (
-                env,
-                {k: _clamp(k, max(1, v // 4)) for k, v in env.items()},
-                {k: _clamp(k, v * 4) for k, v in env.items()})]
-            env = probe_envs[0]
-            # best-of safeguard: never keep an order that regresses the
-            # program order's peak at the guard env
-            base = simulate_peak(graph, graph.nodes, env,
-                                 count_inputs=count_inputs)
-            tuned = simulate_peak(graph, sched.order, env,
-                                  count_inputs=count_inputs)
-            used_sched = tuned.peak_bytes <= base.peak_bytes
-            kept_peak = min(tuned.peak_bytes, base.peak_bytes)
-            if not used_sched:
-                sched = ScheduleResult(list(graph.nodes),
+            candidates = respecialize_candidates(parent.candidates, sg) \
+                if enable_remat else {}
+            reused = True
+            dl.add("bucket-reuse", "schedule+remat", "inherit",
+                   "no compare verdict the parent depended on flips under "
+                   "the narrowed ranges",
+                   n_candidates=len(candidates or {}))
+        elif enable_scheduling:
+            with sg.record_cmp_keys() as keys:
+                sched = schedule_graph(graph, sg,
+                                       impact_expr_cache=sched_cache)
+            recorded |= keys
+            raw_order_ids = tuple(n.id for n in sched.order)
+            if parent is not None and parent.raw_order_ids == raw_order_ids:
+                # the narrowed ranges changed some remat verdict but not the
+                # schedule itself: adopt the parent's guarded + exchanged
+                # final order (already proven no worse at the parent's probe
+                # envs)
+                sched = ScheduleResult(list(parent.sched.order),
                                        sched.symbolic_decisions,
                                        sched.tiebreak_decisions)
-            # pairwise-exchange refinement, guarded at the probe envs
-            refined = exchange_pass(graph, sched.order, probe_envs)
-            refined_peak = simulate_peak(graph, refined, env,
-                                         count_inputs=count_inputs).peak_bytes
-            if refined_peak <= kept_peak:
-                sched = ScheduleResult(refined, sched.symbolic_decisions,
-                                       sched.tiebreak_decisions)
-    else:
-        sched = ScheduleResult(list(graph.nodes), 0, 0)
+                used_sched = parent.used_sched
+                reused_postpass = True
+                dl.add("bucket-reuse", "schedule post-pass", "inherit",
+                       "re-run scheduler reproduced the parent's raw order; "
+                       "adopting its guarded + exchanged result")
+            else:
+                # guard envs bind the *declared* dims only; value-dependent
+                # bounded dims complete to their caps per probe env (a
+                # bounded dim's guard value must track its cap, not a fixed
+                # 64)
+                free_syms = graph.free_symbols() - set(graph.bound_dims)
+                env = dict(guard_env) if guard_env else \
+                    {n: 64 for n in free_syms}
+                for name in free_syms:
+                    env.setdefault(name, 64)
+                env = {k: _clamp(k, v) for k, v in env.items()}
+                probe_envs = [complete_bound_env(graph, e) for e in (
+                    env,
+                    {k: _clamp(k, max(1, v // 4)) for k, v in env.items()},
+                    {k: _clamp(k, v * 4) for k, v in env.items()})]
+                env = probe_envs[0]
+                # best-of safeguard: never keep an order that regresses the
+                # program order's peak at the guard env
+                base = simulate_peak(graph, graph.nodes, env,
+                                     count_inputs=count_inputs)
+                tuned = simulate_peak(graph, sched.order, env,
+                                      count_inputs=count_inputs)
+                used_sched = tuned.peak_bytes <= base.peak_bytes
+                kept_peak = min(tuned.peak_bytes, base.peak_bytes)
+                dl.add("schedule-guard", "scheduled order",
+                       "keep" if used_sched else "revert",
+                       f"scheduled peak {tuned.peak_bytes:,} vs program "
+                       f"order {base.peak_bytes:,} at the guard env",
+                       guard_env=dict(env),
+                       scheduled_peak=tuned.peak_bytes,
+                       base_peak=base.peak_bytes)
+                if not used_sched:
+                    sched = ScheduleResult(list(graph.nodes),
+                                           sched.symbolic_decisions,
+                                           sched.tiebreak_decisions)
+                # pairwise-exchange refinement, guarded at the probe envs
+                with tracer.span("exchange") as _xsp:
+                    n_sw0 = len(dl.entries("exchange-swap"))
+                    refined = exchange_pass(graph, sched.order, probe_envs,
+                                            decisions=dl)
+                    _xsp.attrs["n_swaps"] = \
+                        len(dl.entries("exchange-swap")) - n_sw0
+                refined_peak = simulate_peak(
+                    graph, refined, env, count_inputs=count_inputs).peak_bytes
+                if refined_peak <= kept_peak:
+                    sched = ScheduleResult(refined, sched.symbolic_decisions,
+                                           sched.tiebreak_decisions)
+                    _xsp.attrs["adopted"] = True
+                else:
+                    dl.add("schedule-guard", "exchange refinement", "discard",
+                           f"refined peak {refined_peak:,} exceeds kept "
+                           f"peak {kept_peak:,} at the guard env")
+                    _xsp.attrs["adopted"] = False
+        else:
+            sched = ScheduleResult(list(graph.nodes), 0, 0)
+        _ssp.attrs.update(reused_parent=reused,
+                          reused_postpass=reused_postpass,
+                          used_scheduled_order=used_sched,
+                          cmp=_cmp_delta(cmp0))
 
     arena_plan = None
     if memory_plan == "arena":
-        arena_plan = build_arena_plan(graph, sched.order, sg,
-                                      donate_inputs=donate_inputs)
+        with tracer.span("memplan") as _msp:
+            arena_plan = build_arena_plan(graph, sched.order, sg,
+                                          donate_inputs=donate_inputs)
+            _msp.attrs.update(
+                n_slots=arena_plan.n_slots,
+                arena_bound_bytes=arena_plan.arena_bound_bytes,
+                n_provable_reuses=arena_plan.n_provable_reuses,
+                n_checked_reuses=arena_plan.n_checked_reuses)
+            dl.add("slot-pack", "arena",
+                   f"{arena_plan.n_slots} slots",
+                   "liveness intervals packed by symbolic-size compatibility "
+                   "(reuse proven through the shape graph)",
+                   n_provable_reuses=arena_plan.n_provable_reuses,
+                   n_checked_reuses=arena_plan.n_checked_reuses,
+                   arena_bound_bytes=arena_plan.arena_bound_bytes)
     if candidates is not None:
         plan = ExecutionPlan(graph=graph, order=list(sched.order),
                              shape_graph=sg, candidates=candidates,
                              arena_plan=arena_plan)
     else:
-        with sg.record_cmp_keys() as keys:
-            plan = build_plan(graph, sched, sg, enable_remat=enable_remat,
-                              max_subgraph=max_subgraph,
-                              arena_plan=arena_plan,
-                              remat_expr_cache=remat_cache,
-                              cand_keys_out=cand_keys if collect else None,
-                              parent_remat=None if parent is None else
-                              (parent.sg, parent.candidates,
-                               parent.cand_cmp_keys))
+        cmp1 = dict(sg.cmp_stats)
+        with tracer.span("remat") as _rsp:
+            with sg.record_cmp_keys() as keys:
+                plan = build_plan(graph, sched, sg, enable_remat=enable_remat,
+                                  max_subgraph=max_subgraph,
+                                  arena_plan=arena_plan,
+                                  remat_expr_cache=remat_cache,
+                                  cand_keys_out=cand_keys if collect else None,
+                                  parent_remat=None if parent is None else
+                                  (parent.sg, parent.candidates,
+                                   parent.cand_cmp_keys))
+            _rsp.attrs.update(n_candidates=plan.n_candidates,
+                              n_recomputable=plan.n_recomputable,
+                              n_static_regen=plan.n_static_regen,
+                              cmp=_cmp_delta(cmp1))
         recorded |= keys
+        for vid, method in sorted(plan.static_methods.items()):
+            dl.add("remat-static", f"%{vid}", method,
+                   "interval bounds over the declared ranges fix the cheaper "
+                   "regeneration method at compile time")
     if kernel_select:
         # kernel-variant selection: score every variant of every kernel
         # node over THIS plan's interval bounds — a bucket's narrowed
@@ -329,16 +405,24 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
         # on the shared graph nodes.
         from ..kernels.hw_model import DEFAULT_HW
         from ..kernels.variants import select_kernels
-        sels = select_kernels(graph, sg, hw if hw is not None else DEFAULT_HW,
-                              forced=kernel_forced)
-        plan.kernel_selections = sels
-        plan.kernel_overrides = {
-            nid: s.variant.overrides() for nid, s in sels.items()}
+        with tracer.span("kernel-select") as _kspan:
+            sels = select_kernels(graph, sg,
+                                  hw if hw is not None else DEFAULT_HW,
+                                  forced=kernel_forced, decisions=dl)
+            plan.kernel_selections = sels
+            plan.kernel_overrides = {
+                nid: s.variant.overrides() for nid, s in sels.items()}
+            _kspan.attrs.update(
+                n_kernels=len(sels),
+                n_non_default=sum(1 for s in sels.values()
+                                  if not s.is_default))
     peak_lo = peak_hi = None
     if sg.declared_ranges:  # without ranges the bound is vacuous (hi = None)
-        peak_lo, peak_hi = simulate_peak_bound(
-            graph, sched.order, sg, count_inputs=count_inputs,
-            donate_inputs=donate_inputs)
+        with tracer.span("bounds") as _bsp:
+            peak_lo, peak_hi = simulate_peak_bound(
+                graph, sched.order, sg, count_inputs=count_inputs,
+                donate_inputs=donate_inputs)
+            _bsp.attrs.update(peak_bound_lo=peak_lo, peak_bound_bytes=peak_hi)
     report = OptimizeReport(schedule=sched, used_scheduled_order=used_sched,
                             n_candidates=plan.n_candidates,
                             n_recomputable=plan.n_recomputable,
@@ -367,7 +451,8 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
 
 def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
                     executor: str, *, memory_limit: Optional[int],
-                    donate_inputs: bool, count_inputs: bool):
+                    donate_inputs: bool, count_inputs: bool,
+                    tracer: Any = NULL_TRACER):
     """Lower + wrap ``plan`` for one executor kind.
 
     ``executor="vm"`` lowers the plan to a flat :class:`Program` (the
@@ -384,10 +469,13 @@ def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
         return PlanInterpreter(plan, memory_limit=memory_limit,
                                donate_inputs=donate_inputs,
                                count_inputs=count_inputs), None
-    program = lower_plan(plan, memory_limit=memory_limit,
-                         donate_inputs=donate_inputs,
-                         count_inputs=count_inputs,
-                         peak_bound_bytes=report.peak_bound_bytes)
+    with tracer.span("lower") as sp:
+        program = lower_plan(plan, memory_limit=memory_limit,
+                             donate_inputs=donate_inputs,
+                             count_inputs=count_inputs,
+                             peak_bound_bytes=report.peak_bound_bytes)
+        sp.attrs["n_instructions"] = program.n_instructions
+        sp.attrs["has_evict_path"] = program.has_evict_path
     return ProgramVM(program), program
 
 
@@ -409,7 +497,9 @@ class DynamicShapeFunction:
                  kernel_forced: Optional[Dict[Optional[BucketKey],
                                               Dict[int, str]]] = None,
                  kernel_remeasure_after: Optional[int] = None,
-                 hw: Any = None):
+                 hw: Any = None,
+                 tracer: Optional[Tracer] = None,
+                 decisions: Optional[DecisionLog] = None):
         self.plan = plan
         self.report = report
         self.device = device
@@ -417,6 +507,12 @@ class DynamicShapeFunction:
         self.executor = executor
         self._donate_inputs = donate_inputs
         self._count_inputs = count_inputs
+        # observability: compile-span tree + decision log (shared with every
+        # bucket compile), per-call telemetry off by default (see
+        # enable_telemetry — the disabled hot path pays one attribute test)
+        self.trace = tracer if tracer is not None else Tracer()
+        self.decisions = decisions if decisions is not None else DecisionLog()
+        self._telemetry: Optional[Telemetry] = None
         # a background table already lowered the identical whole-range plan
         # for its fallback: adopt it instead of lowering twice
         if table is not None and table.fallback is not None:
@@ -425,7 +521,8 @@ class DynamicShapeFunction:
         else:
             self.interp, self._program = _build_executor(
                 plan, report, executor, memory_limit=memory_limit,
-                donate_inputs=donate_inputs, count_inputs=count_inputs)
+                donate_inputs=donate_inputs, count_inputs=count_inputs,
+                tracer=self.trace)
         self.last_report: Optional[RunReport] = None
         graph = plan.graph
         self._in_tree = graph.in_tree
@@ -487,6 +584,9 @@ class DynamicShapeFunction:
             self.last_arena_bound = self.report.arena_bound_bytes
             outs, report = self.interp.run(flat, env=env)
             self.last_report = report
+            tel = self._telemetry
+            if tel is not None:
+                self._record_call(tel, report, self._program)
             return outs
         # the began/ended bracket tells the background worker a request is
         # mid-flight so compiles defer instead of contending for the GIL
@@ -520,7 +620,20 @@ class DynamicShapeFunction:
         self.last_report = report
         if self._kernel_remeasure_after is not None:
             self._maybe_remeasure(self.last_bucket, env)
+        tel = self._telemetry
+        if tel is not None:
+            self._record_call(tel, report, bp.program)
         return outs
+
+    def _record_call(self, tel: Telemetry, report: RunReport,
+                     program: Optional[Program]) -> None:
+        """Telemetry-enabled path only (never reached when disabled)."""
+        trips: Tuple[int, ...] = ()
+        if program is not None and program.loops:
+            trips = tuple(rl.trip
+                          for rl in program.resolve(report.env).loops)
+        key = self.last_bucket if self._table is not None else None
+        tel.on_call(key, report, program=program, loop_trips=trips)
 
     def _check_args(self, flat: List[Any]) -> None:
         for x, dt in zip(flat, self._in_dtypes):
@@ -533,6 +646,57 @@ class DynamicShapeFunction:
                                  f"on {self.device}")
             if x.dtype != dt:
                 raise ValueError(f"argument dtype {x.dtype}, traced {dt}")
+
+    # -- observability ----------------------------------------------------------
+    def explain(self, env: Optional[Dict[str, int]] = None) -> str:
+        """Human-readable compile report: phase spans, decision log,
+        per-slot symbolic sizes + liveness intervals, frozen-vs-runtime
+        remat decisions, kernel selections, bucket table — and, when
+        ``env`` is given, the plan-vs-actual memory timeline diff at that
+        dim binding."""
+        from .obs.explain import build_explain
+        return build_explain(self, env=env)
+
+    def memory_timeline(self, env: Mapping[str, int]):
+        """Plan-vs-actual :class:`~repro_torch.core.obs.timeline.TimelineDiff`
+        at one env: reconstructed actual arena occupancy over the program
+        counter, diffed against the plan's predicted occupancy (VM
+        executor only — the reference interpreter has no lowered stream).
+        Uses the env's bucket Program when one is resident."""
+        from .obs.timeline import diff_timeline
+        env = dict(env)
+        prog = self._program
+        if self._table is not None:
+            bp = self._table.peek(self._table.key_of(env))
+            if bp is not None and bp.program is not None:
+                prog = bp.program
+        if prog is None:
+            raise ValueError(
+                'memory_timeline requires executor="vm" (no lowered '
+                "Program under the reference interpreter)")
+        return diff_timeline(prog, env)
+
+    def enable_telemetry(self, capacity: int = 256,
+                         sample_timeline_every: int = 0) -> Telemetry:
+        """Attach a per-call telemetry ring (see
+        :class:`repro_torch.core.obs.Telemetry`).
+        ``sample_timeline_every=N`` additionally reconstructs the exact
+        per-instruction memory timeline of every N-th call (off the hot
+        path, VM executor only).  Returns the live aggregate; read it any
+        time, detach with :meth:`disable_telemetry`."""
+        self._telemetry = Telemetry(
+            capacity=capacity, sample_timeline_every=sample_timeline_every)
+        return self._telemetry
+
+    def disable_telemetry(self) -> Optional[Telemetry]:
+        """Detach and return the telemetry aggregate (``None`` if off).
+        The hot path reverts to the single disabled-check immediately."""
+        tel, self._telemetry = self._telemetry, None
+        return tel
+
+    @property
+    def telemetry(self) -> Optional[Telemetry]:
+        return self._telemetry
 
     @property
     def program(self) -> Optional[Program]:
@@ -650,16 +814,25 @@ class DynamicShapeFunction:
             hi = {k: h for k, (_lo, h) in node_bounds(node, sg).items()}
             dtype = node.invals[0].dtype
             by_name = {v.name: v for v in variants_for(sel.prim_name)}
-            for name, _t in sorted(timings[nid].items(), key=lambda kv: kv[1]):
+            ranked = sorted(timings[nid].items(), key=lambda kv: kv[1])
+            for name, _t in ranked:
                 if variant_valid(sel.prim_name, by_name[name], hi, dtype, hw):
                     forced[nid] = name
                     break
+            self.decisions.add(
+                "kernel-measure", f"%{nid} {sel.prim_name}",
+                forced.get(nid, sel.variant.name),
+                f"measured best-of-{repeats} at "
+                + " ".join(f"{k}={v}" for k, v in sorted(env.items())),
+                timings_us={k: round(v * 1e6, 1) for k, v in ranked},
+                bucket=key)
         if self._table is not None:
             self._kernel_forced[key] = forced
             plan = self._table.recompile(key).plan
         else:
             self.plan.kernel_selections = select_kernels(
-                self.plan.graph, sg, hw, forced=forced)
+                self.plan.graph, sg, hw, forced=forced,
+                decisions=self.decisions)
             self.plan.kernel_overrides = {
                 nid: s.variant.overrides()
                 for nid, s in self.plan.kernel_selections.items()}
@@ -667,7 +840,7 @@ class DynamicShapeFunction:
                 self.plan, self.report, self.executor,
                 memory_limit=self.memory_limit,
                 donate_inputs=self._donate_inputs,
-                count_inputs=self._count_inputs)
+                count_inputs=self._count_inputs, tracer=self.trace)
             plan = self.plan
         for nid, sel in plan.kernel_selections.items():
             sel.measured_s = timings.get(nid, {})
@@ -709,7 +882,8 @@ class DynamicShapeFunction:
             count_inputs=self._count_inputs, executor=self.executor,
             table=table, table_factory=self._table_factory,
             kernel_forced=self._kernel_forced,
-            kernel_remeasure_after=self._kernel_remeasure_after, hw=self._hw)
+            kernel_remeasure_after=self._kernel_remeasure_after, hw=self._hw,
+            tracer=self.trace, decisions=self.decisions)
 
 
 def optimize(fn: Callable, *specs,
@@ -809,7 +983,11 @@ def optimize(fn: Callable, *specs,
         from ..kernels.hw_model import DEFAULT_HW, HardwareModel
         hw = HardwareModel.from_device(dev) if dev.type == "cuda" \
             else DEFAULT_HW
-    graph, guards = capture(fn, specs, device=dev, ranges=dynamic_dims)
+    tracer = Tracer()
+    decisions = DecisionLog()
+    with tracer.span("trace") as _tsp:
+        graph, guards = capture(fn, specs, device=dev, ranges=dynamic_dims)
+        _tsp.attrs["n_nodes"] = len(graph.nodes)
     sg = ShapeGraph()
     if dynamic_dims:
         known = graph.free_symbols()
@@ -828,6 +1006,7 @@ def optimize(fn: Callable, *specs,
                  enable_remat=enable_remat, max_subgraph=max_subgraph,
                  memory_plan=memory_plan, donate_inputs=donate_inputs,
                  count_inputs=count_inputs, guard_env=guard_env,
+                 tracer=tracer, decisions=decisions,
                  kernel_select=kernel_select, hw=hw)
     # measured-fallback channel: bucket key -> {node id -> forced variant}.
     # remeasure_kernels fills it, then a table recompile re-runs the bucket
@@ -852,13 +1031,24 @@ def optimize(fn: Callable, *specs,
         def table_factory(limit: Optional[int],
                           _space=space) -> SpecializationTable:
             def compile_bucket(key, ranges) -> BucketPlan:
-                sub_sg = sg.specialized(ranges)
-                b_plan, b_report, _ = _compile_pipeline(
-                    graph, sub_sg, parent=artifacts,
-                    kernel_forced=kernel_forced.get(key), **knobs)
-                runner, b_program = _build_executor(
-                    b_plan, b_report, executor, memory_limit=limit,
-                    donate_inputs=donate_inputs, count_inputs=count_inputs)
+                # a background-worker compile shows up as its own root span
+                # (the tracer's span stack is thread-local) tagged here, so
+                # traces distinguish swap-in compiles from blocking ones
+                bg = threading.current_thread().name.startswith("specialize")
+                with tracer.span("specialize", bucket=key,
+                                 background=bg) as sp:
+                    sub_sg = sg.specialized(ranges)
+                    b_plan, b_report, _ = _compile_pipeline(
+                        graph, sub_sg, parent=artifacts,
+                        kernel_forced=kernel_forced.get(key), **knobs)
+                    runner, b_program = _build_executor(
+                        b_plan, b_report, executor, memory_limit=limit,
+                        donate_inputs=donate_inputs,
+                        count_inputs=count_inputs, tracer=tracer)
+                    sp.attrs.update(
+                        reused_parent_schedule=b_report.reused_parent_schedule,
+                        reused_parent_postpass=b_report.reused_parent_postpass,
+                        arena_bound_bytes=b_report.arena_bound_bytes)
                 return BucketPlan(key=key, ranges=ranges, plan=b_plan,
                                   report=b_report, interp=runner,
                                   program=b_program)
@@ -866,7 +1056,8 @@ def optimize(fn: Callable, *specs,
             if background_specialize:
                 f_runner, f_program = _build_executor(
                     plan, report, executor, memory_limit=limit,
-                    donate_inputs=donate_inputs, count_inputs=count_inputs)
+                    donate_inputs=donate_inputs, count_inputs=count_inputs,
+                    tracer=tracer)
                 fallback = BucketPlan(key=None,
                                       ranges=dict(sg.declared_ranges),
                                       plan=plan, report=report,
@@ -882,4 +1073,5 @@ def optimize(fn: Callable, *specs,
         executor=executor,
         table=table_factory(memory_limit) if table_factory else None,
         table_factory=table_factory, kernel_forced=kernel_forced,
-        kernel_remeasure_after=kernel_remeasure_after, hw=hw)
+        kernel_remeasure_after=kernel_remeasure_after, hw=hw,
+        tracer=tracer, decisions=decisions)

@@ -74,6 +74,9 @@ class PlanInterpreter:
         # per-env caches reused across calls (training repeats shapes)
         self._size_cache: Dict[Tuple, Dict[int, int]] = {}
         self._leaves_cache: Dict[Tuple, Dict[int, List[Any]]] = {}
+        # optional live-occupancy probe (see ProgramVM.timeline_hook):
+        # called as hook(step, node, mm) after every executed node
+        self.timeline_hook = None
 
     # ---------------------------------------------------------------- run --
     def run(self, flat_args: List[Any],
@@ -309,6 +312,7 @@ class PlanInterpreter:
             raise KeyError(f"value {v} is not materializable")
 
         # -- main loop ----------------------------------------------------------
+        hook = self.timeline_hook
         for i, node in enumerate(plan.order):
             state["step"] = i
             state["pinned"] = frozenset(
@@ -369,10 +373,17 @@ class PlanInterpreter:
                 seen.add(iv.id)
                 remaining[iv.id] -= sum(1 for x in node.invals if x.id == iv.id)
                 maybe_free(iv.id)
+            if hook is not None:
+                hook(i, node, mm)
 
         outputs = [materialize(v) for v in g.outputs]
         if arena is not None:
             arena.write_stats(mm.stats)
+        # the closures above form reference cycles over the storage: empty
+        # it, or the call's tensors stay allocated until a garbage collection
+        storage.clear()
+        host_storage.clear()
+        mm.evict_callback = None
         wall = time.perf_counter() - t0
         # bound graphs report the live env (measured extents, not caps)
         return outputs, RunReport(stats=mm.stats, wall_s=wall,

@@ -232,6 +232,11 @@ class ProgramVM:
     def __init__(self, program: Program):
         self.program = program
         self.plan = program.plan
+        # optional live-occupancy probe, dynamic (eviction) stream only:
+        # called as hook(idx, inst, mm) after every executed instruction.
+        # The fast stream is never instrumented — its occupancy curve is
+        # exactly reconstructible off the hot path (obs.timeline)
+        self.timeline_hook = None
 
     def run(self, flat_args: List[Any],
             env: Optional[Dict[str, int]] = None
@@ -432,7 +437,8 @@ class ProgramVM:
 
         # -- instruction loop -------------------------------------------------
         outputs: List[Any] = []
-        for inst in prog.instructions:
+        hook = self.timeline_hook
+        for idx, inst in enumerate(prog.instructions):
             op = inst.op
             if op == OP_COMPUTE:
                 leaves = list(all_leaves[inst.cidx])
@@ -514,6 +520,14 @@ class ProgramVM:
                     free_reg(inst.reg, inst.counted)
             else:  # OP_RETURN
                 outputs = [materialize(r) for r in inst.regs]
+            if hook is not None:
+                hook(idx, inst, mm)
         if arena is not None:
             arena.write_stats(mm.stats)
+        # the closures above form reference cycles over the register file:
+        # empty it, or the call's tensors (the outputs too) stay allocated
+        # after the caller drops them, until a garbage collection
+        storage.clear()
+        host_storage.clear()
+        mm.evict_callback = None
         return outputs, mm.stats

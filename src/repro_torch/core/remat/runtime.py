@@ -22,6 +22,7 @@ class EvictionDecision:
     vid: int
     method: str           # 'recompute' | 'offload'
     bytes_freed: int
+    est_cost: float
 
 
 class RuntimeRematPolicy:
@@ -77,7 +78,7 @@ class RuntimeRematPolicy:
             dist = self._next_use_distance(vid, step)
             # DELTA-like: benefit-per-cost, discounted for imminent reuse
             score = (nbytes * dist) / (cost + 1.0)
-            scored.append((score, EvictionDecision(vid, method, nbytes)))
+            scored.append((score, EvictionDecision(vid, method, nbytes, cost)))
         scored.sort(key=lambda t: -t[0])
         out: List[EvictionDecision] = []
         freed = 0

@@ -61,9 +61,12 @@ def _independent(n1: Node, n2: Node) -> bool:
 
 
 def exchange_pass(g: Graph, order: List[Node], envs: Sequence[Dict[str, int]],
-                  *, max_sweeps: int = 4) -> List[Node]:
+                  *, max_sweeps: int = 4, decisions=None) -> List[Node]:
     """Bubble adjacent independent pairs while the local peak improves at
-    every probe env.  Returns a (possibly) improved valid order."""
+    every probe env.  Returns a (possibly) improved valid order.
+
+    ``decisions`` (an ``obs.DecisionLog``) records each accepted swap with
+    its local-peak justification at the first probe env."""
     order = list(order)
     n = len(order)
     # concrete byte sizes are order-invariant: evaluate once per probe env,
@@ -91,6 +94,17 @@ def exchange_pass(g: Graph, order: List[Node], envs: Sequence[Dict[str, int]],
                     if swp < cur:
                         strictly = True
                 if better_all and strictly:
+                    if decisions is not None:
+                        a1, f1 = effects[0][0][i], effects[0][1][i]
+                        a2, f2 = effects[0][0][i + 1], effects[0][1][i + 1]
+                        decisions.add(
+                            "exchange-swap",
+                            f"{n1.prim_name}#{n1.id} <-> {n2.prim_name}#{n2.id}",
+                            "swap",
+                            "local peak lower at every probe env",
+                            position=i,
+                            peak_before=max(a1, a1 - f1 + a2),
+                            peak_after=max(a2, a2 - f2 + a1))
                     order[i], order[i + 1] = n2, n1
                     for alloc, freed in effects:
                         alloc[i], alloc[i + 1] = alloc[i + 1], alloc[i]

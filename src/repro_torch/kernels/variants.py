@@ -43,9 +43,11 @@ node's dims are bounded by the plan's ``ShapeGraph`` intervals — a
 bucket's narrowed ranges, or the whole declared range — the cost model
 scores every valid variant at the range's lo / geometric-mid / hi
 corners, and the cheapest total wins.  The winner's name is baked into
-the lowered ``Compute`` as the op's ``impl`` argument.  Nothing here is
-a decision log yet: the scores, the invalid variants with the reason and
-any measured times live on the returned :class:`KernelSelection`.
+the lowered ``Compute`` as the op's ``impl`` argument.  The scores, the
+invalid variants with the reason and any measured times live on the
+returned :class:`KernelSelection`; given a ``DecisionLog``,
+:func:`select_kernels` also logs one ``kernel-select`` decision per
+kernel node.
 """
 from __future__ import annotations
 
@@ -139,6 +141,10 @@ class KernelSelection:
         sel = self.scores.get(self.variant.name, 0.0)
         def_ = self.scores.get(self.default.name, sel)
         return def_ / sel if sel > 0 else 1.0
+
+    def describe_bounds(self) -> str:
+        return " ".join(f"{name}∈[{lo},{'∞' if hi is None else hi}]"
+                        for name, (lo, hi) in self.bounds.items())
 
 
 # ---------------------------------------------------------------------------
@@ -611,21 +617,36 @@ def select_for_node(node, sg, hw: HardwareModel = DEFAULT_HW,
 
 
 def select_kernels(graph, sg, hw: HardwareModel = DEFAULT_HW,
-                   forced: Optional[Mapping[int, str]] = None
-                   ) -> Dict[int, KernelSelection]:
+                   forced: Optional[Mapping[int, str]] = None,
+                   decisions=None) -> Dict[int, KernelSelection]:
     """Select a variant for every kernel node in ``graph`` — including a
     node whose call passed an explicit ``impl``, as the reference does: a
     plan that must run the plain version is built with
     ``kernel_select=False``.
 
     ``forced`` maps node id -> variant name (the measured-fallback path).
-    Returns node id -> :class:`KernelSelection`."""
+    Returns node id -> :class:`KernelSelection`; logs one ``kernel-select``
+    decision per node when a ``DecisionLog`` is given (the times are the
+    Hopper model's)."""
     out: Dict[int, KernelSelection] = {}
     for node in graph.nodes:
         if kernel_key(node) is None:
             continue
-        out[node.id] = select_for_node(node, sg, hw,
-                                       forced=(forced or {}).get(node.id))
+        sel = select_for_node(node, sg, hw,
+                              forced=(forced or {}).get(node.id))
+        out[node.id] = sel
+        if decisions is not None:
+            sel_us = sel.scores.get(sel.variant.name, 0.0) * 1e6
+            def_us = sel.scores.get(sel.default.name, sel_us) * 1e6
+            why = (f"measured re-selection over {sel.describe_bounds()}"
+                   if sel.measured else
+                   f"model {sel_us:.1f}us vs default {def_us:.1f}us "
+                   f"over {sel.describe_bounds()}")
+            decisions.add("kernel-select", f"%{node.id} {sel.prim_name}",
+                          sel.variant.name, why,
+                          model_speedup=round(sel.model_speedup, 3),
+                          n_scored=len(sel.scores),
+                          invalid=list(sel.invalid))
     return out
 
 

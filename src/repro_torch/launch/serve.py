@@ -4,9 +4,8 @@
 dispatch, so one specialized plan — lowered to a flat executable
 ``Program`` run by the VM — serves each group, and admission control can
 reason in per-bucket guaranteed arena bounds.  Port of the batcher of
-``repro/launch/serve.py``; its Prometheus export (``metrics_text``) comes
-with the observability layer, and the reference's decode loop (``serve``)
-with decode.
+``repro/launch/serve.py``, with its Prometheus export (``metrics_text``);
+the reference's decode loop (``serve``) comes with decode.
 """
 from __future__ import annotations
 
@@ -323,3 +322,10 @@ class BucketBatcher:
                 except RequestFailed as e:
                     outcomes.append(dict(base, ok=False, error=e))
         return outcomes
+
+    def metrics_text(self, prefix: str = "repro") -> str:
+        """Prometheus text metrics for this batcher + its function:
+        per-bucket hit/miss/arena-bound series and the admission-control
+        counters (``held_total``, per-bucket holds, queue depth)."""
+        from ..core.obs import prometheus_text
+        return prometheus_text(fn=self.fn, batcher=self, prefix=prefix)

@@ -373,3 +373,76 @@ def test_rolled_decode_equals_unrolled_on_the_card(gen):
     assert torch.equal(h, uh) and torch.equal(toks, utoks)
     st = rolled.last_report.stats
     assert st.arena_bytes <= rolled.arena_bound_bytes
+
+
+def _smoke_prefill():
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.core import (TensorSpec, optimize, spec_like,
+                                  symbolic_dims)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    params = init_params(SMOKE, seed=0)              # cuda by default
+    B, S = symbolic_dims("b, s")
+    opt = optimize(make_prefill_step(SMOKE), spec_like(params),
+                   {"tokens": TensorSpec((B, S), torch.int32)},
+                   dynamic_dims={"b": (1, 8), "s": (16, 128)})
+    return SMOKE, params, opt
+
+
+@pytest.mark.gpu
+def test_memory_timeline_peak_holds_the_allocator(gen):
+    """The replayed timeline's peak equals the plan's prediction and the
+    call's device_peak, and the caching allocator's peak of the call (less
+    what was held outside it) stays within it plus block overheads."""
+    from torch.utils import _pytree as pytree
+
+    cfg, params, opt = _smoke_prefill()
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    stored = sum(len(c.store) for c in opt.program.computes)
+    for b, s in [(1, 16), (3, 96), (8, 128)]:
+        tok = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        opt(params, {"tokens": tok})                 # warm-up
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - param_bytes - tok.nbytes
+        torch.cuda.reset_peak_memory_stats()
+        opt(params, {"tokens": tok})
+        torch.cuda.synchronize()
+        alloc = torch.cuda.max_memory_allocated() - held
+        diff = opt.memory_timeline({"b": b, "s": s})
+        assert diff.ok and diff.unexplained == []
+        assert diff.actual.peak_device == diff.predicted_peak_device == \
+            opt.last_report.stats.device_peak
+        assert alloc <= diff.actual.peak_device + stored * LARGE_OVERHEAD
+
+
+@pytest.mark.gpu
+def test_disabled_telemetry_allocates_nothing_from_obs_on_the_card(gen):
+    import os
+    import tracemalloc
+
+    import repro_torch.core.obs as obs_pkg
+
+    cfg, params, opt = _smoke_prefill()
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    opt(params, batch)                               # warm every cache
+    flt = tracemalloc.Filter(True, os.path.join(
+        os.path.dirname(obs_pkg.__file__), "*"))
+    tracemalloc.start(5)
+    try:
+        before = tracemalloc.take_snapshot().filter_traces([flt])
+        for _ in range(5):
+            opt(params, batch)
+        after = tracemalloc.take_snapshot().filter_traces([flt])
+    finally:
+        tracemalloc.stop()
+    torch.cuda.synchronize()
+    grew = [d for d in after.compare_to(before, "lineno") if d.size_diff > 0]
+    assert not grew, f"obs code allocated on the disabled path: {grew}"
+    tel = opt.enable_telemetry()
+    opt(params, batch)
+    opt.disable_telemetry()
+    assert tel.n_calls == 1
