@@ -124,12 +124,36 @@ Phases (any failure exits non-zero):
    collections); (g) ``explain(b=8, s=1024)`` of the prefill plan has
    every section heading.  Phase 10 launches kernels after every path's
    launch count has been read.
+11. table1 (``[trainer]`` and ``[table1]`` lines), llama2_1b at full width
+   on the variable-length data pipeline: (a) ``launch.train.train`` on the
+   reference trainer's pipeline (batch 8, 16-96 tokens): 3 uncapped steps
+   as a probe, then 6 steps under 0.90 x the probe's peak with a
+   checkpoint every 3 steps (under ``build/``, removed after), then step
+   6's checkpoint deleted and the run resumed from step 3: every capped
+   step's device_peak <= the cap, the allocator's peak <= the cap + the
+   step's slack (phase 6's, plus a block per input the trainer allocates
+   itself), the capped losses of steps 1-3 equal the probe's and the
+   resumed steps 4-6 equal the uninterrupted run's, bit for bit; seconds
+   and bytes per save.  (b) the paper's Table 1 through
+   ``benchmarks/torch_table1_dynamic_training.py``'s ``run_system``
+   (loaded from its file), its full-width settings at 4 steps: disc-dynamic,
+   disc-static and disc++ at batch 14 (25-750 tokens), then disc-dynamic and
+   disc++ at batches 16 and 18 under 1.05 x disc++'s batch-14 peak; with
+   the garbage collector off, every row (an OOM row too) leaves
+   ``memory_allocated()`` where it found it; disc++ and disc-dynamic losses
+   bitwise equal at batch 14; recompiles 1, 1 and one per padded shape;
+   ``pad_frac`` equal to the batches' own, in numpy; every disc++ row under
+   the limit fits it (device_peak <= limit, the allocator within the slack);
+   the table and the disc++/disc-static and disc++/disc-dynamic ratios of
+   peak and tokens/s.  Both paths must launch the sm90 flash and RMSNorm
+   kernels and no f32 flash.
 
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
-prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop; the last
-two launch none: their ops are plain PyTorch, as the reference's are
-plain jnp); the last line is ``{"ok": true, "device": {...}}``.
+prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
+phase 11 (a), table1 = phase 11 (b); bounded and loop launch none:
+their ops are plain PyTorch, as the reference's are plain jnp); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2039,6 +2063,358 @@ def phase_obs():
     return out
 
 
+# -- phase 11: the paper's Table 1 and the trainer at full width -------------
+
+# (a) the reference trainer's pipeline (repro/launch/train.py: 16-96 tokens)
+TRAINER_BATCH = 8
+TRAINER_PROBE_STEPS = 3
+TRAINER_STEPS = 6
+TRAINER_CKPT_EVERY = 3
+# the capped run's limit, a fixed fraction of the probe's peak (never chosen
+# at run time).  At 16-96 tokens the peak is the AdamW update's (the
+# donated state, the gradients and one leaf's f32 temporaries): under 0.85
+# x 14,170,898,452 B the first 524,288,000 B temporary of the update did
+# not fit with nothing left to evict (measured on an H100 80GB HBM3 at
+# 700 W), so the cap is 0.90
+TRAINER_CAP = 0.90
+# (b) Table 1: the twin script's full-width settings, fewer steps than its 12
+TABLE1_STEPS = 4
+
+
+def load_table1():
+    """``benchmarks/torch_table1_dynamic_training.py``, loaded from its file
+    so the script and this phase run one code path."""
+    import importlib.util
+    path = ROOT / "benchmarks" / "torch_table1_dynamic_training.py"
+    spec = importlib.util.spec_from_file_location("torch_table1", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Collect what ``module.name`` (a function) returns while inside."""
+    real, made = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+    setattr(module, name, record)
+    try:
+        yield made
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def one_capture_per_system(module):
+    """Serve ``module.optimize`` from one capture per system and specs:
+    a later row gets the first row's plan under its own limit through
+    ``with_memory_limit`` (the plan does not depend on the limit, only the
+    lowering does).  Every call passes the same config's step, so the
+    specs and options alone tell the captures apart.  Yields the functions
+    handed out and, under ``"held"``, the device bytes the held captures
+    keep."""
+    import torch
+    real, cache = module.optimize, {}
+    made, held = [], {"held": 0}
+
+    def optimize(step, *specs, memory_limit=None, **kw):
+        key = repr((specs, sorted(kw.items())))
+        if key not in cache:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            cache[key] = real(step, *specs, **kw)
+            torch.cuda.synchronize()
+            held["held"] += torch.cuda.memory_allocated() - before
+        made.append(cache[key].with_memory_limit(memory_limit))
+        return made[-1]
+    module.optimize = optimize
+    try:
+        yield made, held
+    finally:
+        module.optimize = real
+        cache.clear()
+        made.clear()
+
+
+def step_slack(fn, envs, n_inputs: int) -> int:
+    """The allocator's slack of a step that allocates its own ``n_inputs``
+    inputs (the trainer and Table 1 make the state themselves): phase 6's
+    slack under a limit at the worst env, plus one large block's overhead
+    per input."""
+    return max(allocator_slack(fn.program, env) for env in envs) + \
+        (MAX_SUBGRAPH + n_inputs) * LARGE_OVERHEAD
+
+
+def pipeline_batches(cfg, batch, steps, mode, lo, hi):
+    """The first ``steps`` batches the twin's and the trainer's pipeline
+    draws (seed 0), in numpy."""
+    from repro_torch.data import DataPipeline, PipelineConfig
+    pipe = DataPipeline(PipelineConfig(vocab=cfg.vocab, batch_size=batch,
+                                       mode=mode, min_tokens=lo,
+                                       max_tokens=hi))
+    return [pipe.next_batch() for _ in range(steps)]
+
+
+def phase_trainer():
+    """Phase 11 (a): ``launch.train.train`` at full width on the reference
+    trainer's pipeline: an uncapped probe, a capped run with checkpoints,
+    and a resume from the middle checkpoint."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+    from repro_torch.launch import train as train_mod
+
+    t_phase = time.perf_counter()
+    cfg, bsz = CONFIG, TRAINER_BATCH
+    ckdir = ROOT / "build" / "trainer_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    log(f"[trainer] checkpoints in build/trainer_ckpt: "
+        f"{shutil.disk_usage(ckdir).free} B free")
+    envs = [dict(zip("bs", b["tokens"].shape)) for b in pipeline_batches(
+        cfg, bsz, TRAINER_STEPS, "dynamic", 16, 96)]
+    kw = dict(batch_size=bsz, log_every=10 ** 9)
+    try:
+        t0 = time.perf_counter()
+        probe = train_mod.train(cfg, steps=TRAINER_PROBE_STEPS, **kw)
+        peak = probe["peak_bytes"]
+        log(f"[trainer] probe: {TRAINER_PROBE_STEPS} uncapped steps at "
+            f"{[tuple(e.values()) for e in envs[:TRAINER_PROBE_STEPS]]} in "
+            f"{time.perf_counter() - t0:.1f} s (optimize included), "
+            f"{probe['tokens_per_s']:.0f} tokens/s, device_peak {peak}, "
+            f"losses {probe['losses']}")
+        cap = int(TRAINER_CAP * peak)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording(train_mod, "build_dynamic_step") as built:
+            capped = train_mod.train(
+                cfg, steps=TRAINER_STEPS, memory_limit=cap,
+                ckpt_dir=str(ckdir), ckpt_every=TRAINER_CKPT_EVERY, **kw)
+        alloc = torch.cuda.max_memory_allocated() - held
+        fn = built[-1].with_memory_limit(cap)
+        slack = step_slack(fn, envs, len(fn.plan.graph.inputs))
+        saves = capped["checkpoints"]
+        log(f"[trainer] capped at {TRAINER_CAP} x {peak} = {cap}: "
+            f"{TRAINER_STEPS} steps in {time.perf_counter() - t0:.1f} s "
+            f"(optimize and saves included), {capped['tokens_per_s']:.0f} "
+            f"tokens/s, device_peak {capped['peak_bytes']}, allocator peak "
+            f"{alloc} (cap + {alloc - cap}; slack {slack}), losses "
+            f"{capped['losses']}; saves "
+            + "; ".join(f"step {s['step']}: {s['bytes']} B, snapshot "
+                        f"{s['snapshot_s']:.2f} s, write {s['write_s']:.2f} s "
+                        f"({s['bytes'] / s['write_s'] / 1e9:.2f} GB/s)"
+                        for s in saves))
+        if capped["peak_bytes"] > cap:
+            raise AssertionError(f"a capped step's device_peak "
+                                 f"{capped['peak_bytes']} is above {cap}")
+        if alloc > cap + slack:
+            raise AssertionError(f"the allocator's peak {alloc} is above "
+                                 f"the cap {cap} + {slack}")
+        if capped["losses"][:TRAINER_PROBE_STEPS] != probe["losses"]:
+            raise AssertionError("the capped steps' losses differ from the "
+                                 "uncapped probe's")
+        if [s["step"] for s in saves] != list(range(
+                TRAINER_CKPT_EVERY, TRAINER_STEPS + 1, TRAINER_CKPT_EVERY)):
+            raise AssertionError(f"checkpoints at {saves}")
+        shutil.rmtree(ckdir / f"step_{TRAINER_STEPS:010d}")
+        t0 = time.perf_counter()
+        # resumes from the latest checkpoint and saves none
+        resumed = train_mod.train(
+            cfg, steps=TRAINER_STEPS, memory_limit=cap, ckpt_dir=str(ckdir),
+            ckpt_every=TRAINER_STEPS + 1, **kw)
+        want = capped["losses"][TRAINER_CKPT_EVERY:]
+        log(f"[trainer] resumed from step {TRAINER_CKPT_EVERY} in "
+            f"{time.perf_counter() - t0:.1f} s (optimize and restore "
+            f"included): losses {resumed['losses']}, bitwise equal to the "
+            f"uninterrupted run's steps {TRAINER_CKPT_EVERY + 1}-"
+            f"{TRAINER_STEPS}: {resumed['losses'] == want}")
+        if resumed["losses"] != want:
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    row = dict(probe_peak=peak, cap=cap, capped_peak=capped["peak_bytes"],
+               alloc_peak=alloc, slack=slack, saves=saves,
+               probe_tokens_per_s=probe["tokens_per_s"],
+               capped_tokens_per_s=capped["tokens_per_s"],
+               losses=capped["losses"], seconds=time.perf_counter() - t_phase)
+    log(f"[trainer] phase 11 (a) {row['seconds']:.1f} s; row "
+        f"{json.dumps(row)}")
+    return row
+
+
+def phase_table1():
+    """Phase 11 (b): the paper's Table 1 at full width through the twin
+    script's ``run_system``, row by row, with the garbage collector off so
+    a row's memory must come back by reference counting alone.  Each
+    system captures its step once; its later rows reuse the capture
+    (``one_capture_per_system``)."""
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+
+    t_phase = time.perf_counter()
+    t1 = load_table1()
+    full = t1.FULL
+    lo, hi, batches = full["min_tokens"], full["max_tokens"], full["batches"]
+    rows = []
+    enabled = gc.isenabled()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gc.disable()
+    start = torch.cuda.memory_allocated()
+    try:
+        def row(system, b, limit=None):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            held_before = held["held"]
+            torch.cuda.reset_peak_memory_stats()
+            r = t1.run_system(system, CONFIG, batch_size=b,
+                              steps=TABLE1_STEPS, memory_limit=limit,
+                              min_tokens=lo, max_tokens=hi)
+            torch.cuda.synchronize()
+            r["alloc_peak"] = torch.cuda.max_memory_allocated() - before
+            # what a new capture keeps stays with it for the later rows
+            r["left_after_row"] = torch.cuda.memory_allocated() - before \
+                - (held["held"] - held_before)
+            mode = "bucketed" if system == "disc-static" else "dynamic"
+            data = pipeline_batches(CONFIG, b, TABLE1_STEPS, mode, lo, hi)
+            shapes = sorted({d["tokens"].shape for d in data})
+            useful = sum(int(d["mask"].sum()) for d in data)
+            total = sum(d["tokens"].size for d in data)
+            r["shapes"] = shapes
+            # the symbolic plans' slack (disc-static's plans are per shape
+            # and hold no limit)
+            r["slack"] = None if system == "disc-static" else step_slack(
+                built[-1], [dict(zip("bs", s)) for s in shapes],
+                len(built[-1].plan.graph.inputs))
+            log(f"[table1] {system} batch {b}"
+                + (f" under {limit}" if limit else "") + ": "
+                + t1.format_rows([r]).splitlines()[-1].strip()
+                + f"; device_peak {r['peak']}, allocator peak {r['alloc_peak']}"
+                f" (slack {r['slack']}), evictions {r['evictions']}, "
+                f"offloads {r['offloads']}, {r['wall_s']:.2f} s for "
+                f"{TABLE1_STEPS} steps, recompiles {r['recompiles']} over "
+                f"shapes {shapes}, losses {r['losses']}, memory left after "
+                f"the row {r['left_after_row']} B")
+            if r["left_after_row"] != 0:
+                raise AssertionError(f"{system} batch {b} left "
+                                     f"{r['left_after_row']} B allocated")
+            want_rc = len(shapes) if system == "disc-static" else 1
+            if r["recompiles"] != want_rc:
+                raise AssertionError(f"{system} recompiled {r['recompiles']}"
+                                     f" times, want {want_rc}")
+            if not r["oom"] and r["pad_frac"] != 1.0 - useful / total:
+                raise AssertionError(f"{system} pad_frac {r['pad_frac']}")
+            if system == "disc++" and limit is not None:
+                if r["oom"] or r["peak"] > limit:
+                    raise AssertionError(f"disc++ batch {b} does not fit "
+                                         f"{limit}: {r}")
+                if r["alloc_peak"] > limit + r["slack"]:
+                    raise AssertionError(
+                        f"disc++ batch {b}: the allocator's peak "
+                        f"{r['alloc_peak']} is above {limit} + {r['slack']}")
+            rows.append(r)
+            return r
+
+        with one_capture_per_system(t1) as (built, held):
+            base = {s: row(s, batches[0]) for s in t1.SYSTEMS}
+            limit = t1.limit_from(rows)
+            for b in batches[1:]:
+                for system in ("disc-dynamic", "disc++"):
+                    row(system, b, limit)
+            log(f"[table1] the held captures kept {held['held']} B")
+        torch.cuda.synchronize()
+        if torch.cuda.memory_allocated() != start:
+            raise AssertionError(f"the captures left "
+                                 f"{torch.cuda.memory_allocated() - start} B")
+    finally:
+        if enabled:
+            gc.enable()
+    pp, st, dyn = base["disc++"], base["disc-static"], base["disc-dynamic"]
+    if pp["losses"] != dyn["losses"]:
+        raise AssertionError("disc++ and disc-dynamic losses differ at batch "
+                             f"{batches[0]}: {pp['losses']} {dyn['losses']}")
+    ratios = {f"{a}/{b}": dict(peak=x["peak"] / y["peak"],
+                               tokens_per_s=x["tokens_per_s"] /
+                               y["tokens_per_s"])
+              for a, b, x, y in (("disc++", "disc-static", pp, st),
+                                 ("disc++", "disc-dynamic", pp, dyn))}
+    log(f"[table1] limit {limit} = {t1.LIMIT_FACTOR} x disc++'s batch "
+        f"{batches[0]} peak\n" + t1.format_rows(rows))
+    log(f"[table1] batch {batches[0]}: " + "; ".join(
+        f"{k} peak {v['peak']:.4f}, tokens/s {v['tokens_per_s']:.4f}"
+        for k, v in ratios.items()) + "; disc-dynamic OOM at batches "
+        f"{[r['batch'] for r in rows if r['oom']]}")
+    out = dict(limit=limit, ratios=ratios,
+               rows=[{k: v for k, v in r.items() if k != "shapes"}
+                     for r in rows],
+               seconds=time.perf_counter() - t_phase)
+    log(f"[table1] phase 11 (b) {out['seconds']:.1f} s; rows "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase11_kernels():
+    """Phase 11 (c): the sm90 flash and RMSNorm kernels against their plain
+    versions at the shapes phase 11's paths hand them, which phase 2 does
+    not cover: the trainer's longest batch, Table 1's first (ragged) batch
+    14, its longest batch 18 and disc-static's longest padded batch 14;
+    q/k/v ``(b, s, 32, 128)`` bf16 transposed as the model hands them, and
+    RMSNorm over ``(b * s, 4096)``.  Run outside the counted paths."""
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+    from repro_torch.kernels import (flash_attention_cuda, reference_attention,
+                                     reference_rmsnorm, rmsnorm_cuda)
+
+    full = load_table1().FULL
+    lo, hi = full["min_tokens"], full["max_tokens"]
+
+    def longest(b, mode, lo, hi, steps):
+        return max((d["tokens"].shape for d in pipeline_batches(
+            CONFIG, b, steps, mode, lo, hi)), key=lambda shape: shape[1])
+    cases = {
+        "trainer": longest(TRAINER_BATCH, "dynamic", 16, 96, TRAINER_STEPS),
+        "table1 b14 ragged": pipeline_batches(
+            CONFIG, 14, 1, "dynamic", lo, hi)[0]["tokens"].shape,
+        "table1 b18 longest": longest(18, "dynamic", lo, hi, TABLE1_STEPS),
+        "table1 static b14 longest": longest(14, "bucketed", lo, hi,
+                                             TABLE1_STEPS),
+    }
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tol, h, hd, d = TOL["bfloat16"], CONFIG.n_heads, \
+        CONFIG.resolved_head_dim, CONFIG.d_model
+    for what, (b, s) in cases.items():
+        q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+        n0 = flash_attention_cuda.sm90_launches
+        got = flash_attention_cuda(q, k, v, causal=True)
+        if flash_attention_cuda.sm90_launches != n0 + 1:
+            raise AssertionError(f"flash at {what} took another route")
+        f_err, f_rel = agree(got, reference_attention(q, k, v, causal=True),
+                             tol, f"flash {what} (b={b}, s={s})")
+        x = torch.randn((b * s, d), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        sc = (torch.randn((d,), generator=gen, device="cuda") * 0.1
+              ).to(torch.bfloat16)
+        n_err, n_rel = agree(rmsnorm_cuda(x, sc), reference_rmsnorm(x, sc),
+                             tol, f"rmsnorm {what} ({b * s},{d})")
+        log(f"[table1] kernels at {what} (b={b}, s={s}): flash/sm90 max err "
+            f"{f_err:.3g} rel norm {f_rel:.3g}; rmsnorm ({b * s},{d}) max err"
+            f" {n_err:.3g} rel norm {n_rel:.3g} (tol {tol})")
+        del q, k, v, got, x, sc
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2070,6 +2446,21 @@ def main() -> int:
     bounded_launches, _ = counted_launches(phase_bounded)
     loop_launches, _ = counted_launches(phase_loop)
     phase_obs()
+    OBS.clear()          # phase 10's plans and weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    trainer_launches, _ = counted_launches(phase_trainer)
+    table1_launches, _ = counted_launches(phase_table1)
+    phase11_kernels()
+    log(f"[table1] phase 11 {time.perf_counter() - t11:.1f} s; launches "
+        f"trainer {trainer_launches}, table1 {table1_launches}")
+    for path, n in (("trainer", trainer_launches),
+                    ("table1", table1_launches)):
+        if not (n["sm90"] > 0 and n["rmsnorm"] > 0 and n["f32"] == 0):
+            raise AssertionError(f"the {path} path launched {n}: want the "
+                                 f"sm90 flash and RMSNorm kernels, no f32 "
+                                 f"flash")
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -2081,20 +2472,26 @@ def main() -> int:
               "train": train["flash_attention_sm90"],
               "buckets": buckets["sm90"],
               "bounded": bounded_launches["sm90"],
-              "loop": loop_launches["sm90"]}),
+              "loop": loop_launches["sm90"],
+              "trainer": trainer_launches["sm90"],
+              "table1": table1_launches["sm90"]}),
             ("flash_float32", "flash_attention_simt_f32",
              "src/repro_torch/csrc/flash_attention.cu", flash_src,
              {"prefill_f32": f32_launches,
               "train": train["flash_attention_f32"],
               "buckets": buckets["f32"],
               "bounded": bounded_launches["f32"],
-              "loop": loop_launches["f32"]}),
+              "loop": loop_launches["f32"],
+              "trainer": trainer_launches["f32"],
+              "table1": table1_launches["f32"]}),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:17",
              {"prefill": launches["rmsnorm"], "train": train["rmsnorm"],
               "buckets": buckets["rmsnorm"],
               "bounded": bounded_launches["rmsnorm"],
-              "loop": loop_launches["rmsnorm"]})):
+              "loop": loop_launches["rmsnorm"],
+              "trainer": trainer_launches["rmsnorm"],
+              "table1": table1_launches["rmsnorm"]})):
         r = big[key]
         kernels.append({"name": route_name, "route": "cuda",
                         "source": src_path, "replaces": replaces,

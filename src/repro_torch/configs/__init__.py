@@ -7,13 +7,28 @@ from .base import ModelConfig
 
 ARCHS = ["llama2_1b"]
 
+# the reference's CLI names (``repro/configs/__init__.py``); only
+# llama2_1b is ported so far, the others resolve to a module not yet here
+_ALIASES = {
+    "hymba-1.5b": "hymba_1p5b", "internvl2-2b": "internvl2_2b",
+    "musicgen-medium": "musicgen_medium", "starcoder2-7b": "starcoder2_7b",
+    "granite-8b": "granite_8b", "gemma-7b": "gemma_7b", "gemma-2b": "gemma_2b",
+    "deepseek-v3-671b": "deepseek_v3_671b", "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "xlstm-1.3b": "xlstm_1p3b", "llama2-1b": "llama2_1b",
+}
+
+
+def canonical(name: str) -> str:
+    return _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+
 
 def get_config(name: str) -> ModelConfig:
-    return importlib.import_module(f".{name}", __package__).CONFIG
+    return importlib.import_module(f".{canonical(name)}", __package__).CONFIG
 
 
 def get_smoke_config(name: str) -> ModelConfig:
-    return importlib.import_module(f".{name}", __package__).SMOKE
+    return importlib.import_module(f".{canonical(name)}", __package__).SMOKE
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "ModelConfig", "canonical", "get_config",
+           "get_smoke_config"]

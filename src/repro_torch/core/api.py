@@ -923,8 +923,10 @@ def optimize(fn: Callable, *specs,
     or drop for recompute, chosen per victim) and raises
     :class:`MemoryLimitExceeded` when nothing more can be evicted.
     ``enable_remat`` / ``max_subgraph``: run the recompute-subgraph search
-    (subgraphs of at most ``max_subgraph`` nodes); without it every victim
-    is offloaded.
+    (subgraphs of at most ``max_subgraph`` nodes); without it the plan has
+    no remat candidates, so the dynamic stream can evict nothing and a
+    call whose peak exceeds ``memory_limit`` raises
+    :class:`MemoryLimitExceeded`, as the reference's does.
     ``buckets``: partition the declared ranges into shape buckets and
     specialize the whole pipeline per bucket — ``"geometric"`` / an int
     count / a per-dim mapping ``{dim: count | [edges...]}`` (see

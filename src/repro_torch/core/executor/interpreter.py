@@ -313,77 +313,83 @@ class PlanInterpreter:
 
         # -- main loop ----------------------------------------------------------
         hook = self.timeline_hook
-        for i, node in enumerate(plan.order):
-            state["step"] = i
-            state["pinned"] = frozenset(
-                [iv.id for iv in node.invals] + [ov.id for ov in node.outvals])
-            ins = [materialize(iv) for iv in node.invals[:node.n_args]]
-            for iv in node.invals[node.n_args:]:
-                materialize(iv)
-            kept = [ov for ov in node.outvals
-                    if ov.consumers or ov.id in self._output_ids]
-            body = loop_body_of(node)
-            if body is not None:
-                # rolled loop: one ensure for the loop's whole internal peak
-                # (Remat::EvictOp hoisted out of the body), then the shared
-                # account() event replay drives the MemoryManager — the
-                # same engine the VM and the resolve-time stats replay use
-                lp = body.plan(plan.shape_graph)
-                trip = body.length_expr.evaluate(env)
-                kept_flags = [ov in kept for ov in node.outvals]
-                nk = body.num_carry
-                outer_y = [(ov.id, bytes_of(ov)) for ov, k in
-                           zip(node.outvals[nk:], kept_flags[nk:]) if k]
-                outer_carry = [(ov.id, bytes_of(ov)) if k else None
-                               for ov, k in zip(node.outvals[:nk],
-                                                kept_flags[:nk])]
-                mm.ensure(lp.peak_expr_for(node, kept_flags,
-                                           trip).evaluate(env))
-                lp.account(mm, node.id, trip,
-                           lambda bvid: lp.sizes[bvid].evaluate(env),
-                           outer_y, outer_carry)
-                outs = lp.execute(ins, trip, env, body_call(body))
-                del ins
-                for ov in kept:   # account() already allocated them
-                    storage[ov.id] = outs[ov.out_index]
-                del outs
-            else:
-                mm.ensure(sum(bytes_of(ov) for ov in kept))  # EvictOp
-                outs = call_node(node, ins)
-                del ins
-                intro = g.bound_intros.get(node.id)
-                if intro is not None:
-                    # the BindDim step: measure, clamp to the cap at the
-                    # live env, publish — the kept-output allocs below
-                    # then see the tight size through bytes_of
-                    measured = int(outs[intro.count_out])
-                    measured = min(max(measured, 0),
-                                   int(intro.cap.evaluate(env_run)))
-                    env_run[intro.name] = measured
-                    mm.stats.measured_dims[intro.name] = measured
-                for ov in kept:
-                    storage[ov.id] = outs[ov.out_index]
-                    mm.alloc(ov.id, bytes_of(ov))
-                del outs
-            # free dead values (buffer lifetime = last consumer)
-            seen = set()
-            for iv in node.invals:
-                if iv.id in seen:
-                    continue
-                seen.add(iv.id)
-                remaining[iv.id] -= sum(1 for x in node.invals if x.id == iv.id)
-                maybe_free(iv.id)
-            if hook is not None:
-                hook(i, node, mm)
+        try:
+            for i, node in enumerate(plan.order):
+                state["step"] = i
+                state["pinned"] = frozenset(
+                    [iv.id for iv in node.invals]
+                    + [ov.id for ov in node.outvals])
+                ins = [materialize(iv) for iv in node.invals[:node.n_args]]
+                for iv in node.invals[node.n_args:]:
+                    materialize(iv)
+                kept = [ov for ov in node.outvals
+                        if ov.consumers or ov.id in self._output_ids]
+                body = loop_body_of(node)
+                if body is not None:
+                    # rolled loop: one ensure for the loop's whole internal
+                    # peak (Remat::EvictOp hoisted out of the body), then
+                    # the shared account() event replay drives the
+                    # MemoryManager — the same engine the VM and the
+                    # resolve-time stats replay use
+                    lp = body.plan(plan.shape_graph)
+                    trip = body.length_expr.evaluate(env)
+                    kept_flags = [ov in kept for ov in node.outvals]
+                    nk = body.num_carry
+                    outer_y = [(ov.id, bytes_of(ov)) for ov, k in
+                               zip(node.outvals[nk:], kept_flags[nk:]) if k]
+                    outer_carry = [(ov.id, bytes_of(ov)) if k else None
+                                   for ov, k in zip(node.outvals[:nk],
+                                                    kept_flags[:nk])]
+                    mm.ensure(lp.peak_expr_for(node, kept_flags,
+                                               trip).evaluate(env))
+                    lp.account(mm, node.id, trip,
+                               lambda bvid: lp.sizes[bvid].evaluate(env),
+                               outer_y, outer_carry)
+                    outs = lp.execute(ins, trip, env, body_call(body))
+                    del ins
+                    for ov in kept:   # account() already allocated them
+                        storage[ov.id] = outs[ov.out_index]
+                    del outs
+                else:
+                    mm.ensure(sum(bytes_of(ov) for ov in kept))  # EvictOp
+                    outs = call_node(node, ins)
+                    del ins
+                    intro = g.bound_intros.get(node.id)
+                    if intro is not None:
+                        # the BindDim step: measure, clamp to the cap at the
+                        # live env, publish — the kept-output allocs below
+                        # then see the tight size through bytes_of
+                        measured = int(outs[intro.count_out])
+                        measured = min(max(measured, 0),
+                                       int(intro.cap.evaluate(env_run)))
+                        env_run[intro.name] = measured
+                        mm.stats.measured_dims[intro.name] = measured
+                    for ov in kept:
+                        storage[ov.id] = outs[ov.out_index]
+                        mm.alloc(ov.id, bytes_of(ov))
+                    del outs
+                # free dead values (buffer lifetime = last consumer)
+                seen = set()
+                for iv in node.invals:
+                    if iv.id in seen:
+                        continue
+                    seen.add(iv.id)
+                    remaining[iv.id] -= sum(1 for x in node.invals
+                                            if x.id == iv.id)
+                    maybe_free(iv.id)
+                if hook is not None:
+                    hook(i, node, mm)
 
-        outputs = [materialize(v) for v in g.outputs]
-        if arena is not None:
-            arena.write_stats(mm.stats)
-        # the closures above form reference cycles over the storage: empty
-        # it, or the call's tensors stay allocated until a garbage collection
-        storage.clear()
-        host_storage.clear()
-        mm.evict_callback = None
+            outputs = [materialize(v) for v in g.outputs]
+            if arena is not None:
+                arena.write_stats(mm.stats)
+        finally:
+            # the closures above form reference cycles over the storage:
+            # empty it on every exit, a raise included, or the call's
+            # tensors stay allocated until a garbage collection
+            storage.clear()
+            host_storage.clear()
+            mm.evict_callback = None
         wall = time.perf_counter() - t0
         # bound graphs report the live env (measured extents, not caps)
         return outputs, RunReport(stats=mm.stats, wall_s=wall,

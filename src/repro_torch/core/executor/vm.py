@@ -438,96 +438,101 @@ class ProgramVM:
         # -- instruction loop -------------------------------------------------
         outputs: List[Any] = []
         hook = self.timeline_hook
-        for idx, inst in enumerate(prog.instructions):
-            op = inst.op
-            if op == OP_COMPUTE:
-                leaves = list(all_leaves[inst.cidx])
-                for li, k in inst.arg_slots:
-                    leaves[li] = arg(inst.in_regs[k])
-                out = call_op(inst.prim, inst.spec, leaves)
-                del leaves
-                if inst.multi:
-                    # an introducer's payload alloc waits for its BindDim
-                    # (tight size); an unconsumed count reaches its
-                    # register unaccounted
-                    for oi, r in inst.store:
-                        storage[r] = out[oi]
-                        if r not in inst.defer_regs:
+        try:
+            for idx, inst in enumerate(prog.instructions):
+                op = inst.op
+                if op == OP_COMPUTE:
+                    leaves = list(all_leaves[inst.cidx])
+                    for li, k in inst.arg_slots:
+                        leaves[li] = arg(inst.in_regs[k])
+                    out = call_op(inst.prim, inst.spec, leaves)
+                    del leaves
+                    if inst.multi:
+                        # an introducer's payload alloc waits for its BindDim
+                        # (tight size); an unconsumed count reaches its
+                        # register unaccounted
+                        for oi, r in inst.store:
+                            storage[r] = out[oi]
+                            if r not in inst.defer_regs:
+                                mm.alloc(vid_of[r], nbytes[r])
+                        for oi, r in inst.extra_store:
+                            storage[r] = out[oi]
+                    else:
+                        for _oi, r in inst.store:
+                            storage[r] = out
                             mm.alloc(vid_of[r], nbytes[r])
-                    for oi, r in inst.extra_store:
-                        storage[r] = out[oi]
-                else:
-                    for _oi, r in inst.store:
-                        storage[r] = out
+                    del out
+                elif op == OP_REGEN:
+                    state["step"] = inst.step
+                    state["pinned"] = inst.pinned
+                    for r in inst.regs:
+                        materialize(r)
+                elif op == OP_MAYBE_EVICT:   # Remat::EvictOp check
+                    state["step"] = inst.step
+                    state["pinned"] = inst.pinned
+                    if bound is not None:
+                        # the resolved ensure table holds cap sizes; sum the
+                        # live overlay so pressure checks see measured sizes
+                        comp = prog.computes[inst.cidx]
+                        mm.ensure(sum(nbytes[r] for _oi, r in comp.store))
+                    else:
+                        mm.ensure(resolved.ensure_bytes[inst.cidx])
+                elif op == OP_BIND_DIM:
+                    # measure, clamp, publish, refresh the bound-dependent
+                    # sizes and arguments, then the deferred payload alloc at
+                    # the tight size
+                    mm.stats.measured_dims[inst.name] = bound.bind(inst,
+                                                                   storage)
+                    for _oi, r in inst.alloc_store:
                         mm.alloc(vid_of[r], nbytes[r])
-                del out
-            elif op == OP_REGEN:
-                state["step"] = inst.step
-                state["pinned"] = inst.pinned
-                for r in inst.regs:
-                    materialize(r)
-            elif op == OP_MAYBE_EVICT:   # Remat::EvictOp check
-                state["step"] = inst.step
-                state["pinned"] = inst.pinned
-                if bound is not None:
-                    # the resolved ensure table holds cap sizes; sum the
-                    # live overlay so pressure checks see measured sizes
-                    comp = prog.computes[inst.cidx]
-                    mm.ensure(sum(nbytes[r] for _oi, r in comp.store))
-                else:
-                    mm.ensure(resolved.ensure_bytes[inst.cidx])
-            elif op == OP_BIND_DIM:
-                # measure, clamp, publish, refresh the bound-dependent
-                # sizes and arguments, then the deferred payload alloc at
-                # the tight size
-                mm.stats.measured_dims[inst.name] = bound.bind(inst, storage)
-                for _oi, r in inst.alloc_store:
-                    mm.alloc(vid_of[r], nbytes[r])
-            elif op == OP_LOOP:
-                # the evict check is hoisted — one ensure() for the loop's
-                # exact internal peak — then the shared account() engine
-                # drives the MemoryManager while the body runs
-                state["step"] = inst.step
-                state["pinned"] = inst.pinned
-                ins = [arg(r) for r in inst.in_regs]
-                rl = resolved.loops[inst.lidx]
-                info = prog.loops[inst.lidx]
-                mm.ensure(rl.extra_bytes)
-                info.lp.account(mm, info.node.id, rl.trip,
-                                rl.sizes.__getitem__, rl.outer_y,
-                                rl.outer_carry)
-                out = exec_loop(info, rl, ins, resolved.env)
-                for oi, r in inst.store:   # account() allocated them
-                    storage[r] = out[oi]
-                del out
-            elif op == OP_BIND_ARG:
-                storage[inst.reg] = (
-                    take(flat_args, inst.index, prog.donate_inputs)
-                    if inst.index >= 0 else inst.const)
-                if arena is not None:
-                    arena.place_external(inst.vid, nbytes[inst.reg])
-                if prog.count_inputs:
-                    mm.alloc(inst.vid, nbytes[inst.reg])
-            elif op == OP_FREE_SLOT:
-                if holds.get(inst.reg, 0) > 0:
-                    pending_free[inst.reg] = True
-                else:
-                    free_reg(inst.reg, True)
-            elif op == OP_DONATE:
-                if holds.get(inst.reg, 0) > 0:
-                    pending_free[inst.reg] = inst.counted
-                else:
-                    free_reg(inst.reg, inst.counted)
-            else:  # OP_RETURN
-                outputs = [materialize(r) for r in inst.regs]
-            if hook is not None:
-                hook(idx, inst, mm)
-        if arena is not None:
-            arena.write_stats(mm.stats)
-        # the closures above form reference cycles over the register file:
-        # empty it, or the call's tensors (the outputs too) stay allocated
-        # after the caller drops them, until a garbage collection
-        storage.clear()
-        host_storage.clear()
-        mm.evict_callback = None
+                elif op == OP_LOOP:
+                    # the evict check is hoisted — one ensure() for the
+                    # loop's exact internal peak — then the shared
+                    # account() engine drives the MemoryManager while the
+                    # body runs
+                    state["step"] = inst.step
+                    state["pinned"] = inst.pinned
+                    ins = [arg(r) for r in inst.in_regs]
+                    rl = resolved.loops[inst.lidx]
+                    info = prog.loops[inst.lidx]
+                    mm.ensure(rl.extra_bytes)
+                    info.lp.account(mm, info.node.id, rl.trip,
+                                    rl.sizes.__getitem__, rl.outer_y,
+                                    rl.outer_carry)
+                    out = exec_loop(info, rl, ins, resolved.env)
+                    for oi, r in inst.store:   # account() allocated them
+                        storage[r] = out[oi]
+                    del out
+                elif op == OP_BIND_ARG:
+                    storage[inst.reg] = (
+                        take(flat_args, inst.index, prog.donate_inputs)
+                        if inst.index >= 0 else inst.const)
+                    if arena is not None:
+                        arena.place_external(inst.vid, nbytes[inst.reg])
+                    if prog.count_inputs:
+                        mm.alloc(inst.vid, nbytes[inst.reg])
+                elif op == OP_FREE_SLOT:
+                    if holds.get(inst.reg, 0) > 0:
+                        pending_free[inst.reg] = True
+                    else:
+                        free_reg(inst.reg, True)
+                elif op == OP_DONATE:
+                    if holds.get(inst.reg, 0) > 0:
+                        pending_free[inst.reg] = inst.counted
+                    else:
+                        free_reg(inst.reg, inst.counted)
+                else:  # OP_RETURN
+                    outputs = [materialize(r) for r in inst.regs]
+                if hook is not None:
+                    hook(idx, inst, mm)
+            if arena is not None:
+                arena.write_stats(mm.stats)
+        finally:
+            # the closures above form reference cycles over the register
+            # file: empty it on every exit, a raise included, or the call's
+            # tensors (the outputs too) stay allocated after the caller
+            # drops them, until a garbage collection
+            storage.clear()
+            host_storage.clear()
+            mm.evict_callback = None
         return outputs, mm.stats

@@ -802,6 +802,62 @@ def test_dynamic_stream_releases_the_call_on_return(executor):
             gc.enable()
 
 
+@pytest.mark.parametrize("executor", ["vm", "reference"])
+def test_dynamic_stream_releases_the_call_on_raise(executor):
+    """A call that raises ``MemoryLimitExceeded`` mid-stream (no remat
+    candidates, so nothing can be evicted) leaves no tensor it made
+    referenced once the ``except`` block ends: Table 1's OOM rows raise
+    there, and the partial activations must not outlive the row."""
+    import gc
+    import weakref
+
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import MemoryLimitExceeded
+
+    class Made(TorchDispatchMode):
+        """Weak references to every tensor an op returns."""
+
+        def __init__(self):
+            super().__init__()
+            self.refs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in pytree.tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.refs.append(weakref.ref(t))
+            return out
+
+    n, = symbolic_dims("n")
+    fn = optimize(_pressure_step, TensorSpec((n, 64), f32),
+                  TensorSpec((64, 64), f32), dynamic_dims={"n": (1, 256)},
+                  device="cpu", executor=executor, enable_remat=False)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(256, 64).astype(np.float32))
+    w = torch.from_numpy((rng.randn(64, 64) * 0.1).astype(np.float32))
+    fn(x, w)
+    capped = fn.with_memory_limit(fn.last_report.stats.device_peak -
+                                  256 * 64 * 4)
+    made = Made()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        try:
+            with made:
+                capped(x, w)
+        except MemoryLimitExceeded:
+            pass
+        else:
+            raise AssertionError("the capped call did not raise")
+        assert made.refs, "the call made no tensor before it raised"
+        assert [r for r in made.refs if r() is not None] == []
+    finally:
+        if enabled:
+            gc.enable()
+
+
 # -- explain + serve surfaces --------------------------------------------------
 
 

@@ -276,3 +276,50 @@ def test_donated_step_releases_its_inputs(trainer):
             peak = st.device_peak
         else:
             assert st.device_peak <= int(frac * peak) and st.evictions > 0
+
+
+def test_without_remat_a_cap_below_the_peak_raises_without_evicting(
+        trainer):
+    """``enable_remat=False`` (Table 1's ``disc-dynamic``) leaves the plan
+    no remat candidates: under a limit below the peak the dynamic stream
+    evicts nothing and raises ``MemoryLimitExceeded``, as the reference's
+    does on the same kind of step."""
+    import jax
+    import jax.numpy as jnp
+
+    import repro.core as RC
+    from repro.core.executor.memory import \
+        MemoryLimitExceeded as RMemoryLimitExceeded
+
+    opt, args, _, peak = trainer
+    sg = P.ShapeGraph()
+    P.declare_dim_ranges(sg, DYNAMIC_DIMS)
+    plan, report, _ = _compile_pipeline(opt.plan.graph, sg,
+                                        enable_remat=False)
+    assert plan.candidates == {} and report.n_candidates == 0
+    capped = DynamicShapeFunction(plan, report, device=opt.device
+                                  ).with_memory_limit(int(CAPS[0] * peak))
+    assert capped.program.has_evict_path
+    seen = []
+    capped.interp.timeline_hook = lambda idx, inst, mm: seen.append(mm.stats)
+    with pytest.raises(MemoryLimitExceeded):
+        capped(*args)
+    assert seen and seen[-1].evictions == seen[-1].offloads == 0
+
+    def jstep(x, w):
+        a = jnp.tanh(x @ w)
+        b = jnp.tanh(a @ w)
+        c = jnp.tanh(b @ w)
+        return (a * c).sum() + b.sum()
+
+    n, = RC.symbolic_dims("n")
+    specs = (jax.ShapeDtypeStruct((n, 64), jnp.float32),
+             jax.ShapeDtypeStruct((64, 64), jnp.float32))
+    x = jnp.ones((256, 64), jnp.float32)
+    w = jnp.full((64, 64), 0.01, jnp.float32)
+    ref = RC.optimize(jstep, *specs, enable_remat=False)
+    ref(x, w)
+    assert ref.plan.candidates == {}
+    with pytest.raises(RMemoryLimitExceeded):
+        ref.with_memory_limit(
+            int(CAPS[0] * ref.last_report.stats.device_peak))(x, w)
