@@ -22,11 +22,13 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0              # 0 -> d_model // n_heads
-    ffn_kind: str = "swiglu"       # swiglu (the only kind ported so far)
+    ffn_kind: str = "swiglu"       # swiglu | geglu
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
     optimizer_dtype: str = "float32"  # AdamW moments (bfloat16 option)
+    # tokens (the only input mode ported so far) | embeddings | vlm
+    input_mode: str = "tokens"
     # embedding-table padding to a tile boundary (pad logits masked)
     pad_vocab_to: int = 128
 

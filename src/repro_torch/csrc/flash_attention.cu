@@ -215,7 +215,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// float32 only; hd in {32, 64, 128}.  strides holds 12 element strides,
+// float32 only; hd in {32, 64, 128, 256}.  strides holds 12 element strides,
 // (batch, head, row) of q, k, v and o in that order.  Returns
 // cudaGetLastError() after the launch (0 on success); the Python wrapper
 // raises on anything else.
@@ -238,6 +238,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       return launch<64>(q, k, v, o, st, B, Hq, Hkv, S, T, causal, scale, s);
     case 128:
       return launch<128>(q, k, v, o, st, B, Hq, Hkv, S, T, causal, scale, s);
+    case 256:  // 139,904 bytes of shared memory (opt-in), 1 CTA per SM
+      return launch<256>(q, k, v, o, st, B, Hq, Hkv, S, T, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -31,14 +31,24 @@
 // Design (the FlashAttention-3 forward, simplified):
 //   * one CTA of 3 warpgroups per (b*Hq, 128-row q block); heavy (late)
 //     causal q blocks launch first.  Warpgroup 0 is the producer: one
-//     thread issues the TMA loads (Q once, then K and V tiles of 128 keys
+//     thread issues the TMA loads (Q once, then K and V tiles of BN keys
 //     into a 2-stage ring with "full" and "empty" mbarriers); setmaxnreg
 //     gives it 24 registers and the consumers 240.  Warpgroups 1 and 2 are
 //     consumers, each owning 64 of the 128 q rows;
+//   * BN = 128 keys a tile at hd 32, 64 and 128.  At hd 256 a 128-key
+//     tile would need 64 KiB Q + 2 stages x (64 + 64) KiB K/V = 320 KiB of
+//     shared memory, over the 227 KiB a block may have, so hd 256 takes
+//     64-key tiles: 64 + 2 x (32 + 32) = 192 KiB.  Its O accumulator is
+//     128 f32 a thread; with the 64-key S tile (32) and P's two bf16 terms
+//     (16 + 16) that stays under the consumers' 240 registers.  With 128
+//     q rows over 64-key tiles two tiles cross the diagonal; a consumer
+//     whose 64 rows all lie above a tile (causal) skips its math and only
+//     releases the stage;
 //   * shared tiles use the TMA's 128-byte swizzle over 64-column panels at
-//     hd 64 and 128 (a 256-byte row is two panels) and the 64-byte swizzle
-//     at hd 32; the wgmma descriptors name the same swizzle;
-//   * S = Q.K^T: wgmma m64n128k16, A and B from shared memory, both
+//     hd >= 64 (a row of hd 128 is two panels, of hd 256 four) and the
+//     64-byte swizzle at hd 32; the wgmma descriptors name the same
+//     swizzle;
+//   * S = Q.K^T: wgmma m64nBNk16, A and B from shared memory, both
 //     K-major.  Softmax in registers: a row lives in 4 threads of the
 //     accumulator layout, so its max is 2 xor shuffles; the row sum stays
 //     per thread until the end; exp2f with log2(e) folded into the scale.
@@ -69,28 +79,35 @@
 namespace {
 
 constexpr int kBM = 128;        // q rows per CTA (64 per consumer warpgroup)
-constexpr int kBN = 128;        // keys per K/V tile
 constexpr int kThreads = 384;   // producer + 2 consumer warpgroups
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory geometry of one 128-row tile of hd bf16 columns.
+// Shared-memory geometry at head dim HD: the 128-row Q tile and the BN-row
+// K and V tiles, each stored as NPANEL panels of PC bf16 columns.
 template <int HD>
 struct Geo {
-  static constexpr int PC = HD >= 64 ? 64 : 32;  // columns per swizzle panel
-  static constexpr int ROWB = PC * 2;            // bytes of a panel row
+  static constexpr int BN = HD > 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int PC = HD >= 64 ? 64 : 32;   // columns per swizzle panel
+  static constexpr int ROWB = PC * 2;             // bytes of a panel row
   static constexpr int NPANEL = HD / PC;
-  static constexpr int PANEL = kBM * ROWB;       // bytes of a 128-row panel
-  static constexpr int TILE = NPANEL * PANEL;    // 128 * HD * 2 bytes
-  static constexpr int KPP = PC / 16;            // k16 steps per panel
+  static constexpr int QPANEL = kBM * ROWB;       // bytes of a Q panel
+  static constexpr int QTILE = NPANEL * QPANEL;   // 128 * HD * 2 bytes
+  static constexpr int KPANEL = BN * ROWB;        // bytes of a K/V panel
+  static constexpr int KTILE = NPANEL * KPANEL;   // BN * HD * 2 bytes
+  static constexpr int KPP = PC / 16;             // k16 steps per panel
   // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte swizzle
   static constexpr uint64_t LAYOUT = HD >= 64 ? 1 : 2;
   static constexpr uint32_t SWZ = HD >= 64 ? 7 : 3;
-  // Q, 2 K and 2 V tiles, 5 mbarriers, and slack to align the base to 1 KB;
-  // at least 116 KB, so that a second CTA never shares the SM and holds the
+  // Q at 0, K stages at QTILE, V stages at QTILE + 2 * KTILE, then the 5
+  // mbarriers
+  static constexpr int BARS = QTILE + 4 * KTILE;
+  // the tiles, the mbarriers, and slack to align the base to 1 KB; at
+  // least 116 KB, so that a second CTA never shares the SM and holds the
   // registers that the consumers' setmaxnreg.inc waits for
   static constexpr int SMEM =
-      5 * TILE + 64 + 1024 > 116 * 1024 ? 5 * TILE + 64 + 1024 : 116 * 1024;
+      BARS + 64 + 1024 > 116 * 1024 ? BARS + 64 + 1024 : 116 * 1024;
+  static_assert(SMEM <= 227 * 1024, "over the per-block shared memory");
 };
 
 // the swizzle the TMA applies to a byte offset from a 1 KB-aligned tile
@@ -183,9 +200,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// S (64 x 128, f32) = A (64 x 16) . B (16 x 128)^T; A and B from shared
+// S (64 x N, f32) = A (64 x 16) . B (16 x N)^T; A and B from shared
 // memory, both K-major; scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -199,12 +221,48 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // O (64 x N, f32) += P (64 x 16, bf16 in registers) . V (16 x N); V from
 // shared memory, MN-major (transpose bit set)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, "
+      "p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0,
@@ -270,6 +328,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // delivers.  Accumulator layout (wgmma m64nN, f32): register i of thread
 // (warp w, lane l) holds row 16w + l/4 + 8*((i/2)%2), column
 // 8*(i/4) + 2*(l%4) + i%2, so a row's values sit in the 4 threads of a quad.
+// At hd 256 (BN 64) a causal tile can lie wholly above the first
+// consumer's rows; that consumer releases it without computing.
 template <int HD>
 __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
                                         int q0, int b, int h, int S, int T,
@@ -279,13 +339,14 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
                                         long long os_b, long long os_h,
                                         long long os_r) {
   using G = Geo<HD>;
+  constexpr int BN = G::BN;
   const int tw = threadIdx.x % 128;
   const int warp = tw / 32, lane = tw % 32;
   const int row0 = 16 * warp + lane / 4;  // first of the thread's two rows
   const int qmin = q0 + 64 * cw;          // this warpgroup's first q row
   const int qrow0 = qmin + row0;
   const uint32_t sQ = base + 64 * cw * G::ROWB;
-  const uint32_t bars = base + 5 * G::TILE;  // q_full, full[2], empty[2]
+  const uint32_t bars = base + G::BARS;  // q_full, full[2], empty[2]
 
   float acc[HD / 2];
 #pragma unroll
@@ -295,27 +356,37 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
   mbar_wait(bars, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1;
-    const int kv0 = it * kBN;
-    const uint32_t sK = base + (1 + st) * G::TILE;
-    const uint32_t sV = base + (3 + st) * G::TILE;
+    const int kv0 = it * BN;
+    const uint32_t sK = base + G::QTILE + st * G::KTILE;
+    const uint32_t sV = base + G::QTILE + (2 + st) * G::KTILE;
     mbar_wait(bars + 8 * (1 + st), (it >> 1) & 1);
+    if (causal && kv0 > qmin + 63) {  // every key above every row here
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (3 + st));
+      continue;
+    }
 
-    float s[64];
+    float s[BN / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk / G::KPP) * G::PANEL + (kk % G::KPP) * 32;
-      wgmma_ss_n128(s, smem_desc(sQ + off, 16, 8 * G::ROWB, G::LAYOUT),
-                    smem_desc(sK + off, 16, 8 * G::ROWB, G::LAYOUT), kk > 0);
+      const uint32_t col = (kk % G::KPP) * 32;
+      wgmma_ss<BN>(
+          s,
+          smem_desc(sQ + (kk / G::KPP) * G::QPANEL + col, 16, 8 * G::ROWB,
+                    G::LAYOUT),
+          smem_desc(sK + (kk / G::KPP) * G::KPANEL + col, 16, 8 * G::ROWB,
+                    G::LAYOUT),
+          kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
 
     // tiles that cross the diagonal or the ragged end get the mask
-    if (kv0 + kBN > T || (causal && kv0 + kBN - 1 > qmin)) {
+    if (kv0 + BN > T || (causal && kv0 + BN - 1 > qmin)) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < BN / 2; ++i) {
         const int col = kv0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
         const int row = qrow0 + 8 * ((i / 2) % 2);
         if (col >= T || (causal && col > row)) s[i] = kNegInf;
@@ -323,7 +394,8 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
     }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+    for (int i = 0; i < BN / 2; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
     float corr[2], nb[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -335,9 +407,9 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
     }
     // P in the A-fragment layout: p[j] packs s[2j], s[2j+1] (row j % 2),
     // as two bf16 terms, hi = bf16(P) and lo = bf16(P - hi)
-    uint32_t p[32], plo[32];
+    uint32_t p[BN / 4], plo[BN / 4];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < BN / 4; ++j) {
       const float p0 = exp2f(fmaf(s[2 * j], scale_log2, nb[j % 2]));
       const float p1 = exp2f(fmaf(s[2 * j + 1], scale_log2, nb[j % 2]));
       l[j % 2] += p0 + p1;
@@ -350,8 +422,8 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
 
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t dv = smem_desc(sV + kk * 16 * G::ROWB, G::PANEL,
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = smem_desc(sV + kk * 16 * G::ROWB, G::KPANEL,
                                     8 * G::ROWB, G::LAYOUT);
       wgmma_rs<HD>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                    p[4 * kk + 3], dv);
@@ -377,7 +449,7 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
     const int rr = 64 * cw + row0 + 8 * (j % 2);
     const int col = 8 * (j / 2) + 2 * (lane % 4);
     const uint32_t off =
-        (col / G::PC) * G::PANEL + rr * G::ROWB + (col % G::PC) * 2;
+        (col / G::PC) * G::QPANEL + rr * G::ROWB + (col % G::PC) * 2;
     *reinterpret_cast<uint32_t*>(gbase + swizzle<HD>(off)) =
         pack_bf16(acc[2 * j] * inv[j % 2], acc[2 * j + 1] * inv[j % 2]);
   }
@@ -389,8 +461,8 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* gbase, int cw,
     const int col = (idx % kChunks) * 8;
     const int q = qmin + rr;
     if (q >= S) break;  // rows grow with idx
-    const uint32_t off = (col / G::PC) * G::PANEL + (64 * cw + rr) * G::ROWB +
-                         (col % G::PC) * 2;
+    const uint32_t off = (col / G::PC) * G::QPANEL +
+                         (64 * cw + rr) * G::ROWB + (col % G::PC) * 2;
     *reinterpret_cast<uint4*>(orow + q * os_r + col) =
         *reinterpret_cast<const uint4*>(gbase + swizzle<HD>(off));
   }
@@ -409,14 +481,14 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* gbase = smem_raw + (base - raw);
-  const uint32_t bars = base + 5 * G::TILE;  // q_full, full[2], empty[2]
+  const uint32_t bars = base + G::BARS;  // q_full, full[2], empty[2]
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
   const int b = bh / Hq, h = bh % Hq;
   // causal: keys past the block's last row (q0 + kBM - 1) are never needed
   const int kv_end = causal ? min(T, q0 + kBM) : T;
-  const int n_tiles = (kv_end + kBN - 1) / kBN;
+  const int n_tiles = (kv_end + G::BN - 1) / G::BN;
 
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
@@ -432,21 +504,21 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (threadIdx.x == 0) {
       const int hk = h / (Hq / Hkv);
-      mbar_expect_tx(bars, G::TILE);
+      mbar_expect_tx(bars, G::QTILE);
 #pragma unroll
       for (int pnl = 0; pnl < G::NPANEL; ++pnl)
-        tma_load(base + pnl * G::PANEL, &tm_q, bars, pnl * G::PC, q0, h, b);
+        tma_load(base + pnl * G::QPANEL, &tm_q, bars, pnl * G::PC, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it & 1;
         const uint32_t full = bars + 8 * (1 + st);
         mbar_wait(bars + 8 * (3 + st), ((it >> 1) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * G::TILE);
+        mbar_expect_tx(full, 2 * G::KTILE);
 #pragma unroll
         for (int pnl = 0; pnl < G::NPANEL; ++pnl) {
-          tma_load(base + (1 + st) * G::TILE + pnl * G::PANEL, &tm_k, full,
-                   pnl * G::PC, it * kBN, hk, b);
-          tma_load(base + (3 + st) * G::TILE + pnl * G::PANEL, &tm_v, full,
-                   pnl * G::PC, it * kBN, hk, b);
+          tma_load(base + G::QTILE + st * G::KTILE + pnl * G::KPANEL, &tm_k,
+                   full, pnl * G::PC, it * G::BN, hk, b);
+          tma_load(base + G::QTILE + (2 + st) * G::KTILE + pnl * G::KPANEL,
+                   &tm_v, full, pnl * G::PC, it * G::BN, hk, b);
         }
       }
     }
@@ -484,17 +556,18 @@ EncodeTiledFn encoder() {
   return fn;
 }
 
-// 4-D map (hd, rows, heads, batch) of a bf16 operand; strides in elements
-// for (batch, head, row), each a multiple of 8 (16 bytes)
+// 4-D map (hd, rows, heads, batch) of a bf16 operand, boxes of box_rows
+// rows; strides in elements for (batch, head, row), each a multiple of 8
+// (16 bytes)
 template <int HD>
 bool encode(CUtensorMap* map, const void* ptr, int rows, int heads,
-            int batch, const long long* st) {
+            int batch, const long long* st, int box_rows) {
   using G = Geo<HD>;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)G::PC, (cuuint32_t)kBN, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)G::PC, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(ptr), dims, strides, box, elem,
@@ -511,9 +584,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
            int causal, float scale, cudaStream_t stream) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode<HD>(&tq, q, S, Hq, B, st) ||
-      !encode<HD>(&tk, k, T, Hkv, B, st + 3) ||
-      !encode<HD>(&tv, v, T, Hkv, B, st + 6))
+  if (!encode<HD>(&tq, q, S, Hq, B, st, kBM) ||
+      !encode<HD>(&tk, k, T, Hkv, B, st + 3, Geo<HD>::BN) ||
+      !encode<HD>(&tv, v, T, Hkv, B, st + 6, Geo<HD>::BN))
     return (int)cudaErrorInvalidValue;
   auto kernel = flash_fwd_sm90<HD>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -528,7 +601,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// bf16 only; hd in {32, 64, 128}.  strides holds 12 element strides,
+// bf16 only; hd in {32, 64, 128, 256}.  strides holds 12 element strides,
 // (batch, head, row) of q, k, v and o in that order, each a multiple of 8
 // elements (16 bytes), and the four pointers are 16-byte aligned (the
 // Python wrapper checks both).  Returns cudaGetLastError() after the
@@ -552,6 +625,9 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                         s);
     case 128:
       return launch<128>(q, k, v, o, strides, B, Hq, Hkv, S, T, causal, scale,
+                         s);
+    case 256:
+      return launch<256>(q, k, v, o, strides, B, Hq, Hkv, S, T, causal, scale,
                          s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every source under ``repro_torch/csrc`` compiles with one ``nvcc`` call
-for ``sm_90a`` into one shared library with a plain C interface, loaded
-with ``ctypes``.  The library lives in ``build/repro_torch/`` at the root
+Every source under ``repro_torch/csrc`` compiles for ``sm_90a`` in its
+own ``nvcc`` process, all started together, and one more ``nvcc`` call
+links the objects into one shared library with a plain C interface,
+loaded with ``ctypes``.  The library lives in ``build/repro_torch/`` at the root
 of the checkout, named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as is.  The build runs
 at the first CUDA launch, never at import.
@@ -24,7 +25,7 @@ from typing import List, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # the C interface: name -> (argtypes, restype)
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
@@ -80,21 +81,41 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
+def _run(procs) -> str:
+    """Wait for every ``(cmd, Popen)``; their joined output, or raise."""
+    out, failed = [], []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        out.append(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(out)
+
+
 def _build(target: Path, log: Path) -> float:
     target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, target)
-    return seconds
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        compiles = []
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report = _run(compiles)
+        lib = Path(tmp) / "lib.so"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(lib), *map(str, objs)]
+        report += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        log.write_text(report)
+        os.replace(lib, target)
+    return time.perf_counter() - t0
 
 
 def load_library() -> KernelLibrary:

@@ -6,9 +6,10 @@ Port of the TPU kernel ``src/repro/kernels/flash_attention.py``
 
 * bfloat16 (the served dtype): ``repro_torch/csrc/flash_attention_sm90.cu``,
   TMA loads and ``wgmma`` on the tensor cores with a producer warpgroup
-  and two consumer warpgroups.  TMA needs 16-byte aligned addresses and
-  strides; an input that breaks that raises instead of taking a slower
-  kernel.
+  and two consumer warpgroups; 128-key tiles at hd 32, 64 and 128, 64-key
+  tiles at hd 256 (what fits in shared memory).  TMA needs 16-byte
+  aligned addresses and strides; an input that breaks that raises instead
+  of taking a slower kernel.
 * float32: ``repro_torch/csrc/flash_attention.cu``, f32 FMAs from shared
   memory (the tensor cores' TF32 would not hold f32 to 2e-4).
 
@@ -32,7 +33,7 @@ import torch
 
 from .build import load_library, stream_handle
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16  # bytes: TMA's alignment of addresses and strides
 
@@ -64,7 +65,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softmax_scale: Optional[float] = None
                          ) -> torch.Tensor:
     """q: (B, Hq, S, hd); k/v: (B, Hkv, T, hd) with Hq % Hkv == 0, all on
-    one CUDA device, float32 or bfloat16, hd in {32, 64, 128}.  Any batch,
+    one CUDA device, float32 or bfloat16, hd in {32, 64, 128, 256}.  Any batch,
     head and row strides are taken (the model passes ``(B, S, H, hd)``
     activations transposed); the head dim must be unit-stride, and in
     bfloat16 pointers and strides must be multiples of 16 bytes.  Returns

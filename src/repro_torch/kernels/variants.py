@@ -64,7 +64,7 @@ from .hw_model import DEFAULT_HW, HardwareModel
 # point only — validity never relies on it (an unbounded transient or
 # shared-memory footprint is invalid)
 _UNBOUNDED_PROBE = 4096
-HEAD_DIMS = (32, 64, 128)          # the flash kernels' instances
+HEAD_DIMS = (32, 64, 128, 256)     # the flash kernels' instances
 
 # the port's kernel ops (captured node ``prim_name``) -> registry key
 PRIM_KEYS = {"repro_torch.flash_attention.default": "flash_attention",
@@ -84,7 +84,9 @@ class KernelVariant:
     kernel's route; ``dtypes`` the input dtypes it takes (empty: any).
     ``block`` holds the kernel's compile-time tile sizes (sorted name /
     value pairs), ``threads`` its CTA size and ``regs_per_cta`` the
-    registers one CTA holds (0 where the source does not fix them)."""
+    registers one CTA holds (0 where the source does not fix them).
+    Where an instance's tiles follow the head dim, :func:`variant_block`
+    gives the ones it runs."""
 
     name: str
     route: str
@@ -161,7 +163,9 @@ SIMT = KernelVariant(
     name="simt_f32_bq64_bkv32", route="simt", dtypes=(torch.float32,),
     block=(("block_kv", 32), ("block_q", 64)), threads=256,
     # ptxas -v on the H100 build (chip_smoke.py, PR 14): 80 registers a
-    # thread at hd 128, 64 at hd 32 and 64; the most is charged
+    # thread at hd 128, 64 at hd 32 and 64; 80 is charged.  hd 256 takes
+    # 127, but its 139,904 B of shared memory already hold it to
+    # one CTA an SM, which 80 or 127 registers a thread both allow
     regs_per_cta=256 * 80)
 REF_DENSE = KernelVariant(name="ref_dense", route="ref")
 FLASH_VARIANTS: Tuple[KernelVariant, ...] = (SM90, SIMT, REF_DENSE)
@@ -174,6 +178,18 @@ RMSNORM_VARIANTS: Tuple[KernelVariant, ...] = (ROW256, REF_UNFUSED)
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def variant_block(variant: KernelVariant,
+                  shape: Mapping[str, Optional[int]]) -> Dict[str, int]:
+    """The tile sizes ``variant`` runs at ``shape``: its ``block``, but
+    the sm90 kernel's hd-256 instance takes 64-key tiles
+    (``Geo<HD>::BN`` in ``csrc/flash_attention_sm90.cu``), as 128-key
+    ones would need 320 KiB of shared memory."""
+    block = dict(variant.block)
+    if variant.route == "sm90" and shape.get("hd") == 256:
+        block["block_kv"] = 64
+    return block
 
 
 # ---------------------------------------------------------------------------
@@ -193,10 +209,13 @@ def variant_smem_bytes(prim_name: str, variant: KernelVariant,
     if hd is None:
         return None
     if variant.route == "sm90":
-        # csrc/flash_attention_sm90.cu Geo<HD>::SMEM: Q, 2 K and 2 V tiles
-        # of 128 rows, 5 mbarriers and 1 KB alignment slack, at least 116 KB
-        tile = 128 * hd * 2
-        return max(5 * tile + 64 + 1024, 116 * 1024)
+        # csrc/flash_attention_sm90.cu Geo<HD>::SMEM: the 128-row Q tile,
+        # 2 K and 2 V tiles of block_kv rows, 5 mbarriers and 1 KB
+        # alignment slack, at least 116 KB
+        block = variant_block(variant, hi_shape)
+        q_tile = block["block_q"] * hd * 2
+        kv_tile = block["block_kv"] * hd * 2
+        return max(q_tile + 4 * kv_tile + 64 + 1024, 116 * 1024)
     # csrc/flash_attention.cu smem_floats<HD>() * 4: padded Q and K tiles,
     # the V tile and the padded P tile, in f32
     bq, bkv = variant.block_of("block_q"), variant.block_of("block_kv")
@@ -332,7 +351,8 @@ def flash_cost(variant: KernelVariant, shape: Mapping[str, int],
         time = work + launches * hw.launch_s
         return VariantCost(time, flops_fp32, hbm, launches)
 
-    bq, bkv = variant.block_of("block_q"), variant.block_of("block_kv")
+    block = variant_block(variant, shape)
+    bq, bkv = block["block_q"], block["block_kv"]
     nq, nk = _ceil_div(s, bq), _ceil_div(t, bkv)
     pairs = _causal_block_pairs(nq, nk, bq, bkv) if causal else nq * nk
     tile = bq * bkv
@@ -399,6 +419,8 @@ CALIBRATION: Dict[str, Tuple[Dict[str, int], torch.dtype, float]] = {
     ROW256.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.0499e-3),  # ms col.
     REF_UNFUSED.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.5538e-3),  # plain
 }
+# (the sm90 kernel's hd-256 instance, 64-key tiles, is priced with the
+# efficiency of this hd-128 row)
 _EFF_CACHE: Dict[Tuple[str, HardwareModel], float] = {}
 
 
@@ -642,8 +664,10 @@ def select_kernels(graph, sg, hw: HardwareModel = DEFAULT_HW,
                    if sel.measured else
                    f"model {sel_us:.1f}us vs default {def_us:.1f}us "
                    f"over {sel.describe_bounds()}")
+            hi = {k: h for k, (_lo, h) in sel.bounds.items()}
             decisions.add("kernel-select", f"%{node.id} {sel.prim_name}",
                           sel.variant.name, why,
+                          block=variant_block(sel.variant, hi),
                           model_speedup=round(sel.model_speedup, 3),
                           n_scored=len(sel.scores),
                           invalid=list(sel.invalid))

@@ -1,20 +1,32 @@
-"""Bucket-aware serving front end.
+"""Serving: the reference's KV-cache decode loop and the bucket-aware
+front end.
+
+``serve`` is the reference's server loop (``repro/launch/serve.py:345``):
+a cache-filling prefill token by token, then greedy decode, eagerly over
+the port's ``decode_step``; ``python -m repro_torch.launch.serve --arch
+gemma-2b`` runs it.
 
 ``BucketBatcher`` groups queued requests by specialization bucket before
 dispatch, so one specialized plan — lowered to a flat executable
 ``Program`` run by the VM — serves each group, and admission control can
 reason in per-bucket guaranteed arena bounds.  Port of the batcher of
-``repro/launch/serve.py``, with its Prometheus export (``metrics_text``);
-the reference's decode loop (``serve``) comes with decode.
+``repro/launch/serve.py``, with its Prometheus export (``metrics_text``).
 """
 from __future__ import annotations
 
+import argparse
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
+import torch
+
+from ..configs import get_config, get_smoke_config
+from ..core.api import resolve_device
 from ..core.obs import AdmissionEvent
+from ..models import decode_step, init_cache, init_params
 
 
 # -- bucket-aware batching -----------------------------------------------------
@@ -329,3 +341,86 @@ class BucketBatcher:
         counters (``held_total``, per-bucket holds, queue depth)."""
         from ..core.obs import prometheus_text
         return prometheus_text(fn=self.fn, batcher=self, prefix=prefix)
+
+
+# -- the decode loop ------------------------------------------------------------
+
+
+def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
+          seed: int = 0, greedy: bool = True,
+          device: Any = None) -> Dict[str, Any]:
+    """The reference's server loop: random weights from ``seed``, a prompt of ``np.random.RandomState(seed)`` tokens
+    fed one token a step to fill a cache of ``prompt_len + gen + 1`` rows,
+    then ``gen`` greedy decode steps.  Runs eagerly on ``device`` (``cuda``
+    unless given; the reference's ``jax.jit`` has no counterpart here) and
+    waits for the device after the prefill and after every decode step,
+    where the reference blocks.
+
+    Returns the reference's keys (``prefill_s``, ``decode_s``,
+    ``decode_tok_per_s``, ``tokens`` (B, gen)) and ``prompt`` (B,
+    prompt_len), ``prompt_logits`` (the logits after the last prompt
+    token, (B, 1, V)) and ``state`` (the final ``DecodeState``)."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"input mode {cfg.input_mode!r} comes with musicgen")
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    params = init_params(cfg, seed=seed, device=dev)
+    state = init_cache(cfg, batch, max_len=prompt_len + gen + 1, device=dev)
+    prompt = rng.randint(1, cfg.vocab, (batch, prompt_len))
+    prompt_toks = torch.from_numpy(prompt).to(torch.int32).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    logits = None
+    for t in range(prompt_len):           # cache-filling prefill
+        logits, state = decode_step(cfg, params, state,
+                                    {"token": prompt_toks[:, t:t + 1]})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    prompt_logits = logits
+
+    out_tokens = []
+    t1 = time.perf_counter()
+    for _ in range(gen):
+        nxt = torch.argmax(logits[:, -1], dim=-1)            # (B,)
+        out_tokens.append(nxt.cpu().numpy())
+        logits, state = decode_step(cfg, params, state,
+                                    {"token": nxt[:, None].to(torch.int32)})
+        sync()
+    decode_s = time.perf_counter() - t1
+    return {
+        "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "decode_tok_per_s": batch * gen / max(decode_s, 1e-9),
+        "tokens": np.stack(out_tokens, axis=1) if out_tokens else None,
+        "prompt": prompt,
+        "prompt_logits": prompt_logits,
+        "state": state,
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args()
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    r = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+              gen=args.gen, device=args.device)
+    print(f"[serve] prefill {r['prefill_s']*1000:.0f} ms, "
+          f"decode {r['decode_tok_per_s']:.1f} tok/s")
+    if r["tokens"] is not None:
+        print("[serve] sample:", r["tokens"][0][:10].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Step functions driven by ``optimize``: the serving prefill step and the
-training step (``repro/launch/steps.py``)."""
+"""Step functions: the serving prefill step and the training step driven
+by ``optimize``, and the decode step of the serving loop
+(``repro/launch/steps.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,7 +9,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
-from ..models import loss_fn
+from ..models import decode_step, loss_fn
 from ..models import prefill as model_prefill
 from ..optim import AdamWConfig, apply_updates
 
@@ -52,3 +53,11 @@ def make_prefill_step(cfg: ModelConfig, impl: Optional[str] = None):
     def prefill_step(params, batch):
         return model_prefill(cfg, params, batch, impl)
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(params, state, inp) -> (logits (B,1,V), state)``: one
+    decode token over the KV cache (``models.decode_step``), run eagerly."""
+    def serve_step(params, state, inp):
+        return decode_step(cfg, params, state, inp)
+    return serve_step

@@ -4,7 +4,8 @@
 arrays (``params["layers"]`` stacked on axis 0) and returns the port's
 parameter dict with the stacks split per layer, so the two packages can
 be compared on identical weights.  ``opt_state_from_jax`` does the same
-for the reference's ``AdamWState``.
+for the reference's ``AdamWState``, and ``cache_from_jax`` for its decode
+state, so a decode can be compared mid-stream.
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
 from ..optim import AdamWState
+from .attention import KVCache
+from .blocks import BlockCache
+from .lm import DecodeState
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -52,3 +56,18 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig,
     return AdamWState(step=_to_tensor(np_state.step, dev),
                       m=params_from_jax(np_state.m, cfg, dev),
                       v=params_from_jax(np_state.v, cfg, dev))
+
+
+def cache_from_jax(np_state: Any, cfg: ModelConfig,
+                   device: Any = None) -> DecodeState:
+    """The reference's ``DecodeState`` (numpy leaves; its KV caches stacked
+    on a leading layer axis: k/v (L, B, Smax, Hkv, hd), length (L,)) as
+    the port's list of per-layer caches."""
+    dev = resolve_device(device)
+    kv = np_state.caches.kv
+    k, v, length = (np.asarray(a) for a in (kv.k, kv.v, kv.length))
+    return DecodeState(caches=[
+        BlockCache(kv=KVCache(k=_to_tensor(k[i], dev),
+                              v=_to_tensor(v[i], dev),
+                              length=_to_tensor(length[i], dev)))
+        for i in range(cfg.n_layers)])

@@ -1,4 +1,5 @@
-"""Feed-forward: SwiGLU (the dense-family FFN of the reference)."""
+"""Feed-forward: SwiGLU and GeGLU, the dense-family FFNs of the reference
+(``repro/models/ffn.py:24-47``), in plain PyTorch as there."""
 from __future__ import annotations
 
 from typing import Dict
@@ -14,6 +15,12 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return (F.silu(x @ w1) * (x @ w3)) @ w2
 
 
+def geglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+          w2: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu(approximate=True)``: the tanh form."""
+    return (F.gelu(x @ w1, approximate="tanh") * (x @ w3)) @ w2
+
+
 def ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
              dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     return {"w1": dense_init(gen, (d_model, d_ff), dtype),
@@ -23,6 +30,7 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 def ffn_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
               kind: str = "swiglu") -> torch.Tensor:
-    if kind != "swiglu":
+    fn = {"swiglu": swiglu, "geglu": geglu}.get(kind)
+    if fn is None:
         raise NotImplementedError(f"ffn kind {kind!r} is not ported yet")
-    return swiglu(x, params["w1"], params["w3"], params["w2"])
+    return fn(x, params["w1"], params["w3"], params["w2"])

@@ -1,4 +1,5 @@
-"""Top-level language model: init / forward / loss / prefill (dense family).
+"""Top-level language model: init / forward / loss / prefill and the
+KV-cache decode (dense family).
 
 Layers are unrolled in Python, as the reference does with
 ``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
@@ -9,14 +10,15 @@ weights as graph inputs, as the reference's steps do.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
-from .blocks import block_apply, block_init
+from .attention import KVCache
+from .blocks import BlockCache, block_apply, block_decode, block_init
 from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
 
 
@@ -77,3 +79,48 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
             impl: Optional[str] = None) -> torch.Tensor:
     """Forward over the prompt; returns last-position logits (B, V)."""
     return forward(cfg, params, batch, impl)[:, -1]
+
+
+# -- serving: single-token decode over a KV cache ----------------------------
+
+
+class DecodeState(NamedTuple):
+    """The running decode state: one ``BlockCache`` per layer (the
+    reference stacks them on a leading layer axis for its scan; the port
+    unrolls its layers, so it keeps a list)."""
+    caches: List[BlockCache]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Any = None) -> DecodeState:
+    """Zeroed K/V caches of ``max_len`` rows per layer and a length of 0,
+    on ``device`` (``cuda`` unless given); the KV branch of
+    ``repro/models/lm.py:213-242``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.family} caches are not ported yet")
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return DecodeState(caches=[
+        BlockCache(kv=KVCache(
+            k=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            v=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            length=torch.zeros((), dtype=torch.int32, device=dev)))
+        for _ in range(cfg.n_layers)])
+
+
+def decode_step(cfg: ModelConfig, params: Dict, state: DecodeState,
+                inp: Dict) -> Tuple[torch.Tensor, DecodeState]:
+    """One new token ``inp["token"]`` (B,1) against the running cache ->
+    (logits (B,1,V), the new state).  Layers unrolled; each layer's cache
+    is written in place (``attention.kv_cache_update``).  RMSNorm runs
+    its kernel op; decode attention is plain PyTorch, as the reference's
+    is plain jnp."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"input mode {cfg.input_mode!r} is not ported yet")
+    x = F.embedding(inp["token"], params["embed"]).to(cfg.torch_dtype)
+    caches = []
+    for layer_p, cache in zip(params["layers"], state.caches):
+        x, cache = block_decode(layer_p, cfg, x, cache)
+        caches.append(cache)
+    return _lm_logits(cfg, params, x, None)[:, -1:], DecodeState(caches)

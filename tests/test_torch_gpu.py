@@ -93,6 +93,73 @@ def test_cuda_flash_reads_and_writes_the_model_layout(gen, dtype, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_flash_at_hd256_matches_the_plain_version(gen, dtype):
+    """Head dim 256 (gemma): the sm90 kernel's 64-key-tile instance for
+    bf16, the f32 kernel for f32; MQA and GQA, one row, ragged S, S < T,
+    and gemma_2b's (8, 1024) request in the model layout."""
+    for (b, hq, hkv, s, t) in [(1, 8, 1, 1, 1), (1, 8, 1, 17, 17),
+                               (2, 8, 1, 100, 100), (1, 4, 2, 100, 160),
+                               (8, 8, 1, 1024, 1024)]:
+        q = _randn(gen, (b, s, hq, 256), dtype).transpose(1, 2)
+        k, v = (_randn(gen, (b, t, hkv, 256), dtype).transpose(1, 2)
+                for _ in range(2))
+        for causal in (True, False):
+            n0 = flash_attention_cuda.launches
+            g0 = flash_attention_cuda.sm90_launches
+            got = flash_attention(q, k, v, causal, None, None)
+            assert flash_attention_cuda.launches == n0 + 1
+            assert flash_attention_cuda.sm90_launches == \
+                g0 + (dtype == torch.bfloat16)
+            assert got.stride() == q.stride()
+            torch.testing.assert_close(
+                got, reference_attention(q, k, v, causal=causal),
+                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_gemma_prefill_at_full_width_launches_the_hd256_kernel(gen):
+    """gemma_2b at full width with 2 layers: one plan serves two shapes,
+    each request launches 2 sm90 flash kernels (the hd-256 instance) and
+    5 RMSNorm kernels, and the logits agree with the plain plan's."""
+    import dataclasses
+
+    from repro_torch.configs.gemma_2b import CONFIG
+    from repro_torch.core import (TensorSpec, optimize, spec_like,
+                                  symbolic_dims)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    params = init_params(cfg, seed=0, device="cuda")
+    B, S = symbolic_dims("b, s")
+    specs = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
+    dims = {"b": (1, 4), "s": (16, 256)}
+    opt = optimize(make_prefill_step(cfg), *specs, dynamic_dims=dims)
+    plain = optimize(make_prefill_step(cfg, impl="ref"), *specs,
+                     dynamic_dims=dims, kernel_select=False)
+    flash = [sel for sel in opt.plan.kernel_selections.values()
+             if sel.prim_name == "flash_attention"]
+    assert [sel.variant.name for sel in flash] == ["sm90_bm128_bn128"] * 2
+    for (b, s) in [(1, 16), (4, 256)]:
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        f0, g0 = flash_attention_cuda.launches, \
+            flash_attention_cuda.sm90_launches
+        n0 = rmsnorm_cuda.launches
+        got = opt(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches - f0 == 2
+        assert flash_attention_cuda.sm90_launches - g0 == 2
+        assert rmsnorm_cuda.launches - n0 == 5
+        assert tuple(got.shape) == (b, cfg.vocab)
+        assert opt.last_report.stats.device_peak <= \
+            opt.guaranteed_peak_bytes
+        want = plain(params, {"tokens": tokens})
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                                   atol=5e-2)
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, (1, 2, 16, 48), torch.float32)       # hd 48
     with pytest.raises(ValueError, match="head dim"):

@@ -117,11 +117,17 @@ def test_default_hw_is_the_published_h100():
 def test_shared_memory_of_the_kernels_matches_their_sources():
     sm = {hd: V.variant_smem_bytes("flash_attention", V.SM90, {"hd": hd})
           for hd in V.HEAD_DIMS}
-    # Geo<HD>::SMEM: 5 tiles + barriers + 1 KB, at least 116 KB
-    assert sm == {32: 116 * 1024, 64: 116 * 1024, 128: 5 * 32768 + 1088}
+    # Geo<HD>::SMEM: the Q tile, 4 K/V tiles of BN rows + barriers + 1 KB,
+    # at least 116 KB; hd 256 takes 64-key tiles, as 128-key ones would
+    # not fit
+    assert sm == {32: 116 * 1024, 64: 116 * 1024, 128: 5 * 32768 + 1088,
+                  256: 65536 + 4 * 32768 + 1088}
+    assert [V.variant_block(V.SM90, {"hd": hd})["block_kv"]
+            for hd in V.HEAD_DIMS] == [128, 128, 128, 64]
+    assert 5 * 128 * 256 * 2 > DEFAULT_HW.smem_per_block_optin
     fma = {hd: V.variant_smem_bytes("flash_attention", V.SIMT, {"hd": hd})
            for hd in V.HEAD_DIMS}
-    assert fma == {32: 25216, 64: 41600, 128: 74368}
+    assert fma == {32: 25216, 64: 41600, 128: 74368, 256: 139904}
     assert V.variant_smem_bytes("flash_attention", V.REF_DENSE,
                                 {"hd": None}) == 0
     assert max(sm.values()) <= DEFAULT_HW.smem_per_block_optin

@@ -326,7 +326,8 @@ def test_kernel_select_decisions_structure_matches_reference():
             port.plan.kernel_selections.items())]
     for d in port.decisions.entries("kernel-select"):
         assert d.why.startswith("model ") and "us vs default" in d.why
-        assert set(d.detail) == {"model_speedup", "n_scored", "invalid"}
+        assert set(d.detail) == {"block", "model_speedup", "n_scored",
+                                 "invalid"}
 
 
 def test_remeasure_logs_kernel_measure():
