@@ -176,12 +176,40 @@ Phases (any failure exits non-zero):
    launches, and the logits after the last prompt token within 2e-2 (max
    |diff| / max |logit|) of (b)'s plan at (4, 32) on the same tokens, then
    one more decode step under the profiler.
+13. resilience (``[resilience]`` lines), after phase 12 has read its
+   counts: ``optimize(make_prefill_step(llama2_1b), buckets="geometric",
+   resilience=ResilienceConfig(retry=RetryPolicy(max_retries=3,
+   backoff_base_s=0), breaker=BreakerConfig(backoff_s=0.01),
+   enforce_arena_bound=True))`` at full width on phase 3's requests:
+   (a) healthy: each request bitwise equal to phase 7's bucketed logits,
+   4 sm90 flash and 9 RMSNorm launches, arena_bytes <= the bucket's bound;
+   (b) a ``kernel`` fault at the first sm90 flash compute of the (8,1024)
+   call retries in place (one ``retry-transient``), bitwise, the retry
+   launching every flash; (c) ``alloc`` (-> ``retry-fallback`` on the
+   whole-range plan, bitwise), ``offload`` and ``regen`` (the dynamic
+   stream; nothing is evicted without a limit, so they cannot fire)
+   faults; (d) ``compile`` and ``compile-timeout`` faults quarantine the
+   (8,1024) bucket, the fallback serves it bitwise, the re-probe heals it
+   (``recovery_s``); (e) ``malformed-env``: rejected before dispatch, no
+   launch, no retry; (f) ``FaultPlan.random`` seeds 0, 1, 2 over 8 calls,
+   garbage collector off: survivors bitwise and within their arena bound,
+   every fired fault on record, every failure structured and leaving
+   ``memory_allocated()`` where it was, every bucket healed; (g) a ballast
+   from ``mem_get_info`` leaves too little for (8,1024): the
+   ``torch.cuda.OutOfMemoryError`` walks 3 ``retry-fallback`` rungs to
+   ``reject``, ``RequestFailed.cause`` is the OOM, memory returns, the
+   next call is bitwise; (h) the disabled check <= 2% of the (1,16) call
+   (``benchmarks/torch_resilience_bench.py``'s ``overhead``, loaded from
+   its file), enabled/disabled and degraded/healthy ratios reported; (i)
+   a ``kernel`` fault at the first hd-256 flash compute of phase 12's
+   gemma_2b plan retries bitwise.
 
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
 phase 11 (a), table1 = phase 11 (b), gemma_prefill = phase 12 (b),
-gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e); bounded,
+gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
+= phase 13; bounded,
 loop and gemma_serve launch no flash: their attention and ops are plain
 PyTorch, as the reference's are plain jnp; each flash entry also holds
 its hd-256 instance's numbers at gemma_2b's and gemma_7b's (8, 1024)
@@ -1392,9 +1420,10 @@ def phase_buckets(cfg, batches, outs, plain, medians):
     launches = _launch_counts()
     log(f"[buckets] launches over (a)-(c) {launches}")
     OBS["buckets"] = (opt, params, batches)
+    logits_a = [t.cpu() for t in got_a]     # phase 13 holds its calls to them
     del params, opt, opt_bg, batcher, outcomes, got_a
     torch.cuda.empty_cache()
-    return launches
+    return launches, logits_a
 
 
 def phase_kernel_select():
@@ -2938,7 +2967,327 @@ def phase_gemma():
         f"prefill {prefill}, prefill_f32 {f32}, serve {serve_launches}; "
         f"requests {json.dumps(req_rows)}; serve {json.dumps(serve_row)}")
     return rows, {"gemma_prefill": prefill, "gemma_prefill_f32": f32,
-                  "gemma_serve": serve_launches}
+                  "gemma_serve": serve_launches}, (opt, params, batches)
+
+
+# -- phase 13: resilience (fault injection, the ladder, the arena bound) -----
+
+RES_RETRY = {"max_retries": 3, "backoff_base_s": 0.0}
+RES_BACKOFF_S = 0.01        # the breaker's first backoff
+RES_SEEDS = (0, 1, 2)       # (f)
+RES_CHAOS_CALLS = 8
+RES_OVERHEAD_ROUNDS = 100   # (h), as phase 10 (d)
+RES_DEGRADED_ROUNDS = 10
+RES_BALLAST_MIN = 2 << 20   # (g): the smallest ballast piece
+
+
+def load_resilience_bench():
+    """``benchmarks/torch_resilience_bench.py``, loaded from its file so
+    the benchmark and this phase run one code path."""
+    import importlib.util
+    path = ROOT / "benchmarks" / "torch_resilience_bench.py"
+    spec = importlib.util.spec_from_file_location("torch_resilience", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ballast(smallest: int):
+    """(g): device memory taken until no block of ``smallest`` bytes is
+    left: a first piece as large as ``mem_get_info`` and the caching
+    allocator's reserved but unallocated bytes allow, then pieces halving
+    on each refusal, which also fill the free blocks inside the
+    allocator's segments (``empty_cache`` cannot return a segment that
+    still holds a tensor, and a request reuses those blocks first)."""
+    import torch
+    free, _total = torch.cuda.mem_get_info()
+    size = free + torch.cuda.memory_reserved() - \
+        torch.cuda.memory_allocated()
+    pieces = []
+    while size >= smallest:
+        try:
+            pieces.append(torch.empty(size, dtype=torch.uint8,
+                                      device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            size //= 2
+    return pieces, free
+
+
+def first_compute_of(program, name: str) -> int:
+    """The fault probe's ordinal (``CallFaults.before_compute``) of the
+    first op named ``name`` on ``program``'s fast stream."""
+    from repro_torch.core.lowering.program import OP_COMPUTE, OP_LOOP
+    k = 0
+    for inst in program.fast_instructions:
+        if inst.op == OP_COMPUTE:
+            if name in inst.node.prim_name:
+                return k
+            k += 1
+        elif inst.op == OP_LOOP:
+            k += 1
+    raise AssertionError(f"no {name} op on the fast stream")
+
+
+def phase_resilience(cfg, batches, want, gemma):
+    """Phase 13: the llama2_1b prefill at full width through
+    ``optimize(buckets="geometric", resilience=...)`` with the arena bound
+    enforced: (a) healthy, (b) a transient kernel fault at the first sm90
+    flash compute, (c) alloc / offload / regen faults on the dynamic stream,
+    (d) compile and compile-timeout faults quarantining a bucket until it
+    heals, (e) a malformed request, (f) seeded chaos, (g) a real
+    ``torch.cuda.OutOfMemoryError`` under a ballast, (h) the disabled
+    check's cost, (i) a transient fault at an hd-256 flash compute of
+    phase 12's gemma_2b plan.  ``want`` is phase 7's bucketed logits (on
+    the host); ``gemma`` is phase 12's (plan, weights, batches)."""
+    import torch
+
+    from repro_torch.core import (DynamicShapeFunction, TensorSpec, optimize,
+                                  spec_like, symbolic_dims)
+    from repro_torch.core.resilience import (BreakerConfig, FaultPlan,
+                                             FaultSpec, RequestFailed,
+                                             ResilienceConfig, RetryPolicy)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    bench = load_resilience_bench()
+    t_phase = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    B, S = symbolic_dims("b, s")
+    specs = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
+    rcfg = ResilienceConfig(retry=RetryPolicy(**RES_RETRY),
+                            breaker=BreakerConfig(backoff_s=RES_BACKOFF_S),
+                            enforce_arena_bound=True)
+    t0 = time.perf_counter()
+    opt = optimize(make_prefill_step(cfg), *specs, dynamic_dims=DYNAMIC_DIMS,
+                   buckets="geometric", resilience=rcfg)
+    log(f"[resilience] optimize(buckets='geometric', resilience=...) "
+        f"{time.perf_counter() - t0:.2f} s; {rcfg}")
+    table = opt.specialization_table
+    whole = _expected_launches(opt.plan)
+    big = len(REQUESTS) - 1
+    envs = [{"b": b, "s": s} for b, s in REQUESTS]
+    row: dict = {}
+
+    def delta(c0):
+        return {k: v - c0[k] for k, v in _launch_counts().items()}
+
+    def serve(i):
+        out = opt(params, batches[i])
+        torch.cuda.synchronize()
+        return out
+
+    # (a) healthy: bitwise phase 7, the same launches, arena <= bound
+    outs, per_call = [], {}
+    for i, env in enumerate(envs):
+        c0 = _launch_counts()
+        out = serve(i)
+        got = delta(c0)
+        bp = table.peek(opt.last_bucket)
+        per_call = _expected_launches(bp.plan)
+        if per_call != {"sm90": cfg.n_layers, "f32": 0,
+                        "rmsnorm": 2 * cfg.n_layers + 1} or got != per_call:
+            raise AssertionError(f"(a) {env}: launches {got}, the bucket's "
+                                 f"selections imply {per_call}")
+        if not torch.equal(out.cpu(), want[i]):
+            raise AssertionError(f"(a) {env}: logits differ from phase 7's")
+        st = opt.last_report.stats
+        if opt.last_arena_bound != bp.report.arena_bound_bytes or \
+                st.arena_bytes > opt.last_arena_bound:
+            raise AssertionError(f"(a) {env}: arena {st.arena_bytes} above "
+                                 f"the bucket's bound")
+        log(f"[resilience] (a) {env}: bucket {opt.last_bucket}, launches "
+            f"{got}, bitwise equal to phase 7's, arena_bytes "
+            f"{st.arena_bytes} <= the bucket's bound {opt.last_arena_bound}")
+        outs.append(out)
+    if opt.resilience.counters()["degraded_calls"]:
+        raise AssertionError("(a) a healthy call degraded")
+    row["healthy"] = opt.resilience.counters()
+
+    def faulted(what, specs_, i, *, rungs, launches_at_least=None):
+        """One call under ``specs_`` on a fresh controller: its events,
+        bitwise equality with (a), the launches it made."""
+        opt.enable_resilience(rcfg)
+        fp = FaultPlan(specs_)
+        c0 = _launch_counts()
+        with opt.inject_faults(fp) as res:
+            out = serve(i)
+        got = delta(c0)
+        evs = [(e.rung, e.attempt) for e in res.events]
+        fired = [(f.kind, f.call, f.step) for f in fp.fired]
+        same = torch.equal(out, outs[i])
+        log(f"[resilience] {what} {envs[i]}: fired {fired}, events {evs}, "
+            f"launches {got}, bitwise equal to (a): {same}")
+        if [r for r, _ in evs] != rungs or not same:
+            raise AssertionError(f"{what}: events {evs}, bitwise {same}")
+        if launches_at_least is not None and any(
+                got[k] < n for k, n in launches_at_least.items()):
+            raise AssertionError(f"{what}: launches {got} below "
+                                 f"{launches_at_least}")
+        return fired, got
+
+    # (b) a transient kernel fault at the first sm90 flash compute of call 0
+    step = first_compute_of(table.peek(table.key_of(envs[big])).program,
+                            "flash_attention")
+    fired, got = faulted("(b) kernel", [FaultSpec("kernel", call=0,
+                                                  step=step)], big,
+                         rungs=["retry-transient"],
+                         launches_at_least=per_call)
+    if fired != [("kernel", 0, step)]:
+        raise AssertionError(f"(b) fired {fired}")
+    row["kernel"] = dict(step=step, launches=got)
+
+    # (c) memory-kind faults take the dynamic stream; alloc -> the fallback
+    fired, got = faulted("(c) alloc", [FaultSpec("alloc", call=0, step=0)],
+                         big, rungs=["retry-fallback"],
+                         launches_at_least=whole)
+    if opt.last_report.stats.arena_bytes > opt.arena_bound_bytes:
+        raise AssertionError("(c) the fallback's arena above its bound")
+    row["alloc"] = dict(launches=got)
+    for kind in ("offload", "regen"):
+        # no memory limit: nothing is evicted or regenerated, so the probe
+        # finds no such event; the call runs the dynamic stream bitwise
+        fired, got = faulted(f"(c) {kind}", [FaultSpec(kind, call=0,
+                                                       step=0)], big,
+                             rungs=[], launches_at_least=per_call)
+        if fired or got != per_call:
+            raise AssertionError(f"(c) {kind}: fired {fired}, launches {got}")
+
+    # (d) compile faults quarantine the (8,1024) bucket; the fallback serves
+    # it bitwise until the re-probe heals it
+    opt.enable_resilience(rcfg)
+    row["recovery"] = []
+    for kind in ("compile", "compile-timeout"):
+        r = bench.recovery(opt, (params, batches[big]), kind,
+                           equal=lambda o: torch.equal(o, outs[big]))
+        log(f"[resilience] (d) {kind} on bucket {r['bucket']}: quarantined, "
+            f"{r['calls_during_outage']} calls served by the whole-range "
+            f"fallback bitwise, healed after recovery_s "
+            f"{r['recovery_s']:.4f} (breaker backoff "
+            f"{r['breaker_backoff_s']} s); the specialized plan resident "
+            f"again")
+        row["recovery"].append(r)
+
+    # (e) a malformed request: rejected before dispatch, nothing launched
+    opt.enable_resilience(rcfg)
+    c0 = _launch_counts()
+    with opt.inject_faults(FaultPlan([FaultSpec("malformed-env", call=0)])
+                           ) as res:
+        try:
+            serve(big)
+        except RequestFailed as e:
+            rej = (e.attempts, [ev.rung for ev in e.events])
+        else:
+            raise AssertionError("(e) the malformed request was served")
+    c = res.counters()
+    log(f"[resilience] (e) malformed-env: attempts {rej[0]}, events "
+        f"{rej[1]}, launches {delta(c0)}, counters {c}")
+    if rej != (0, ["reject-malformed"]) or any(delta(c0).values()) or \
+            c["retries_transient"] or c["retries_fallback"]:
+        raise AssertionError(f"(e) {rej} {c}")
+
+    # (f) chaos: seeded schedules over 8 calls cycling the requests
+    calls = [(params, batch) for batch in batches]
+    equal = [lambda o, t=t: torch.equal(o, t) for t in outs]
+    row["chaos"] = []
+    for seed in RES_SEEDS:
+        r = bench.chaos(opt, calls, equal, seed, n_calls=RES_CHAOS_CALLS,
+                        max_call=8, max_step=3,
+                        memory=torch.cuda.memory_allocated)
+        log(f"[resilience] (f) seed {seed}: fired {r['fired']}; failures "
+            f"(call, attempts, cause) {r['failures']}; events "
+            f"{r['events']}; faults_mapped_frac {r['faults_mapped_frac']}; "
+            f"every survivor bitwise and within its arena bound, memory "
+            f"back after every failure, healed in {r['heal_s']:.4f} s")
+        row["chaos"].append(r)
+
+    # (g) a real OOM: a ballast leaves too little for the (8,1024) request
+    opt.enable_resilience(rcfg)
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        pieces, free = ballast(RES_BALLAST_MIN)
+        pieces_sizes = [t.numel() for t in pieces]
+        # the allocator's count: a block it did not split holds up to
+        # 1 MiB more than its tensor asked for
+        n = torch.cuda.memory_allocated() - m0
+        c0 = _launch_counts()
+        try:
+            serve(big)
+        except RequestFailed as e:
+            oom = dict(attempts=e.attempts, rungs=[ev.rung for ev in e.events],
+                       cause=type(e.cause).__name__,
+                       is_oom=isinstance(e.cause, torch.cuda.OutOfMemoryError))
+            del e
+        else:
+            raise AssertionError("(g) the request fit beside the ballast")
+        launched = delta(c0)
+        held = torch.cuda.memory_allocated() - m0 - n
+        del pieces
+        torch.cuda.synchronize()
+        back = torch.cuda.memory_allocated() - m0
+    finally:
+        if gc_was:
+            gc.enable()
+    log(f"[resilience] (g) ballast {n} B in {len(pieces_sizes)} pieces "
+        f"({free} B free by mem_get_info before it): {oom}; launches "
+        f"before the OOMs {launched}; memory_allocated after the failure "
+        f"{held:+d} B beside the ballast, {back:+d} B once it was freed")
+    if oom != dict(attempts=RES_RETRY["max_retries"] + 1,
+                   rungs=["retry-fallback"] * RES_RETRY["max_retries"]
+                   + ["reject"], cause="OutOfMemoryError", is_oom=True) \
+            or held or back:
+        raise AssertionError(f"(g) {oom}, held {held}, back {back}")
+    if not torch.equal(serve(big), outs[big]):
+        raise AssertionError("(g) the next call differs from (a)")
+    row["oom"] = dict(oom, ballast=n, pieces=len(pieces_sizes), free=free)
+
+    # (h) the disabled check on a plan that never had the ladder, against
+    # the (1,16) call; enabled/disabled and degraded/healthy (reported)
+    plain_fn = DynamicShapeFunction(opt.plan, opt.report, device=opt.device)
+    ov = bench.overhead(plain_fn, (params, batches[0]), RES_OVERHEAD_ROUNDS)
+    dg = bench.degraded_cost(opt, (params, batches[0]), RES_DEGRADED_ROUNDS)
+    log(f"[resilience] (h) (1,16): disabled check {ov['disabled_check_ns']:.1f}"
+        f" ns = {100 * ov['disabled_check_frac']:.5f}% of the "
+        f"{ov['disabled_call_us']:.1f} us median call (contract <= 2%); "
+        f"medians over {RES_OVERHEAD_ROUNDS} interleaved rounds: never "
+        f"attached {ov['base_call_us']:.1f} us, enabled "
+        f"{ov['enabled_call_us']:.1f} us, detached "
+        f"{ov['disabled_call_us']:.1f} us; enabled_over_disabled "
+        f"{ov['enabled_over_disabled']:.4f}; degraded_over_healthy "
+        f"{dg['degraded_over_healthy']:.4f} (medians of "
+        f"{RES_DEGRADED_ROUNDS}: {dg['healthy_call_us']:.1f} vs "
+        f"{dg['degraded_call_us']:.1f} us; reported only)")
+    row["overhead"], row["degraded"] = ov, dg
+    del plain_fn
+
+    # (i) gemma_2b: a transient fault at the first hd-256 flash compute
+    g_opt, g_params, g_batches = gemma
+    g_opt.enable_resilience(ResilienceConfig(retry=RetryPolicy(**RES_RETRY)))
+    g_want = g_opt(g_params, g_batches[0])
+    g_step = first_compute_of(g_opt.program, "flash_attention")
+    fp = FaultPlan([FaultSpec("kernel", call=1, step=g_step)])
+    c0 = _launch_counts()
+    with g_opt.inject_faults(fp):
+        g_out = g_opt(g_params, g_batches[0])
+    torch.cuda.synchronize()
+    got = delta(c0)
+    evs = [e.rung for e in g_opt.resilience.events]
+    g_same = torch.equal(g_out, g_want)
+    log(f"[resilience] (i) gemma_2b {REQUESTS[0]}: kernel fault at compute "
+        f"{g_step} (the first hd-256 flash), events {evs}, launches {got}, "
+        f"bitwise equal to the healthy call: {g_same}")
+    g_opt.disable_resilience()
+    g_flash = _expected_launches(g_opt.plan)["sm90"]
+    if evs != ["retry-transient"] or not g_same or got["sm90"] < g_flash:
+        raise AssertionError(f"(i) events {evs}, bitwise {g_same}, "
+                             f"launches {got}")
+    row["gemma"] = dict(step=g_step, launches=got)
+    log(f"[resilience] phase 13 {time.perf_counter() - t_phase:.1f} s; "
+        f"rows {json.dumps(row, default=str)}")
+    del opt, outs, params
 
 
 def main() -> int:
@@ -2966,7 +3315,8 @@ def main() -> int:
     del params, opt_ref
     f32_launches = phase_f32_path()
     train = phase_train()
-    buckets = phase_buckets(cfg, batches, outs, plain, medians)
+    buckets, bucket_logits = phase_buckets(cfg, batches, outs, plain,
+                                           medians)
     del outs, plain
     phase_kernel_select()
     bounded_launches, _ = counted_launches(phase_bounded)
@@ -2989,7 +3339,15 @@ def main() -> int:
                                  f"flash")
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_rows, gemma_launches = phase_gemma()
+    gemma_rows, gemma_launches, gemma = phase_gemma()
+    gc.collect()
+    res_launches, _ = counted_launches(
+        lambda: phase_resilience(cfg, batches, bucket_logits, gemma))
+    log(f"[resilience] launches {res_launches}")
+    if not (res_launches["sm90"] > 0 and res_launches["rmsnorm"] > 0
+            and res_launches["f32"] == 0):
+        raise AssertionError(f"the resilience path launched {res_launches}")
+    del gemma, bucket_logits
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -3025,6 +3383,7 @@ def main() -> int:
                    "rmsnorm": "rmsnorm"}[key]
         by_path.update({path: n[counter]
                         for path, n in gemma_launches.items()})
+        by_path["resilience"] = res_launches[counter]
         r = big[key]
         entry = {"name": route_name, "route": "cuda",
                  "source": src_path, "replaces": replaces,

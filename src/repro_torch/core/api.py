@@ -31,16 +31,23 @@ the decisions only observable while they happen (``fn.decisions``);
 replays a lowered Program into a plan-vs-actual memory curve, and
 ``explain`` renders all of it (:mod:`repro_torch.core.obs`).
 
-Not ported yet, and refused with ``NotImplementedError``: resilience and
-fault injection (``resilience=``, ``fault_plan=``).
+``resilience=`` attaches the degradation ladder
+(:mod:`repro_torch.core.resilience`): a call that fails at run time
+retries in place (transient faults) or on the whole-range plan (memory
+pressure — on the card a real ``torch.cuda.OutOfMemoryError`` too — and
+quarantined bucket compiles), and raises a structured ``RequestFailed``
+when retries run out; ``fault_plan=`` / ``inject_faults`` install a
+seeded fault schedule.
 """
 from __future__ import annotations
 
 import threading
 import time
+import traceback
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
-                    Tuple)
+                    Tuple, Union)
 
 import torch
 from torch.utils import _pytree as pytree
@@ -55,9 +62,13 @@ from .ir.capture import (TensorSpec, capture, check_declared_ranges,
                          solve_env, spec_like, symbolic_dims)
 from .lowering import Program, lower_plan
 from .memplan import ArenaPlan, build_arena_plan
+from .memplan.arena import ArenaExhausted
 from .obs import NULL_TRACER, DecisionLog, Telemetry, Tracer
 from .remat.planner import ExecutionPlan, build_plan
-from .resilience import CircuitBreaker
+from .resilience import (BucketQuarantined, CircuitBreaker, CompileFault,
+                         FaultPlan, FaultPlanRef, OffloadFailure,
+                         RegenFailure, RequestFailed, ResilienceConfig,
+                         ResilienceController, TransientKernelError)
 from .scheduling.exchange import exchange_pass
 from .scheduling.memsim import simulate_peak, simulate_peak_bound
 from .scheduling.scheduler import ScheduleResult, schedule_graph
@@ -69,8 +80,6 @@ __all__ = ["optimize", "DynamicShapeFunction", "OptimizeReport",
            "resolve_device", "BucketSpace", "SpecializationTable",
            "BucketPlan", "build_bucket_space"]
 
-# knobs of the reference ``optimize`` that later parts of the port bring
-_NOT_PORTED = ("resilience", "fault_plan")
 _EXECUTORS = ("vm", "reference")
 
 
@@ -452,7 +461,8 @@ def _compile_pipeline(graph, sg: ShapeGraph, *,
 def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
                     executor: str, *, memory_limit: Optional[int],
                     donate_inputs: bool, count_inputs: bool,
-                    tracer: Any = NULL_TRACER):
+                    tracer: Any = NULL_TRACER,
+                    arena_hard_cap: Optional[int] = None):
     """Lower + wrap ``plan`` for one executor kind.
 
     ``executor="vm"`` lowers the plan to a flat :class:`Program` (the
@@ -460,15 +470,18 @@ def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
     runs it on :class:`ProgramVM`; ``"reference"`` keeps the op-by-op
     :class:`PlanInterpreter` for differential testing.  Returns
     ``(runner, program)`` — ``program`` is ``None`` for the reference
-    interpreter.  Lowering touches no device (it only builds Python
-    structures), so a background worker thread may run it."""
+    interpreter.  ``arena_hard_cap`` (``resilience.enforce_arena_bound``)
+    holds the runner to that arena size.  Lowering touches no device (it
+    only builds Python structures), so a background worker thread may run
+    it."""
     if executor not in _EXECUTORS:
         raise ValueError(
             f"executor must be one of {_EXECUTORS}, got {executor!r}")
     if executor == "reference":
         return PlanInterpreter(plan, memory_limit=memory_limit,
                                donate_inputs=donate_inputs,
-                               count_inputs=count_inputs), None
+                               count_inputs=count_inputs,
+                               arena_hard_cap=arena_hard_cap), None
     with tracer.span("lower") as sp:
         program = lower_plan(plan, memory_limit=memory_limit,
                              donate_inputs=donate_inputs,
@@ -476,7 +489,20 @@ def _build_executor(plan: ExecutionPlan, report: OptimizeReport,
                              peak_bound_bytes=report.peak_bound_bytes)
         sp.attrs["n_instructions"] = program.n_instructions
         sp.attrs["has_evict_path"] = program.has_evict_path
-    return ProgramVM(program), program
+    return ProgramVM(program, arena_hard_cap=arena_hard_cap), program
+
+
+def _drop_frames(err: BaseException) -> None:
+    """Release what a failed attempt's frames hold (its register file: on
+    the card, device tensors) and drop the ladder's own, still running,
+    frame from ``err``'s traceback, so the exception kept for the next
+    rung forms no reference cycle through it.  A failed attempt then
+    leaves ``memory_allocated()`` where it found it without waiting for
+    a garbage collection."""
+    tb = err.__traceback__
+    if tb is not None:
+        traceback.clear_frames(tb.tb_next)
+        err.__traceback__ = tb.tb_next
 
 
 class DynamicShapeFunction:
@@ -499,7 +525,9 @@ class DynamicShapeFunction:
                  kernel_remeasure_after: Optional[int] = None,
                  hw: Any = None,
                  tracer: Optional[Tracer] = None,
-                 decisions: Optional[DecisionLog] = None):
+                 decisions: Optional[DecisionLog] = None,
+                 resilience_config: Optional[ResilienceConfig] = None,
+                 fault_ref: Optional[FaultPlanRef] = None):
         self.plan = plan
         self.report = report
         self.device = device
@@ -513,6 +541,21 @@ class DynamicShapeFunction:
         self.trace = tracer if tracer is not None else Tracer()
         self.decisions = decisions if decisions is not None else DecisionLog()
         self._telemetry: Optional[Telemetry] = None
+        # resilience: degradation ladder + fault injection, off by default
+        # (the disabled hot path is one attribute test, like telemetry).
+        # The FaultPlanRef is shared with the bucket-compile closure so
+        # inject_faults() can swap plans after the table factory captured it
+        self._fault_ref = fault_ref if fault_ref is not None else FaultPlanRef()
+        self._resilience_config = resilience_config
+        self._resilience: Optional[ResilienceController] = None
+        if resilience_config is not None:
+            self._resilience = ResilienceController(
+                resilience_config, fault_ref=self._fault_ref,
+                decisions=self.decisions)
+        arena_hard_cap = None
+        if resilience_config is not None \
+                and resilience_config.enforce_arena_bound:
+            arena_hard_cap = report.arena_bound_bytes
         # a background table already lowered the identical whole-range plan
         # for its fallback: adopt it instead of lowering twice
         if table is not None and table.fallback is not None:
@@ -522,7 +565,7 @@ class DynamicShapeFunction:
             self.interp, self._program = _build_executor(
                 plan, report, executor, memory_limit=memory_limit,
                 donate_inputs=donate_inputs, count_inputs=count_inputs,
-                tracer=self.trace)
+                tracer=self.trace, arena_hard_cap=arena_hard_cap)
         self.last_report: Optional[RunReport] = None
         graph = plan.graph
         self._in_tree = graph.in_tree
@@ -569,20 +612,33 @@ class DynamicShapeFunction:
             raise TypeError(f"pytree structure mismatch: traced "
                             f"{self._in_tree}, got {in_tree}")
         self._check_args(flat)
-        outs = self._dispatch(flat)
+        res = self._resilience
+        if res is not None:
+            outs = self._call_resilient(res, flat)
+        else:
+            outs = self._dispatch(flat)
         return pytree.tree_unflatten(outs, self._out_tree)
 
-    def _dispatch(self, flat: List[Any]) -> List[Any]:
-        """Select a plan and execute once."""
+    def _dispatch(self, flat: List[Any], *, force_fallback: bool = False,
+                  faults: Any = None) -> List[Any]:
+        """Select a plan and execute once (one ladder attempt).
+
+        ``force_fallback=True`` serves the whole-range plan regardless of
+        bucketing — the degradation ladder's remat-heavier retry rung,
+        bitwise-identical to the bucket plans.  ``faults`` is an armed
+        :class:`~repro_torch.core.resilience.faults.CallFaults` probe
+        threaded down to the executor (``None`` keeps every hot loop
+        uninstrumented)."""
         env = solve_env(self.plan.graph, flat)
         # the declared-range contract is checked against the whole-range
         # graph before bucket dispatch, so an out-of-range dim cannot land
         # in an edge bucket and fail there with a sub-range message
         check_declared_ranges(self.plan.shape_graph, env)
-        if self._table is None:
-            self.last_bucket = None
+        if self._table is None or force_fallback:
+            self.last_bucket = None if self._table is None \
+                else self._table.key_of(env)
             self.last_arena_bound = self.report.arena_bound_bytes
-            outs, report = self.interp.run(flat, env=env)
+            outs, report = self.interp.run(flat, env=env, faults=faults)
             self.last_report = report
             tel = self._telemetry
             if tel is not None:
@@ -602,11 +658,13 @@ class DynamicShapeFunction:
             bp, _hit = self._table.lookup(env)
             dispatch_ns = time.perf_counter_ns() - t0
             # bp.key is None when a background miss served the whole-range
-            # fallback; re-derive the bucket from this request's own env
+            # fallback; re-derive the bucket from this request's own env.
+            # Set before the run so a fault aborting it still leaves the
+            # failing bucket on record for the degradation events
             self.last_bucket = bp.key if bp.key is not None \
                 else self._table.key_of(env)
             self.last_arena_bound = bp.report.arena_bound_bytes
-            outs, report = bp.interp.run(flat, env=env)
+            outs, report = bp.interp.run(flat, env=env, faults=faults)
         finally:
             if background:
                 self._table.request_ended()
@@ -624,6 +682,84 @@ class DynamicShapeFunction:
         if tel is not None:
             self._record_call(tel, report, bp.program)
         return outs
+
+    def _call_resilient(self, res: ResilienceController,
+                        flat: List[Any]) -> List[Any]:
+        """Degradation-ladder dispatch (resilience enabled).
+
+        Rungs, in order: the plain dispatch (whose executor already runs
+        eviction under memory pressure before anything escapes), a
+        bounded same-plan retry for transient faults, a retry on the
+        remat-heavier whole-range fallback plan for memory pressure
+        (``MemoryLimitExceeded``, ``ArenaExhausted``, a real
+        ``torch.cuda.OutOfMemoryError``) and quarantined/failed bucket
+        compiles (bitwise-identical results), and finally a structured
+        :class:`RequestFailed`.  Every step is recorded as a
+        :class:`~repro_torch.core.resilience.DegradationEvent` on the
+        controller, the decision log, and Prometheus counters.  Malformed
+        requests reject immediately — client errors never retry.  Any
+        other error (a kernel's launch error, an illegal address, a
+        failed build) propagates unchanged.
+
+        Each attempt runs on its own copy of the argument list under
+        ``donate_inputs``: a retry needs the inputs, so under the ladder
+        a donated input stays referenced until the call returns."""
+        seq = res.begin_call()
+        fp = res.fault_plan
+        armed = fp.arm_call(seq) if fp is not None else None
+        if armed is not None and armed.take_malformed():
+            res.note_degraded_call()
+            ev = res.record("reject-malformed", seq=seq, attempt=0,
+                            cause="malformed-env")
+            raise RequestFailed(
+                f"call {seq}: malformed request rejected before dispatch",
+                attempts=0, events=(ev,))
+        pol = res.config.retry
+        events: List[Any] = []
+        attempt = 0
+        force_fb = False
+        degraded = False
+        while True:
+            args = list(flat) if self._donate_inputs else flat
+            try:
+                return self._dispatch(args, force_fallback=force_fb,
+                                      faults=armed)
+            except (TransientKernelError, RegenFailure,
+                    OffloadFailure) as e:
+                err, rung, fb_next = e, "retry-transient", force_fb
+            except (MemoryLimitExceeded, ArenaExhausted,
+                    torch.cuda.OutOfMemoryError) as e:
+                err, rung, fb_next = e, "retry-fallback", True
+            except (CompileFault, BucketQuarantined) as e:
+                err, rung, fb_next = e, "retry-fallback", True
+            del args
+            _drop_frames(err)
+            if not degraded:
+                degraded = True
+                res.note_degraded_call()
+            if attempt >= pol.max_retries:
+                events.append(res.record("reject", seq=seq, attempt=attempt,
+                                         cause=err, bucket=self.last_bucket))
+                try:
+                    env = solve_env(self.plan.graph, flat)
+                except Exception:
+                    env = None
+                raise RequestFailed(
+                    f"call {seq} failed after {attempt + 1} attempt(s): "
+                    f"{err!r}", env=env, bucket=self.last_bucket,
+                    attempts=attempt + 1, cause=err,
+                    events=tuple(events)) from err
+            backoff = pol.backoff_s(attempt)
+            events.append(res.record(rung, seq=seq, attempt=attempt,
+                                     cause=err, backoff_s=backoff,
+                                     bucket=self.last_bucket))
+            if backoff > 0:
+                res.sleep(backoff)
+            force_fb = fb_next
+            attempt += 1
+            # re-arm per attempt: specs spent on this attempt no longer
+            # match, which is what lets a bounded retry actually recover
+            armed = fp.arm_call(seq) if fp is not None else None
 
     def _record_call(self, tel: Telemetry, report: RunReport,
                      program: Optional[Program]) -> None:
@@ -697,6 +833,54 @@ class DynamicShapeFunction:
     @property
     def telemetry(self) -> Optional[Telemetry]:
         return self._telemetry
+
+    # -- resilience --------------------------------------------------------------
+    @property
+    def resilience(self) -> Optional[ResilienceController]:
+        """The attached resilience controller (``None`` when disabled)."""
+        return self._resilience
+
+    def enable_resilience(self, config: Optional[ResilienceConfig] = None
+                          ) -> ResilienceController:
+        """Attach the degradation ladder (see :class:`ResilienceConfig`).
+
+        Calls then route through ``_call_resilient``: runtime failures
+        walk retry-transient → retry-fallback → structured
+        :class:`RequestFailed` instead of escaping raw.  Returns the live
+        controller (counters, recent events); detach with
+        :meth:`disable_resilience` — the hot path reverts to the single
+        disabled check immediately.  ``enforce_arena_bound`` takes effect
+        only through ``optimize(resilience=...)``, which bakes each
+        plan's cap into its executor."""
+        self._resilience = ResilienceController(
+            config, fault_ref=self._fault_ref, decisions=self.decisions)
+        self._resilience_config = self._resilience.config
+        return self._resilience
+
+    def disable_resilience(self) -> Optional[ResilienceController]:
+        """Detach and return the controller (``None`` if off)."""
+        res, self._resilience = self._resilience, None
+        return res
+
+    @contextmanager
+    def inject_faults(self, plan: FaultPlan):
+        """Install a :class:`FaultPlan` for the duration of the block.
+
+        Enables a default-config resilience controller if none is
+        attached (and detaches it again on exit); the previously
+        installed plan is restored either way.  Yields the active
+        controller so the block can read counters/events directly."""
+        prev_plan = self._fault_ref.plan
+        attached = self._resilience is None
+        if attached:
+            self.enable_resilience()
+        self._fault_ref.plan = plan
+        try:
+            yield self._resilience
+        finally:
+            self._fault_ref.plan = prev_plan
+            if attached:
+                self._resilience = None
 
     @property
     def program(self) -> Optional[Program]:
@@ -840,7 +1024,8 @@ class DynamicShapeFunction:
                 self.plan, self.report, self.executor,
                 memory_limit=self.memory_limit,
                 donate_inputs=self._donate_inputs,
-                count_inputs=self._count_inputs, tracer=self.trace)
+                count_inputs=self._count_inputs, tracer=self.trace,
+                arena_hard_cap=self.interp.arena_hard_cap)
             plan = self.plan
         for nid, sel in plan.kernel_selections.items():
             sel.measured_s = timings.get(nid, {})
@@ -883,7 +1068,9 @@ class DynamicShapeFunction:
             table=table, table_factory=self._table_factory,
             kernel_forced=self._kernel_forced,
             kernel_remeasure_after=self._kernel_remeasure_after, hw=self._hw,
-            tracer=self.trace, decisions=self.decisions)
+            tracer=self.trace, decisions=self.decisions,
+            resilience_config=self._resilience_config,
+            fault_ref=self._fault_ref)
 
 
 def optimize(fn: Callable, *specs,
@@ -903,7 +1090,9 @@ def optimize(fn: Callable, *specs,
              kernel_select: bool = True,
              kernel_remeasure_after: Optional[int] = None,
              device: Any = None,
-             **later: Any) -> DynamicShapeFunction:
+             resilience: Union[ResilienceConfig, bool, None] = None,
+             fault_plan: Optional[FaultPlan] = None
+             ) -> DynamicShapeFunction:
     """Capture ``fn`` symbolically and build the optimized dynamic-shape plan.
 
     ``specs``: pytrees of :class:`TensorSpec` (dims are ints or the
@@ -961,14 +1150,22 @@ def optimize(fn: Callable, *specs,
     ``"cpu"``); ``cuda`` without a card raises.  On ``cuda`` the cost
     model reads the card (``HardwareModel.from_device``); on the CPU it
     prices the published H100 constants.
+    ``resilience``: attach the fault-tolerant call path — ``True`` for
+    the default :class:`ResilienceConfig`, or a config instance.  Runtime
+    failures then walk the degradation ladder (same-plan retry for
+    transient faults, whole-range-fallback retry for memory pressure —
+    ``MemoryLimitExceeded``, ``ArenaExhausted`` and, on the card, a real
+    ``torch.cuda.OutOfMemoryError`` — and quarantined buckets, structured
+    :class:`RequestFailed` when retries exhaust) instead of escaping raw;
+    any other error propagates.  Bucket-compile failures quarantine
+    behind a circuit breaker with exponential backoff while the fallback
+    keeps serving.  ``None``/``False`` keeps the direct path (one
+    attribute test per call).
+    ``fault_plan``: install a deterministic
+    :class:`~repro_torch.core.resilience.FaultPlan` (chaos testing);
+    implies ``resilience=True`` when ``resilience`` is unset.  Swap plans
+    later with :meth:`DynamicShapeFunction.inject_faults`.
     """
-    if later:
-        unknown = sorted(set(later) - set(_NOT_PORTED))
-        if unknown:
-            raise TypeError(f"optimize() got unexpected arguments {unknown}")
-        raise NotImplementedError(
-            f"optimize({', '.join(sorted(later))}=...) is not ported to "
-            f"PyTorch yet")
     if memory_plan not in ("arena", "none"):
         raise ValueError(
             f"memory_plan must be 'arena' or 'none', got {memory_plan!r}")
@@ -979,6 +1176,15 @@ def optimize(fn: Callable, *specs,
     if executor not in _EXECUTORS:
         raise ValueError(
             f"executor must be one of {_EXECUTORS}, got {executor!r}")
+    if isinstance(resilience, ResilienceConfig):
+        r_cfg: Optional[ResilienceConfig] = resilience
+    elif resilience:
+        r_cfg = ResilienceConfig()
+    elif resilience is None and fault_plan is not None:
+        r_cfg = ResilienceConfig()   # a fault plan implies the ladder
+    else:
+        r_cfg = None
+    fault_ref = FaultPlanRef(fault_plan)
     dev = resolve_device(device)
     hw = None
     if kernel_select:
@@ -1030,9 +1236,22 @@ def optimize(fn: Callable, *specs,
              if k not in graph.bound_dims}, buckets)
         report.buckets = space
 
+        def _hard_cap(rep: OptimizeReport) -> Optional[int]:
+            """Per-plan enforced cap under resilience.enforce_arena_bound:
+            each executor is held to *its own* plan's guarantee."""
+            if r_cfg is not None and r_cfg.enforce_arena_bound:
+                return rep.arena_bound_bytes
+            return None
+
         def table_factory(limit: Optional[int],
                           _space=space) -> SpecializationTable:
             def compile_bucket(key, ranges) -> BucketPlan:
+                # chaos hook: an installed fault plan may schedule this
+                # bucket's specialization to fail or hang (the breaker
+                # quarantines it; the fallback keeps serving)
+                fpl = fault_ref.plan
+                if fpl is not None:
+                    fpl.check_compile(key)
                 # a background-worker compile shows up as its own root span
                 # (the tracer's span stack is thread-local) tagged here, so
                 # traces distinguish swap-in compiles from blocking ones
@@ -1046,7 +1265,8 @@ def optimize(fn: Callable, *specs,
                     runner, b_program = _build_executor(
                         b_plan, b_report, executor, memory_limit=limit,
                         donate_inputs=donate_inputs,
-                        count_inputs=count_inputs, tracer=tracer)
+                        count_inputs=count_inputs, tracer=tracer,
+                        arena_hard_cap=_hard_cap(b_report))
                     sp.attrs.update(
                         reused_parent_schedule=b_report.reused_parent_schedule,
                         reused_parent_postpass=b_report.reused_parent_postpass,
@@ -1059,7 +1279,7 @@ def optimize(fn: Callable, *specs,
                 f_runner, f_program = _build_executor(
                     plan, report, executor, memory_limit=limit,
                     donate_inputs=donate_inputs, count_inputs=count_inputs,
-                    tracer=tracer)
+                    tracer=tracer, arena_hard_cap=_hard_cap(report))
                 fallback = BucketPlan(key=None,
                                       ranges=dict(sg.declared_ranges),
                                       plan=plan, report=report,
@@ -1067,7 +1287,9 @@ def optimize(fn: Callable, *specs,
             return SpecializationTable(
                 _space, compile_bucket, max_live=max_cached_plans,
                 background=background_specialize, fallback=fallback,
-                breaker=CircuitBreaker())
+                breaker=CircuitBreaker(r_cfg.breaker if r_cfg else None),
+                compile_timeout_s=(r_cfg.compile_timeout_s
+                                   if r_cfg else None))
 
     return DynamicShapeFunction(
         plan, report, device=dev, memory_limit=memory_limit,
@@ -1076,4 +1298,5 @@ def optimize(fn: Callable, *specs,
         table=table_factory(memory_limit) if table_factory else None,
         table_factory=table_factory, kernel_forced=kernel_forced,
         kernel_remeasure_after=kernel_remeasure_after, hw=hw,
-        tracer=tracer, decisions=decisions)
+        tracer=tracer, decisions=decisions, resilience_config=r_cfg,
+        fault_ref=fault_ref)

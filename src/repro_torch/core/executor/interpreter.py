@@ -39,12 +39,15 @@ class PlanInterpreter:
     def __init__(self, plan: ExecutionPlan, *,
                  memory_limit: Optional[int] = None,
                  donate_inputs: bool = False,
-                 count_inputs: bool = True):
+                 count_inputs: bool = True,
+                 arena_hard_cap: Optional[int] = None):
         self.plan = plan
         self.g = plan.graph
         self.memory_limit = memory_limit
         self.donate_inputs = donate_inputs
         self.count_inputs = count_inputs
+        # resilience.enforce_arena_bound (see ProgramVM.arena_hard_cap)
+        self.arena_hard_cap = arena_hard_cap
         self._output_ids = {v.id for v in self.g.outputs}
         self._value_by_id = {v.id: v for v in self.g.values}
         self._remaining_template: Dict[int, int] = {
@@ -80,8 +83,8 @@ class PlanInterpreter:
 
     # ---------------------------------------------------------------- run --
     def run(self, flat_args: List[Any],
-            env: Optional[Dict[str, int]] = None
-            ) -> Tuple[List[Any], RunReport]:
+            env: Optional[Dict[str, int]] = None,
+            faults: Any = None) -> Tuple[List[Any], RunReport]:
         t0 = time.perf_counter()
         g, plan = self.g, self.plan
         if env is None:
@@ -105,8 +108,11 @@ class PlanInterpreter:
         arena = None
         if plan.arena_plan is not None:
             arena = ArenaAllocator(plan.arena_plan,
-                                   plan.arena_plan.resolve(env))
+                                   plan.arena_plan.resolve(env),
+                                   hard_cap=self.arena_hard_cap)
         mm = MemoryManager(self.memory_limit, arena=arena)
+        if faults is not None:
+            mm.fault_hook = faults.on_memory
 
         def bytes_of(v: Value) -> int:
             if v.id in bound_dep:
@@ -319,6 +325,8 @@ class PlanInterpreter:
                 state["pinned"] = frozenset(
                     [iv.id for iv in node.invals]
                     + [ov.id for ov in node.outvals])
+                if faults is not None:
+                    faults.before_compute()
                 ins = [materialize(iv) for iv in node.invals[:node.n_args]]
                 for iv in node.invals[node.n_args:]:
                     materialize(iv)

@@ -75,6 +75,11 @@ class MemoryManager:
         # optional ArenaAllocator mirroring device residency through the
         # planned slots (every device alloc/free below notifies it)
         self.arena = arena
+        # fault injection (resilience): called as hook(event, vid, nbytes)
+        # before alloc / evict_to_host / reload / restore mutate state, so
+        # an injected failure aborts the call with accounting consistent.
+        # None (the default) costs one attribute test per event.
+        self.fault_hook: Optional[Callable[[str, int, int], None]] = None
 
     def _arena_alloc(self, vid: int, nbytes: int) -> None:
         if self.arena is not None:
@@ -109,6 +114,8 @@ class MemoryManager:
                 f"limit {self.limit} and eviction could not free enough")
 
     def alloc(self, vid: int, nbytes: int) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook("alloc", vid, nbytes)
         if vid in self._device:
             raise RuntimeError(f"double alloc of value {vid}")
         self._device[vid] = nbytes
@@ -134,6 +141,8 @@ class MemoryManager:
 
     # -- eviction paths -------------------------------------------------------
     def evict_to_host(self, vid: int) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook("offload", vid, self._device.get(vid, 0))
         b = self._device.pop(vid)
         self.stats.device_used -= b
         self._host[vid] = b
@@ -153,6 +162,8 @@ class MemoryManager:
         self.arena_release(vid)
 
     def reload(self, vid: int) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook("reload", vid, self._host.get(vid, 0))
         b = self._host.pop(vid)
         self.stats.host_used -= b
         self._device[vid] = b
@@ -162,6 +173,8 @@ class MemoryManager:
 
     def restore(self, vid: int, nbytes: int) -> None:
         """Re-allocation after recompute regeneration."""
+        if self.fault_hook is not None:
+            self.fault_hook("restore", vid, nbytes)
         self._device[vid] = nbytes
         self._grow(nbytes)
         self.stats.recomputes += 1

@@ -47,6 +47,14 @@ arguments: the introducer returned its payload tight, so every later op
 runs on tight tensors with arguments resolved at the measured extent.
 The fast stream's stats are then the resolve replay at the measured
 extents, which is the dynamic stream's accounting of the same run.
+
+Fault injection (``run(faults=)``, the resilience layer): a call with an
+armed probe runs :func:`run_fast_faulted`, the fast stream with the probe
+ahead of every op, or for a memory-kind fault the dynamic stream with the
+probe as ``MemoryManager.fault_hook``; :func:`run_fast` has no branch for
+it.  Under ``arena_hard_cap`` a call whose resolved arena exceeds the cap
+raises ``ArenaExhausted`` before it runs, and the dynamic stream's arena
+raises it at the placement that would cross it.
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ from ..lowering.program import (OP_BIND_ARG, OP_BIND_DIM, OP_COMPUTE,
                                 OP_DONATE, OP_FREE_SLOT, OP_LOOP,
                                 OP_MAYBE_EVICT, OP_REGEN, Program,
                                 ResolvedProgram)
-from ..memplan.arena import ArenaAllocator
+from ..memplan.arena import ArenaAllocator, ArenaExhausted
 from ..remat.runtime import RuntimeRematPolicy
 from .memory import MemoryManager, MemoryStats
 
@@ -193,6 +201,58 @@ def run_fast(prog: Program, flat_args: List[Any], resolved: ResolvedProgram,
     return [storage[r] for r in prog.out_regs]
 
 
+def run_fast_faulted(prog: Program, flat_args: List[Any],
+                     resolved: ResolvedProgram, faults: Any,
+                     bound: Optional[_BoundRun] = None) -> List[Any]:
+    """:func:`run_fast` with a fault probe ahead of every op call.
+
+    A separate loop so the clean fast stream stays branch-free: the
+    zero-overhead contract is on :func:`run_fast`; this copy runs only
+    when a kernel fault is armed for the call.  A rolled loop counts as
+    one step."""
+    storage: List[Any] = [None] * prog.n_regs
+    all_leaves = bound.leaves if bound is not None else resolved.leaves
+    unflatten = pytree.tree_unflatten
+    for inst in prog.fast_instructions:
+        op = inst.op
+        if op == OP_COMPUTE:
+            faults.before_compute()
+            leaves = list(all_leaves[inst.cidx])
+            in_regs = inst.in_regs
+            for li, k in inst.arg_slots:
+                leaves[li] = storage[in_regs[k]]
+            args, kwargs = unflatten(leaves, inst.spec)
+            out = inst.prim(*args, **kwargs)
+            del leaves, args, kwargs
+            if inst.multi:
+                for oi, r in inst.store:
+                    storage[r] = out[oi]
+                for oi, r in inst.extra_store:
+                    storage[r] = out[oi]
+            else:
+                for _oi, r in inst.store:
+                    storage[r] = out
+            del out
+        elif op == OP_BIND_ARG:
+            storage[inst.reg] = (
+                take(flat_args, inst.index, prog.donate_inputs)
+                if inst.index >= 0 else inst.const)
+        elif op == OP_FREE_SLOT or op == OP_DONATE:
+            storage[inst.reg] = None
+        elif op == OP_LOOP:
+            faults.before_compute()
+            outs = exec_loop(prog.loops[inst.lidx],
+                             resolved.loops[inst.lidx],
+                             [storage[r] for r in inst.in_regs],
+                             resolved.env)
+            for oi, r in inst.store:
+                storage[r] = outs[oi]
+            del outs
+        elif op == OP_BIND_DIM:
+            bound.bind(inst, storage)
+    return [storage[r] for r in prog.out_regs]
+
+
 def exec_loop(info, rl, ins: List[Any], env: Dict[str, int]) -> List[Any]:
     """Run one rolled loop: the lowered body sub-Program per iteration on
     the fast stream, registers rebound (carries from the previous
@@ -229,9 +289,14 @@ def exec_loop(info, rl, ins: List[Any], env: Dict[str, int]) -> List[Any]:
 class ProgramVM:
     """Executes a lowered Program; drop-in for ``PlanInterpreter.run``."""
 
-    def __init__(self, program: Program):
+    def __init__(self, program: Program, *,
+                 arena_hard_cap: Optional[int] = None):
         self.program = program
         self.plan = program.plan
+        # resilience.enforce_arena_bound: the plan's guaranteed arena bound
+        # as a runtime hard cap — a resolve (or runtime growth) that would
+        # exceed it raises ArenaExhausted instead of silently growing
+        self.arena_hard_cap = arena_hard_cap
         # optional live-occupancy probe, dynamic (eviction) stream only:
         # called as hook(idx, inst, mm) after every executed instruction.
         # The fast stream is never instrumented — its occupancy curve is
@@ -239,21 +304,42 @@ class ProgramVM:
         self.timeline_hook = None
 
     def run(self, flat_args: List[Any],
-            env: Optional[Dict[str, int]] = None
-            ) -> Tuple[List[Any], RunReport]:
+            env: Optional[Dict[str, int]] = None,
+            faults: Any = None) -> Tuple[List[Any], RunReport]:
+        """Run one call.  ``faults`` is an armed
+        :class:`~repro_torch.core.resilience.faults.CallFaults` probe
+        (``None``, the common case, keeps both streams uninstrumented)."""
         t0 = time.perf_counter()
         prog = self.program
         if env is None:
             env = solve_env(prog.graph, flat_args)
             check_declared_ranges(prog.plan.shape_graph, env)
         resolved = prog.resolve(env)
+        cap = self.arena_hard_cap
+        if cap is not None and resolved.arena is not None \
+                and resolved.arena.arena_bytes > cap:
+            # the resolve replay is exact for this env: catching the breach
+            # here covers the fast stream without instrumenting its loop
+            raise ArenaExhausted(
+                f"resolved arena reserve {resolved.arena.arena_bytes} "
+                f"exceeds the enforced bound of {cap} bytes")
         bound = _BoundRun(prog, resolved) if prog.has_bound_dims else None
-        if resolved.fast_ok:
-            outs = run_fast(prog, flat_args, resolved, bound)
-            stats = prog.stats_for(
-                resolved, bound.measured if bound is not None else None)
+        measured = bound.measured if bound is not None else None
+        if faults is None:
+            if resolved.fast_ok:
+                outs = run_fast(prog, flat_args, resolved, bound)
+                stats = prog.stats_for(resolved, measured)
+            else:
+                outs, stats = self._run_dynamic(flat_args, resolved, bound)
+        elif resolved.fast_ok and not faults.needs_memory:
+            outs = run_fast_faulted(prog, flat_args, resolved, faults, bound)
+            stats = prog.stats_for(resolved, measured)
         else:
-            outs, stats = self._run_dynamic(flat_args, resolved, bound)
+            # a memory-kind fault needs the allocation stream: the dynamic
+            # regime runs the full instruction list (bitwise-identical
+            # outputs — it is the generic path the fast stream specializes)
+            outs, stats = self._run_dynamic(flat_args, resolved, bound,
+                                            faults)
         report = RunReport(stats=stats, wall_s=0.0, env=env)
         if bound is not None:
             # surface the measured (not cap) bound dims in the report env
@@ -265,7 +351,8 @@ class ProgramVM:
     # --------------------------------------------------------- dynamic path
     def _run_dynamic(self, flat_args: Sequence[Any],
                      resolved: ResolvedProgram,
-                     bound: Optional[_BoundRun] = None
+                     bound: Optional[_BoundRun] = None,
+                     faults: Any = None
                      ) -> Tuple[List[Any], MemoryStats]:
         prog = self.program
         plan = prog.plan
@@ -281,8 +368,11 @@ class ProgramVM:
         policy = RuntimeRematPolicy(plan, resolved.env)
         arena = None
         if resolved.arena is not None:
-            arena = ArenaAllocator(plan.arena_plan, resolved.arena)
+            arena = ArenaAllocator(plan.arena_plan, resolved.arena,
+                                   hard_cap=self.arena_hard_cap)
         mm = MemoryManager(prog.memory_limit, arena=arena)
+        if faults is not None:
+            mm.fault_hook = faults.on_memory
 
         storage: List[Any] = [None] * prog.n_regs
         host_storage: Dict[int, Tuple[torch.Tensor, torch.device]] = {}
@@ -442,6 +532,8 @@ class ProgramVM:
             for idx, inst in enumerate(prog.instructions):
                 op = inst.op
                 if op == OP_COMPUTE:
+                    if faults is not None:
+                        faults.before_compute()
                     leaves = list(all_leaves[inst.cidx])
                     for li, k in inst.arg_slots:
                         leaves[li] = arg(inst.in_regs[k])
@@ -492,6 +584,8 @@ class ProgramVM:
                     # body runs
                     state["step"] = inst.step
                     state["pinned"] = inst.pinned
+                    if faults is not None:
+                        faults.before_compute()   # one step per rolled loop
                     ins = [arg(r) for r in inst.in_regs]
                     rl = resolved.loops[inst.lidx]
                     info = prog.loops[inst.lidx]

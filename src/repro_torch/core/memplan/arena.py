@@ -30,9 +30,21 @@ from typing import Dict, List, Optional
 from .assign import ArenaPlan, ResolvedArena
 
 
+class ArenaExhausted(RuntimeError):
+    """Arena occupancy crossed a hard cap the caller asked to enforce.
+
+    Raised only under ``resilience.enforce_arena_bound``: the planner's
+    ``arena_bound_bytes`` is a guarantee, so crossing it means runtime
+    churn (remat realloc into foreign slots) grew the arena past what
+    was promised — the degradation ladder treats it as memory pressure
+    instead of letting the arena silently exceed the bound."""
+
+
 class ArenaAllocator:
-    def __init__(self, plan: ArenaPlan, resolved: ResolvedArena):
+    def __init__(self, plan: ArenaPlan, resolved: ResolvedArena, *,
+                 hard_cap: Optional[int] = None):
         self.plan = plan
+        self.hard_cap = hard_cap
         self.capacity: List[int] = list(resolved.caps)
         self.external: List[bool] = list(resolved.external)
         n = len(self.capacity)
@@ -101,6 +113,16 @@ class ArenaAllocator:
         self.used_once[sid] = True
         if not self.external[sid]:
             self._in_use += nbytes
+            if self.hard_cap is not None and self._in_use > self.hard_cap:
+                # roll back before raising: the ladder may retry this call
+                self.occupant[sid] = None
+                self.occupant_bytes[sid] = 0
+                del self.slot_of[vid]
+                self._in_use -= nbytes
+                raise ArenaExhausted(
+                    f"arena occupancy {self._in_use + nbytes} would exceed "
+                    f"the enforced bound of {self.hard_cap} bytes "
+                    f"(value {vid}, {nbytes} bytes)")
             self.peak_in_use = max(self.peak_in_use, self._in_use)
 
     def _fallback_slot(self, nbytes: int) -> Optional[int]:

@@ -171,10 +171,36 @@ def render_kernel_selection(fn) -> List[str]:
 
 
 def render_resilience(fn) -> List[str]:
-    """The resilience section.  The port has no degradation ladder yet, so
-    it says so, then the compile breaker's quarantine state (the bucket
-    table has its breaker)."""
-    lines = ["not enabled (no degradation ladder in this port yet)"]
+    """Ladder config, failure counters, recent degradation events, and
+    breaker (quarantine) state.  Without the ladder the section says so and
+    still shows the quarantine state (a bucket table always has its
+    breaker)."""
+    res = fn.resilience
+    if res is None:
+        lines = ["not enabled (optimize(..., resilience=) or "
+                 "fn.enable_resilience())"]
+    else:
+        pol = res.config.retry
+        lines = [
+            f"ladder: evict (in-call) -> retry-transient -> retry-fallback "
+            f"-> reject | max_retries={pol.max_retries} "
+            f"backoff={pol.backoff_base_s}s x{pol.backoff_factor}"]
+        c = res.counters()
+        lines.append(
+            f"calls {c['calls']} | degraded {c['degraded_calls']} | "
+            f"retries transient {c['retries_transient']} / fallback "
+            f"{c['retries_fallback']} | failures {c['failures']} "
+            f"(malformed {c['malformed']})")
+        events = list(res.events)
+        for ev in events[-8:]:
+            lines.append(
+                f"  call {ev.seq} attempt {ev.attempt}: {ev.rung}"
+                f"{' bucket ' + str(ev.bucket) if ev.bucket else ''}"
+                f"{f' backoff {ev.backoff_s:.3f}s' if ev.backoff_s else ''}"
+                f" — {ev.cause}")
+        if len(events) > 8:
+            lines.append(f"  ... {len(events) - 8} earlier events "
+                         f"(fn.resilience.events)")
     table = fn.specialization_table
     if table is not None:
         q = table.quarantined()

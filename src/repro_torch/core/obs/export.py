@@ -135,7 +135,7 @@ def prometheus_text(fn=None, batcher=None, prefix: str = "repro") -> str:
             _metric(lines, f"{prefix}_dispatch_ns_total", "counter",
                     "Cumulative bucket-dispatch overhead in nanoseconds.",
                     [(None, tel.dispatch_ns_total)])
-        # the degradation ladder's counters, once a resilience layer exists
+        # the degradation ladder's counters (resilience enabled)
         res = getattr(fn, "resilience", None)
         if res is not None:
             rc = res.counters()

@@ -309,9 +309,9 @@ class BucketBatcher:
         Each payload is treated as the request's call arguments (a tuple
         is splatted, anything else passed as the single argument).  Only
         the structured :class:`~repro_torch.core.resilience.RequestFailed` is
-        caught — one failing request yields a structured outcome instead of
-        killing the loop, while unexpected exceptions still propagate
-        loudly.  Returns one outcome dict per
+        caught — with resilience enabled one failing request yields a
+        structured outcome instead of killing the loop, while unexpected
+        exceptions still propagate loudly.  Returns one outcome dict per
         request: ``env``, ``bucket``, ``payload``, ``ok``, and ``value``
         + ``report`` + ``arena_bound`` (success) or ``error`` (failure).
         """

@@ -618,3 +618,103 @@ def test_table1_disc_pp_step_launches_the_sm90_kernel(gen):
         params, init_state(params, adamw_config_for(cfg)),
         to_device(raw, torch.device("cuda")))
     assert abs(pp["losses"][0] - plain.item()) <= PLAIN_LOSS_TOL
+
+
+def _resilient_smoke_prefill(gen):
+    """The bf16 smoke prefill, bucketed, with the ladder attached, its
+    weights, and an (8, 1024) request."""
+    import dataclasses
+
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.core import (TensorSpec, optimize, spec_like,
+                                  symbolic_dims)
+    from repro_torch.core.resilience import ResilienceConfig, RetryPolicy
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(SMOKE, dtype="bfloat16")
+    params = init_params(cfg, seed=0)
+    B, S = symbolic_dims("b, s")
+    opt = optimize(make_prefill_step(cfg), spec_like(params),
+                   {"tokens": TensorSpec((B, S), torch.int32)},
+                   dynamic_dims={"b": (1, 8), "s": (16, 1024)},
+                   buckets="geometric", resilience=ResilienceConfig(
+                       retry=RetryPolicy(max_retries=2, backoff_base_s=0.0),
+                       enforce_arena_bound=True))
+    tok = {"tokens": torch.randint(0, cfg.vocab, (8, 1024), generator=gen,
+                                   device="cuda", dtype=torch.int32)}
+    return cfg, opt, params, tok
+
+
+@pytest.mark.gpu
+def test_transient_fault_at_an_sm90_flash_compute_retries_bitwise(gen):
+    """chip_smoke phase 13 (b) at smoke width: a ``kernel`` fault just
+    before the first sm90 flash launch retries the call in place, bitwise,
+    and the retry launches every flash of the request."""
+    from repro_torch.core.lowering.program import OP_COMPUTE
+    from repro_torch.core.resilience import FaultPlan, FaultSpec
+
+    cfg, opt, params, tok = _resilient_smoke_prefill(gen)
+    want = opt(params, tok)                              # call 0
+    program = opt.specialization_table.peek(opt.last_bucket).program
+    computes = [x for x in program.fast_instructions if x.op == OP_COMPUTE]
+    step = next(i for i, x in enumerate(computes)
+                if "flash_attention" in x.node.prim_name)
+    fp = FaultPlan([FaultSpec("kernel", call=1, step=step)])
+    g0 = flash_attention_cuda.sm90_launches
+    with opt.inject_faults(fp) as res:
+        got = opt(params, tok)
+    assert torch.equal(got, want)
+    assert [e.rung for e in res.events] == ["retry-transient"]
+    assert [(f.kind, f.step) for f in fp.fired] == [("kernel", step)]
+    assert flash_attention_cuda.sm90_launches - g0 == cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_a_real_oom_under_a_ballast_fails_structured(gen):
+    """chip_smoke phase 13 (g) at smoke width: with a ballast leaving too
+    little memory, the call raises ``torch.cuda.OutOfMemoryError`` inside
+    the VM; the ladder retries on the whole-range plan, then rejects with
+    the OOM as its cause; with the garbage collector off the failed call
+    holds no memory, and after the ballast goes the next call is
+    bitwise."""
+    import gc
+
+    from repro_torch.core.resilience import RequestFailed
+
+    _cfg, opt, params, tok = _resilient_smoke_prefill(gen)
+    want = opt(params, tok)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        # fill the card and the allocator's free blocks, halving the piece
+        # on each refusal
+        size = torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved() \
+            - m0
+        ballast = []
+        while size >= 2 << 20:
+            try:
+                ballast.append(torch.empty(size, dtype=torch.uint8,
+                                           device="cuda"))
+            except torch.cuda.OutOfMemoryError:
+                size //= 2
+        # the allocator's count (an unsplit block exceeds its tensor)
+        n = torch.cuda.memory_allocated() - m0
+        with pytest.raises(RequestFailed) as ei:
+            opt(params, tok)
+        e = ei.value
+        assert isinstance(e.cause, torch.cuda.OutOfMemoryError)
+        assert e.attempts == 3
+        assert [ev.rung for ev in e.events] == \
+            ["retry-fallback", "retry-fallback", "reject"]
+        del e, ei
+        assert torch.cuda.memory_allocated() == m0 + n
+        del ballast
+        assert torch.cuda.memory_allocated() == m0
+    finally:
+        if enabled:
+            gc.enable()
+    assert torch.equal(opt(params, tok), want)

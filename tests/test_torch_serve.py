@@ -136,10 +136,6 @@ def test_optimize_refuses_what_is_not_ported(weights):
     _, _, params = weights
     B, S = symbolic_dims("b, s")
     args = (spec_like(params), {"tokens": TensorSpec((B, S), torch.int32)})
-    for knob in ("resilience", "fault_plan"):
-        with pytest.raises(NotImplementedError, match=knob):
-            optimize(make_prefill_step(SMOKE), *args, device="cpu",
-                     **{knob: True})
     # bucketed dispatch is ported: buckets= builds a specialization table
     opt = optimize(make_prefill_step(SMOKE), *args, device="cpu",
                    dynamic_dims=DYNAMIC_DIMS, buckets="geometric")
