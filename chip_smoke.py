@@ -204,16 +204,50 @@ Phases (any failure exits non-zero):
    a ``kernel`` fault at the first hd-256 flash compute of phase 12's
    gemma_2b plan retries bitwise.
 
+14. dense (``[dense]`` lines), after phase 13: (a) the flash kernel at
+   the head dims the sm90 kernel has no instance for, on the SIMT route
+   (``kernels.flash_attention.route_of``): hd 12 and 16 at the smoke
+   configs' heads, the reference kernel tests' geometry at hd 16, and hd
+   48, in f32 (2e-4) and bf16 (1e-2, and in relative norm), causal and
+   not, one row, ragged S, S < T; and the sm90 kernel at starcoder2's
+   36/4 heads (group 9) and musicgen's 24/24 at hd 64; kernel, plain,
+   SDPA and bound ms at every request shape of the smoke heads and at
+   (8, 1024) for the rest; (b) ``granite_8b``, ``starcoder2_7b``,
+   ``musicgen_medium`` and ``internvl2_2b`` at full width and depth in
+   bf16 (seed-0 weights on the card), one at a time, each serving the
+   request shapes through one plan (internvl2: s text tokens after 256
+   vision embeddings, its flash S the expression ``256 + s``): one
+   capture, n_layers sm90 flash and 2 n_layers + 1 RMSNorm launches a
+   request, device_peak <= guaranteed_peak_bytes, the allocator within
+   phase 3's slack, arena_bytes <= arena_bound_bytes, finite logits
+   ``(B, V)`` / ``(B, 4, 2048)`` with internvl2's pad columns at -1e30 and
+   never the argmax; medians of 10 calls, a granite profile at (8,1024);
+   (c) every layer's attention output, kernel vs plain on the same q, k,
+   v, within 1e-2 and GEMMA_LAYER_REL, and the first GEMMA_CUT_LAYERS
+   layers' logits through a kernel plan and a plain plan within 5e-2;
+   (d) the four smoke configs (hd 16; starcoder2 12) through one plan
+   each in f32 and in bf16: n_layers SIMT launches a request of the
+   dtype's instance, logits within 2e-4 (f32) or 5e-2 (bf16) of the eager
+   plain path; (e) ``serve`` for musicgen (frames, 4 codebooks) and
+   internvl2: no flash launch, (2 L + 1) RMSNorm launches a step, cache
+   length 48 of 49 rows, ms a step; decode vs forward within 2e-2 at
+   GEMMA_CUT_LAYERS layers, the full depth's reading printed beside a
+   control (the plain forward vs the kernel forward).
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
 phase 11 (a), table1 = phase 11 (b), gemma_prefill = phase 12 (b),
 gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
-= phase 13; bounded,
-loop and gemma_serve launch no flash: their attention and ops are plain
-PyTorch, as the reference's are plain jnp; each flash entry also holds
-its hd-256 instance's numbers at gemma_2b's and gemma_7b's (8, 1024)
-request); the last line is ``{"ok": true, "device": {...}}``.
+= phase 13, dense_prefill = phase 14 (b), dense_prefill_f32_smoke and
+dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e);
+bounded, loop, gemma_serve and dense_serve launch no flash: their
+attention and ops are plain PyTorch, as the reference's are plain jnp;
+the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
+requests, the SIMT entries at hd 12, 16 and 48 and the sm90 entry at
+starcoder2's and musicgen's heads; the SIMT route's bf16 instance has an
+entry of its own, counted by ``simt_bf16_launches``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -403,6 +437,48 @@ def agree(got, want, tol: float, what: str):
     return d.abs().max().item(), rel
 
 
+def flash_routed(q, k, v, causal=True):
+    """``flash_attention_cuda``, asserting the route ``route_of`` gives
+    the inputs' dtype and head dim."""
+    import torch
+    from repro_torch.kernels import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import route_of
+    n0 = (flash_attention_cuda.sm90_launches,
+          flash_attention_cuda.simt_bf16_launches)
+    out = flash_attention_cuda(q, k, v, causal=causal)
+    route = route_of(q.dtype, q.shape[-1])
+    sm90 = route == "sm90"
+    simt_bf16 = not sm90 and q.dtype == torch.bfloat16
+    got = (flash_attention_cuda.sm90_launches - n0[0],
+           flash_attention_cuda.simt_bf16_launches - n0[1])
+    if got != (int(sm90), int(simt_bf16)):
+        raise AssertionError(f"{q.dtype} flash at hd {q.shape[-1]}: launches "
+                             f"(sm90, simt bf16) {got}, want the {route} "
+                             f"route")
+    return out
+
+
+def time_flash(q, k, v):
+    """kernel and plain ms, and SDPA ms by how it was called: with
+    enable_gqa on the same k/v, and where the heads differ also on k/v
+    expanded to Hq beforehand (outside the timing); the faster is the
+    library's time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_cuda, reference_attention
+    hq, hkv = q.shape[1], k.shape[1]
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v))
+    plain = time_ms(lambda: reference_attention(q, k, v), reps=5)
+    libs = {"gqa" if hq != hkv else "mha": time_ms(
+        lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hq != hkv))}
+    if hq != hkv:
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        libs["expanded"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True))
+        del ke, ve
+    return ms, plain, libs
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -416,15 +492,6 @@ def phase_kernels():
         return (torch.randn(shape, generator=gen, device="cuda") * std
                 ).to(dtype)
 
-    def flash(q, k, v, causal=True):
-        """flash_attention_cuda, asserting the route its dtype must take."""
-        n0 = flash_attention_cuda.sm90_launches
-        out = flash_attention_cuda(q, k, v, causal=causal)
-        if flash_attention_cuda.sm90_launches - n0 != \
-                (q.dtype == torch.bfloat16):
-            raise AssertionError(f"{q.dtype} flash took the wrong route")
-        return out
-
     # correctness: test shapes in both dtypes, then every main-path shape
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
@@ -434,7 +501,7 @@ def phase_kernels():
             for causal in (True, False):
                 q = randn((b, hq, s, hd), dtype)
                 k, v = randn((b, hkv, t, hd), dtype), randn((b, hkv, t, hd), dtype)
-                agree(flash(q, k, v, causal=causal),
+                agree(flash_routed(q, k, v, causal=causal),
                       reference_attention(q, k, v, causal=causal), tol,
                       f"flash {(b, hq, hkv, s, t, hd)} causal={causal} {dtype}")
         for shape in RMSNORM_TEST_SHAPES:
@@ -459,7 +526,8 @@ def phase_kernels():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             q, k, v = (t.to(dtype) for t in qkv32)
-            f_err, f_rel = agree(flash(q, k, v), reference_attention(q, k, v),
+            f_err, f_rel = agree(flash_routed(q, k, v),
+                                 reference_attention(q, k, v),
                                  TOL[name], f"flash (b={b}, s={s}) {name}")
             f_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
             f_plain = time_ms(lambda: reference_attention(q, k, v, causal=True),
@@ -564,6 +632,7 @@ def phase_main_path():
                       for t in pytree.tree_leaves(params))
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
+    flash_attention_cuda.simt_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     outs, rows = [], []
     for (b, s), batch in zip(REQUESTS, batches):
@@ -765,6 +834,7 @@ def phase_f32_path():
                for (b, s) in F32_REQUESTS]
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
+    flash_attention_cuda.simt_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     outs = [opt(params, batch) for batch in batches]
     torch.cuda.synchronize()
@@ -866,6 +936,7 @@ def phase_train():
 
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
+    flash_attention_cuda.simt_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     want, rows = None, {"uncapped": [], "ladder": []}
     for (b, s) in TRAIN_SHAPES:
@@ -1136,6 +1207,7 @@ KB_ENVS = [{"b": 4, "s": 32}, {"b": 4, "s": 1024}]
 KB_REPEATS = 10
 # what each kernel variant launches, by the launch counter it moves
 VARIANT_COUNTER = {"sm90_bm128_bn128": "sm90", "simt_f32_bq64_bkv32": "f32",
+                   "simt_bf16_bq64_bkv32": "simt_bf16",
                    "cuda_row256": "rmsnorm"}
 
 
@@ -1143,13 +1215,15 @@ def _launch_counts():
     from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
     return {"sm90": flash_attention_cuda.sm90_launches,
             "f32": flash_attention_cuda.launches
-            - flash_attention_cuda.sm90_launches,
+            - flash_attention_cuda.sm90_launches
+            - flash_attention_cuda.simt_bf16_launches,
+            "simt_bf16": flash_attention_cuda.simt_bf16_launches,
             "rmsnorm": rmsnorm_cuda.launches}
 
 
 def _expected_launches(plan):
     """Launches per call that a plan's kernel selections imply."""
-    want = {"sm90": 0, "f32": 0, "rmsnorm": 0}
+    want = {"sm90": 0, "f32": 0, "simt_bf16": 0, "rmsnorm": 0}
     for sel in plan.kernel_selections.values():
         counter = VARIANT_COUNTER.get(sel.variant.name)
         if counter is not None:
@@ -1218,7 +1292,7 @@ def phase_buckets(cfg, batches, outs, plain, medians):
                  for nid, s in whole.kernel_selections.items()}
     param_bytes = sum(t.numel() * t.element_size()
                       for t in pytree.tree_leaves(params))
-    for name in ("launches", "sm90_launches"):
+    for name in ("launches", "sm90_launches", "simt_bf16_launches"):
         setattr(flash_attention_cuda, name, 0)
     rmsnorm_cuda.launches = 0
 
@@ -1513,11 +1587,10 @@ def counted_launches(phase):
     from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
+    flash_attention_cuda.simt_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     result = phase()
-    sm90 = flash_attention_cuda.sm90_launches
-    return {"sm90": sm90, "f32": flash_attention_cuda.launches - sm90,
-            "rmsnorm": rmsnorm_cuda.launches}, result
+    return _launch_counts(), result
 
 
 # -- phase 8: bounded value-dependent dims (the ragged-batch serve step) -----
@@ -2510,8 +2583,7 @@ def phase_gemma_kernels():
     in the model layout; kernel, plain, SDPA and bound times at each
     request shape.  Outside every counted path."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention_cuda, reference_attention
+    from repro_torch.kernels import reference_attention
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -2522,22 +2594,13 @@ def phase_gemma_kernels():
                             ).to(dtype).transpose(1, 2)
                 for n, h in ((s, hq), (t, hkv), (t, hkv))]
 
-    def flash(q, k, v, causal=True):
-        n0 = flash_attention_cuda.sm90_launches
-        out = flash_attention_cuda(q, k, v, causal=causal)
-        if flash_attention_cuda.sm90_launches - n0 != \
-                (q.dtype == torch.bfloat16):
-            raise AssertionError(f"{q.dtype} flash at hd 256 took the wrong "
-                                 f"route")
-        return out
-
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         worst = 0.0
         for (b, hq, hkv, s, t) in GEMMA_SMALL_SHAPES:
             for causal in (True, False):
                 q, k, v = operands(b, hq, hkv, s, t, dtype)
-                err, _rel = agree(flash(q, k, v, causal),
+                err, _rel = agree(flash_routed(q, k, v, causal),
                                   reference_attention(q, k, v, causal=causal),
                                   TOL[name], f"flash hd 256 "
                                   f"{(b, hq, hkv, s, t)} causal={causal} "
@@ -2552,24 +2615,11 @@ def phase_gemma_kernels():
             for dtype in (torch.bfloat16, torch.float32):
                 name = str(dtype).split(".")[1]
                 q, k, v = operands(b, hq, hkv, s, s, dtype)
-                err, rel = agree(flash(q, k, v), reference_attention(q, k, v),
+                err, rel = agree(flash_routed(q, k, v),
+                                 reference_attention(q, k, v),
                                  TOL[name], f"flash {model} (b={b}, s={s}) "
                                  f"{name}")
-                ms = time_ms(lambda: flash_attention_cuda(q, k, v))
-                plain = time_ms(lambda: reference_attention(q, k, v), reps=5)
-                # SDPA both ways where the heads differ: enable_gqa on the
-                # same k/v, and k/v expanded to Hq beforehand (outside the
-                # timing); the faster is the library's time
-                libs = {"gqa" if hq != hkv else "mha": time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, enable_gqa=hq != hkv))}
-                if hq != hkv:
-                    ke, ve = (x.repeat_interleave(hq // hkv, dim=1)
-                              for x in (k, v))
-                    libs["expanded"] = time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q, ke, ve, is_causal=True))
-                    del ke, ve
+                ms, plain, libs = time_flash(q, k, v)
                 lib_how = min(libs, key=libs.get)
                 bound, by = flash_bound(b, hq, hkv, s, s, GEMMA_HD, name,
                                         dtype.itemsize)
@@ -2589,23 +2639,24 @@ def phase_gemma_kernels():
     return rows
 
 
-def gemma_layer_errors(cfg, params, tokens):
+def dense_layer_errors(cfg, params, batch):
     """Per layer, the flash kernel's attention output against the plain
     version's on the same q, k, v, walking the kernel path's hidden state
-    eagerly with the model's own functions: (max abs err, rel norm,
-    within GEMMA_LAYER_TOL elementwise and GEMMA_LAYER_REL in norm)."""
+    eagerly with the model's own functions (any input mode): (max abs
+    err, rel norm, within GEMMA_LAYER_TOL elementwise and GEMMA_LAYER_REL
+    in norm)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.models.attention import attention
     from repro_torch.models.blocks import gqa_qkv
     from repro_torch.models.common import rms_norm
     from repro_torch.models.ffn import ffn_apply
+    from repro_torch.models.lm import _embed_inputs
 
-    b, s = tokens.shape
     hd = cfg.resolved_head_dim
-    positions = torch.arange(s, device=tokens.device)[None, :]
-    x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    x = _embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :]
     out = []
     for lp in params["layers"]:
         q, k, v = gqa_qkv(lp["attn"], rms_norm(x, lp["ln1"]), cfg.n_heads,
@@ -2613,15 +2664,14 @@ def gemma_layer_errors(cfg, params, tokens):
         got = attention(q, k, v)
         want = attention(q, k, v, impl="ref")
         d = got.float() - want.float()
-        out.append((d.abs().max().item(),
-                    (d.norm() / want.float().norm()).item(),
-                    bool(torch.allclose(got.float(), want.float(),
-                                        rtol=GEMMA_LAYER_TOL,
-                                        atol=GEMMA_LAYER_TOL))))
+        rel = (d.norm() / want.float().norm()).item()
+        ok = bool(torch.allclose(got.float(), want.float(),
+                                 rtol=GEMMA_LAYER_TOL, atol=GEMMA_LAYER_TOL))
+        out.append((d.abs().max().item(), rel, ok and rel <= GEMMA_LAYER_REL))
         x = x + got.reshape(b, s, cfg.n_heads * hd) @ lp["attn"]["wo"]
         x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"]),
                           kind=cfg.ffn_kind)
-    return [(e, r, ok and r <= GEMMA_LAYER_REL) for e, r, ok in out]
+    return out
 
 
 def phase_gemma_prefill(cfg):
@@ -2689,6 +2739,7 @@ def phase_gemma_prefill(cfg):
                       for t in pytree.tree_leaves(params))
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
+    flash_attention_cuda.simt_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     outs, rows = [], []
     for (b, s), batch in zip(REQUESTS, batches):
@@ -2814,7 +2865,7 @@ def phase_gemma_plain(cfg, params, opt_ref, batches, outs):
         ref = opt_ref(params, batch).float()
         got = got.float()
         err, rel = (got - ref).abs().max().item(), _rel(got, ref)
-        layers = gemma_layer_errors(cfg, params, batch["tokens"])
+        layers = dense_layer_errors(cfg, params, batch)
         c = attention_in_f64(cfg, params, batch["tokens"])
         log(f"[gemma] (c) b={b} s={s}: kernel path vs plain path max err "
             f"{err:.4g} rel norm {rel:.4g}; control, plain with f64 "
@@ -2872,7 +2923,7 @@ def phase_gemma_f32():
         lambda: [opt(params, batch) for batch in batches])
     torch.cuda.synchronize()
     n = len(F32_REQUESTS)
-    if launches != {"sm90": 0, "f32": n, "rmsnorm": 3 * n}:
+    if launches != {"sm90": 0, "f32": n, "simt_bf16": 0, "rmsnorm": 3 * n}:
         raise AssertionError(f"gemma f32 path launches {launches} over {n} "
                              f"requests")
     for (b, s), batch, got in zip(F32_REQUESTS, batches, outs):
@@ -2914,7 +2965,7 @@ def phase_gemma_serve(cfg, params, opt):
     if lengths != {steps} or rows != steps + 1:
         raise AssertionError(f"gemma serve: cache lengths {lengths} of {rows}"
                              f" rows, want {steps} of {steps + 1}")
-    if launches != {"sm90": 0, "f32": 0,
+    if launches != {"sm90": 0, "f32": 0, "simt_bf16": 0,
                     "rmsnorm": (2 * cfg.n_layers + 1) * steps}:
         raise AssertionError(f"gemma serve launches {launches}")
     # one more decode step (the cache's last free row), profiled: where a
@@ -3084,7 +3135,7 @@ def phase_resilience(cfg, batches, want, gemma):
         got = delta(c0)
         bp = table.peek(opt.last_bucket)
         per_call = _expected_launches(bp.plan)
-        if per_call != {"sm90": cfg.n_layers, "f32": 0,
+        if per_call != {"sm90": cfg.n_layers, "f32": 0, "simt_bf16": 0,
                         "rmsnorm": 2 * cfg.n_layers + 1} or got != per_call:
             raise AssertionError(f"(a) {env}: launches {got}, the bucket's "
                                  f"selections imply {per_call}")
@@ -3290,6 +3341,536 @@ def phase_resilience(cfg, batches, want, gemma):
     del opt, outs, params
 
 
+# -- phase 14: the rest of the dense family ---------------------------------
+# (on DEV, as phases 8 and 9: a CPU rehearsal at small widths sets it)
+
+DENSE_ARCHS = ("granite_8b", "starcoder2_7b", "musicgen_medium",
+               "internvl2_2b")
+# (a): the SIMT route at the head dims the sm90 kernel has no instance for.
+# (hq, hkv, hd) of the smoke configs: granite and internvl2 4/2 at 16,
+# starcoder2 6/2 at 12, musicgen 4/4 at 16; checked at small shapes (one
+# row, ragged S, S < T) and timed at every request shape
+DENSE_SMOKE_HEADS = {"hd16_gqa": (4, 2, 16), "hd12_gqa": (6, 2, 12),
+                     "hd16_mha": (4, 4, 16)}
+DENSE_CHECK_SHAPES = (  # (b, hq, hkv, s, t, hd)
+    [(1, 6, 2, 1, 1, 12), (1, 6, 2, 17, 17, 12), (2, 6, 2, 100, 100, 12),
+     (1, 6, 2, 100, 160, 12), (1, 4, 2, 1, 1, 16), (1, 4, 4, 17, 17, 16),
+     (2, 4, 2, 100, 100, 16), (1, 4, 2, 100, 160, 16)]
+    + [(b, hq, hkv, s, t, 16) for (b, hq, hkv, s, t, _) in FLASH_TEST_SHAPES]
+    + [(2, 4, 2, 100, 100, 48), (1, 8, 1, 128, 128, 48),
+       (1, 4, 2, 100, 160, 48)])
+DENSE_TIMED_AT = (8, 1024)  # (a): the largest request, (b, s)
+DENSE_HD48 = (4, 2, 48)     # (a): hd 48 timed at DENSE_TIMED_AT
+# (a): the full-width shapes new to the sm90 route, at DENSE_TIMED_AT
+DENSE_SM90_HEADS = {"starcoder2_7b": (36, 4, 128),
+                    "musicgen_medium": (24, 24, 64)}
+DENSE_SMOKE_TOL = {"float32": 2e-4, "bfloat16": GEMMA_LOGIT_TOL}   # (d)
+DENSE_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}             # (e)
+DENSE_SERVED = ("musicgen_medium", "internvl2_2b")
+
+
+def phase_dense_kernels():
+    """Phase 14 (a): the flash kernel at the dense family's new head dims
+    against its plain version, f32 at 2e-4 and bf16 at 1e-2 (elementwise
+    and in relative norm): hd 12 and 16 at the smoke models' heads, the
+    reference kernel tests' geometry at hd 16 and hd 48, causal and not,
+    at one row, ragged S and S < T; at every request shape of the smoke
+    heads and at hd 48 (8, 1024), and at starcoder2's (36/4, group 9) and
+    musicgen's (24/24) full-width heads at (8, 1024) on the sm90 route,
+    kernel, plain, SDPA and bound ms.  Outside every counted path."""
+    import torch
+    from repro_torch.kernels import reference_attention
+    from repro_torch.kernels.flash_attention import route_of
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+
+    def operands(b, hq, hkv, s, t, hd, dtype):
+        """q, k, v as the model hands them: (B, S, H, hd) transposed."""
+        return [torch.randn((b, n, h, hd), generator=gen, device=DEV
+                            ).to(dtype).transpose(1, 2)
+                for n, h in ((s, hq), (t, hkv), (t, hkv))]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        worst = 0.0
+        for (b, hq, hkv, s, t, hd) in DENSE_CHECK_SHAPES:
+            for causal in (True, False):
+                q, k, v = operands(b, hq, hkv, s, t, hd, dtype)
+                err, _rel = agree(flash_routed(q, k, v, causal),
+                                  reference_attention(q, k, v, causal=causal),
+                                  TOL[name], f"flash {(b, hq, hkv, s, t, hd)} "
+                                  f"causal={causal} {name}")
+                worst = max(worst, err)
+        log(f"[dense] (a) flash {name} at {len(DENSE_CHECK_SHAPES)} shapes "
+            f"(hd 12, 16, 48; one row, ragged, S < T), causal and not: agree "
+            f"with the plain version, max err {worst:.3g} (tol {TOL[name]})")
+    rows = {}
+    timed = [(key, hq, hkv, hd, b, s, dtype)
+             for key, (hq, hkv, hd) in DENSE_SMOKE_HEADS.items()
+             for (b, s) in REQUESTS
+             for dtype in (torch.float32, torch.bfloat16)]
+    timed += [("hd48", *DENSE_HD48, *DENSE_TIMED_AT, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
+    timed += [(model, hq, hkv, hd, *DENSE_TIMED_AT, torch.bfloat16)
+              for model, (hq, hkv, hd) in DENSE_SM90_HEADS.items()]
+    for key, hq, hkv, hd, b, s, dtype in timed:
+        name = str(dtype).split(".")[1]
+        q, k, v = operands(b, hq, hkv, s, s, hd, dtype)
+        err, rel = agree(flash_routed(q, k, v), reference_attention(q, k, v),
+                         TOL[name], f"flash {key} (b={b}, s={s}) {name}")
+        ms, plain, libs = time_flash(q, k, v)
+        how = min(libs, key=libs.get)
+        lib = libs[how]
+        bound, by = flash_bound(b, hq, hkv, s, s, hd, name, dtype.itemsize)
+        route = route_of(dtype, hd)
+        log(f"[dense] (a) flash/{route} {key} (b={b},hq={hq},hkv={hkv},s={s},"
+            f"hd={hd}) {name}: max err {err:.3g} rel norm {rel:.3g} (tol "
+            f"{TOL[name]}); kernel {ms:.4f} ms plain {plain:.4f} ms sdpa "
+            f"({how}) {lib:.4f} ms bound {bound:.4f} ms ({by}), "
+            f"{100 * bound / ms:.1f}% of bound")
+        rows[(key, b, s, name)] = dict(
+            shape=[b, hq, hkv, s, s, hd], err=err, ms=ms, plain=plain,
+            lib=lib, lib_how=how, bound=bound, by=by)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dense_batches(cfg, gen, shapes):
+    """Seeded requests in ``cfg``'s input mode on the card: ``s`` is the
+    text's (or frames') length; internvl2 also gets its vision prefix."""
+    import torch
+    out = []
+    for (b, s) in shapes:
+        batch = {}
+        if cfg.input_mode == "embeddings":
+            batch["frame_embed"] = torch.randn(
+                (b, s, cfg.d_model), generator=gen, device=DEV
+            ).to(cfg.torch_dtype)
+        else:
+            if cfg.input_mode == "vlm":
+                batch["vis_embed"] = torch.randn(
+                    (b, cfg.vis_tokens, cfg.d_model), generator=gen,
+                    device=DEV).to(cfg.torch_dtype)
+            batch["tokens"] = torch.randint(0, cfg.vocab, (b, s),
+                                            generator=gen, device=DEV,
+                                            dtype=torch.int32)
+        out.append(batch)
+    return out
+
+
+def _prefill_specs(cfg):
+    from repro_torch.core import symbolic_dims
+    from repro_torch.launch.specs import batch_specs
+    B, S = symbolic_dims("b, s")
+    return {k: v for k, v in batch_specs(cfg, B, S).items() if k != "labels"}
+
+
+def _check_logits(cfg, logits, b, what):
+    """(B, V) or (B, K, V) of the padded vocab, finite; the pad columns at
+    -1e30 and never the argmax."""
+    import torch
+    want = (b,) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + \
+        (cfg.padded_vocab,)
+    if tuple(logits.shape) != want:
+        raise AssertionError(f"{what}: logits {tuple(logits.shape)}, want "
+                             f"{want}")
+    real = logits[..., :cfg.vocab].float()
+    if not torch.isfinite(real).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    if cfg.padded_vocab != cfg.vocab:
+        neg = torch.full((), -1e30, dtype=logits.dtype)
+        if not bool((logits[..., cfg.vocab:].cpu() == neg).all()):
+            raise AssertionError(f"{what}: a pad column is not -1e30")
+        if int(logits.float().argmax(-1).max()) >= cfg.vocab:
+            raise AssertionError(f"{what}: a pad column won the argmax")
+
+
+def phase_dense_prefill(cfg, arch):
+    """Phase 14 (b): ``optimize(make_prefill_step(cfg))`` at full width and
+    depth in bf16 (seed-0 weights made on the card) serving REQUESTS
+    through one plan (internvl2: s text tokens after its 256 vision
+    tokens).  Returns (params, opt, batches, outs, launches, rows,
+    capture seconds)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    import repro_torch.core.api as api
+    from repro_torch.core import optimize, spec_like
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[dense] (b) {arch} params {cfg.param_count()} ({cfg.dtype}, "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, hd {cfg.resolved_head_dim}, vocab {cfg.vocab} "
+        f"padded {cfg.padded_vocab}, input {cfg.input_mode}) init "
+        f"{time.perf_counter() - t0:.2f} s")
+    captures = []
+    real_capture = api.capture
+
+    def counted_capture(*a, **kw):
+        captures.append(1)
+        return real_capture(*a, **kw)
+
+    api.capture = counted_capture
+    try:
+        t0 = time.perf_counter()
+        opt = optimize(make_prefill_step(cfg), spec_like(params),
+                       _prefill_specs(cfg), dynamic_dims=DYNAMIC_DIMS,
+                       device=DEV)
+        t_opt = time.perf_counter() - t0
+    finally:
+        api.capture = real_capture
+    flash = [n for n in opt.plan.graph.nodes
+             if n.prim_name == "repro_torch.flash_attention.default"]
+    sels = {sel.variant.name for sel in opt.plan.kernel_selections.values()
+            if sel.prim_name == "flash_attention"}
+    log(f"[dense] (b) {arch} optimize {t_opt:.2f} s, graph "
+        f"{opt.plan.graph.stats()}; flash nodes {len(flash)} over S = "
+        f"{flash[0].invals[0].dims[2]}, selected {sorted(sels)}; "
+        f"guaranteed_peak_bytes {opt.guaranteed_peak_bytes} "
+        f"arena_bound_bytes {opt.arena_bound_bytes}")
+    if len(flash) != cfg.n_layers or sels != {"sm90_bm128_bn128"}:
+        raise AssertionError(f"{arch}: flash selections {sels} over "
+                             f"{len(flash)} nodes")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    batches = _dense_batches(cfg, gen, REQUESTS)
+    opt(params, batches[0])            # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    n_captures = len(captures)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    outs, rows = [], []
+
+    def requests():
+        for (b, s), batch in zip(REQUESTS, batches):
+            c0 = _launch_counts()
+            held = torch.cuda.memory_allocated() - param_bytes - sum(
+                t.numel() * t.element_size() for t in batch.values())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits = opt(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = opt.last_report.stats
+            step_alloc = torch.cuda.max_memory_allocated() - held
+            slack = allocator_slack(opt.program, {"b": b, "s": s})
+            got = {k: v - c0[k] for k, v in _launch_counts().items()}
+            log(f"[dense] (b) {arch} b={b} s={s}: wall {1e3 * wall:.3f} ms "
+                f"device_peak {st.device_peak} guaranteed_peak_bytes "
+                f"{opt.guaranteed_peak_bytes} arena_bytes {st.arena_bytes} "
+                f"arena_bound_bytes {opt.arena_bound_bytes} allocator peak "
+                f"of the step {step_alloc} (device_peak + "
+                f"{step_alloc - st.device_peak}; slack {slack}) launches "
+                f"{got}")
+            _check_logits(cfg, logits, b, f"{arch} (b={b}, s={s})")
+            want = {"sm90": cfg.n_layers, "f32": 0, "simt_bf16": 0,
+                    "rmsnorm": 2 * cfg.n_layers + 1}
+            if got != want:
+                raise AssertionError(f"{arch}: launches {got} per request, "
+                                     f"want {want}")
+            if st.device_peak > opt.guaranteed_peak_bytes:
+                raise AssertionError(f"{arch}: device_peak above "
+                                     f"guaranteed_peak_bytes")
+            if step_alloc > st.device_peak + slack:
+                raise AssertionError(
+                    f"{arch}: the allocator's peak of the request, "
+                    f"{step_alloc}, is above device_peak + {slack}")
+            if st.arena_bytes > opt.arena_bound_bytes:
+                raise AssertionError(f"{arch}: arena_bytes above "
+                                     f"arena_bound_bytes")
+            outs.append(logits)
+            rows.append(dict(b=b, s=s, wall_ms=1e3 * wall,
+                             device_peak=st.device_peak,
+                             arena_bytes=st.arena_bytes,
+                             step_alloc_peak=step_alloc, alloc_slack=slack))
+
+    launches, _ = counted_launches(requests)
+    if len(captures) != n_captures or n_captures != 1:
+        raise AssertionError(f"{arch}: captures {len(captures)}, want one "
+                             f"and none between requests")
+    log(f"[dense] (b) {arch}: one capture; launches over the requests "
+        f"{launches}")
+    return params, opt, batches, outs, launches, rows, t_opt
+
+
+def phase_dense_depth(cfg, arch, params, batches):
+    """Phase 14 (c): every layer's attention output, kernel vs plain on the
+    same q, k, v, within GEMMA_LAYER_TOL elementwise and GEMMA_LAYER_REL in
+    relative norm, at every request; the first GEMMA_CUT_LAYERS layers
+    through a kernel plan and a plain plan, logits within 5e-2."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import optimize, spec_like
+    from repro_torch.launch.steps import make_prefill_step
+
+    worst = (0.0, 0.0)
+    for (b, s), batch in zip(REQUESTS, batches):
+        layers = dense_layer_errors(cfg, params, batch)
+        if not all(ok for _e, _r, ok in layers):
+            raise AssertionError(
+                f"{arch} (b={b}, s={s}): a layer's attention output misses "
+                f"{GEMMA_LAYER_TOL} elementwise or {GEMMA_LAYER_REL} in "
+                f"relative norm: {layers}")
+        worst = (max(worst[0], max(e for e, _r, _ok in layers)),
+                 max(worst[1], max(r for _e, r, _ok in layers)))
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_CUT_LAYERS)
+    p = dict(params, layers=params["layers"][:GEMMA_CUT_LAYERS])
+    specs = (spec_like(p), _prefill_specs(cut))
+    opt = optimize(make_prefill_step(cut), *specs, dynamic_dims=DYNAMIC_DIMS,
+                   device=DEV)
+    opt_ref = optimize(make_prefill_step(cut, impl="ref"), *specs,
+                       dynamic_dims=DYNAMIC_DIMS, kernel_select=False,
+                       device=DEV)
+    errs = []
+    for (b, s), batch in zip(REQUESTS, batches):
+        got = opt(p, batch)[..., :cfg.vocab].float()
+        ref = opt_ref(p, batch)[..., :cfg.vocab].float()
+        errs.append((got - ref).abs().max().item())
+        if not torch.allclose(got, ref, rtol=GEMMA_LOGIT_TOL,
+                              atol=GEMMA_LOGIT_TOL):
+            raise AssertionError(
+                f"{arch} at {GEMMA_CUT_LAYERS} layers (b={b}, s={s}): logits "
+                f"miss {GEMMA_LOGIT_TOL} against the plain path (max err "
+                f"{errs[-1]:.4g})")
+    log(f"[dense] (c) {arch}: {cfg.n_layers} layers x {len(REQUESTS)} "
+        f"requests, attention output kernel vs plain max err {worst[0]:.4g}"
+        f" rel norm {worst[1]:.3g} (tol {GEMMA_LAYER_TOL}, {GEMMA_LAYER_REL})"
+        f"; logits at {GEMMA_CUT_LAYERS} layers, kernel plan vs plain plan, "
+        f"max err {[round(e, 5) for e in errs]} (tol {GEMMA_LOGIT_TOL})")
+    return dict(attn_max_err=worst[0], attn_rel=worst[1], cut_errs=errs)
+
+
+def phase_dense_smoke():
+    """Phase 14 (d): the four smoke configs on the card through one plan
+    each, in float32 (the SIMT route's f32 instances at hd 16 and 12,
+    logits within 2e-4 of the plain path, run eagerly) and in bfloat16
+    (its bf16 instances, within 5e-2).  Returns the launches per dtype,
+    each counted over its requests only."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import optimize, spec_like
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params, prefill
+
+    totals = {}
+    for dtype in ("float32", "bfloat16"):
+        total = {"sm90": 0, "f32": 0, "simt_bf16": 0, "rmsnorm": 0}
+        for arch in DENSE_ARCHS:
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+            params = init_params(cfg, seed=0, device=DEV)
+            specs = (spec_like(params), _prefill_specs(cfg))
+            opt = optimize(make_prefill_step(cfg), *specs,
+                           dynamic_dims=DYNAMIC_DIMS, device=DEV)
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(15)
+            batches = _dense_batches(cfg, gen, REQUESTS)
+            launches, outs = counted_launches(
+                lambda: [opt(params, batch) for batch in batches])
+            torch.cuda.synchronize()
+            n, layers = len(REQUESTS), cfg.n_layers
+            route = "f32" if dtype == "float32" else "simt_bf16"
+            want = {"sm90": 0, "f32": 0, "simt_bf16": 0,
+                    "rmsnorm": n * (2 * layers + 1)}
+            want[route] = n * layers
+            if launches != want:
+                raise AssertionError(f"{arch} smoke {dtype}: launches "
+                                     f"{launches}, want {want}")
+            errs = []
+            for (b, s), batch, got in zip(REQUESTS, batches, outs):
+                _check_logits(cfg, got, b, f"{arch} smoke {dtype}")
+                ref = prefill(cfg, params, batch, impl="ref")[
+                    ..., :cfg.vocab].float()
+                got = got[..., :cfg.vocab].float()
+                errs.append((got - ref).abs().max().item())
+                tol = DENSE_SMOKE_TOL[dtype]
+                torch.testing.assert_close(
+                    got, ref, rtol=tol, atol=tol,
+                    msg=lambda m: f"{arch} smoke {dtype} (b={b}, s={s}): {m}")
+            log(f"[dense] (d) {arch} smoke {dtype} (hd "
+                f"{cfg.resolved_head_dim}, heads {cfg.n_heads}/"
+                f"{cfg.n_kv_heads}): launches {launches} over {n} requests; "
+                f"logits vs the plain path max err "
+                f"{[float(f'{e:.3g}') for e in errs]} (tol "
+                f"{DENSE_SMOKE_TOL[dtype]})")
+            total = {k: total[k] + launches[k] for k in total}
+            del params, opt, outs
+        totals[dtype] = total
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _decode_vs_forward(cfg, params, out, opt=None, impl=None):
+    """max |decode - forward| / max |forward| over the real vocab: the
+    logits after the last prompt step of ``serve``'s ``out`` against the
+    forward on the same prompt, through ``opt`` (musicgen's frames) or
+    eagerly (internvl2, with an empty vision prefix, as the decode has
+    none).  Also returns how many argmaxes agree, and of how many."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    dev = torch.device(DEV)
+    prompt = torch.from_numpy(out["prompt"]).to(dev)
+    if cfg.input_mode == "embeddings":
+        batch = {"frame_embed": prompt.to(cfg.torch_dtype)}
+    else:
+        batch = {"vis_embed": torch.zeros(
+            (prompt.shape[0], 0, cfg.d_model), dtype=cfg.torch_dtype,
+            device=dev), "tokens": prompt.to(torch.int32)}
+    full = opt(params, batch) if opt is not None \
+        else prefill(cfg, params, batch, impl=impl)
+    full = full[..., :cfg.vocab].float()
+    dec = out["prompt_logits"][:, 0][..., :cfg.vocab].float()
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"{cfg.name} serve: non-finite decode logits")
+    rel = (dec - full).abs().max().item() / max(full.abs().max().item(), 1e-6)
+    same = int((dec.argmax(-1) == full.argmax(-1)).sum())
+    return rel, same, dec.argmax(-1).numel(), full
+
+
+def phase_dense_serve(cfg, arch, params, opt):
+    """Phase 14 (e): ``launch.serve.serve`` at full width and depth (seed
+    0, the weights of (b)), 32 prompt steps and 16 decode steps: no flash
+    launch, (2 L + 1) RMSNorm launches a step, cache length 48 of 49 rows,
+    ms a step.  The logits after the last prompt step against the forward
+    on the same prompt (max |diff| / max |forward| over the real vocab,
+    the reference's measure, tests/test_models.py:81-108) must be within
+    2e-2 at GEMMA_CUT_LAYERS layers (a ``serve`` of the config cut to that
+    depth, whose seed-0 weights are (b)'s first layers): like the logits
+    in (c), 24-48 random bf16 layers carry one-ulp differences between
+    the decode's GEMVs and the forward's GEMMs past any tolerance that
+    would still catch a fault.  At full depth the reading is printed
+    beside a control, the plain forward (``impl="ref"``) against the
+    kernel forward."""
+    import dataclasses
+
+    from repro_torch.launch.serve import serve
+
+    launches, out = counted_launches(
+        lambda: serve(cfg, **DENSE_SERVE, seed=0, device=DEV))
+    steps = DENSE_SERVE["prompt_len"] + DENSE_SERVE["gen"]
+    lengths = {int(c.kv.length) for c in out["state"].caches}
+    rows = out["state"].caches[0].kv.k.shape[1]
+    batch = DENSE_SERVE["batch"]
+    log(f"[dense] (e) {arch} serve batch {batch} prompt "
+        f"{DENSE_SERVE['prompt_len']} gen {DENSE_SERVE['gen']}: prefill "
+        f"{1e3 * out['prefill_s']:.1f} ms ("
+        f"{1e3 * out['prefill_s'] / DENSE_SERVE['prompt_len']:.2f} ms a step)"
+        f", decode {1e3 * out['decode_s']:.1f} ms ("
+        f"{1e3 * out['decode_s'] / DENSE_SERVE['gen']:.2f} ms a step), "
+        f"decode_tok_per_s {out['decode_tok_per_s']:.1f}; tokens "
+        f"{out['tokens'].shape}; cache lengths {lengths} of {rows} rows; "
+        f"launches {launches}")
+    if lengths != {steps} or rows != steps + 1:
+        raise AssertionError(f"{arch} serve: cache lengths {lengths} of "
+                             f"{rows} rows")
+    if launches != {"sm90": 0, "f32": 0, "simt_bf16": 0,
+                    "rmsnorm": (2 * cfg.n_layers + 1) * steps}:
+        raise AssertionError(f"{arch} serve launches {launches}")
+    want_tok = (batch, DENSE_SERVE["gen"]) + \
+        ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    if out["tokens"].shape != want_tok or out["tokens"].max() >= cfg.vocab:
+        raise AssertionError(f"{arch} serve tokens {out['tokens'].shape}")
+    row = dict(prefill_ms=1e3 * out["prefill_s"],
+               decode_ms=1e3 * out["decode_s"],
+               decode_ms_per_step=1e3 * out["decode_s"] / DENSE_SERVE["gen"],
+               decode_tok_per_s=out["decode_tok_per_s"])
+    plan = opt if cfg.input_mode == "embeddings" else None
+    rel, same, n, full = _decode_vs_forward(cfg, params, out, opt=plan)
+    ctrl = _decode_vs_forward(cfg, params, dict(
+        out, prompt_logits=full[:, None]), impl="ref")[0]
+    del out, full
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_CUT_LAYERS)
+    p_cut = dict(params, layers=params["layers"][:GEMMA_CUT_LAYERS])
+    out_cut = serve(cut, **DENSE_SERVE, seed=0, device=DEV)
+    rel_cut, same_cut, _n, _f = _decode_vs_forward(cut, p_cut, out_cut)
+    log(f"[dense] (e) {arch}: the prompt's last decode logits vs the "
+        f"forward, max |diff| / max |forward|: {rel_cut:.4g} at "
+        f"{GEMMA_CUT_LAYERS} layers (tol {GEMMA_DECODE_TOL}; argmax equal "
+        f"in {same_cut} of {n}); {rel:.4g} at {cfg.n_layers} layers (argmax "
+        f"equal in {same} of {n}), control at {cfg.n_layers} layers, the "
+        f"plain forward vs the kernel forward: {ctrl:.4g}")
+    if not rel_cut < GEMMA_DECODE_TOL:
+        raise AssertionError(f"{arch} serve at {GEMMA_CUT_LAYERS} layers: the "
+                             f"prompt's last decode logits stand "
+                             f"{rel_cut:.4g} from the forward's")
+    return launches, dict(row, decode_forward_rel_cut=rel_cut,
+                          decode_forward_rel=rel, control_rel=ctrl)
+
+
+def phase_dense():
+    """Phase 14: (a) the flash kernel at the new head dims, (b) the four
+    dense configs at full width through one plan each, one model at a
+    time, with latency and (granite) a profile, (c) correctness at depth,
+    (d) the smoke configs through the SIMT route, (e) the KV-cache server
+    for musicgen and internvl2.  Returns the kernel rows and the launches
+    per path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    rows = phase_dense_kernels()
+    zero = {"sm90": 0, "f32": 0, "simt_bf16": 0, "rmsnorm": 0}
+    prefill, serve_l = dict(zero), dict(zero)
+    summary = {}
+    for arch in DENSE_ARCHS:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        params, opt, batches, outs, launches, req_rows, t_opt = \
+            phase_dense_prefill(cfg, arch)
+        prefill = {k: prefill[k] + launches[k] for k in prefill}
+        medians = phase_latency(opt, params, batches, tag=f"dense {arch}")
+        if arch == "granite_8b":
+            profile_once("granite_8b b=8 s=1024",
+                         lambda: opt(params, batches[-1]))
+        depth = phase_dense_depth(cfg, arch, params, batches)
+        summary[arch] = dict(capture_s=t_opt, requests=req_rows,
+                             median_ms={f"{b}x{s}": m
+                                        for (b, s), m in medians.items()},
+                             depth=depth)
+        if arch in DENSE_SERVED:
+            sl, srow = phase_dense_serve(cfg, arch, params, opt)
+            serve_l = {k: serve_l[k] + sl[k] for k in serve_l}
+            summary[arch]["serve"] = srow
+        del params, opt, batches, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary[arch]["seconds"] = time.perf_counter() - t_model
+    t_smoke = time.perf_counter()
+    smoke = phase_dense_smoke()
+    t_smoke = time.perf_counter() - t_smoke
+    log(f"[dense] phase 14 {time.perf_counter() - t_phase:.1f} s: per model "
+        f"{ {a: round(v['seconds'], 1) for a, v in summary.items()} } s, "
+        f"captures {({a: round(v['capture_s'], 2) for a, v in summary.items()})}"
+        f" s, (d) {t_smoke:.1f} s; "
+        f"launches prefill {prefill}, f32 smoke {smoke['float32']}, bf16 "
+        f"smoke {smoke['bfloat16']}, serve {serve_l}; "
+        f"{json.dumps(summary, default=str)}")
+    return rows, {"dense_prefill": prefill,
+                  "dense_prefill_f32_smoke": smoke["float32"],
+                  "dense_prefill_bf16_smoke": smoke["bfloat16"],
+                  "dense_serve": serve_l}
+
+
+def dense_row(r):
+    """A phase 14 (a) row in the kernels line's keys."""
+    return {"shape": r["shape"], "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain"], "bound_ms": r["bound"],
+            "bound_by": r["by"], "library_ms": r["lib"],
+            "library_call": f"sdpa ({r['lib_how']})"}
+
+
 def main() -> int:
     try:
         import torch
@@ -3348,6 +3929,9 @@ def main() -> int:
             and res_launches["f32"] == 0):
         raise AssertionError(f"the resilience path launched {res_launches}")
     del gemma, bucket_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_rows, dense_launches = phase_dense()
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -3371,6 +3955,13 @@ def main() -> int:
               "loop": loop_launches["f32"],
               "trainer": trainer_launches["f32"],
               "table1": table1_launches["f32"]}),
+            ("flash_simt_bf16", "flash_attention_simt_bf16",
+             "src/repro_torch/csrc/flash_attention.cu", flash_src,
+             {"buckets": buckets["simt_bf16"],
+              "bounded": bounded_launches["simt_bf16"],
+              "loop": loop_launches["simt_bf16"],
+              "trainer": trainer_launches["simt_bf16"],
+              "table1": table1_launches["simt_bf16"]}),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:17",
              {"prefill": launches["rmsnorm"], "train": train["rmsnorm"],
@@ -3380,11 +3971,16 @@ def main() -> int:
               "trainer": trainer_launches["rmsnorm"],
               "table1": table1_launches["rmsnorm"]})):
         counter = {"flash_bfloat16": "sm90", "flash_float32": "f32",
-                   "rmsnorm": "rmsnorm"}[key]
+                   "flash_simt_bf16": "simt_bf16", "rmsnorm": "rmsnorm"}[key]
         by_path.update({path: n[counter]
                         for path, n in gemma_launches.items()})
         by_path["resilience"] = res_launches[counter]
-        r = big[key]
+        by_path.update({path: n[counter]
+                        for path, n in dense_launches.items()})
+        # the SIMT route's bf16 instance runs at the dense family's smoke
+        # head dims only: its numbers are hd 16's at the (8, 1024) request
+        r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \
+            if key == "flash_simt_bf16" else big[key]
         entry = {"name": route_name, "route": "cuda",
                  "source": src_path, "replaces": replaces,
                  "launches": sum(by_path.values()),
@@ -3392,7 +3988,20 @@ def main() -> int:
                  "max_abs_err": r["err"], "ms": r["ms"],
                  "plain_ms": r["plain"], "bound_ms": r["bound"],
                  "bound_by": r["by"], "library_ms": r["lib"]}
-        if key.startswith("flash"):
+        if key in ("flash_float32", "flash_simt_bf16"):
+            # the SIMT instances at the dense family's smoke head dims
+            dt = "float32" if key == "flash_float32" else "bfloat16"
+            for sub in DENSE_SMOKE_HEADS:
+                entry[sub] = dense_row(dense_rows[(sub, *DENSE_TIMED_AT,
+                                                   dt)])
+            entry["hd48"] = dense_row(dense_rows[("hd48", *DENSE_TIMED_AT,
+                                                  dt)])
+        if key == "flash_bfloat16":
+            # the sm90 route at the dense family's new full-width heads
+            for model in DENSE_SM90_HEADS:
+                entry[model] = dense_row(
+                    dense_rows[(model, *DENSE_TIMED_AT, "bfloat16")])
+        if key in ("flash_bfloat16", "flash_float32"):
             # the hd-256 instances at gemma's (8, 1024) requests
             for model in GEMMA_HEADS:
                 g = gemma_rows[(model, 8, 1024, key.split("_")[1])]
@@ -3405,8 +4014,8 @@ def main() -> int:
         kernels.append(entry)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s; kernel numbers "
         f"at (b, s) = {REQUESTS[-1]}; launches per path, each counted from 0 "
-        f"just before the path and read just after it (the f32 route runs "
-        f"only on the f32 path); requests {json.dumps(req_rows)}")
+        f"just before the path and read just after it (the SIMT route runs "
+        f"only on the f32 and smoke paths); requests {json.dumps(req_rows)}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """ModelConfig: the dense-transformer subset of the reference's config.
 
 Field names and defaults follow ``repro/configs/base.py``; the fields of
-the other architecture families (MLA, MoE, SSM, xLSTM, modality
-frontends) arrive with those models.
+the other architecture families (MLA, MoE, SSM, xLSTM) arrive with those
+models.  The dense family's three input modes are here: ``tokens``,
+``embeddings`` (musicgen's frame embeddings, with an ``n_codebooks``-way
+head) and ``vlm`` (internvl2's ``vis_tokens`` patch embeddings before the
+text).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | audio | vlm (dense blocks)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,8 +30,10 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
     optimizer_dtype: str = "float32"  # AdamW moments (bfloat16 option)
-    # tokens (the only input mode ported so far) | embeddings | vlm
+    # modality frontend (stub): tokens | embeddings | vlm
     input_mode: str = "tokens"
+    n_codebooks: int = 0           # musicgen-style multi-head output
+    vis_tokens: int = 256          # vlm: stub patch-embedding count
     # embedding-table padding to a tile boundary (pad logits masked)
     pad_vocab_to: int = 128
 
@@ -50,4 +55,6 @@ class ModelConfig:
             + self.n_heads * hd * d
         ffn = 3 * d * f
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.n_codebooks:
+            emb += self.n_codebooks * d * self.vocab
         return self.n_layers * (attn + ffn) + emb

@@ -33,6 +33,9 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _SIGNATURES = {
     "repro_flash_attention": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I,
                                _I, _I, _I, _I, _I, _F, _P], _I),
+    "repro_flash_attention_simt_bf16": ([_P, _P, _P, _P, ctypes.POINTER(_LL),
+                                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                        _I),
     "repro_flash_attention_sm90": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I,
                                     _I, _I, _I, _I, _I, _I, _F, _P], _I),
     "repro_rmsnorm": ([_P, _P, _P, _LL, _I, _I, _F, _P], _I),

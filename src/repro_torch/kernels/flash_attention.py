@@ -2,16 +2,22 @@
 
 Port of the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_flash_kernel``, wrapper ``flash_attention``, ``pallas_call`` at line
-108).  Two CUDA routes, chosen by dtype:
+108).  Like the TPU kernel, it takes any head dim (here up to 256).  Two
+CUDA routes, chosen by dtype and head dim alone (``route_of``), never by
+a failed build or launch:
 
-* bfloat16 (the served dtype): ``repro_torch/csrc/flash_attention_sm90.cu``,
+* ``"sm90"``, bfloat16 at hd 32, 64, 128 and 256 (the served dtype at
+  every full-width model's hd): ``repro_torch/csrc/flash_attention_sm90.cu``,
   TMA loads and ``wgmma`` on the tensor cores with a producer warpgroup
   and two consumer warpgroups; 128-key tiles at hd 32, 64 and 128, 64-key
   tiles at hd 256 (what fits in shared memory).  TMA needs 16-byte
   aligned addresses and strides; an input that breaks that raises instead
   of taking a slower kernel.
-* float32: ``repro_torch/csrc/flash_attention.cu``, f32 FMAs from shared
-  memory (the tensor cores' TF32 would not hold f32 to 2e-4).
+* ``"simt"``, float32 at any hd and bfloat16 at every other hd (12 and 16
+  at the smoke widths, 48): ``repro_torch/csrc/flash_attention.cu``, f32
+  FMAs from shared memory (the tensor cores' TF32 would not hold f32 to
+  2e-4), instances at hd 16, 32, 64, 128 and 256, each serving the head
+  dims up to its own with the rest of its columns zero.
 
 Each source's header says what bounds it on an H100 (bytes up to
 S ~ 1200, operations beyond) and how its design maps the TPU's sequential
@@ -19,9 +25,10 @@ kv grid axis onto a loop inside one CTA.
 
 ``flash_attention_cuda`` is the launch wrapper: it validates the inputs,
 allocates the output, launches on PyTorch's current stream and counts
-every launch in ``flash_attention_cuda.launches`` and the bf16 route's in
-``flash_attention_cuda.sm90_launches``.  Its plain version is
-``ref.reference_attention``.
+every launch in ``flash_attention_cuda.launches``, the sm90 route's in
+``flash_attention_cuda.sm90_launches`` and the SIMT route's bf16 ones in
+``flash_attention_cuda.simt_bf16_launches`` (the SIMT route's f32
+launches are the rest).  Its plain version is ``ref.reference_attention``.
 """
 from __future__ import annotations
 
@@ -33,9 +40,16 @@ import torch
 
 from .build import load_library, stream_handle
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 256)   # the sm90 kernel's instances
+MAX_HEAD_DIM = 256               # the SIMT kernel's largest instance
 DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16  # bytes: TMA's alignment of addresses and strides
+
+
+def route_of(dtype: torch.dtype, hd: int) -> str:
+    """The route every call at ``(dtype, hd)`` takes: ``"sm90"`` for
+    bfloat16 at one of its head dims, ``"simt"`` for everything else."""
+    return "sm90" if dtype == torch.bfloat16 and hd in HEAD_DIMS else "simt"
 
 
 def sm90_strides(name: str, shape: Sequence[int], stride: Sequence[int],
@@ -65,12 +79,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softmax_scale: Optional[float] = None
                          ) -> torch.Tensor:
     """q: (B, Hq, S, hd); k/v: (B, Hkv, T, hd) with Hq % Hkv == 0, all on
-    one CUDA device, float32 or bfloat16, hd in {32, 64, 128, 256}.  Any batch,
-    head and row strides are taken (the model passes ``(B, S, H, hd)``
-    activations transposed); the head dim must be unit-stride, and in
-    bfloat16 pointers and strides must be multiples of 16 bytes.  Returns
-    ``torch.empty_like(q)`` filled: (B, Hq, S, hd) in q's dtype and, for a
-    dense q, q's layout."""
+    one CUDA device, float32 or bfloat16, 1 <= hd <= 256.  Any batch, head
+    and row strides are taken (the model passes ``(B, S, H, hd)``
+    activations transposed); the head dim must be unit-stride, and on the
+    sm90 route (``route_of``) pointers and strides must be multiples of 16
+    bytes.  Returns ``torch.empty_like(q)`` filled: (B, Hq, S, hd) in q's
+    dtype and, for a dense q, q's layout."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention expects 4-D q, k and v")
     b, hq, s, hd = q.shape
@@ -80,8 +94,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported (one of {HEAD_DIMS})")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} not supported (1 to {MAX_HEAD_DIM})")
     if s < 1 or t < 1:
         raise ValueError("flash_attention needs S >= 1 and T >= 1")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -93,9 +107,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must be unit-stride in its head dim")
     if q.dtype not in DTYPES:
         raise ValueError(f"dtype {q.dtype} not supported (float32, bfloat16)")
+    sm90 = route_of(q.dtype, hd) == "sm90"
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
-    sm90 = q.dtype == torch.bfloat16
     if sm90:
         per = [sm90_strides(name, x.shape, x.stride(), x.data_ptr(), x.dtype)
                for name, x in (("q", q), ("k", k), ("v", v), ("out", out))]
@@ -103,7 +117,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         per = [x.stride()[:3] for x in (q, k, v, out)]
     strides = (ctypes.c_longlong * 12)(*(st for x in per for st in x))
     lib = load_library()
+    simt_bf16 = not sm90 and q.dtype == torch.bfloat16
     entry = lib.lib.repro_flash_attention_sm90 if sm90 \
+        else lib.lib.repro_flash_attention_simt_bf16 if simt_bf16 \
         else lib.lib.repro_flash_attention
     with torch.cuda.device(q.device):
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -112,8 +128,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib.check(rc, "flash_attention launch")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.sm90_launches += int(sm90)
+    flash_attention_cuda.simt_bf16_launches += int(simt_bf16)
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.sm90_launches = 0
+flash_attention_cuda.simt_bf16_launches = 0

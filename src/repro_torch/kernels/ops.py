@@ -10,14 +10,16 @@ Dispatch rules (``impl``):
 
 * ``"ref"`` and the plain variants' names (``"ref_dense"``,
   ``"ref_unfused"``) run the plain PyTorch version, on any device;
-* a kernel variant's name (``"sm90_bm128_bn128"`` and
-  ``"simt_f32_bq64_bkv32"`` for flash attention, ``"cuda_row256"`` for
-  RMSNorm; see ``kernels/variants.py``) launches that kernel on a CUDA
-  tensor and raises if the tensor's dtype is not the one the kernel takes;
+* a kernel variant's name (``"sm90_bm128_bn128"``,
+  ``"simt_f32_bq64_bkv32"`` and ``"simt_bf16_bq64_bkv32"`` for flash
+  attention, ``"cuda_row256"`` for RMSNorm; see ``kernels/variants.py``)
+  launches that kernel on a CUDA tensor and raises if the tensor's dtype
+  (or, for flash attention, its head dim) is not one the kernel takes;
   on a CPU tensor it runs the plain version, the stand-in that Pallas
   interpret mode was for the reference;
 * ``None`` lets the tensors' device decide: CPU tensors take the plain
-  version, CUDA tensors launch the hand-written kernel of their dtype.
+  version, CUDA tensors launch the hand-written kernel of their dtype
+  (flash attention: of their dtype and head dim, ``route_of``).
 
 A CUDA tensor never falls back to the plain version or to another route:
 the wrapper launches the kernel it was asked for or raises.
@@ -49,13 +51,14 @@ import torch
 
 from ..core.ir.dynamism import DimIntroSpec, register_introduces_dim
 from . import ref as _ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_cuda, route_of
 from .rmsnorm import rmsnorm_cuda
 
 # impl name -> the dtype its kernel takes (None: any); "ref*" are plain
 FLASH_IMPLS = {None: None, "ref": None, "ref_dense": None,
                "sm90_bm128_bn128": torch.bfloat16,
-               "simt_f32_bq64_bkv32": torch.float32}
+               "simt_f32_bq64_bkv32": torch.float32,
+               "simt_bf16_bq64_bkv32": torch.bfloat16}
 RMSNORM_IMPLS = {None: None, "ref": None, "ref_unfused": None,
                  "cuda_row256": None}
 
@@ -82,7 +85,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softmax_scale: Optional[float] = None,
                     impl: Optional[str] = None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k/v: (B, Hkv, T, hd) -> (B, Hq, S, hd)."""
-    if _route(impl, q, FLASH_IMPLS) == "ref":
+    route = _route(impl, q, FLASH_IMPLS)
+    # a kernel variant's name starts with its route (``sm90_``, ``simt_``)
+    if impl is not None and not impl.startswith("ref") \
+            and not impl.startswith(route_of(q.dtype, q.shape[-1])):
+        raise ValueError(f"impl {impl!r} does not take head dim "
+                         f"{q.shape[-1]} in {q.dtype}")
+    if route == "ref":
         return torch.empty_like(q).copy_(_ref.reference_attention(
             q, k, v, causal=causal, softmax_scale=softmax_scale))
     return flash_attention_cuda(q, k, v, causal=causal,

@@ -26,9 +26,14 @@ of the roofline and the measured distance from it.
 monotone in every dim), so the whole-range fallback plan can never adopt
 a variant that some in-range shape breaks.  A variant is valid when
 
-* the tensor's dtype is one its kernel takes (``sm90_*``: bfloat16,
-  ``simt_*``: float32, ``cuda_*``: float32 or bfloat16, ``ref_*``: any);
-* a flash kernel's head dim is one of ``HEAD_DIMS``;
+* the tensor's dtype is one its kernel takes (``sm90_*`` and
+  ``simt_bf16_*``: bfloat16, ``simt_f32_*``: float32, ``cuda_*``: float32
+  or bfloat16, ``ref_*``: any);
+* a flash kernel's head dim is one its route takes at that dtype, the
+  op's own rule (``flash_attention.route_of``): the sm90 kernel at
+  ``HEAD_DIMS``, the SIMT kernel at any other head dim up to
+  ``MAX_HEAD_DIM`` in bfloat16 and at every one in float32, so a plan
+  never selects a kernel that its inputs would route elsewhere;
 * its shared memory fits the per-block opt-in limit;
 * the device memory it allocates inside the op, beyond the output the
   plan counts, fits ``hw.max_transient_bytes``.  On the TPU the dense
@@ -58,13 +63,14 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
 
 import torch
 
+from .flash_attention import HEAD_DIMS, MAX_HEAD_DIM, route_of
 from .hw_model import DEFAULT_HW, HardwareModel
 
 # dims the cost model probes when a range has no upper bound: a pricing
 # point only — validity never relies on it (an unbounded transient or
 # shared-memory footprint is invalid)
 _UNBOUNDED_PROBE = 4096
-HEAD_DIMS = (32, 64, 128, 256)     # the flash kernels' instances
+SIMT_HEAD_DIMS = (16, 32, 64, 128, 256)  # the SIMT flash kernel's instances
 
 # the port's kernel ops (captured node ``prim_name``) -> registry key
 PRIM_KEYS = {"repro_torch.flash_attention.default": "flash_attention",
@@ -167,8 +173,14 @@ SIMT = KernelVariant(
     # 127, but its 139,904 B of shared memory already hold it to
     # one CTA an SM, which 80 or 127 registers a thread both allow
     regs_per_cta=256 * 80)
+# the same kernel on bf16 inputs (f32 tiles and math), at the head dims
+# the sm90 kernel has no instance for
+SIMT_BF16 = KernelVariant(
+    name="simt_bf16_bq64_bkv32", route="simt", dtypes=(torch.bfloat16,),
+    block=SIMT.block, threads=SIMT.threads, regs_per_cta=SIMT.regs_per_cta)
 REF_DENSE = KernelVariant(name="ref_dense", route="ref")
-FLASH_VARIANTS: Tuple[KernelVariant, ...] = (SM90, SIMT, REF_DENSE)
+FLASH_VARIANTS: Tuple[KernelVariant, ...] = (SM90, SIMT, SIMT_BF16,
+                                             REF_DENSE)
 
 ROW256 = KernelVariant(name="cuda_row256", route="cuda",
                        dtypes=(torch.float32, torch.bfloat16), threads=256)
@@ -178,6 +190,27 @@ RMSNORM_VARIANTS: Tuple[KernelVariant, ...] = (ROW256, REF_UNFUSED)
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def simt_instance(hd: int) -> int:
+    """The SIMT kernel's instance that runs head dim ``hd``: the smallest
+    of ``SIMT_HEAD_DIMS`` at least ``hd`` (``csrc/flash_attention.cu``'s
+    dispatch), its columns past ``hd`` zero."""
+    return next(h for h in SIMT_HEAD_DIMS if h >= hd)
+
+
+def flash_hd_invalid_reason(variant: KernelVariant, hd: Optional[int],
+                            dtype: torch.dtype) -> Optional[str]:
+    """Why a flash kernel variant's route is not the one the op's route
+    rule (``route_of``) gives ``hd`` at ``dtype``, or ``None``."""
+    if variant.route == "ref":
+        return None
+    if hd is None or not 1 <= hd <= MAX_HEAD_DIM:
+        return f"head dim {hd} not in 1..{MAX_HEAD_DIM}"
+    want = route_of(dtype, hd)
+    if variant.route != want:
+        return f"head dim {hd} in {dtype} takes the {want} kernel"
+    return None
 
 
 def variant_block(variant: KernelVariant,
@@ -216,8 +249,12 @@ def variant_smem_bytes(prim_name: str, variant: KernelVariant,
         q_tile = block["block_q"] * hd * 2
         kv_tile = block["block_kv"] * hd * 2
         return max(q_tile + 4 * kv_tile + 64 + 1024, 116 * 1024)
-    # csrc/flash_attention.cu smem_floats<HD>() * 4: padded Q and K tiles,
-    # the V tile and the padded P tile, in f32
+    # csrc/flash_attention.cu smem_floats<HD>() * 4 of the instance HD
+    # that runs hd: padded Q and K tiles, the V tile and the padded P
+    # tile, in f32
+    if hd > MAX_HEAD_DIM:
+        return None
+    hd = simt_instance(hd)
     bq, bkv = variant.block_of("block_q"), variant.block_of("block_kv")
     return 4 * (bq * (hd + 1) + bkv * (hd + 1) + bkv * hd + bq * (bkv + 1))
 
@@ -268,9 +305,10 @@ def variant_invalid_reason(prim_name: str, variant: KernelVariant,
     (``None`` dims = unbounded), or ``None`` when it can."""
     if not variant.takes(dtype):
         return f"takes {'/'.join(str(d) for d in variant.dtypes)}, not {dtype}"
-    if prim_name == "flash_attention" and variant.route != "ref" \
-            and hi_shape.get("hd") not in HEAD_DIMS:
-        return f"head dim {hi_shape.get('hd')} not in {HEAD_DIMS}"
+    if prim_name == "flash_attention":
+        why = flash_hd_invalid_reason(variant, hi_shape.get("hd"), dtype)
+        if why is not None:
+            return why
     smem = variant_smem_bytes(prim_name, variant, hi_shape)
     if smem is None or smem > hw.smem_per_block_optin:
         return (f"shared memory {smem} B over the per-block "
@@ -363,8 +401,10 @@ def flash_cost(variant: KernelVariant, shape: Mapping[str, int],
         flops_tc = b * hq * pairs * 6.0 * tile * hd
         flops_fp32 = b * hq * pairs * 8.0 * tile
     else:
+        # f32 FMAs over the instance's head dim (its zero columns too)
         flops_tc = 0.0
-        flops_fp32 = b * hq * pairs * (4.0 * tile * hd + 8.0 * tile)
+        flops_fp32 = b * hq * pairs * (4.0 * tile * simt_instance(hd)
+                                       + 8.0 * tile)
     # Q read and O written once; each q block re-reads its K/V tiles
     hbm = (2 * b * hq * s * hd + b * hq * pairs * 2 * min(bkv, t) * hd) \
         * itemsize
@@ -421,6 +461,10 @@ CALIBRATION: Dict[str, Tuple[Dict[str, int], torch.dtype, float]] = {
 }
 # (the sm90 kernel's hd-256 instance, 64-key tiles, is priced with the
 # efficiency of this hd-128 row)
+# variants priced with another's efficiency: the SIMT kernel's bf16
+# instance runs the f32 one's code on bf16 loads, so its model keeps the
+# f32 row's distance from the roofline and only its bytes change
+CALIBRATED_AS = {SIMT_BF16.name: SIMT}
 _EFF_CACHE: Dict[Tuple[str, HardwareModel], float] = {}
 
 
@@ -428,6 +472,7 @@ def efficiency(prim_name: str, variant: KernelVariant,
                hw: HardwareModel = DEFAULT_HW) -> float:
     """Modelled / measured time at the variant's calibration row, launch
     cost excluded: the share of its modelled roofline it reaches."""
+    variant = CALIBRATED_AS.get(variant.name, variant)
     key = (variant.name, hw)
     eff = _EFF_CACHE.get(key)
     if eff is None:
@@ -449,7 +494,8 @@ _REGISTRY: Dict[str, Dict[str, Any]] = {}
 
 
 def register_kernel(prim_name: str, variants: Sequence[KernelVariant],
-                    default_for: Callable[[torch.dtype], KernelVariant],
+                    default_for: Callable[[torch.dtype, Mapping[str, Any]],
+                                          KernelVariant],
                     cost_fn: Callable[..., VariantCost]) -> None:
     _REGISTRY[prim_name] = dict(variants=tuple(variants),
                                 default_for=default_for, cost=cost_fn)
@@ -459,10 +505,14 @@ def variants_for(prim_name: str) -> Tuple[KernelVariant, ...]:
     return _REGISTRY[prim_name]["variants"]
 
 
-def default_variant(prim_name: str, dtype: torch.dtype) -> KernelVariant:
+def default_variant(prim_name: str, dtype: torch.dtype,
+                    shape: Optional[Mapping[str, Any]] = None
+                    ) -> KernelVariant:
     """The variant the op's ``impl=None`` rule runs on a card for
-    ``dtype`` (the plain version for a dtype no kernel takes)."""
-    return _REGISTRY[prim_name]["default_for"](dtype)
+    ``dtype`` (and, for flash attention, the head dim in ``shape``; none
+    given: a head dim of the sm90 kernel) — the plain version for a dtype
+    no kernel takes."""
+    return _REGISTRY[prim_name]["default_for"](dtype, shape or {})
 
 
 def registered_kernels() -> Tuple[str, ...]:
@@ -478,13 +528,20 @@ def variant_cost(prim_name: str, variant: KernelVariant,
                                         efficiency(prim_name, variant, hw))
 
 
-register_kernel(
-    "flash_attention", FLASH_VARIANTS,
-    lambda dt: SM90 if dt == torch.bfloat16 else SIMT
-    if dt == torch.float32 else REF_DENSE, flash_cost)
+def _flash_default(dtype: torch.dtype, shape: Mapping[str, Any]
+                   ) -> KernelVariant:
+    """``flash_attention.route_of`` as a variant."""
+    if dtype == torch.bfloat16:
+        return SM90 if route_of(dtype, shape.get("hd", HEAD_DIMS[0])) \
+            == "sm90" else SIMT_BF16
+    return SIMT if dtype == torch.float32 else REF_DENSE
+
+
+register_kernel("flash_attention", FLASH_VARIANTS, _flash_default, flash_cost)
 register_kernel(
     "rmsnorm", RMSNORM_VARIANTS,
-    lambda dt: ROW256 if ROW256.takes(dt) else REF_UNFUSED, rmsnorm_cost)
+    lambda dt, _shape: ROW256 if ROW256.takes(dt) else REF_UNFUSED,
+    rmsnorm_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +668,7 @@ def select_variant(prim_name: str,
                 f"over bounds {dict(bounds)} (valid: "
                 f"{[v.name for v in valid]}; invalid: {invalid})")
         return chosen, scores, probes, invalid
-    default = entry["default_for"](dtype)
+    default = entry["default_for"](dtype, hi_shape)
     best = min(valid, key=lambda v: (scores[v.name],
                                      v.name != default.name, v.name))
     return best, scores, probes, invalid
@@ -633,7 +690,9 @@ def select_for_node(node, sg, hw: HardwareModel = DEFAULT_HW,
         prim_name, bounds, dtype, node_params(node), hw, forced=forced)
     return KernelSelection(node_id=node.id, prim_name=prim_name,
                            variant=variant,
-                           default=default_variant(prim_name, dtype),
+                           default=default_variant(
+                               prim_name, dtype,
+                               {k: h for k, (_lo, h) in bounds.items()}),
                            scores=scores, bounds=bounds, probes=probes,
                            invalid=invalid, measured=forced is not None)
 

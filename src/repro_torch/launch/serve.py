@@ -2,9 +2,10 @@
 front end.
 
 ``serve`` is the reference's server loop (``repro/launch/serve.py:345``):
-a cache-filling prefill token by token, then greedy decode, eagerly over
-the port's ``decode_step``; ``python -m repro_torch.launch.serve --arch
-gemma-2b`` runs it.
+a cache-filling prefill token (or frame) by token, then greedy decode,
+eagerly over the port's ``decode_step``; ``python -m
+repro_torch.launch.serve --arch gemma-2b`` runs it (any dense-family
+arch: ``musicgen-medium`` decodes frames into 4 codebooks).
 
 ``BucketBatcher`` groups queued requests by specialization bucket before
 dispatch, so one specialized plan — lowered to a flat executable
@@ -349,26 +350,39 @@ class BucketBatcher:
 def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           seed: int = 0, greedy: bool = True,
           device: Any = None) -> Dict[str, Any]:
-    """The reference's server loop: random weights from ``seed``, a prompt of ``np.random.RandomState(seed)`` tokens
-    fed one token a step to fill a cache of ``prompt_len + gen + 1`` rows,
-    then ``gen`` greedy decode steps.  Runs eagerly on ``device`` (``cuda``
-    unless given; the reference's ``jax.jit`` has no counterpart here) and
-    waits for the device after the prefill and after every decode step,
-    where the reference blocks.
+    """The reference's server loop: random weights from ``seed``, a prompt
+    from ``np.random.RandomState(seed)`` fed one step at a time to fill a
+    cache of ``prompt_len + gen + 1`` rows, then ``gen`` greedy decode
+    steps.  The prompt is tokens, or in ``embeddings`` mode (musicgen)
+    standard-normal f32 frames; a codebook head's argmax is taken per
+    codebook, (B, K), and a zero frame is fed after it, as the reference
+    does (``repro/launch/serve.py:352-378``; ``vlm`` decodes text tokens
+    without a vision prefix, as there).  Runs eagerly on ``device``
+    (``cuda`` unless given; the reference's ``jax.jit`` has no counterpart
+    here) and waits for the device after the prefill and after every
+    decode step, where the reference blocks.
 
     Returns the reference's keys (``prefill_s``, ``decode_s``,
-    ``decode_tok_per_s``, ``tokens`` (B, gen)) and ``prompt`` (B,
-    prompt_len), ``prompt_logits`` (the logits after the last prompt
-    token, (B, 1, V)) and ``state`` (the final ``DecodeState``)."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input mode {cfg.input_mode!r} comes with musicgen")
+    ``decode_tok_per_s``, ``tokens`` (B, gen) or (B, gen, K)) and
+    ``prompt`` (B, prompt_len) tokens or (B, prompt_len, D) frames,
+    ``prompt_logits`` (the logits after the last prompt step, (B, 1, V) or
+    (B, 1, K, V)) and ``state`` (the final ``DecodeState``)."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     params = init_params(cfg, seed=seed, device=dev)
     state = init_cache(cfg, batch, max_len=prompt_len + gen + 1, device=dev)
-    prompt = rng.randint(1, cfg.vocab, (batch, prompt_len))
-    prompt_toks = torch.from_numpy(prompt).to(torch.int32).to(dev)
+    if cfg.input_mode == "embeddings":
+        prompt = rng.randn(batch, prompt_len, cfg.d_model).astype(np.float32)
+        frames = torch.from_numpy(prompt).to(dev)
+
+        def feed(t):
+            return {"frame_embed": frames[:, t:t + 1]}
+    else:
+        prompt = rng.randint(1, cfg.vocab, (batch, prompt_len))
+        prompt_toks = torch.from_numpy(prompt).to(torch.int32).to(dev)
+
+        def feed(t):
+            return {"token": prompt_toks[:, t:t + 1]}
 
     def sync():
         if dev.type == "cuda":
@@ -377,8 +391,7 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     t0 = time.perf_counter()
     logits = None
     for t in range(prompt_len):           # cache-filling prefill
-        logits, state = decode_step(cfg, params, state,
-                                    {"token": prompt_toks[:, t:t + 1]})
+        logits, state = decode_step(cfg, params, state, feed(t))
     sync()
     prefill_s = time.perf_counter() - t0
     prompt_logits = logits
@@ -386,10 +399,14 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     out_tokens = []
     t1 = time.perf_counter()
     for _ in range(gen):
-        nxt = torch.argmax(logits[:, -1], dim=-1)            # (B,)
+        nxt = torch.argmax(logits[:, -1], dim=-1)        # (B,) or (B, K)
         out_tokens.append(nxt.cpu().numpy())
-        logits, state = decode_step(cfg, params, state,
-                                    {"token": nxt[:, None].to(torch.int32)})
+        if cfg.n_codebooks:
+            inp = {"frame_embed": torch.zeros(
+                (batch, 1, cfg.d_model), dtype=torch.float32, device=dev)}
+        else:
+            inp = {"token": nxt[:, None].to(torch.int32)}
+        logits, state = decode_step(cfg, params, state, inp)
         sync()
     decode_s = time.perf_counter() - t1
     return {

@@ -11,6 +11,10 @@ from .attention import KVCache, attention, decode_attention, kv_cache_update
 from .common import apply_rope, dense_init, rms_norm
 from .ffn import ffn_apply, ffn_init
 
+# the families whose layers are this dense block: the text models, and
+# musicgen and internvl2 (their frontends are stubs before the same stack)
+DENSE_FAMILIES = ("dense", "audio", "vlm")
+
 
 def gqa_init(gen: torch.Generator, d_model: int, n_heads: int,
              n_kv_heads: int, head_dim: int,
@@ -63,7 +67,7 @@ def gqa_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def block_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> Dict:
-    if cfg.family != "dense":
+    if cfg.family not in DENSE_FAMILIES:
         raise NotImplementedError(f"{cfg.family} blocks are not ported yet")
     return {
         "ln1": torch.zeros(cfg.d_model, dtype=dtype, device=gen.device),
@@ -95,7 +99,7 @@ def block_decode(params: Dict, cfg, x: torch.Tensor, cache: BlockCache, *,
                  ) -> Tuple[torch.Tensor, BlockCache]:
     """One-token dense block forward against the layer's KV cache.  The
     reference's MLA, SSM and MoE branches are not ported yet."""
-    if cfg.family != "dense":
+    if cfg.family not in DENSE_FAMILIES:
         raise NotImplementedError(
             f"{cfg.family} decode (MLA, SSM or MoE) is not ported yet")
     h = rms_norm(x, params["ln1"])

@@ -1,5 +1,9 @@
 """Top-level language model: init / forward / loss / prefill and the
-KV-cache decode (dense family).
+KV-cache decode (dense family), in the reference's three input modes
+(``repro/models/lm.py:54-311``): ``tokens``; ``embeddings`` (musicgen:
+frame embeddings in, an ``n_codebooks``-way head out, logits
+``(B, S, K, V)``); ``vlm`` (internvl2: ``vis_tokens`` patch embeddings
+before the text tokens, the loss over the text positions only).
 
 Layers are unrolled in Python, as the reference does with
 ``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
@@ -18,7 +22,8 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
 from .attention import KVCache
-from .blocks import BlockCache, block_apply, block_decode, block_init
+from .blocks import (DENSE_FAMILIES, BlockCache, block_apply, block_decode,
+                     block_init)
 from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
 
 
@@ -30,10 +35,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dtype = cfg.torch_dtype
-    p: Dict[str, Any] = {
-        "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dtype)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
+    vpad = cfg.padded_vocab
+    p: Dict[str, Any] = {}
+    if cfg.input_mode in ("tokens", "vlm"):
+        p["embed"] = embed_init(gen, (vpad, cfg.d_model), dtype)
+    if not cfg.tie_embeddings or cfg.input_mode == "embeddings":
+        p["lm_head"] = dense_init(
+            gen, (cfg.d_model, max(cfg.n_codebooks, 1) * vpad), dtype)
     p["final_norm"] = torch.zeros(cfg.d_model, dtype=dtype, device=dev)
     p["layers"] = [block_init(gen, cfg, dtype) for _ in range(cfg.n_layers)]
     return p
@@ -49,18 +57,43 @@ def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
                                   device=logits.device))
 
 
+def _embed_inputs(cfg: ModelConfig, params: Dict,
+                  batch: Dict) -> torch.Tensor:
+    """The first hidden state (B, S, D): token embeddings, frame
+    embeddings, or the vision prefix ``vis_embed`` (B, vis_tokens, D)
+    followed by the text's token embeddings."""
+    dtype = cfg.torch_dtype
+    if cfg.input_mode == "tokens":
+        return F.embedding(batch["tokens"], params["embed"]).to(dtype)
+    if cfg.input_mode == "embeddings":
+        return batch["frame_embed"].to(dtype)
+    if cfg.input_mode == "vlm":
+        txt = F.embedding(batch["tokens"], params["embed"]).to(dtype)
+        return torch.cat([batch["vis_embed"].to(dtype), txt], dim=1)
+    raise ValueError(cfg.input_mode)
+
+
 def _lm_logits(cfg: ModelConfig, params: Dict, h: torch.Tensor,
                impl: Optional[str]) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], impl=impl)
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if cfg.n_codebooks:
+        b, s, _ = h.shape
+        logits = (h @ params["lm_head"].to(h.dtype)).reshape(
+            b, s, cfg.n_codebooks, cfg.padded_vocab)
+        return _mask_pad_vocab(cfg, logits)
+    w = params["embed"].t() \
+        if cfg.tie_embeddings and cfg.input_mode != "embeddings" \
+        else params["lm_head"]
     return _mask_pad_vocab(cfg, h @ w.to(h.dtype))
 
 
 def forward(cfg: ModelConfig, params: Dict, batch: Dict,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence logits (B, S, V).  ``impl`` picks the kernel ops'
-    implementation (``None``: by device; ``"ref"``: plain PyTorch)."""
-    x = F.embedding(batch["tokens"], params["embed"]).to(cfg.torch_dtype)
+    """Full-sequence logits (B, S, V), or (B, S, K, V) with ``K =
+    n_codebooks``; in ``vlm`` mode S counts the vision prefix too.
+    ``impl`` picks the kernel ops' implementation (``None``: by device;
+    ``"ref"``: plain PyTorch)."""
+    x = _embed_inputs(cfg, params, batch)
     for layer_p in params["layers"]:
         x = block_apply(layer_p, cfg, x, impl=impl)
     return _lm_logits(cfg, params, x, impl)
@@ -68,16 +101,24 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict,
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (``repro/models/lm.py:193``; dense models have no
-    auxiliary loss)."""
+    """Mean next-token cross entropy against ``batch["labels"]``
+    (``repro/models/lm.py:193``; dense models have no auxiliary loss):
+    over the text positions only in ``vlm`` mode, and over (B, S, K)
+    labels with a codebook head (which takes no mask, as the
+    reference's)."""
     logits = forward(cfg, params, batch, impl)
-    return softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    labels = batch["labels"]
+    if cfg.input_mode == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    if cfg.n_codebooks:
+        return softmax_cross_entropy(logits, labels)
+    return softmax_cross_entropy(logits, labels, batch.get("mask"))
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Forward over the prompt; returns last-position logits (B, V)."""
+    """Forward over the prompt; returns last-position logits (B, V), or
+    (B, K, V) with a codebook head."""
     return forward(cfg, params, batch, impl)[:, -1]
 
 
@@ -96,7 +137,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed K/V caches of ``max_len`` rows per layer and a length of 0,
     on ``device`` (``cuda`` unless given); the KV branch of
     ``repro/models/lm.py:213-242``."""
-    if cfg.family != "dense":
+    if cfg.family not in DENSE_FAMILIES:
         raise NotImplementedError(f"{cfg.family} caches are not ported yet")
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -110,15 +151,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def decode_step(cfg: ModelConfig, params: Dict, state: DecodeState,
                 inp: Dict) -> Tuple[torch.Tensor, DecodeState]:
-    """One new token ``inp["token"]`` (B,1) against the running cache ->
-    (logits (B,1,V), the new state).  Layers unrolled; each layer's cache
-    is written in place (``attention.kv_cache_update``).  RMSNorm runs
-    its kernel op; decode attention is plain PyTorch, as the reference's
-    is plain jnp."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input mode {cfg.input_mode!r} is not ported yet")
-    x = F.embedding(inp["token"], params["embed"]).to(cfg.torch_dtype)
+    """One new token ``inp["token"]`` (B,1), or one frame
+    ``inp["frame_embed"]`` (B,1,D) in ``embeddings`` mode, against the
+    running cache -> (logits (B,1,V) or (B,1,K,V), the new state).  Layers
+    unrolled; each layer's cache is written in place
+    (``attention.kv_cache_update``).  RMSNorm runs its kernel op; decode
+    attention is plain PyTorch, as the reference's is plain jnp."""
+    if cfg.input_mode in ("tokens", "vlm"):
+        x = F.embedding(inp["token"], params["embed"]).to(cfg.torch_dtype)
+    else:
+        x = inp["frame_embed"].to(cfg.torch_dtype)
     caches = []
     for layer_p, cache in zip(params["layers"], state.caches):
         x, cache = block_decode(layer_p, cfg, x, cache)

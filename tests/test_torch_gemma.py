@@ -7,13 +7,15 @@
 * the gemma prefill equals the reference's ``prefill`` at the smoke
   width (hd 32) and at hd 256, eagerly and through one ``optimize`` plan;
 * the selector picks the sm90 kernel's hd-256 instance for bf16 and the
-  f32 kernel for f32, and no kernel at hd 48;
+  f32 kernel for f32, and the SIMT kernel at hd 12, 16 and 48 in both
+  dtypes, which the sm90 kernel still refuses;
 * ``decode_step`` equals the reference's token by token from a
   mid-stream cache (``cache_from_jax``), for gemma and llama;
 * decode over a prompt equals the full forward (the reference's
   ``test_decode_matches_forward`` measure);
 * ``serve`` returns the reference's keys, and its tokens equal a decode
-  loop written out by hand on the same weights;
+  loop written out by hand on the same weights; in embeddings mode
+  (musicgen) it decodes frames into one token per codebook;
 * no file of the port, nor ``chip_smoke.py``, imports ``jax`` or the
   reference package.
 
@@ -29,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, gemma_2b, gemma_7b, llama2_1b
+from repro_torch.configs import (ARCHS, gemma_2b, gemma_7b, llama2_1b,
+                                 musicgen_medium)
 from repro_torch.core import TensorSpec, optimize, spec_like, symbolic_dims
 from repro_torch.kernels import reference_attention
 from repro_torch.kernels import variants as V
@@ -209,17 +212,28 @@ def test_the_selector_takes_hd256_and_still_refuses_hd48():
     f32, _s, _p, _i = V.select_variant("flash_attention", bounds,
                                        torch.float32, {"causal": True})
     assert f32 is V.SIMT
-    # hd 48: no kernel instance; only the plain version, where it fits
-    small = dict(bounds, b=(1, 1), s=(1, 8), t=(1, 8), hd=(48, 48))
-    for dtype, kernels in ((torch.bfloat16, (V.SM90,)),
-                           (torch.float32, (V.SIMT,))):
-        got, _s, _p, invalid = V.select_variant("flash_attention", small,
-                                                dtype, {"causal": True})
-        assert got is V.REF_DENSE
-        for kernel in kernels:
-            assert "head dim 48" in invalid[kernel.name]
+    # hd 12, 16 and 48: the sm90 kernel still refuses them, the SIMT
+    # kernel takes them in both dtypes (hd 12 in its 16 instance, 48 in
+    # its 64), over the whole range where the plain version cannot serve
+    for hd in (12, 16, 48):
+        for dtype, want in ((torch.bfloat16, V.SIMT_BF16),
+                            (torch.float32, V.SIMT)):
+            got, _s, _p, invalid = V.select_variant(
+                "flash_attention", dict(bounds, hd=(hd, hd)), dtype,
+                {"causal": True})
+            assert got is want, (hd, dtype)
+            if dtype == torch.bfloat16:
+                assert f"head dim {hd}" in invalid[V.SM90.name]
+            assert "max_transient_bytes" in invalid[V.REF_DENSE.name]
+            assert V.default_variant("flash_attention", dtype,
+                                     {"hd": hd}) is want
+    assert V.variant_smem_bytes("flash_attention", V.SIMT_BF16,
+                                {"hd": 12}) == V.variant_smem_bytes(
+        "flash_attention", V.SIMT, {"hd": 16}) == 17_024
+    assert "bfloat16 takes the sm90" in V.variant_invalid_reason(
+        "flash_attention", V.SIMT_BF16, hi, torch.bfloat16)
     with pytest.raises(ValueError, match="no valid"):
-        V.select_variant("flash_attention", dict(bounds, hd=(48, 48)),
+        V.select_variant("flash_attention", dict(bounds, hd=(320, 320)),
                          torch.bfloat16, {"causal": True})
 
 
@@ -333,9 +347,17 @@ def test_serve_returns_the_reference_keys_and_a_hand_written_decode():
         logits, state = decode_step(cfg, params, state,
                                     {"token": nxt[:, None].to(torch.int32)})
     np.testing.assert_array_equal(out["tokens"], np.stack(want, axis=1))
-    with pytest.raises(NotImplementedError, match="musicgen"):
-        serve(dataclasses.replace(cfg, input_mode="embeddings"),
-              device="cpu")
+    # embeddings mode (musicgen): frames in, the argmax of each codebook
+    music = musicgen_medium.SMOKE
+    out = serve(music, batch=batch, prompt_len=prompt_len, gen=gen, seed=0,
+                device="cpu")
+    assert {"prefill_s", "decode_s", "decode_tok_per_s",
+            "tokens"} <= set(out)
+    assert out["tokens"].shape == (batch, gen, music.n_codebooks)
+    assert out["prompt"].shape == (batch, prompt_len, music.d_model)
+    assert tuple(out["prompt_logits"].shape) == \
+        (batch, 1, music.n_codebooks, music.padded_vocab)
+    assert int(out["state"].caches[-1].kv.length) == prompt_len + gen
 
 
 def test_the_port_and_chip_smoke_import_neither_jax_nor_the_reference():

@@ -161,7 +161,9 @@ def test_gemma_prefill_at_full_width_launches_the_hd256_kernel(gen):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(gen):
-    q = _randn(gen, (1, 2, 16, 48), torch.float32)       # hd 48
+    # every head dim up to 256 has a route (hd 48 the SIMT kernel's 64
+    # instance); past 256 none
+    q = _randn(gen, (1, 2, 16, 320), torch.float32)      # hd 320
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(q, q, q)
     q = _randn(gen, (1, 2, 16, 64), torch.float16)
@@ -718,3 +720,89 @@ def test_a_real_oom_under_a_ballast_fails_structured(gen):
         if enabled:
             gc.enable()
     assert torch.equal(opt(params, tok), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("hd", [12, 16, 48])
+def test_simt_flash_at_hd12_16_48_matches_the_plain_version(gen, dtype, hd):
+    """The SIMT kernel at head dims the sm90 kernel has no instance for
+    (hd 12 in its 16 instance, 48 in its 64), f32 and bf16: the smoke
+    models' heads, one row, ragged S, S < T, and a (8, 1024) request, in
+    the model layout, causal and not; every launch on the SIMT route."""
+    for (b, hq, hkv, s, t) in [(1, 6, 2, 1, 1), (1, 6, 2, 17, 17),
+                               (2, 4, 2, 100, 100), (1, 4, 4, 100, 160),
+                               (8, 4, 2, 1024, 1024)]:
+        q = _randn(gen, (b, s, hq, hd), dtype).transpose(1, 2)
+        k, v = (_randn(gen, (b, t, hkv, hd), dtype).transpose(1, 2)
+                for _ in range(2))
+        for causal in (True, False):
+            n0 = flash_attention_cuda.launches
+            g0 = flash_attention_cuda.sm90_launches
+            b0 = flash_attention_cuda.simt_bf16_launches
+            got = flash_attention(q, k, v, causal, None, None)
+            assert flash_attention_cuda.launches == n0 + 1
+            assert flash_attention_cuda.sm90_launches == g0
+            assert flash_attention_cuda.simt_bf16_launches == \
+                b0 + (dtype == torch.bfloat16)
+            assert got.stride() == q.stride()
+            torch.testing.assert_close(
+                got, reference_attention(q, k, v, causal=causal),
+                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite_8b", "starcoder2_7b",
+                                  "musicgen_medium", "internvl2_2b"])
+def test_dense_family_smoke_prefill_on_the_card(gen, arch, dtype):
+    """The smoke configs (hd 16, starcoder2 hd 12) through one plan on the
+    card: n_layers SIMT flash launches (of the dtype's instance) and
+    2 n_layers + 1 RMSNorm launches per request, the memory contracts,
+    and logits against the plain plan (2e-4 in f32, 5e-2 in bf16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import optimize, spec_like, symbolic_dims
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    params = init_params(cfg, seed=0)                # cuda by default
+    B, S = symbolic_dims("b, s")
+    specs = (spec_like(params), {k: v for k, v in batch_specs(cfg, B, S)
+                                 .items() if k != "labels"})
+    dims = {"b": (1, 8), "s": (16, 128)}
+    opt = optimize(make_prefill_step(cfg), *specs, dynamic_dims=dims)
+    plain = optimize(make_prefill_step(cfg, impl="ref"), *specs,
+                     dynamic_dims=dims, kernel_select=False)
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    for b, s in [(1, 16), (3, 96)]:
+        batch = {}
+        if cfg.input_mode == "embeddings":
+            batch["frame_embed"] = _randn(gen, (b, s, cfg.d_model),
+                                          cfg.torch_dtype)
+        else:
+            if cfg.input_mode == "vlm":
+                batch["vis_embed"] = _randn(
+                    gen, (b, cfg.vis_tokens, cfg.d_model), cfg.torch_dtype)
+            batch["tokens"] = torch.randint(0, cfg.vocab, (b, s),
+                                            generator=gen, device="cuda",
+                                            dtype=torch.int32)
+        f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+        g0 = flash_attention_cuda.sm90_launches
+        b0 = flash_attention_cuda.simt_bf16_launches
+        got = opt(params, batch)
+        assert flash_attention_cuda.launches - f0 == cfg.n_layers
+        assert flash_attention_cuda.sm90_launches == g0
+        assert flash_attention_cuda.simt_bf16_launches - b0 == \
+            (cfg.n_layers if dtype == "bfloat16" else 0)
+        assert rmsnorm_cuda.launches - n0 == 2 * cfg.n_layers + 1
+        st = opt.last_report.stats
+        assert st.device_peak <= opt.guaranteed_peak_bytes
+        assert st.arena_bytes <= opt.arena_bound_bytes
+        want = plain(params, batch)
+        torch.testing.assert_close(got[..., :cfg.vocab].float(),
+                                   want[..., :cfg.vocab].float(),
+                                   rtol=tol, atol=tol)

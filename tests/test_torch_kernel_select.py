@@ -253,9 +253,13 @@ def test_no_selected_variant_is_invalid_at_the_hi_corner(prim, dtype, smem,
         bad = next(v for v in V.variants_for(prim) if v.name == name)
         assert not V.variant_valid(prim, bad, hi, dtype, hw)
         assert name not in scores
-    # f32 never gets the sm90 kernel, bf16 never the FMA route
+    # f32 never gets the sm90 kernel, bf16 the FMA route only at a head
+    # dim the sm90 kernel has no instance for (the op's route rule)
     assert not (dtype == torch.float32 and variant.route == "sm90")
-    assert not (dtype == torch.bfloat16 and variant.route == "simt")
+    assert not (dtype == torch.bfloat16 and variant.route == "simt"
+                and hi["hd"] in V.HEAD_DIMS)
+    if dtype == torch.bfloat16 and variant.route == "simt":
+        assert variant is V.SIMT_BF16
 
 
 def test_a_forced_invalid_variant_raises():
