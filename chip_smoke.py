@@ -7,15 +7,18 @@ Phases (any failure exits non-zero):
 
 1. device: card name and power limit, TF32 off, kernels built from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once; build
-   seconds, ptxas register/smem report; the bf16 flash kernel's instances
-   at hd 32, 64, 128 and 256 must not spill);
+   seconds, ptxas register/smem report; no instance of the flash kernels
+   may spill: the sm90 kernel's at hd 32, 64, 128 and 256, the mma
+   kernel's at hd 16, 32, 48, 64, 128 and 256 in f32 and bf16);
 2. kernels against their plain PyTorch versions at the main path's shapes
    and layout and at the reference kernel tests' shapes, f32 and bf16
    (elementwise rtol = atol and ||got - want|| / ||want|| both within
    2e-4 / 1e-2); flash attention has two routes, bf16 through
    ``flash_attention_sm90.cu`` (TMA + wgmma) and f32 through
-   ``flash_attention.cu``; each with kernel, plain and library-call times
-   and the card's bound for the same work at every request shape;
+   ``flash_attention_mma.cu`` (mma.sync, 3xTF32); each with kernel, plain
+   and library-call times and the card's bound for the same work at every
+   request shape (f32 flash on TF32 / 3, the FMA bound logged beside it
+   once);
 3. main path: ``optimize(make_prefill_step(llama2_1b))`` at full width
    (4 layers, bf16, random weights from seed 0), serving four requests of
    different (b, s) through one plan; asserts 4 flash-attention launches,
@@ -205,18 +208,23 @@ Phases (any failure exits non-zero):
    gemma_2b plan retries bitwise.
 
 14. dense (``[dense]`` lines), after phase 13: (a) the flash kernel at
-   the head dims the sm90 kernel has no instance for, on the SIMT route
-   (``kernels.flash_attention.route_of``): hd 12 and 16 at the smoke
+   the head dims the sm90 kernel has no instance for, on the mma route
+   (``kernels.flash_attention.route_of``): hd 12, 13 and 16 at the smoke
    configs' heads, the reference kernel tests' geometry at hd 16, and hd
    48, in f32 (2e-4) and bf16 (1e-2, and in relative norm), causal and
-   not, one row, ragged S, S < T; and the sm90 kernel at starcoder2's
-   36/4 heads (group 9) and musicgen's 24/24 at hd 64; kernel, plain,
-   SDPA and bound ms at every request shape of the smoke heads and at
-   (8, 1024) for the rest; (b) ``granite_8b``, ``starcoder2_7b``,
-   ``musicgen_medium`` and ``internvl2_2b`` at full width and depth in
-   bf16 (seed-0 weights on the card), one at a time, each serving the
-   request shapes through one plan (internvl2: s text tokens after 256
-   vision embeddings, its flash S the expression ``256 + s``): one
+   not, one row, ragged S, S < T, and q, k and v one element past an
+   aligned pointer; and the sm90 kernel at starcoder2's 36/4 heads
+   (group 9) and musicgen's 24/24 at hd 64; kernel, plain, SDPA and bound
+   ms at every request shape of the smoke heads and at (8, 1024) for the
+   rest and for llama2_1b's and gemma's f32 heads, with the device time of
+   a launch (calls enqueued while the card sleeps: ``device_ms``, the
+   figure the mma kernel's bf16 variant is calibrated on) beside each;
+   (b) ``granite_8b``,
+   ``starcoder2_7b``, ``musicgen_medium`` and ``internvl2_2b`` at full
+   width and depth in bf16 (seed-0 weights on the card), one at a time,
+   each serving the request shapes through one plan (internvl2: s text
+   tokens after 256 vision embeddings, its flash S the expression
+   ``256 + s``): one
    capture, n_layers sm90 flash and 2 n_layers + 1 RMSNorm launches a
    request, device_peak <= guaranteed_peak_bytes, the allocator within
    phase 3's slack, arena_bytes <= arena_bound_bytes, finite logits
@@ -226,8 +234,8 @@ Phases (any failure exits non-zero):
    v, within 1e-2 and GEMMA_LAYER_REL, and the first GEMMA_CUT_LAYERS
    layers' logits through a kernel plan and a plain plan within 5e-2;
    (d) the four smoke configs (hd 16; starcoder2 12) through one plan
-   each in f32 and in bf16: n_layers SIMT launches a request of the
-   dtype's instance, logits within 2e-4 (f32) or 5e-2 (bf16) of the eager
+   each in f32 and in bf16: n_layers mma launches a request of the
+   dtype's kernel, logits within 2e-4 (f32) or 5e-2 (bf16) of the eager
    plain path; (e) ``serve`` for musicgen (frames, 4 codebooks) and
    internvl2: no flash launch, (2 L + 1) RMSNorm launches a step, cache
    length 48 of 49 rows, ms a step; decode vs forward within 2e-2 at
@@ -244,9 +252,10 @@ dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e);
 bounded, loop, gemma_serve and dense_serve launch no flash: their
 attention and ops are plain PyTorch, as the reference's are plain jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
-requests, the SIMT entries at hd 12, 16 and 48 and the sm90 entry at
-starcoder2's and musicgen's heads; the SIMT route's bf16 instance has an
-entry of its own, counted by ``simt_bf16_launches``); the last line is
+requests, the mma entries at hd 12, 16 and 48 and the sm90 entry at
+starcoder2's and musicgen's heads; the mma route has an entry per dtype,
+counted by ``mma_f32_launches`` and ``mma_bf16_launches``); the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -276,6 +285,14 @@ SMALL_OVERHEAD, LARGE_OVERHEAD = 1024, SMALL_BLOCK + 512
 # published H100 SXM peaks (dense): HBM bytes/s, FLOP/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# flash attention's rates: f32 to 2e-4 runs each product as three TF32
+# products on the tensor cores (3xTF32), so its least time is 3 x flops
+# over the TF32 rate of 495 TFLOP/s, not flops over the f32 FMAs' 67
+FLASH_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+# device_ms: the card sleeps 2e8 cycles (0.1 s at the H100's 1.98 GHz
+# boost clock, longer below it) while the host enqueues the calls; an
+# enqueue longer than half of that leaves the time "not measured"
+SLEEP_CYCLES, SLEEP_COVER_S = 200_000_000, 0.05
 
 FLASH_TEST_SHAPES = [  # (b, hq, hkv, s, t, hd): tests/test_kernels.py:17-52
     (2, 4, 2, 256, 256, 64), (1, 8, 1, 128, 128, 128),
@@ -326,15 +343,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def flash_bound(b, hq, hkv, s, t, hd, dtype_name, itemsize, causal=True):
+def flash_bound(b, hq, hkv, s, t, hd, dtype_name, itemsize, causal=True,
+                peaks=FLASH_PEAK_FLOPS):
     """Least time for the work: each input read once and the output
     written once over HBM, against the causal multiply-adds (2 flops each,
-    QK and PV) that this mask needs over the peak rate for the type."""
+    QK and PV) that this mask needs over the peak rate for the type
+    (``peaks``: flash attention's, f32 on TF32 / 3)."""
     nbytes = (2 * b * hq * s * hd + 2 * b * hkv * t * hd) * itemsize
     keys = sum(min(i + 1, t) for i in range(s)) if causal else s * t
     flops = 4 * b * hq * keys * hd
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = flops / peaks[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -389,28 +408,39 @@ def phase_device():
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
-    sm90 = sm90_ptxas(lib.ptxas_log)
-    for hd, regs, spill in sm90:
-        log(f"[ptxas] flash_fwd_sm90<{hd}>: {regs} registers, {spill} spill "
-            f"bytes")
-    if sorted(r[0] for r in sm90) != [32, 64, 128, 256] or \
-            any(r[2] for r in sm90):
-        raise AssertionError(f"sm90 flash kernel: want hd 32/64/128/256 "
-                             f"without spills, ptxas says {sm90}")
+    from repro_torch.kernels.variants import MMA_HEAD_DIMS
+    flash = flash_ptxas(lib.ptxas_log)
+    for kernel, hd, dtype, regs, spill in flash:
+        log(f"[ptxas] flash_fwd_{kernel}<{hd}, {dtype}>: {regs} registers, "
+            f"{spill} spill bytes")
+    want = sorted([("sm90", hd, "bfloat16") for hd in (32, 64, 128, 256)] +
+                  [("mma", hd, dtype) for hd in MMA_HEAD_DIMS
+                   for dtype in ("bfloat16", "float32")])
+    if sorted(r[:3] for r in flash) != want or any(r[4] for r in flash):
+        raise AssertionError(f"flash kernels: want the sm90 instances at hd "
+                             f"32/64/128/256 and the mma ones at "
+                             f"{MMA_HEAD_DIMS} in both dtypes, without "
+                             f"spills; ptxas says {flash}")
     return name, smi_line
 
 
-def sm90_ptxas(report: str):
-    """(hd, registers, spill bytes) of each instance of the sm90 flash
-    kernel in nvcc's ``-Xptxas -v`` report."""
-    rows, hd, spill = [], None, 0
+def flash_ptxas(report: str):
+    """(kernel, hd, dtype, registers, spill bytes) of each instance of the
+    sm90 and mma flash kernels in nvcc's ``-Xptxas -v`` report."""
+    rows, inst, spill = [], None, 0
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            inst = re.search(r"flash_fwd_sm90ILi(\d+)E", entry.group(1))
-            hd, spill = (int(inst.group(1)) if inst else None), 0
+            sm90 = re.search(r"flash_fwd_sm90ILi(\d+)E", entry.group(1))
+            mma = re.search(r"flash_fwd_mmaILi(\d+)E(f|13__nv_bfloat16)E",
+                            entry.group(1))
+            inst = ("sm90", int(sm90.group(1)), "bfloat16") if sm90 else \
+                ("mma", int(mma.group(1)),
+                 "float32" if mma.group(2) == "f" else "bfloat16") if mma \
+                else None
+            spill = 0
             continue
-        if hd is None:
+        if inst is None:
             continue
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        line)
@@ -418,8 +448,8 @@ def sm90_ptxas(report: str):
             spill = int(sp.group(1)) + int(sp.group(2))
         used = re.search(r"Used (\d+) registers", line)
         if used:
-            rows.append((hd, int(used.group(1)), spill))
-            hd = None
+            rows.append((*inst, int(used.group(1)), spill))
+            inst = None
     return rows
 
 
@@ -443,19 +473,46 @@ def flash_routed(q, k, v, causal=True):
     import torch
     from repro_torch.kernels import flash_attention_cuda
     from repro_torch.kernels.flash_attention import route_of
-    n0 = (flash_attention_cuda.sm90_launches,
-          flash_attention_cuda.simt_bf16_launches)
+    names = ("sm90_launches", "mma_f32_launches", "mma_bf16_launches")
+    n0 = [getattr(flash_attention_cuda, name) for name in names]
     out = flash_attention_cuda(q, k, v, causal=causal)
     route = route_of(q.dtype, q.shape[-1])
-    sm90 = route == "sm90"
-    simt_bf16 = not sm90 and q.dtype == torch.bfloat16
-    got = (flash_attention_cuda.sm90_launches - n0[0],
-           flash_attention_cuda.simt_bf16_launches - n0[1])
-    if got != (int(sm90), int(simt_bf16)):
+    if route == "mma":
+        route += "_f32" if q.dtype == torch.float32 else "_bf16"
+    got = tuple(getattr(flash_attention_cuda, name) - n
+                for name, n in zip(names, n0))
+    want = tuple(int(name == f"{route}_launches") for name in names)
+    if got != want:
         raise AssertionError(f"{q.dtype} flash at hd {q.shape[-1]}: launches "
-                             f"(sm90, simt bf16) {got}, want the {route} "
-                             f"route")
+                             f"(sm90, mma f32, mma bf16) {got}, want the "
+                             f"{route} route")
     return out
+
+
+def device_ms(fn, reps: int = 20):
+    """Mean device time of one call of ``fn`` when the card runs ``reps``
+    calls back to back: they are enqueued while the card sleeps, so the
+    host's time between launches is off the clock.  A call's CUDA-event
+    time (``time_ms``) holds that host time, which decides it when the
+    kernel is shorter than its Python wrapper; the selector's calibration
+    of a kernel that short reads this time instead (``variants.CALIBRATION``).
+    None when the host took longer to enqueue than the sleep covers."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if enqueue_s > SLEEP_COVER_S:
+        return None
+    return start.elapsed_time(end) / reps
 
 
 def time_flash(q, k, v):
@@ -536,7 +593,17 @@ def phase_kernels():
                 q, k, v, is_causal=True))
             f_bound, f_by = flash_bound(b, cfg_hq, cfg_hq, s, s, cfg_hd, name,
                                         dtype.itemsize)
-            route = "sm90" if dtype == torch.bfloat16 else "simt"
+            if (b, s) == REQUESTS[-1] and dtype == torch.float32:
+                fma, _ = flash_bound(b, cfg_hq, cfg_hq, s, s, cfg_hd, name,
+                                     dtype.itemsize, peaks=PEAK_FLOPS)
+                log(f"[kernels] f32 flash bound (b={b}, s={s}): "
+                    f"{f_bound:.4f} ms on TF32 / 3 "
+                    f"({FLASH_PEAK_FLOPS[name]:.4g} FLOP/s, what the mma "
+                    f"kernel's 3xTF32 products can reach); {fma:.4f} ms on "
+                    f"the f32 FMAs "
+                    f"({PEAK_FLOPS[name]:.4g} FLOP/s), which bound the SIMT "
+                    f"kernel that ran f32 before")
+            route = "sm90" if dtype == torch.bfloat16 else "mma"
             log(f"[kernels] flash/{route} (b={b},h={cfg_hq},s={s},hd={cfg_hd}) "
                 f"{name}: max err {f_err:.3g} rel norm {f_rel:.3g} (tol "
                 f"{TOL[name]}); kernel {f_ms:.4f} ms plain {f_plain:.4f} ms "
@@ -632,7 +699,8 @@ def phase_main_path():
                       for t in pytree.tree_leaves(params))
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
-    flash_attention_cuda.simt_bf16_launches = 0
+    flash_attention_cuda.mma_f32_launches = 0
+    flash_attention_cuda.mma_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     outs, rows = [], []
     for (b, s), batch in zip(REQUESTS, batches):
@@ -834,17 +902,19 @@ def phase_f32_path():
                for (b, s) in F32_REQUESTS]
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
-    flash_attention_cuda.simt_bf16_launches = 0
+    flash_attention_cuda.mma_f32_launches = 0
+    flash_attention_cuda.mma_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     outs = [opt(params, batch) for batch in batches]
     torch.cuda.synchronize()
-    simt = flash_attention_cuda.launches - flash_attention_cuda.sm90_launches
+    mma = flash_attention_cuda.mma_f32_launches
     n = len(F32_REQUESTS)
-    if simt != n * cfg.n_layers or flash_attention_cuda.sm90_launches or \
+    if mma != n * cfg.n_layers or \
+            flash_attention_cuda.launches != mma or \
             rmsnorm_cuda.launches != n * (2 * cfg.n_layers + 1):
         raise AssertionError(
-            f"f32 path launches: flash f32 {simt}, sm90 "
-            f"{flash_attention_cuda.sm90_launches}, rmsnorm "
+            f"f32 path launches: flash mma f32 {mma} of "
+            f"{flash_attention_cuda.launches}, rmsnorm "
             f"{rmsnorm_cuda.launches} over {n} requests")
     for (b, s), batch, got in zip(F32_REQUESTS, batches, outs):
         ref = opt_ref(params, batch)
@@ -852,11 +922,11 @@ def phase_f32_path():
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
         log(f"[f32] b={b} s={s}: logits {tuple(got.shape)} max |kernel path "
             f"- plain path| {err:.3g} (tol 2e-4)")
-    log(f"[f32] launches over {n} requests: flash f32 {simt}, rmsnorm "
+    log(f"[f32] launches over {n} requests: flash mma f32 {mma}, rmsnorm "
         f"{rmsnorm_cuda.launches}")
     del params, opt, opt_ref, outs
     torch.cuda.empty_cache()
-    return simt
+    return mma
 
 
 def phase_train():
@@ -936,7 +1006,8 @@ def phase_train():
 
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
-    flash_attention_cuda.simt_bf16_launches = 0
+    flash_attention_cuda.mma_f32_launches = 0
+    flash_attention_cuda.mma_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     want, rows = None, {"uncapped": [], "ladder": []}
     for (b, s) in TRAIN_SHAPES:
@@ -1039,8 +1110,7 @@ def phase_train():
     if not any(r["evictions"] for r in rows["ladder"]):
         raise AssertionError("no rung of the cap ladder evicted")
     counts = {"flash_attention_sm90": flash_attention_cuda.sm90_launches,
-              "flash_attention_f32": flash_attention_cuda.launches -
-              flash_attention_cuda.sm90_launches,
+              "flash_attention_f32": flash_attention_cuda.mma_f32_launches,
               "rmsnorm": rmsnorm_cuda.launches}
     log(f"[train] launches over the train path {counts}; rows "
         f"{json.dumps(rows)}")
@@ -1206,24 +1276,23 @@ KB_EDGES = {"s": [64]}
 KB_ENVS = [{"b": 4, "s": 32}, {"b": 4, "s": 1024}]
 KB_REPEATS = 10
 # what each kernel variant launches, by the launch counter it moves
-VARIANT_COUNTER = {"sm90_bm128_bn128": "sm90", "simt_f32_bq64_bkv32": "f32",
-                   "simt_bf16_bq64_bkv32": "simt_bf16",
+VARIANT_COUNTER = {"sm90_bm128_bn128": "sm90",
+                   "mma_f32_bq64_bkv64": "mma_f32",
+                   "mma_bf16_bq64_bkv64": "mma_bf16",
                    "cuda_row256": "rmsnorm"}
 
 
 def _launch_counts():
     from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
     return {"sm90": flash_attention_cuda.sm90_launches,
-            "f32": flash_attention_cuda.launches
-            - flash_attention_cuda.sm90_launches
-            - flash_attention_cuda.simt_bf16_launches,
-            "simt_bf16": flash_attention_cuda.simt_bf16_launches,
+            "mma_f32": flash_attention_cuda.mma_f32_launches,
+            "mma_bf16": flash_attention_cuda.mma_bf16_launches,
             "rmsnorm": rmsnorm_cuda.launches}
 
 
 def _expected_launches(plan):
     """Launches per call that a plan's kernel selections imply."""
-    want = {"sm90": 0, "f32": 0, "simt_bf16": 0, "rmsnorm": 0}
+    want = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0, "rmsnorm": 0}
     for sel in plan.kernel_selections.values():
         counter = VARIANT_COUNTER.get(sel.variant.name)
         if counter is not None:
@@ -1292,7 +1361,8 @@ def phase_buckets(cfg, batches, outs, plain, medians):
                  for nid, s in whole.kernel_selections.items()}
     param_bytes = sum(t.numel() * t.element_size()
                       for t in pytree.tree_leaves(params))
-    for name in ("launches", "sm90_launches", "simt_bf16_launches"):
+    for name in ("launches", "sm90_launches", "mma_f32_launches",
+                 "mma_bf16_launches"):
         setattr(flash_attention_cuda, name, 0)
     rmsnorm_cuda.launches = 0
 
@@ -1587,7 +1657,8 @@ def counted_launches(phase):
     from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
-    flash_attention_cuda.simt_bf16_launches = 0
+    flash_attention_cuda.mma_f32_launches = 0
+    flash_attention_cuda.mma_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     result = phase()
     return _launch_counts(), result
@@ -2578,7 +2649,7 @@ GEMMA_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}
 def phase_gemma_kernels():
     """Phase 12 (a): both flash routes at head dim 256 against the plain
     version (bf16 through the sm90 kernel's 64-key-tile instance at 1e-2,
-    f32 through the f32 kernel at 2e-4), at the small shapes and at every
+    f32 through the mma kernel at 2e-4), at the small shapes and at every
     request shape with gemma_2b's heads (MQA, 8/1) and gemma_7b's (16/16)
     in the model layout; kernel, plain, SDPA and bound times at each
     request shape.  Outside every counted path."""
@@ -2623,7 +2694,7 @@ def phase_gemma_kernels():
                 lib_how = min(libs, key=libs.get)
                 bound, by = flash_bound(b, hq, hkv, s, s, GEMMA_HD, name,
                                         dtype.itemsize)
-                route = "sm90" if dtype == torch.bfloat16 else "simt"
+                route = "sm90" if dtype == torch.bfloat16 else "mma"
                 log(f"[gemma] (a) flash/{route} {model} (b={b},hq={hq},"
                     f"hkv={hkv},s={s},hd={GEMMA_HD}) {name}: max err "
                     f"{err:.3g} rel norm {rel:.3g} (tol {TOL[name]}); kernel "
@@ -2739,7 +2810,8 @@ def phase_gemma_prefill(cfg):
                       for t in pytree.tree_leaves(params))
     flash_attention_cuda.launches = 0
     flash_attention_cuda.sm90_launches = 0
-    flash_attention_cuda.simt_bf16_launches = 0
+    flash_attention_cuda.mma_f32_launches = 0
+    flash_attention_cuda.mma_bf16_launches = 0
     rmsnorm_cuda.launches = 0
     outs, rows = [], []
     for (b, s), batch in zip(REQUESTS, batches):
@@ -2923,7 +2995,8 @@ def phase_gemma_f32():
         lambda: [opt(params, batch) for batch in batches])
     torch.cuda.synchronize()
     n = len(F32_REQUESTS)
-    if launches != {"sm90": 0, "f32": n, "simt_bf16": 0, "rmsnorm": 3 * n}:
+    if launches != {"sm90": 0, "mma_f32": n, "mma_bf16": 0,
+                    "rmsnorm": 3 * n}:
         raise AssertionError(f"gemma f32 path launches {launches} over {n} "
                              f"requests")
     for (b, s), batch, got in zip(F32_REQUESTS, batches, outs):
@@ -2965,7 +3038,7 @@ def phase_gemma_serve(cfg, params, opt):
     if lengths != {steps} or rows != steps + 1:
         raise AssertionError(f"gemma serve: cache lengths {lengths} of {rows}"
                              f" rows, want {steps} of {steps + 1}")
-    if launches != {"sm90": 0, "f32": 0, "simt_bf16": 0,
+    if launches != {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
                     "rmsnorm": (2 * cfg.n_layers + 1) * steps}:
         raise AssertionError(f"gemma serve launches {launches}")
     # one more decode step (the cache's last free row), profiled: where a
@@ -3135,7 +3208,7 @@ def phase_resilience(cfg, batches, want, gemma):
         got = delta(c0)
         bp = table.peek(opt.last_bucket)
         per_call = _expected_launches(bp.plan)
-        if per_call != {"sm90": cfg.n_layers, "f32": 0, "simt_bf16": 0,
+        if per_call != {"sm90": cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
                         "rmsnorm": 2 * cfg.n_layers + 1} or got != per_call:
             raise AssertionError(f"(a) {env}: launches {got}, the bucket's "
                                  f"selections imply {per_call}")
@@ -3346,7 +3419,7 @@ def phase_resilience(cfg, batches, want, gemma):
 
 DENSE_ARCHS = ("granite_8b", "starcoder2_7b", "musicgen_medium",
                "internvl2_2b")
-# (a): the SIMT route at the head dims the sm90 kernel has no instance for.
+# (a): the mma route at the head dims the sm90 kernel has no instance for.
 # (hq, hkv, hd) of the smoke configs: granite and internvl2 4/2 at 16,
 # starcoder2 6/2 at 12, musicgen 4/4 at 16; checked at small shapes (one
 # row, ragged S, S < T) and timed at every request shape
@@ -3358,9 +3431,19 @@ DENSE_CHECK_SHAPES = (  # (b, hq, hkv, s, t, hd)
      (2, 4, 2, 100, 100, 16), (1, 4, 2, 100, 160, 16)]
     + [(b, hq, hkv, s, t, 16) for (b, hq, hkv, s, t, _) in FLASH_TEST_SHAPES]
     + [(2, 4, 2, 100, 100, 48), (1, 8, 1, 128, 128, 48),
-       (1, 4, 2, 100, 160, 48)])
+       (1, 4, 2, 100, 160, 48)]
+    # hd 13: 26-byte bf16 rows, which only plain loads can read
+    + [(1, 4, 2, 1, 1, 13), (2, 4, 2, 100, 100, 13), (1, 4, 2, 100, 160, 13)])
+# (a): q, k and v each a view one element past an aligned buffer (bf16 2
+# bytes off: plain loads; f32 4 bytes off: 4-byte copies), at mma head dims
+DENSE_OFFSET_SHAPES = [(2, 4, 2, 100, 100, 16), (1, 4, 2, 100, 160, 13),
+                       (2, 8, 1, 128, 128, 48), (1, 4, 2, 17, 17, 12)]
+DENSE_OFFSET_F32_SHAPES = [(1, 4, 2, 100, 100, 128), (1, 8, 1, 100, 160, 256)]
 DENSE_TIMED_AT = (8, 1024)  # (a): the largest request, (b, s)
 DENSE_HD48 = (4, 2, 48)     # (a): hd 48 timed at DENSE_TIMED_AT
+# (a): the f32 rows of the other models, timed at DENSE_TIMED_AT
+DENSE_F32_HEADS = {"llama2_1b": (32, 32, 128), "gemma_2b": (8, 1, 256),
+                   "gemma_7b": (16, 16, 256)}
 # (a): the full-width shapes new to the sm90 route, at DENSE_TIMED_AT
 DENSE_SM90_HEADS = {"starcoder2_7b": (36, 4, 128),
                     "musicgen_medium": (24, 24, 64)}
@@ -3372,21 +3455,29 @@ DENSE_SERVED = ("musicgen_medium", "internvl2_2b")
 def phase_dense_kernels():
     """Phase 14 (a): the flash kernel at the dense family's new head dims
     against its plain version, f32 at 2e-4 and bf16 at 1e-2 (elementwise
-    and in relative norm): hd 12 and 16 at the smoke models' heads, the
-    reference kernel tests' geometry at hd 16 and hd 48, causal and not,
-    at one row, ragged S and S < T; at every request shape of the smoke
-    heads and at hd 48 (8, 1024), and at starcoder2's (36/4, group 9) and
-    musicgen's (24/24) full-width heads at (8, 1024) on the sm90 route,
-    kernel, plain, SDPA and bound ms.  Outside every counted path."""
+    and in relative norm): hd 12, 13 and 16 at the smoke models' heads,
+    the reference kernel tests' geometry at hd 16 and hd 48, causal and
+    not, at one row, ragged S and S < T, and with every pointer one
+    element off; at every request shape of the smoke heads, at hd 48 and
+    the f32 rows of llama2_1b and gemma (8, 1024) on the mma route, and at
+    starcoder2's (36/4, group 9) and musicgen's (24/24) full-width heads
+    at (8, 1024) on the sm90 route, kernel, plain, SDPA and bound ms, and
+    the device time of a launch.  Outside every counted path."""
     import torch
-    from repro_torch.kernels import reference_attention
+    from repro_torch.kernels import flash_attention_cuda, reference_attention
     from repro_torch.kernels.flash_attention import route_of
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(14)
 
-    def operands(b, hq, hkv, s, t, hd, dtype):
-        """q, k, v as the model hands them: (B, S, H, hd) transposed."""
+    def operands(b, hq, hkv, s, t, hd, dtype, offset=False):
+        """q, k, v as the model hands them: (B, S, H, hd) transposed; with
+        ``offset``, each a dense view one element past its buffer's start
+        (a pointer no wider copy can take)."""
+        if offset:
+            return [torch.randn((b * h * n * hd + 1,), generator=gen,
+                                device=DEV).to(dtype)[1:].view(b, h, n, hd)
+                    for n, h in ((s, hq), (t, hkv), (t, hkv))]
         return [torch.randn((b, n, h, hd), generator=gen, device=DEV
                             ).to(dtype).transpose(1, 2)
                 for n, h in ((s, hq), (t, hkv), (t, hkv))]
@@ -3394,16 +3485,23 @@ def phase_dense_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         worst = 0.0
-        for (b, hq, hkv, s, t, hd) in DENSE_CHECK_SHAPES:
+        shifted = DENSE_OFFSET_SHAPES + (DENSE_OFFSET_F32_SHAPES
+                                         if dtype == torch.float32 else [])
+        cases = [(shape, False) for shape in DENSE_CHECK_SHAPES] + \
+            [(shape, True) for shape in shifted]
+        for (b, hq, hkv, s, t, hd), offset in cases:
             for causal in (True, False):
-                q, k, v = operands(b, hq, hkv, s, t, hd, dtype)
+                q, k, v = operands(b, hq, hkv, s, t, hd, dtype, offset)
+                if offset and q.data_ptr() % 16 != dtype.itemsize:
+                    raise AssertionError(f"offset view at {q.data_ptr()}")
                 err, _rel = agree(flash_routed(q, k, v, causal),
                                   reference_attention(q, k, v, causal=causal),
                                   TOL[name], f"flash {(b, hq, hkv, s, t, hd)} "
-                                  f"causal={causal} {name}")
+                                  f"causal={causal} offset={offset} {name}")
                 worst = max(worst, err)
         log(f"[dense] (a) flash {name} at {len(DENSE_CHECK_SHAPES)} shapes "
-            f"(hd 12, 16, 48; one row, ragged, S < T), causal and not: agree "
+            f"(hd 12, 13, 16, 48; one row, ragged, S < T) and {len(shifted)}"
+            f" with every pointer one element off, causal and not: agree "
             f"with the plain version, max err {worst:.3g} (tol {TOL[name]})")
     rows = {}
     timed = [(key, hq, hkv, hd, b, s, dtype)
@@ -3412,6 +3510,8 @@ def phase_dense_kernels():
              for dtype in (torch.float32, torch.bfloat16)]
     timed += [("hd48", *DENSE_HD48, *DENSE_TIMED_AT, dtype)
               for dtype in (torch.float32, torch.bfloat16)]
+    timed += [(model, hq, hkv, hd, *DENSE_TIMED_AT, torch.float32)
+              for model, (hq, hkv, hd) in DENSE_F32_HEADS.items()]
     timed += [(model, hq, hkv, hd, *DENSE_TIMED_AT, torch.bfloat16)
               for model, (hq, hkv, hd) in DENSE_SM90_HEADS.items()]
     for key, hq, hkv, hd, b, s, dtype in timed:
@@ -3424,14 +3524,16 @@ def phase_dense_kernels():
         lib = libs[how]
         bound, by = flash_bound(b, hq, hkv, s, s, hd, name, dtype.itemsize)
         route = route_of(dtype, hd)
+        dev = device_ms(lambda: flash_attention_cuda(q, k, v))
+        dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
         log(f"[dense] (a) flash/{route} {key} (b={b},hq={hq},hkv={hkv},s={s},"
             f"hd={hd}) {name}: max err {err:.3g} rel norm {rel:.3g} (tol "
-            f"{TOL[name]}); kernel {ms:.4f} ms plain {plain:.4f} ms sdpa "
-            f"({how}) {lib:.4f} ms bound {bound:.4f} ms ({by}), "
-            f"{100 * bound / ms:.1f}% of bound")
+            f"{TOL[name]}); kernel {ms:.4f} ms (device {dev_txt} a "
+            f"launch) plain {plain:.4f} ms sdpa ({how}) {lib:.4f} ms bound "
+            f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of bound")
         rows[(key, b, s, name)] = dict(
-            shape=[b, hq, hkv, s, s, hd], err=err, ms=ms, plain=plain,
-            lib=lib, lib_how=how, bound=bound, by=by)
+            shape=[b, hq, hkv, s, s, hd], err=err, ms=ms, device=dev,
+            plain=plain, lib=lib, lib_how=how, bound=bound, by=by)
         del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -3569,7 +3671,7 @@ def phase_dense_prefill(cfg, arch):
                 f"{step_alloc - st.device_peak}; slack {slack}) launches "
                 f"{got}")
             _check_logits(cfg, logits, b, f"{arch} (b={b}, s={s})")
-            want = {"sm90": cfg.n_layers, "f32": 0, "simt_bf16": 0,
+            want = {"sm90": cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
                     "rmsnorm": 2 * cfg.n_layers + 1}
             if got != want:
                 raise AssertionError(f"{arch}: launches {got} per request, "
@@ -3650,7 +3752,7 @@ def phase_dense_depth(cfg, arch, params, batches):
 
 def phase_dense_smoke():
     """Phase 14 (d): the four smoke configs on the card through one plan
-    each, in float32 (the SIMT route's f32 instances at hd 16 and 12,
+    each, in float32 (the mma route's f32 instances at hd 16 and 12,
     logits within 2e-4 of the plain path, run eagerly) and in bfloat16
     (its bf16 instances, within 5e-2).  Returns the launches per dtype,
     each counted over its requests only."""
@@ -3665,7 +3767,7 @@ def phase_dense_smoke():
 
     totals = {}
     for dtype in ("float32", "bfloat16"):
-        total = {"sm90": 0, "f32": 0, "simt_bf16": 0, "rmsnorm": 0}
+        total = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0, "rmsnorm": 0}
         for arch in DENSE_ARCHS:
             cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
             params = init_params(cfg, seed=0, device=DEV)
@@ -3679,8 +3781,8 @@ def phase_dense_smoke():
                 lambda: [opt(params, batch) for batch in batches])
             torch.cuda.synchronize()
             n, layers = len(REQUESTS), cfg.n_layers
-            route = "f32" if dtype == "float32" else "simt_bf16"
-            want = {"sm90": 0, "f32": 0, "simt_bf16": 0,
+            route = "mma_f32" if dtype == "float32" else "mma_bf16"
+            want = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
                     "rmsnorm": n * (2 * layers + 1)}
             want[route] = n * layers
             if launches != want:
@@ -3775,7 +3877,7 @@ def phase_dense_serve(cfg, arch, params, opt):
     if lengths != {steps} or rows != steps + 1:
         raise AssertionError(f"{arch} serve: cache lengths {lengths} of "
                              f"{rows} rows")
-    if launches != {"sm90": 0, "f32": 0, "simt_bf16": 0,
+    if launches != {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
                     "rmsnorm": (2 * cfg.n_layers + 1) * steps}:
         raise AssertionError(f"{arch} serve launches {launches}")
     want_tok = (batch, DENSE_SERVE["gen"]) + \
@@ -3813,7 +3915,7 @@ def phase_dense():
     """Phase 14: (a) the flash kernel at the new head dims, (b) the four
     dense configs at full width through one plan each, one model at a
     time, with latency and (granite) a profile, (c) correctness at depth,
-    (d) the smoke configs through the SIMT route, (e) the KV-cache server
+    (d) the smoke configs through the mma route, (e) the KV-cache server
     for musicgen and internvl2.  Returns the kernel rows and the launches
     per path."""
     import torch
@@ -3821,7 +3923,7 @@ def phase_dense():
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     rows = phase_dense_kernels()
-    zero = {"sm90": 0, "f32": 0, "simt_bf16": 0, "rmsnorm": 0}
+    zero = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0, "rmsnorm": 0}
     prefill, serve_l = dict(zero), dict(zero)
     summary = {}
     for arch in DENSE_ARCHS:
@@ -3866,9 +3968,9 @@ def phase_dense():
 def dense_row(r):
     """A phase 14 (a) row in the kernels line's keys."""
     return {"shape": r["shape"], "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain"], "bound_ms": r["bound"],
-            "bound_by": r["by"], "library_ms": r["lib"],
-            "library_call": f"sdpa ({r['lib_how']})"}
+            "device_ms": r["device"], "plain_ms": r["plain"],
+            "bound_ms": r["bound"], "bound_by": r["by"],
+            "library_ms": r["lib"], "library_call": f"sdpa ({r['lib_how']})"}
 
 
 def main() -> int:
@@ -3914,7 +4016,7 @@ def main() -> int:
         f"trainer {trainer_launches}, table1 {table1_launches}")
     for path, n in (("trainer", trainer_launches),
                     ("table1", table1_launches)):
-        if not (n["sm90"] > 0 and n["rmsnorm"] > 0 and n["f32"] == 0):
+        if not (n["sm90"] > 0 and n["rmsnorm"] > 0 and n["mma_f32"] == 0):
             raise AssertionError(f"the {path} path launched {n}: want the "
                                  f"sm90 flash and RMSNorm kernels, no f32 "
                                  f"flash")
@@ -3926,7 +4028,7 @@ def main() -> int:
         lambda: phase_resilience(cfg, batches, bucket_logits, gemma))
     log(f"[resilience] launches {res_launches}")
     if not (res_launches["sm90"] > 0 and res_launches["rmsnorm"] > 0
-            and res_launches["f32"] == 0):
+            and res_launches["mma_f32"] == 0):
         raise AssertionError(f"the resilience path launched {res_launches}")
     del gemma, bucket_logits
     gc.collect()
@@ -3946,22 +4048,22 @@ def main() -> int:
               "loop": loop_launches["sm90"],
               "trainer": trainer_launches["sm90"],
               "table1": table1_launches["sm90"]}),
-            ("flash_float32", "flash_attention_simt_f32",
-             "src/repro_torch/csrc/flash_attention.cu", flash_src,
+            ("flash_float32", "flash_attention_mma_f32",
+             "src/repro_torch/csrc/flash_attention_mma.cu", flash_src,
              {"prefill_f32": f32_launches,
               "train": train["flash_attention_f32"],
-              "buckets": buckets["f32"],
-              "bounded": bounded_launches["f32"],
-              "loop": loop_launches["f32"],
-              "trainer": trainer_launches["f32"],
-              "table1": table1_launches["f32"]}),
-            ("flash_simt_bf16", "flash_attention_simt_bf16",
-             "src/repro_torch/csrc/flash_attention.cu", flash_src,
-             {"buckets": buckets["simt_bf16"],
-              "bounded": bounded_launches["simt_bf16"],
-              "loop": loop_launches["simt_bf16"],
-              "trainer": trainer_launches["simt_bf16"],
-              "table1": table1_launches["simt_bf16"]}),
+              "buckets": buckets["mma_f32"],
+              "bounded": bounded_launches["mma_f32"],
+              "loop": loop_launches["mma_f32"],
+              "trainer": trainer_launches["mma_f32"],
+              "table1": table1_launches["mma_f32"]}),
+            ("flash_mma_bf16", "flash_attention_mma_bf16",
+             "src/repro_torch/csrc/flash_attention_mma.cu", flash_src,
+             {"buckets": buckets["mma_bf16"],
+              "bounded": bounded_launches["mma_bf16"],
+              "loop": loop_launches["mma_bf16"],
+              "trainer": trainer_launches["mma_bf16"],
+              "table1": table1_launches["mma_bf16"]}),
             ("rmsnorm", "rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm.py:17",
              {"prefill": launches["rmsnorm"], "train": train["rmsnorm"],
@@ -3970,17 +4072,17 @@ def main() -> int:
               "loop": loop_launches["rmsnorm"],
               "trainer": trainer_launches["rmsnorm"],
               "table1": table1_launches["rmsnorm"]})):
-        counter = {"flash_bfloat16": "sm90", "flash_float32": "f32",
-                   "flash_simt_bf16": "simt_bf16", "rmsnorm": "rmsnorm"}[key]
+        counter = {"flash_bfloat16": "sm90", "flash_float32": "mma_f32",
+                   "flash_mma_bf16": "mma_bf16", "rmsnorm": "rmsnorm"}[key]
         by_path.update({path: n[counter]
                         for path, n in gemma_launches.items()})
         by_path["resilience"] = res_launches[counter]
         by_path.update({path: n[counter]
                         for path, n in dense_launches.items()})
-        # the SIMT route's bf16 instance runs at the dense family's smoke
+        # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \
-            if key == "flash_simt_bf16" else big[key]
+            if key == "flash_mma_bf16" else big[key]
         entry = {"name": route_name, "route": "cuda",
                  "source": src_path, "replaces": replaces,
                  "launches": sum(by_path.values()),
@@ -3988,8 +4090,8 @@ def main() -> int:
                  "max_abs_err": r["err"], "ms": r["ms"],
                  "plain_ms": r["plain"], "bound_ms": r["bound"],
                  "bound_by": r["by"], "library_ms": r["lib"]}
-        if key in ("flash_float32", "flash_simt_bf16"):
-            # the SIMT instances at the dense family's smoke head dims
+        if key in ("flash_float32", "flash_mma_bf16"):
+            # the mma instances at the dense family's smoke head dims
             dt = "float32" if key == "flash_float32" else "bfloat16"
             for sub in DENSE_SMOKE_HEADS:
                 entry[sub] = dense_row(dense_rows[(sub, *DENSE_TIMED_AT,
@@ -4014,7 +4116,7 @@ def main() -> int:
         kernels.append(entry)
     log(f"[done] total {time.perf_counter() - t_start:.1f} s; kernel numbers "
         f"at (b, s) = {REQUESTS[-1]}; launches per path, each counted from 0 "
-        f"just before the path and read just after it (the SIMT route runs "
+        f"just before the path and read just after it (the mma route runs "
         f"only on the f32 and smoke paths); requests {json.dumps(req_rows)}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 // the tensor cores, one producer and two consumer warpgroups.  Bound to
 // Python through a plain C interface (ctypes; see
 // repro_torch/kernels/build.py); every bf16 CUDA call of
-// repro_torch::flash_attention launches it, and csrc/flash_attention.cu
-// stays the f32 route.
+// repro_torch::flash_attention at hd 32, 64, 128 or 256 launches it, and
+// csrc/flash_attention_mma.cu takes f32 and the other head dims.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_flash_kernel
 // (wrapper `flash_attention`, pallas_call at line 108).  Semantics kept:
@@ -24,9 +24,9 @@
 // per (b, head) against ~4*S*hd elements moved, S/4 flops per bf16 byte:
 // below the H100's ~295 flops/byte ridge up to S ~ 1200 (bytes bound: 80 us
 // at b=8, Hq=32, S=1024, hd=128), above it beyond (operations, 989 TFLOP/s
-// bf16).  The f32 route computes with FMAs from shared memory at ~24
-// TFLOP/s; this one feeds the tensor cores from TMA-loaded tiles so that
-// neither the loads nor the address arithmetic sit on the math's path.
+// bf16).  It feeds the tensor cores (wgmma) from TMA-loaded tiles so
+// that neither the loads nor the address arithmetic sit on the math's
+// path.
 //
 // Design (the FlashAttention-3 forward, simplified):
 //   * one CTA of 3 warpgroups per (b*Hq, 128-row q block); heavy (late)

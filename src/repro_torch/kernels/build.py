@@ -31,13 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _SIGNATURES = {
-    "repro_flash_attention": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I,
-                               _I, _I, _I, _I, _I, _F, _P], _I),
-    "repro_flash_attention_simt_bf16": ([_P, _P, _P, _P, ctypes.POINTER(_LL),
-                                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
-                                        _I),
     "repro_flash_attention_sm90": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I,
                                     _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    # the mma kernel's entry points also take the copy width
+    "repro_flash_attention_mma_f32": ([_P, _P, _P, _P, ctypes.POINTER(_LL),
+                                       _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                       _P], _I),
+    "repro_flash_attention_mma_bf16": ([_P, _P, _P, _P, ctypes.POINTER(_LL),
+                                        _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                        _P], _I),
     "repro_rmsnorm": ([_P, _P, _P, _LL, _I, _I, _F, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

@@ -13,22 +13,25 @@ a failed build or launch:
   tiles at hd 256 (what fits in shared memory).  TMA needs 16-byte
   aligned addresses and strides; an input that breaks that raises instead
   of taking a slower kernel.
-* ``"simt"``, float32 at any hd and bfloat16 at every other hd (12 and 16
-  at the smoke widths, 48): ``repro_torch/csrc/flash_attention.cu``, f32
-  FMAs from shared memory (the tensor cores' TF32 would not hold f32 to
-  2e-4), instances at hd 16, 32, 64, 128 and 256, each serving the head
-  dims up to its own with the rest of its columns zero.
+* ``"mma"``, float32 at any hd and bfloat16 at every other hd (12 and 16
+  at the smoke widths, 48): ``repro_torch/csrc/flash_attention_mma.cu``,
+  ``mma.sync`` on the tensor cores with K/V tiles through a ``cp.async``
+  ring; f32 runs each product as three TF32 products on split operands
+  (3xTF32), which holds f32 to 2e-4 where one TF32 product would not;
+  instances at hd 16, 32, 48, 64, 128 and 256, each serving the head dims
+  up to its own with the rest of its columns zero.  It takes any pointer
+  and stride: the copy width follows their alignment
+  (``mma_copy_width``), down to plain loads.
 
-Each source's header says what bounds it on an H100 (bytes up to
-S ~ 1200, operations beyond) and how its design maps the TPU's sequential
-kv grid axis onto a loop inside one CTA.
+Each source's header says what bounds it on an H100 and how its design
+maps the TPU's sequential kv grid axis onto a loop inside one CTA.
 
 ``flash_attention_cuda`` is the launch wrapper: it validates the inputs,
 allocates the output, launches on PyTorch's current stream and counts
 every launch in ``flash_attention_cuda.launches``, the sm90 route's in
-``flash_attention_cuda.sm90_launches`` and the SIMT route's bf16 ones in
-``flash_attention_cuda.simt_bf16_launches`` (the SIMT route's f32
-launches are the rest).  Its plain version is ``ref.reference_attention``.
+``flash_attention_cuda.sm90_launches`` and the mma route's in
+``flash_attention_cuda.mma_f32_launches`` and ``mma_bf16_launches``.
+Its plain version is ``ref.reference_attention``.
 """
 from __future__ import annotations
 
@@ -41,15 +44,38 @@ import torch
 from .build import load_library, stream_handle
 
 HEAD_DIMS = (32, 64, 128, 256)   # the sm90 kernel's instances
-MAX_HEAD_DIM = 256               # the SIMT kernel's largest instance
+MAX_HEAD_DIM = 256               # the mma kernel's largest instance
 DTYPES = (torch.float32, torch.bfloat16)
 TMA_ALIGN = 16  # bytes: TMA's alignment of addresses and strides
+# the mma kernel's C entry point and launch counter per dtype
+MMA_ENTRY = {torch.float32: ("repro_flash_attention_mma_f32",
+                             "mma_f32_launches"),
+             torch.bfloat16: ("repro_flash_attention_mma_bf16",
+                              "mma_bf16_launches")}
 
 
 def route_of(dtype: torch.dtype, hd: int) -> str:
     """The route every call at ``(dtype, hd)`` takes: ``"sm90"`` for
-    bfloat16 at one of its head dims, ``"simt"`` for everything else."""
-    return "sm90" if dtype == torch.bfloat16 and hd in HEAD_DIMS else "simt"
+    bfloat16 at one of its head dims, ``"mma"`` for everything else."""
+    return "sm90" if dtype == torch.bfloat16 and hd in HEAD_DIMS else "mma"
+
+
+def mma_copy_width(hd: int, itemsize: int,
+                   operands: Sequence[Tuple[Sequence[int], Sequence[int],
+                                            int]]) -> int:
+    """The mma kernel's ``cp.async`` width in bytes: the widest of 16, 8
+    and 4 that divides the row's ``hd * itemsize`` bytes, every pointer
+    and every (batch, head, row) stride in bytes of the ``(shape, stride,
+    data_ptr)`` operands (a dimension of size 1 is never stepped); 0 where
+    none does (bfloat16 at an odd hd, stride or pointer), which the kernel
+    reads with plain loads."""
+    width = math.gcd(16, hd * itemsize)
+    for shape, stride, ptr in operands:
+        width = math.gcd(width, ptr)
+        for dim in range(3):
+            if shape[dim] > 1:
+                width = math.gcd(width, stride[dim] * itemsize)
+    return width if width >= 4 else 0
 
 
 def sm90_strides(name: str, shape: Sequence[int], stride: Sequence[int],
@@ -83,8 +109,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and row strides are taken (the model passes ``(B, S, H, hd)``
     activations transposed); the head dim must be unit-stride, and on the
     sm90 route (``route_of``) pointers and strides must be multiples of 16
-    bytes.  Returns ``torch.empty_like(q)`` filled: (B, Hq, S, hd) in q's
-    dtype and, for a dense q, q's layout."""
+    bytes (the mma route takes any).  Returns ``torch.empty_like(q)``
+    filled: (B, Hq, S, hd) in q's dtype and, for a dense q, q's layout."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention expects 4-D q, k and v")
     b, hq, s, hd = q.shape
@@ -117,21 +143,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         per = [x.stride()[:3] for x in (q, k, v, out)]
     strides = (ctypes.c_longlong * 12)(*(st for x in per for st in x))
     lib = load_library()
-    simt_bf16 = not sm90 and q.dtype == torch.bfloat16
-    entry = lib.lib.repro_flash_attention_sm90 if sm90 \
-        else lib.lib.repro_flash_attention_simt_bf16 if simt_bf16 \
-        else lib.lib.repro_flash_attention
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, b, hq, hkv, s, t, hd, int(bool(causal)), float(scale)]
+    if sm90:
+        entry, counter = lib.lib.repro_flash_attention_sm90, "sm90_launches"
+    else:
+        name, counter = MMA_ENTRY[q.dtype]
+        entry = getattr(lib.lib, name)
+        args.append(mma_copy_width(hd, q.dtype.itemsize, [
+            (x.shape, x.stride(), x.data_ptr()) for x in (q, k, v)]))
     with torch.cuda.device(q.device):
-        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   strides, b, hq, hkv, s, t, hd, int(bool(causal)),
-                   float(scale), stream_handle(q.device))
+        rc = entry(*args, stream_handle(q.device))
     lib.check(rc, "flash_attention launch")
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.sm90_launches += int(sm90)
-    flash_attention_cuda.simt_bf16_launches += int(simt_bf16)
+    setattr(flash_attention_cuda, counter,
+            getattr(flash_attention_cuda, counter) + 1)
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.sm90_launches = 0
-flash_attention_cuda.simt_bf16_launches = 0
+flash_attention_cuda.mma_f32_launches = 0
+flash_attention_cuda.mma_bf16_launches = 0

@@ -9,8 +9,8 @@ offers:
   and per SM, and registers per SM — the *occupancy* and *validity*
   constraints of a CUDA kernel (a variant whose shared memory exceeds the
   per-block maximum cannot launch);
-* HBM bandwidth, the bf16 tensor-core rate and the f32 rate outside the
-  tensor cores — the roofline terms;
+* HBM bandwidth, the bf16 and TF32 tensor-core rates and the f32 rate
+  outside the tensor cores — the roofline terms;
 * a host cost per kernel launch — the term that counts the plain
   versions' many launches against a fused kernel's one;
 * ``max_transient_bytes`` — the most device memory a variant may
@@ -43,7 +43,7 @@ _TORCH_FIELD = {"sm_count": "multi_processor_count",
 class HardwareModel:
     """Per-card constants consumed by the kernel-variant cost model.
 
-    Defaults: NVIDIA H100 SXM5 80GB.  SMs, HBM3 rate and the two FLOP
+    Defaults: NVIDIA H100 SXM5 80GB.  SMs, HBM3 rate and the three FLOP
     rates are NVIDIA's H100 data sheet (dense, no sparsity, at the 700 W
     limit); shared memory and registers are the CUDA C++ Programming
     Guide's limits for compute capability 9.0."""
@@ -56,6 +56,7 @@ class HardwareModel:
     max_threads_per_sm: int = 2048           # CC 9.0
     hbm_bw: float = 3.35e12                  # HBM3 bytes/s, data sheet
     tensor_flops: float = 989e12             # bf16 dense tensor-core FLOP/s
+    tf32_flops: float = 495e12               # TF32 dense tensor-core FLOP/s
     fp32_flops: float = 67e12                # f32 FLOP/s off the tensor cores
     # host time of one kernel launch from eager PyTorch (dispatcher and
     # cudaLaunchKernel): an estimate of the order such a call costs on a

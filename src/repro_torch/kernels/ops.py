@@ -11,7 +11,7 @@ Dispatch rules (``impl``):
 * ``"ref"`` and the plain variants' names (``"ref_dense"``,
   ``"ref_unfused"``) run the plain PyTorch version, on any device;
 * a kernel variant's name (``"sm90_bm128_bn128"``,
-  ``"simt_f32_bq64_bkv32"`` and ``"simt_bf16_bq64_bkv32"`` for flash
+  ``"mma_f32_bq64_bkv64"`` and ``"mma_bf16_bq64_bkv64"`` for flash
   attention, ``"cuda_row256"`` for RMSNorm; see ``kernels/variants.py``)
   launches that kernel on a CUDA tensor and raises if the tensor's dtype
   (or, for flash attention, its head dim) is not one the kernel takes;
@@ -57,8 +57,8 @@ from .rmsnorm import rmsnorm_cuda
 # impl name -> the dtype its kernel takes (None: any); "ref*" are plain
 FLASH_IMPLS = {None: None, "ref": None, "ref_dense": None,
                "sm90_bm128_bn128": torch.bfloat16,
-               "simt_f32_bq64_bkv32": torch.float32,
-               "simt_bf16_bq64_bkv32": torch.bfloat16}
+               "mma_f32_bq64_bkv64": torch.float32,
+               "mma_bf16_bq64_bkv64": torch.bfloat16}
 RMSNORM_IMPLS = {None: None, "ref": None, "ref_unfused": None,
                  "cuda_row256": None}
 
@@ -86,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     impl: Optional[str] = None) -> torch.Tensor:
     """q: (B, Hq, S, hd); k/v: (B, Hkv, T, hd) -> (B, Hq, S, hd)."""
     route = _route(impl, q, FLASH_IMPLS)
-    # a kernel variant's name starts with its route (``sm90_``, ``simt_``)
+    # a kernel variant's name starts with its route (``sm90_``, ``mma_``)
     if impl is not None and not impl.startswith("ref") \
             and not impl.startswith(route_of(q.dtype, q.shape[-1])):
         raise ValueError(f"impl {impl!r} does not take head dim "

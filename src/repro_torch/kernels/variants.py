@@ -8,7 +8,8 @@ and a cost function that prices one variant at one concrete shape from
 the :class:`~repro_torch.kernels.hw_model.HardwareModel` constants:
 
 * **tensor-core / f32 time** — FLOPs over the rate of the unit that does
-  them (bf16 ``wgmma`` on the tensor cores, f32 FMAs off them);
+  them (bf16 ``wgmma`` and ``mma.sync`` on the tensor cores, f32 products
+  as three TF32 ones, the softmax on the f32 units);
 * **HBM time** — bytes moved, including the K/V tiles each q block
   re-reads and, for the plain versions, every round trip of their
   intermediates (the f32 score matrix, the f32 copies);
@@ -18,8 +19,8 @@ the :class:`~repro_torch.kernels.hw_model.HardwareModel` constants:
   kernel, one per aten op for a plain version.
 
 Each variant's time is divided by an efficiency calibrated once from its
-measured time at the ``llama2_1b`` (8,1024) row of ``PERF.md``'s kernel
-table (``CALIBRATION`` below names the row): the model keeps the shape
+measured time at one (8,1024) row of ``PERF.md``'s kernel table
+(``CALIBRATION`` below names the row): the model keeps the shape
 of the roofline and the measured distance from it.
 
 **Validity** is judged at the range's *upper* corner (every quantity is
@@ -27,11 +28,11 @@ monotone in every dim), so the whole-range fallback plan can never adopt
 a variant that some in-range shape breaks.  A variant is valid when
 
 * the tensor's dtype is one its kernel takes (``sm90_*`` and
-  ``simt_bf16_*``: bfloat16, ``simt_f32_*``: float32, ``cuda_*``: float32
+  ``mma_bf16_*``: bfloat16, ``mma_f32_*``: float32, ``cuda_*``: float32
   or bfloat16, ``ref_*``: any);
 * a flash kernel's head dim is one its route takes at that dtype, the
   op's own rule (``flash_attention.route_of``): the sm90 kernel at
-  ``HEAD_DIMS``, the SIMT kernel at any other head dim up to
+  ``HEAD_DIMS``, the mma kernel at any other head dim up to
   ``MAX_HEAD_DIM`` in bfloat16 and at every one in float32, so a plan
   never selects a kernel that its inputs would route elsewhere;
 * its shared memory fits the per-block opt-in limit;
@@ -70,7 +71,7 @@ from .hw_model import DEFAULT_HW, HardwareModel
 # point only — validity never relies on it (an unbounded transient or
 # shared-memory footprint is invalid)
 _UNBOUNDED_PROBE = 4096
-SIMT_HEAD_DIMS = (16, 32, 64, 128, 256)  # the SIMT flash kernel's instances
+MMA_HEAD_DIMS = (16, 32, 48, 64, 128, 256)  # the mma flash kernel's instances
 
 # the port's kernel ops (captured node ``prim_name``) -> registry key
 PRIM_KEYS = {"repro_torch.flash_attention.default": "flash_attention",
@@ -165,21 +166,20 @@ SM90 = KernelVariant(
     # setmaxnreg: 24 registers for the producer warpgroup, 240 for each of
     # the two consumer warpgroups (csrc/flash_attention_sm90.cu)
     regs_per_cta=128 * 24 + 256 * 240)
-SIMT = KernelVariant(
-    name="simt_f32_bq64_bkv32", route="simt", dtypes=(torch.float32,),
-    block=(("block_kv", 32), ("block_q", 64)), threads=256,
-    # ptxas -v on the H100 build (chip_smoke.py, PR 14): 80 registers a
-    # thread at hd 128, 64 at hd 32 and 64; 80 is charged.  hd 256 takes
-    # 127, but its 139,904 B of shared memory already hold it to
-    # one CTA an SM, which 80 or 127 registers a thread both allow
-    regs_per_cta=256 * 80)
-# the same kernel on bf16 inputs (f32 tiles and math), at the head dims
-# the sm90 kernel has no instance for
-SIMT_BF16 = KernelVariant(
-    name="simt_bf16_bq64_bkv32", route="simt", dtypes=(torch.bfloat16,),
-    block=SIMT.block, threads=SIMT.threads, regs_per_cta=SIMT.regs_per_cta)
+# csrc/flash_attention_mma.cu: 4 warps, 64 q rows, 64-key tiles (fewer at
+# hd 256 and at f32 hd 128: ``variant_block``), one variant per dtype
+# ptxas -v on the H100 build (chip_smoke.py phase 1): the most any of a
+# variant's six instances takes is charged, 228 registers a thread in f32
+# (hd 256) and 252 in bf16 (hd 256)
+MMA_F32 = KernelVariant(
+    name="mma_f32_bq64_bkv64", route="mma", dtypes=(torch.float32,),
+    block=(("block_kv", 64), ("block_q", 64)), threads=128,
+    regs_per_cta=128 * 228)
+MMA_BF16 = KernelVariant(
+    name="mma_bf16_bq64_bkv64", route="mma", dtypes=(torch.bfloat16,),
+    block=MMA_F32.block, threads=MMA_F32.threads, regs_per_cta=128 * 252)
 REF_DENSE = KernelVariant(name="ref_dense", route="ref")
-FLASH_VARIANTS: Tuple[KernelVariant, ...] = (SM90, SIMT, SIMT_BF16,
+FLASH_VARIANTS: Tuple[KernelVariant, ...] = (SM90, MMA_F32, MMA_BF16,
                                              REF_DENSE)
 
 ROW256 = KernelVariant(name="cuda_row256", route="cuda",
@@ -192,11 +192,11 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def simt_instance(hd: int) -> int:
-    """The SIMT kernel's instance that runs head dim ``hd``: the smallest
-    of ``SIMT_HEAD_DIMS`` at least ``hd`` (``csrc/flash_attention.cu``'s
+def mma_instance(hd: int) -> int:
+    """The mma kernel's instance that runs head dim ``hd``: the smallest
+    of ``MMA_HEAD_DIMS`` at least ``hd`` (``csrc/flash_attention_mma.cu``'s
     dispatch), its columns past ``hd`` zero."""
-    return next(h for h in SIMT_HEAD_DIMS if h >= hd)
+    return next(h for h in MMA_HEAD_DIMS if h >= hd)
 
 
 def flash_hd_invalid_reason(variant: KernelVariant, hd: Optional[int],
@@ -218,10 +218,20 @@ def variant_block(variant: KernelVariant,
     """The tile sizes ``variant`` runs at ``shape``: its ``block``, but
     the sm90 kernel's hd-256 instance takes 64-key tiles
     (``Geo<HD>::BN`` in ``csrc/flash_attention_sm90.cu``), as 128-key
-    ones would need 320 KiB of shared memory."""
+    ones would need 320 KiB of shared memory, and the mma kernel's f32
+    instances at hd 128 and 256 take 32-key tiles and its bf16 one at 256
+    16-key tiles (``Geo<HD, Elem>::BN`` in ``csrc/flash_attention_mma.cu``).
+    """
     block = dict(variant.block)
-    if variant.route == "sm90" and shape.get("hd") == 256:
+    hd = shape.get("hd")
+    if variant.route == "sm90" and hd == 256:
         block["block_kv"] = 64
+    if variant.route == "mma" and hd is not None and hd <= MAX_HEAD_DIM:
+        inst, f32 = mma_instance(hd), variant.dtypes[0].itemsize == 4
+        if inst == 256:
+            block["block_kv"] = 32 if f32 else 16
+        elif inst == 128 and f32:
+            block["block_kv"] = 32
     return block
 
 
@@ -249,14 +259,15 @@ def variant_smem_bytes(prim_name: str, variant: KernelVariant,
         q_tile = block["block_q"] * hd * 2
         kv_tile = block["block_kv"] * hd * 2
         return max(q_tile + 4 * kv_tile + 64 + 1024, 116 * 1024)
-    # csrc/flash_attention.cu smem_floats<HD>() * 4 of the instance HD
-    # that runs hd: padded Q and K tiles, the V tile and the padded P
-    # tile, in f32
+    # csrc/flash_attention_mma.cu Geo<HD, Elem>::SMEM of the instance HD
+    # that runs hd: the Q tile and 2 stages of K and V tiles, every row
+    # padded by 16 bytes
     if hd > MAX_HEAD_DIM:
         return None
-    hd = simt_instance(hd)
-    bq, bkv = variant.block_of("block_q"), variant.block_of("block_kv")
-    return 4 * (bq * (hd + 1) + bkv * (hd + 1) + bkv * hd + bq * (bkv + 1))
+    block = variant_block(variant, hi_shape)
+    size = variant.dtypes[0].itemsize
+    return (block["block_q"] + 4 * block["block_kv"]) \
+        * (mma_instance(hd) + 16 // size) * size
 
 
 def _prod(*xs: Optional[int]) -> Optional[int]:
@@ -399,16 +410,21 @@ def flash_cost(variant: KernelVariant, shape: Mapping[str, int],
         # work of one P·V (flash_attention_sm90.cu, "P enters as two bf16
         # terms"); the softmax on the f32 units
         flops_tc = b * hq * pairs * 6.0 * tile * hd
-        flops_fp32 = b * hq * pairs * 8.0 * tile
+        tc_rate = hw.tensor_flops
+    elif itemsize == 4:
+        # 3xTF32 over the instance's head dim (its zero columns too): each
+        # product three TF32 ones, so a third of the TF32 rate
+        flops_tc = b * hq * pairs * 4.0 * tile * mma_instance(hd)
+        tc_rate = hw.tf32_flops / 3
     else:
-        # f32 FMAs over the instance's head dim (its zero columns too)
-        flops_tc = 0.0
-        flops_fp32 = b * hq * pairs * (4.0 * tile * simt_instance(hd)
-                                       + 8.0 * tile)
+        # bf16 mma.sync, P.V with P as two terms as in the sm90 kernel
+        flops_tc = b * hq * pairs * 6.0 * tile * mma_instance(hd)
+        tc_rate = hw.tensor_flops
+    flops_fp32 = b * hq * pairs * 8.0 * tile
     # Q read and O written once; each q block re-reads its K/V tiles
     hbm = (2 * b * hq * s * hd + b * hq * pairs * 2 * min(bkv, t) * hd) \
         * itemsize
-    compute_s = flops_tc / hw.tensor_flops + flops_fp32 / hw.fp32_flops
+    compute_s = flops_tc / tc_rate + flops_fp32 / hw.fp32_flops
     smem = variant_smem_bytes("flash_attention", variant, shape) or 0
     fill = _fill(b * hq * nq, variant, smem, hw)
     roof = max(compute_s, hbm / hw.hbm_bw)
@@ -448,23 +464,30 @@ def rmsnorm_cost(variant: KernelVariant, shape: Mapping[str, int],
 _LLAMA_8x1024_FLASH = {"b": 8, "hq": 32, "hkv": 32, "s": 1024, "t": 1024,
                        "hd": 128}
 _LLAMA_8x1024_NORM = {"n": 8192, "d": 4096}
+# the dense family's smoke heads at hd 16 at the (8, 1024) request: the
+# mma kernel's bf16 variant runs only where the sm90 kernel has no
+# instance, so it is calibrated there
+_HD16_8x1024_FLASH = {"b": 8, "hq": 4, "hkv": 2, "s": 1024, "t": 1024,
+                      "hd": 16}
 # variant -> (shape, dtype, measured seconds): PERF.md §6, the kernel table
 # of PR 13 (chip_smoke.py R5 on an H100 80GB HBM3 at 700 W: CUDA-event
 # means of 20 launches after 3 warm-ups at llama2_1b (b, s) = (8, 1024),
-# q/k/v (8, 32, 1024, 128) in the model layout, RMSNorm over 8192 x 4096)
+# q/k/v (8, 32, 1024, 128) in the model layout, RMSNorm over 8192 x 4096;
+# the mma kernel's rows: PERF.md §6, the device time of a launch,
+# chip_smoke.py's ``device_ms`` in phase 14 (a) on the same card: at hd
+# 16 a call's CUDA-event time, 0.0423 ms, holds the Python wrapper's host
+# time, which ``hw.launch_s`` does not model)
 CALIBRATION: Dict[str, Tuple[Dict[str, int], torch.dtype, float]] = {
     SM90.name: (_LLAMA_8x1024_FLASH, torch.bfloat16, 0.2716e-3),  # ms col.
-    SIMT.name: (_LLAMA_8x1024_FLASH, torch.float32, 2.8414e-3),   # ms col.
+    MMA_F32.name: (_LLAMA_8x1024_FLASH, torch.float32, 1.4720e-3),  # device
+    MMA_BF16.name: (_HD16_8x1024_FLASH, torch.bfloat16, 0.0320e-3),  # device
     REF_DENSE.name: (_LLAMA_8x1024_FLASH, torch.bfloat16, 5.3987e-3),  # plain
     ROW256.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.0499e-3),  # ms col.
     REF_UNFUSED.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.5538e-3),  # plain
 }
 # (the sm90 kernel's hd-256 instance, 64-key tiles, is priced with the
-# efficiency of this hd-128 row)
-# variants priced with another's efficiency: the SIMT kernel's bf16
-# instance runs the f32 one's code on bf16 loads, so its model keeps the
-# f32 row's distance from the roofline and only its bytes change
-CALIBRATED_AS = {SIMT_BF16.name: SIMT}
+# efficiency of this hd-128 row, and every mma instance with its
+# variant's row)
 _EFF_CACHE: Dict[Tuple[str, HardwareModel], float] = {}
 
 
@@ -472,7 +495,6 @@ def efficiency(prim_name: str, variant: KernelVariant,
                hw: HardwareModel = DEFAULT_HW) -> float:
     """Modelled / measured time at the variant's calibration row, launch
     cost excluded: the share of its modelled roofline it reaches."""
-    variant = CALIBRATED_AS.get(variant.name, variant)
     key = (variant.name, hw)
     eff = _EFF_CACHE.get(key)
     if eff is None:
@@ -533,8 +555,8 @@ def _flash_default(dtype: torch.dtype, shape: Mapping[str, Any]
     """``flash_attention.route_of`` as a variant."""
     if dtype == torch.bfloat16:
         return SM90 if route_of(dtype, shape.get("hd", HEAD_DIMS[0])) \
-            == "sm90" else SIMT_BF16
-    return SIMT if dtype == torch.float32 else REF_DENSE
+            == "sm90" else MMA_BF16
+    return MMA_F32 if dtype == torch.float32 else REF_DENSE
 
 
 register_kernel("flash_attention", FLASH_VARIANTS, _flash_default, flash_cost)

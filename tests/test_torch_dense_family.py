@@ -213,10 +213,10 @@ def test_prefill_through_one_plan_matches_the_reference(arch, monkeypatch):
     want_seq = f"{cfg.vis_tokens} + s" if cfg.input_mode == "vlm" else "s"
     assert seq == want_seq
     assert flash[0].invals[0].dims[3] == cfg.resolved_head_dim
-    # the f32 plan selects the SIMT kernel at hd 16 / 12 on every layer
+    # the f32 plan selects the mma kernel at hd 16 / 12 on every layer
     sels = {s.variant.name for s in opt.plan.kernel_selections.values()
             if s.prim_name == "flash_attention"}
-    assert sels == {"simt_f32_bq64_bkv32"}
+    assert sels == {"mma_f32_bq64_bkv64"}
 
 
 # -- decode -------------------------------------------------------------------------
@@ -328,17 +328,17 @@ def test_specs_equal_the_reference(arch):
 
 
 def test_the_route_rule_and_the_ops_named_variants():
-    """bf16 takes the sm90 kernel at its head dims and the SIMT kernel at
+    """bf16 takes the sm90 kernel at its head dims and the mma kernel at
     every other; a variant name the rule would route elsewhere raises,
     on the CPU too, where the names run the plain version."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import route_of
     assert [route_of(torch.bfloat16, hd) for hd in (12, 16, 48, 32, 256)] \
-        == ["simt", "simt", "simt", "sm90", "sm90"]
-    assert {route_of(torch.float32, hd) for hd in (12, 128, 256)} == {"simt"}
+        == ["mma", "mma", "mma", "sm90", "sm90"]
+    assert {route_of(torch.float32, hd) for hd in (12, 128, 256)} == {"mma"}
     rng = np.random.RandomState(5)
-    for hd, good, bad in ((16, "simt_bf16_bq64_bkv32", "sm90_bm128_bn128"),
-                          (32, "sm90_bm128_bn128", "simt_bf16_bq64_bkv32")):
+    for hd, good, bad in ((16, "mma_bf16_bq64_bkv64", "sm90_bm128_bn128"),
+                          (32, "sm90_bm128_bn128", "mma_bf16_bq64_bkv64")):
         q, k, v = (torch.from_numpy(rng.randn(1, 2, 9, hd).astype(
             np.float32)).to(torch.bfloat16) for _ in range(3))
         assert torch.equal(flash_attention(q, k, v, True, None, good),

@@ -7,7 +7,7 @@
 * the gemma prefill equals the reference's ``prefill`` at the smoke
   width (hd 32) and at hd 256, eagerly and through one ``optimize`` plan;
 * the selector picks the sm90 kernel's hd-256 instance for bf16 and the
-  f32 kernel for f32, and the SIMT kernel at hd 12, 16 and 48 in both
+  mma kernel for f32, and the mma kernel at hd 12, 16 and 48 in both
   dtypes, which the sm90 kernel still refuses;
 * ``decode_step`` equals the reference's token by token from a
   mid-stream cache (``cache_from_jax``), for gemma and llama;
@@ -211,13 +211,13 @@ def test_the_selector_takes_hd256_and_still_refuses_hd48():
     assert V.default_variant("flash_attention", torch.bfloat16) is bf16
     f32, _s, _p, _i = V.select_variant("flash_attention", bounds,
                                        torch.float32, {"causal": True})
-    assert f32 is V.SIMT
-    # hd 12, 16 and 48: the sm90 kernel still refuses them, the SIMT
+    assert f32 is V.MMA_F32
+    # hd 12, 16 and 48: the sm90 kernel still refuses them, the mma
     # kernel takes them in both dtypes (hd 12 in its 16 instance, 48 in
-    # its 64), over the whole range where the plain version cannot serve
+    # its own), over the whole range where the plain version cannot serve
     for hd in (12, 16, 48):
-        for dtype, want in ((torch.bfloat16, V.SIMT_BF16),
-                            (torch.float32, V.SIMT)):
+        for dtype, want in ((torch.bfloat16, V.MMA_BF16),
+                            (torch.float32, V.MMA_F32)):
             got, _s, _p, invalid = V.select_variant(
                 "flash_attention", dict(bounds, hd=(hd, hd)), dtype,
                 {"causal": True})
@@ -227,11 +227,14 @@ def test_the_selector_takes_hd256_and_still_refuses_hd48():
             assert "max_transient_bytes" in invalid[V.REF_DENSE.name]
             assert V.default_variant("flash_attention", dtype,
                                      {"hd": hd}) is want
-    assert V.variant_smem_bytes("flash_attention", V.SIMT_BF16,
-                                {"hd": 12}) == V.variant_smem_bytes(
-        "flash_attention", V.SIMT, {"hd": 16}) == 17_024
+    # hd 12 runs in the 16 instance: (64 + 4 x 64) rows of 16 columns and
+    # a 16-byte pad, 2 bytes each in bf16 and 4 in f32
+    assert V.variant_smem_bytes("flash_attention", V.MMA_BF16,
+                                {"hd": 12}) == 320 * 24 * 2 == 15_360
+    assert V.variant_smem_bytes("flash_attention", V.MMA_F32,
+                                {"hd": 16}) == 320 * 20 * 4 == 25_600
     assert "bfloat16 takes the sm90" in V.variant_invalid_reason(
-        "flash_attention", V.SIMT_BF16, hi, torch.bfloat16)
+        "flash_attention", V.MMA_BF16, hi, torch.bfloat16)
     with pytest.raises(ValueError, match="no valid"):
         V.select_variant("flash_attention", dict(bounds, hd=(320, 320)),
                          torch.bfloat16, {"causal": True})

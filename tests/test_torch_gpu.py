@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import (flash_attention, flash_attention_cuda,
                                  reference_attention, reference_rmsnorm,
                                  rmsnorm, rmsnorm_cuda)
+from repro_torch.kernels.flash_attention import route_of
 
 # bf16: one rounding of the output is 2^-8 relative; kernel and plain
 # version may round one ulp apart, which 1e-2 covers and a lost kv tile
@@ -54,11 +55,14 @@ def test_cuda_kernels_match_plain_versions(gen, dtype):
         for causal in (True, False):
             n0 = flash_attention_cuda.launches
             g0 = flash_attention_cuda.sm90_launches
+            m0 = flash_attention_cuda.mma_f32_launches
             got = flash_attention(q, k, v, causal, None, None)
             assert flash_attention_cuda.launches == n0 + 1
-            # bf16 takes the TMA + wgmma kernel, f32 the f32 one
+            # bf16 takes the TMA + wgmma kernel, f32 the mma kernel (3xTF32)
             assert flash_attention_cuda.sm90_launches == \
                 g0 + (dtype == torch.bfloat16)
+            assert flash_attention_cuda.mma_f32_launches == \
+                m0 + (dtype == torch.float32)
             torch.testing.assert_close(
                 got, reference_attention(q, k, v, causal=causal),
                 rtol=tol, atol=tol)
@@ -96,8 +100,9 @@ def test_cuda_flash_reads_and_writes_the_model_layout(gen, dtype, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_cuda_flash_at_hd256_matches_the_plain_version(gen, dtype):
     """Head dim 256 (gemma): the sm90 kernel's 64-key-tile instance for
-    bf16, the f32 kernel for f32; MQA and GQA, one row, ragged S, S < T,
-    and gemma_2b's (8, 1024) request in the model layout."""
+    bf16, the mma kernel's f32 instance for f32; MQA and GQA, one row,
+    ragged S, S < T, and gemma_2b's (8, 1024) request in the model
+    layout."""
     for (b, hq, hkv, s, t) in [(1, 8, 1, 1, 1), (1, 8, 1, 17, 17),
                                (2, 8, 1, 100, 100), (1, 4, 2, 100, 160),
                                (8, 8, 1, 1024, 1024)]:
@@ -107,10 +112,13 @@ def test_cuda_flash_at_hd256_matches_the_plain_version(gen, dtype):
         for causal in (True, False):
             n0 = flash_attention_cuda.launches
             g0 = flash_attention_cuda.sm90_launches
+            m0 = flash_attention_cuda.mma_f32_launches
             got = flash_attention(q, k, v, causal, None, None)
             assert flash_attention_cuda.launches == n0 + 1
             assert flash_attention_cuda.sm90_launches == \
                 g0 + (dtype == torch.bfloat16)
+            assert flash_attention_cuda.mma_f32_launches == \
+                m0 + (dtype == torch.float32)
             assert got.stride() == q.stride()
             torch.testing.assert_close(
                 got, reference_attention(q, k, v, causal=causal),
@@ -161,7 +169,7 @@ def test_gemma_prefill_at_full_width_launches_the_hd256_kernel(gen):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(gen):
-    # every head dim up to 256 has a route (hd 48 the SIMT kernel's 64
+    # every head dim up to 256 has a route (hd 48 the mma kernel's own
     # instance); past 256 none
     q = _randn(gen, (1, 2, 16, 320), torch.float32)      # hd 320
     with pytest.raises(ValueError, match="head dim"):
@@ -259,13 +267,12 @@ def test_bucketed_prefill_launches_what_each_bucket_selected(gen, dtype):
     plain = optimize(make_prefill_step(cfg, impl="ref"), *specs,
                      dynamic_dims=dims, buckets="geometric",
                      kernel_select=False)
-    route = {"sm90_bm128_bn128": "sm90", "simt_f32_bq64_bkv32": "f32",
+    route = {"sm90_bm128_bn128": "sm90", "mma_f32_bq64_bkv64": "mma_f32",
              "cuda_row256": "rmsnorm"}
 
     def counts():
         return {"sm90": flash_attention_cuda.sm90_launches,
-                "f32": flash_attention_cuda.launches
-                - flash_attention_cuda.sm90_launches,
+                "mma_f32": flash_attention_cuda.mma_f32_launches,
                 "rmsnorm": rmsnorm_cuda.launches}
 
     for b, s in [(1, 16), (3, 96), (8, 128)]:
@@ -274,7 +281,7 @@ def test_bucketed_prefill_launches_what_each_bucket_selected(gen, dtype):
         c0 = counts()
         got = opt(params, tok)
         bp = opt.specialization_table.peek(opt.last_bucket)
-        want = {"sm90": 0, "f32": 0, "rmsnorm": 0}
+        want = {"sm90": 0, "mma_f32": 0, "rmsnorm": 0}
         for sel in bp.plan.kernel_selections.values():
             want[route[sel.variant.name]] += 1
         assert {k: v - c0[k] for k, v in counts().items()} == want
@@ -722,33 +729,66 @@ def test_a_real_oom_under_a_ballast_fails_structured(gen):
     assert torch.equal(opt(params, tok), want)
 
 
+def _offset_view(gen, shape, dtype):
+    """A dense ``shape`` view one element past an aligned buffer's start."""
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    return _randn(gen, (n + 1,), dtype)[1:].view(shape)
+
+
+def _check_mma(gen, dtype, hd, shapes):
+    """The mma kernel at ``hd`` against the plain version at ``shapes``,
+    in the model layout and with every pointer one element off, causal
+    and not: one launch each on the mma route of its dtype."""
+    counter = "mma_f32_launches" if dtype == torch.float32 \
+        else "mma_bf16_launches"
+    for (b, hq, hkv, s, t) in shapes:
+        model = [_randn(gen, (b, n, h, hd), dtype).transpose(1, 2)
+                 for n, h in ((s, hq), (t, hkv), (t, hkv))]
+        offset = [_offset_view(gen, (b, h, n, hd), dtype)
+                  for n, h in ((s, hq), (t, hkv), (t, hkv))]
+        for q, k, v in (model, offset):
+            for causal in (True, False):
+                n0 = flash_attention_cuda.launches
+                g0 = flash_attention_cuda.sm90_launches
+                m0 = getattr(flash_attention_cuda, counter)
+                got = flash_attention(q, k, v, causal, None, None)
+                assert flash_attention_cuda.launches == n0 + 1
+                assert flash_attention_cuda.sm90_launches == g0
+                assert getattr(flash_attention_cuda, counter) == m0 + 1
+                assert got.stride() == q.stride()
+                torch.testing.assert_close(
+                    got, reference_attention(q, k, v, causal=causal),
+                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("hd", [12, 16, 48])
+@pytest.mark.parametrize("hd", [12, 13, 16, 48])
 def test_simt_flash_at_hd12_16_48_matches_the_plain_version(gen, dtype, hd):
-    """The SIMT kernel at head dims the sm90 kernel has no instance for
-    (hd 12 in its 16 instance, 48 in its 64), f32 and bf16: the smoke
-    models' heads, one row, ragged S, S < T, and a (8, 1024) request, in
-    the model layout, causal and not; every launch on the SIMT route."""
-    for (b, hq, hkv, s, t) in [(1, 6, 2, 1, 1), (1, 6, 2, 17, 17),
-                               (2, 4, 2, 100, 100), (1, 4, 4, 100, 160),
-                               (8, 4, 2, 1024, 1024)]:
-        q = _randn(gen, (b, s, hq, hd), dtype).transpose(1, 2)
-        k, v = (_randn(gen, (b, t, hkv, hd), dtype).transpose(1, 2)
-                for _ in range(2))
-        for causal in (True, False):
-            n0 = flash_attention_cuda.launches
-            g0 = flash_attention_cuda.sm90_launches
-            b0 = flash_attention_cuda.simt_bf16_launches
-            got = flash_attention(q, k, v, causal, None, None)
-            assert flash_attention_cuda.launches == n0 + 1
-            assert flash_attention_cuda.sm90_launches == g0
-            assert flash_attention_cuda.simt_bf16_launches == \
-                b0 + (dtype == torch.bfloat16)
-            assert got.stride() == q.stride()
-            torch.testing.assert_close(
-                got, reference_attention(q, k, v, causal=causal),
-                rtol=TOL[dtype], atol=TOL[dtype])
+    """The mma kernel (which took over from the SIMT kernel) at head dims
+    the sm90 kernel has no instance for (hd 12 and 13 in its 16 instance,
+    48 in its own), f32 and bf16: the smoke models' heads, one row, ragged
+    S, S < T, and a (8, 1024) request, in the model layout and with every
+    pointer one element off (hd 13 and the offset read with plain loads
+    in bf16), causal and not; every launch on the mma route."""
+    _check_mma(gen, dtype, hd, [(1, 6, 2, 1, 1), (1, 6, 2, 17, 17),
+                                (2, 4, 2, 100, 100), (1, 4, 4, 100, 160),
+                                (8, 4, 2, 1024, 1024)])
+
+
+# every other mma instance: bf16 at head dims between the sm90 kernel's
+# (24 -> 32, 40 -> 64, 100 -> 128, 200 -> 256), f32 at its own
+MMA_INSTANCES = [(torch.bfloat16, hd) for hd in (24, 40, 100, 200)] + \
+    [(torch.float32, hd) for hd in (32, 64, 100, 128, 200, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd", MMA_INSTANCES, ids=str)
+def test_mma_flash_at_every_instance_matches_the_plain_version(gen, dtype,
+                                                               hd):
+    assert route_of(dtype, hd) == "mma"
+    _check_mma(gen, dtype, hd, [(1, 4, 2, 1, 1), (2, 4, 2, 100, 100),
+                                (1, 4, 2, 100, 160), (2, 8, 1, 300, 300)])
 
 
 @pytest.mark.gpu
@@ -757,7 +797,7 @@ def test_simt_flash_at_hd12_16_48_matches_the_plain_version(gen, dtype, hd):
                                   "musicgen_medium", "internvl2_2b"])
 def test_dense_family_smoke_prefill_on_the_card(gen, arch, dtype):
     """The smoke configs (hd 16, starcoder2 hd 12) through one plan on the
-    card: n_layers SIMT flash launches (of the dtype's instance) and
+    card: n_layers mma flash launches (of the dtype's kernel) and
     2 n_layers + 1 RMSNorm launches per request, the memory contracts,
     and logits against the plain plan (2e-4 in f32, 5e-2 in bf16)."""
     import dataclasses
@@ -792,12 +832,15 @@ def test_dense_family_smoke_prefill_on_the_card(gen, arch, dtype):
                                             dtype=torch.int32)
         f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
         g0 = flash_attention_cuda.sm90_launches
-        b0 = flash_attention_cuda.simt_bf16_launches
+        b0 = flash_attention_cuda.mma_bf16_launches
+        m0 = flash_attention_cuda.mma_f32_launches
         got = opt(params, batch)
         assert flash_attention_cuda.launches - f0 == cfg.n_layers
         assert flash_attention_cuda.sm90_launches == g0
-        assert flash_attention_cuda.simt_bf16_launches - b0 == \
+        assert flash_attention_cuda.mma_bf16_launches - b0 == \
             (cfg.n_layers if dtype == "bfloat16" else 0)
+        assert flash_attention_cuda.mma_f32_launches - m0 == \
+            (cfg.n_layers if dtype == "float32" else 0)
         assert rmsnorm_cuda.launches - n0 == 2 * cfg.n_layers + 1
         st = opt.last_report.stats
         assert st.device_peak <= opt.guaranteed_peak_bytes

@@ -125,12 +125,59 @@ def test_shared_memory_of_the_kernels_matches_their_sources():
     assert [V.variant_block(V.SM90, {"hd": hd})["block_kv"]
             for hd in V.HEAD_DIMS] == [128, 128, 128, 64]
     assert 5 * 128 * 256 * 2 > DEFAULT_HW.smem_per_block_optin
-    fma = {hd: V.variant_smem_bytes("flash_attention", V.SIMT, {"hd": hd})
-           for hd in V.HEAD_DIMS}
-    assert fma == {32: 25216, 64: 41600, 128: 74368, 256: 139904}
+    # Geo<HD, Elem>::SMEM of the mma kernel: the 64-row Q tile and 2
+    # stages of K and V tiles of BN rows (f32: 32 at hd 128 and 256; bf16:
+    # 16 at 256), every row HD and a 16-byte pad
+    mma = {hd: V.variant_smem_bytes("flash_attention", V.MMA_F32, {"hd": hd})
+           for hd in V.MMA_HEAD_DIMS}
+    assert mma == {16: 320 * 20 * 4, 32: 320 * 36 * 4, 48: 320 * 52 * 4,
+                   64: 320 * 68 * 4, 128: 192 * 132 * 4, 256: 192 * 260 * 4}
+    assert [V.variant_block(V.MMA_F32, {"hd": hd})["block_kv"]
+            for hd in V.MMA_HEAD_DIMS] == [64, 64, 64, 64, 32, 32]
+    assert [V.variant_block(V.MMA_BF16, {"hd": hd})["block_kv"]
+            for hd in (12, 48, 100, 200)] == [64, 64, 64, 16]
+    assert max(mma.values()) <= DEFAULT_HW.smem_per_block_optin
     assert V.variant_smem_bytes("flash_attention", V.REF_DENSE,
                                 {"hd": None}) == 0
     assert max(sm.values()) <= DEFAULT_HW.smem_per_block_optin
+
+
+def test_the_mma_variants_are_priced_on_the_tensor_cores():
+    """The f32 mma variant runs each product as three TF32 products: its
+    compute time is the products over ``tf32_flops / 3`` (the softmax on
+    the f32 units).  The bf16 one never outranks the sm90 kernel at a
+    head dim that kernel takes: the route rule makes it invalid there."""
+    from dataclasses import replace
+    # HBM taken out of the roofline, so that the compute term shows alone
+    hw = replace(DEFAULT_HW, hbm_bw=1e30)
+    shape = {"b": 8, "hq": 32, "hkv": 32, "s": 1024, "t": 1024, "hd": 128}
+    raw = V.flash_cost(V.MMA_F32, shape, torch.float32, {"causal": True},
+                       hw, 1.0)
+    block = V.variant_block(V.MMA_F32, shape)
+    bq, bkv = block["block_q"], block["block_kv"]
+    pairs = V._causal_block_pairs(1024 // bq, 1024 // bkv, bq, bkv)
+    products = 8 * 32 * pairs * 4.0 * bq * bkv * 128
+    softmax = 8 * 32 * pairs * 8.0 * bq * bkv
+    compute = products / (hw.tf32_flops / 3) + softmax / hw.fp32_flops
+    assert raw.flops == products + softmax
+    smem = V.variant_smem_bytes("flash_attention", V.MMA_F32, shape)
+    fill = V._fill(8 * 32 * (1024 // bq), V.MMA_F32, smem, hw)
+    assert raw.time_s == pytest.approx(compute / fill + hw.launch_s)
+    # a faster TF32 unit speeds the f32 variant and not the bf16 one
+    fast = replace(hw, tf32_flops=2 * hw.tf32_flops)
+    assert V.flash_cost(V.MMA_F32, shape, torch.float32, {"causal": True},
+                        fast, 1.0).time_s < raw.time_s
+    small = dict(shape, hq=4, hkv=2, hd=16)
+    assert V.flash_cost(V.MMA_BF16, small, torch.bfloat16, {"causal": True},
+                        fast, 1.0) == V.flash_cost(
+        V.MMA_BF16, small, torch.bfloat16, {"causal": True}, hw, 1.0)
+    for hd in V.HEAD_DIMS:
+        bounds = {"b": (1, 8), "hq": (32, 32), "hkv": (8, 8),
+                  "s": (16, 1024), "t": (16, 1024), "hd": (hd, hd)}
+        got, scores, _p, invalid = V.select_variant(
+            "flash_attention", bounds, torch.bfloat16, {"causal": True})
+        assert got is V.SM90 and V.MMA_BF16.name not in scores
+        assert "takes the sm90 kernel" in invalid[V.MMA_BF16.name]
 
 
 def test_the_model_reproduces_its_calibration_rows():
@@ -253,13 +300,13 @@ def test_no_selected_variant_is_invalid_at_the_hi_corner(prim, dtype, smem,
         bad = next(v for v in V.variants_for(prim) if v.name == name)
         assert not V.variant_valid(prim, bad, hi, dtype, hw)
         assert name not in scores
-    # f32 never gets the sm90 kernel, bf16 the FMA route only at a head
+    # f32 never gets the sm90 kernel, bf16 the mma route only at a head
     # dim the sm90 kernel has no instance for (the op's route rule)
     assert not (dtype == torch.float32 and variant.route == "sm90")
-    assert not (dtype == torch.bfloat16 and variant.route == "simt"
+    assert not (dtype == torch.bfloat16 and variant.route == "mma"
                 and hi["hd"] in V.HEAD_DIMS)
-    if dtype == torch.bfloat16 and variant.route == "simt":
-        assert variant is V.SIMT_BF16
+    if dtype == torch.bfloat16 and variant.route == "mma":
+        assert variant is V.MMA_BF16
 
 
 def test_a_forced_invalid_variant_raises():
@@ -267,7 +314,7 @@ def test_a_forced_invalid_variant_raises():
               "t": (16, 1024), "hd": (128, 128)}
     for dtype, forced in ((torch.bfloat16, "ref_dense"),
                           (torch.float32, "sm90_bm128_bn128"),
-                          (torch.bfloat16, "simt_f32_bq64_bkv32")):
+                          (torch.bfloat16, "mma_f32_bq64_bkv64")):
         with pytest.raises(ValueError, match="not valid"):
             V.select_variant("flash_attention", bounds, dtype,
                              {"causal": True}, forced=forced)
@@ -284,7 +331,7 @@ def test_select_eager_picks_the_kernel_of_the_dtype():
     assert V.select_eager("flash_attention", shape, torch.bfloat16,
                           {"causal": True}).name == "sm90_bm128_bn128"
     assert V.select_eager("flash_attention", shape, torch.float32,
-                          {"causal": True}).name == "simt_f32_bq64_bkv32"
+                          {"causal": True}).name == "mma_f32_bq64_bkv64"
     # no kernel takes float64: only the plain version, where it fits
     small = dict(shape, s=8, t=8)
     assert V.select_eager("flash_attention", small, torch.float64,
@@ -299,7 +346,7 @@ def test_select_eager_picks_the_kernel_of_the_dtype():
 def test_variant_names_run_the_plain_version_on_the_cpu():
     q, k, v, x, scale = _args(2, 40)
     want = reference_attention(q, k, v)
-    for impl in ("simt_f32_bq64_bkv32", "ref_dense", "ref", None):
+    for impl in ("mma_f32_bq64_bkv64", "ref_dense", "ref", None):
         assert torch.equal(flash_attention(q, k, v, True, None, impl), want)
     for impl in ("cuda_row256", "ref_unfused", "ref", None):
         assert torch.equal(rmsnorm(x, scale, 1e-6, impl),
@@ -316,7 +363,7 @@ def test_a_name_whose_kernel_does_not_take_the_dtype_raises():
         flash_attention(q, k, v, True, None, "sm90_bm128_bn128")
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     with pytest.raises(ValueError, match="takes torch.float32"):
-        flash_attention(qb, kb, vb, True, None, "simt_f32_bq64_bkv32")
+        flash_attention(qb, kb, vb, True, None, "mma_f32_bq64_bkv64")
     for bad in ("cuda_row256", "pallas_128x128"):
         with pytest.raises(ValueError, match="impl must be one of"):
             flash_attention(q, k, v, True, None, bad)
@@ -351,7 +398,7 @@ def test_overrides_land_in_the_program_and_leave_node_params_alone():
 
 
 def test_selection_per_bucket_follows_the_dtype():
-    for dtype, want in ((torch.float32, "simt_f32_bq64_bkv32"),
+    for dtype, want in ((torch.float32, "mma_f32_bq64_bkv64"),
                         (torch.bfloat16, "sm90_bm128_bn128")):
         fn = _compile(dtype=dtype)
         for b, s in (SMALL_ENV, LARGE_ENV):

@@ -5,10 +5,12 @@ against the JAX kernels on the shapes of ``tests/test_kernels.py`` in f32
 and bf16 (2e-4 / 5e-2): the Pallas kernel in interpret mode on two shapes
 and ``repro.kernels.ref`` on the rest.  The hand-written CUDA kernels run
 only on a card, where ``tests/test_torch_gpu.py`` holds them against the
-plain versions.  What surrounds the bf16 flash kernel does run here: its
-16-byte alignment check, and an emulation of its arithmetic (128-key
-tiles, exp2, P in bf16 for P.V as the tensor cores take it) that shows
-the card's bf16 tolerance holds by design.
+plain versions.  What surrounds the flash kernels does run here: the
+sm90 kernel's 16-byte alignment check and the mma kernel's copy width,
+and emulations of both kernels' arithmetic (their key tiles, exp2, P in
+bf16 for P.V as the tensor cores take it; f32 as 3xTF32 products) that
+show the card's tolerances hold by design, and that one TF32 product a
+product would not.
 """
 import math
 
@@ -244,3 +246,175 @@ def test_sm90_arithmetic_holds_the_bf16_tolerance(causal, p_terms, hd):
                                        for x in (q, k, v)), causal=causal)
     np.testing.assert_allclose(_np(got), np.asarray(jwant), rtol=5e-2,
                                atol=5e-2)
+
+
+# -- the mma kernel (csrc/flash_attention_mma.cu): f32 as 3xTF32, bf16 ------
+
+
+def _tf32(x):
+    """An f32 value as the tensor core reads it as TF32, and the kernel's
+    big part (``split_tf32``): 10 mantissa bits, the low 13 bits of the
+    bit pattern cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """``a @ b`` as the f32 kernel takes it: each operand split into big =
+    TF32(x) and small = x - big, read by the tensor core as TF32, and
+    big.big + big.small + small.big (``terms`` 3) or big.big alone (1),
+    each product summed in f32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    out = a_big @ b_big
+    if terms == 3:
+        out = out + (a_big @ _tf32(b - b_big) + _tf32(a - a_big) @ b_big)
+    return out
+
+
+def _emulate_mma(q, k, v, causal, dtype, block, terms=3):
+    """The mma kernel's arithmetic in plain torch: ``block``-key tiles, an
+    online softmax in the log2 domain with the finite -1e30 mask and f32
+    m, l and acc; in float32 both products as 3xTF32 (``terms`` 1: one
+    TF32 product), in bfloat16 exact products summed in f32 with P taken
+    as two bf16 terms, hi = bf16(P) and lo = bf16(P - hi); one rounding
+    of the output to ``dtype``."""
+    b, h, s, hd = q.shape
+    t, group = k.shape[2], h // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(group, dim=1) for x in (k, v))
+    scale_log2 = math.log2(math.e) / math.sqrt(hd)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, hd)
+    rows = torch.arange(s)[:, None]
+    for kv0 in range(0, t, block):
+        kt, vt = kf[:, :, kv0:kv0 + block], vf[:, :, kv0:kv0 + block]
+        cols = torch.arange(kv0, kv0 + kt.shape[2])[None, :]
+        if dtype == torch.float32:
+            sc = _tf32_matmul(qf, kt.transpose(-1, -2), terms)
+        else:
+            sc = qf @ kt.transpose(-1, -2)
+        x = sc * scale_log2
+        if causal:
+            x = torch.where(cols <= rows, x, torch.tensor(-1e30))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        if dtype == torch.float32:
+            pv = _tf32_matmul(p, vt, terms)
+        else:
+            hi = p.to(torch.bfloat16).float()
+            pv = hi @ vt + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(dtype)
+
+
+def _mma_block(dtype, hd):
+    """The key tile of the mma instance that runs ``hd`` in ``dtype``."""
+    from repro_torch.kernels import variants as V
+    variant = V.MMA_F32 if dtype == torch.float32 else V.MMA_BF16
+    return V.variant_block(variant, {"hd": hd})["block_kv"]
+
+
+def _hold_mma(got, q, k, v, causal):
+    """The card's tolerances: f32 2e-4; bf16 1e-2 elementwise and 2e-4 in
+    relative norm; against the port's plain version and the JAX
+    reference's."""
+    tol = 2e-4 if q.dtype == torch.float32 else 1e-2
+    want = reference_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    d = got.float() - want.float()
+    assert (d.norm() / want.float().norm()).item() <= 2e-4
+    jwant = jref.reference_attention(*(jnp.asarray(x.float().numpy())
+                                       for x in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(jwant), rtol=tol,
+                               atol=tol)
+
+
+MMA_HDS = (12, 16, 48, 128, 256)   # instances 16, 16, 48, 128, 256
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", MMA_HDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mma_arithmetic_holds_the_card_tolerance(dtype, hd, causal):
+    """The mma kernel's arithmetic at the main path's length (S = T =
+    1024, GQA 2/1) with each instance's key tile: inside the tolerances
+    chip_smoke and the gpu tests hold the kernel to.  (bf16 at hd 128 and
+    256 runs on the sm90 kernel; the mma kernel's 128 and 256 instances
+    serve the bf16 head dims between, with this arithmetic.)"""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.RandomState(hd + 7 * causal)
+    q = torch.from_numpy(rng.randn(1, 2, 1024, hd).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(1, 1, 1024, hd).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (x.to(tdt) for x in (q, k, v))
+    got = _emulate_mma(q, k, v, causal, tdt, _mma_block(tdt, hd))
+    _hold_mma(got, q, k, v, causal)
+
+
+MMA_EDGE_SHAPES = [  # (b, hq, hkv, s, t): one row, ragged T, S < T, S > T
+    (1, 4, 2, 1, 1), (2, 2, 1, 100, 100), (1, 4, 2, 100, 160),
+    (1, 2, 2, 70, 33)]
+
+
+@pytest.mark.parametrize("shape", MMA_EDGE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mma_arithmetic_at_one_row_a_ragged_t_and_s_not_t(dtype, shape):
+    b, hq, hkv, s, t = shape
+    tdt = DTYPES[dtype][1]
+    rng = np.random.RandomState(s + t)
+    for hd in MMA_HDS:
+        q = torch.from_numpy(rng.randn(b, hq, s, hd).astype(np.float32))
+        k, v = (torch.from_numpy(rng.randn(b, hkv, t, hd).astype(np.float32))
+                for _ in range(2))
+        q, k, v = (x.to(tdt) for x in (q, k, v))
+        for causal in (True, False):
+            got = _emulate_mma(q, k, v, causal, tdt, _mma_block(tdt, hd))
+            _hold_mma(got, q, k, v, causal)
+
+
+def test_one_tf32_product_misses_2e4_so_the_kernel_takes_three():
+    """TF32 keeps 10 mantissa bits: one product a product moves f32
+    attention past the 2e-4 the f32 route is held to; three do not."""
+    x = torch.tensor([1 + 2 ** -10 + 2 ** -11, -(1 + 2 ** -11), 3.0])
+    assert _tf32(x).tolist() == [1 + 2 ** -10, -1.0, 3.0]
+    rng = np.random.RandomState(21)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 1024, 128).astype(np.float32))
+               for _ in range(3))
+    want = reference_attention(q, k, v, causal=True)
+    block = _mma_block(torch.float32, 128)
+    single = _emulate_mma(q, k, v, True, torch.float32, block, terms=1)
+    assert (single - want).abs().max().item() > 2e-4
+    triple = _emulate_mma(q, k, v, True, torch.float32, block)
+    assert (triple - want).abs().max().item() <= 2e-5
+
+
+# (hd, dtype, layout, pointer offset in elements) -> the cp.async width
+COPY_WIDTH_CASES = [
+    ((12, torch.bfloat16, "dense", 0), 8),    # 24-byte rows: 3 x 8 bytes
+    ((12, torch.bfloat16, "model", 0), 8),    # (B, S, 6, 12) transposed
+    ((13, torch.bfloat16, "dense", 0), 0),    # 26-byte rows: plain loads
+    ((16, torch.bfloat16, "dense", 1), 0),    # pointer 2 bytes off
+    ((48, torch.bfloat16, "dense", 4), 8),    # pointer 8 bytes off
+    ((16, torch.float32, "dense", 1), 4),     # pointer 4 bytes off
+    ((12, torch.float32, "dense", 0), 16),    # 48-byte rows
+    ((13, torch.float32, "model", 0), 4),     # 52-byte rows
+    ((128, torch.float32, "one row", 0), 16),  # strides of size-1 dims unused
+]
+
+
+@pytest.mark.parametrize("case,want", COPY_WIDTH_CASES, ids=str)
+def test_mma_copy_width_follows_rows_strides_and_pointers(case, want):
+    from repro_torch.kernels.flash_attention import mma_copy_width
+    hd, dtype, layout, off = case
+    if layout == "model":
+        x = torch.empty(2, 100, 6, hd, dtype=dtype).transpose(1, 2)
+    elif layout == "one row":
+        x = torch.empty(1, 1, 1, 3 * hd + 1, dtype=dtype)[..., :hd]
+    else:
+        x = torch.empty(2, 6, 100, hd, dtype=dtype)
+    ptr = ALIGNED + off * dtype.itemsize
+    assert mma_copy_width(hd, dtype.itemsize,
+                          [(x.shape, x.stride(), ptr)] * 3) == want
