@@ -242,13 +242,39 @@ Phases (any failure exits non-zero):
    GEMMA_CUT_LAYERS layers, the full depth's reading printed beside a
    control (the plain forward vs the kernel forward).
 
+15. bench train (``[bench_train]`` lines), run last after a garbage
+   collection: the reference's bench step (``make_train_step``, symbolic
+   b in [1, 8], s in [16, 1024], the state donated) for ``gemma_2b`` at
+   full width and depth (18 layers, 8/1 heads at hd 256, GeGLU, the tied
+   256k vocab) and ``musicgen_medium`` at full width in ``embeddings``
+   mode (f32 frame embeddings (B, S, 1536), (B, S, 4) labels) at the
+   depth of BENCH_TRAIN, one model at a time, bf16 weights and f32 AdamW
+   moments made from seed 0 on the card anew for every step: optimize
+   seconds by span, nodes; at (1,16), (2,1000), (8,1024) one capture, no
+   guards, n_layers sm90 flash, no mma and 2 n_layers + 1 RMSNorm launches
+   a step, device_peak <= guaranteed_peak_bytes, the allocator within
+   phase 6's slack, arena_bytes <= arena_bound_bytes, a finite loss, the
+   median of 5 steps and tokens/s (the plan's (8,1024) peak must fit
+   the card's free memory); a profile at
+   (8,1024) with the device time by part (AdamW, the readout and its
+   cross entropy, the plain attention backward, the other GEMMs, the
+   kernels); the ladder 0.90 ... 0.50 of the (8,1024) device_peak until
+   MemoryLimitExceeded: device_peak <= the limit, the allocator within
+   the limit + slack, loss, parameters and moments bitwise equal to the
+   step above (its result kept on the host, compared leaf by leaf), at
+   least one rung evicting, with evictions, offloads, recomputes,
+   fallbacks, evicted bytes, host peak, ms and launches; then the first
+   GEMMA_CUT_LAYERS layers through a kernel plan against an eager plain
+   step (``impl="ref"``) at (2,1000) and (8,1024) within TRAIN_PLAIN_TOL.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
 phase 11 (a), table1 = phase 11 (b), gemma_prefill = phase 12 (b),
 gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
 = phase 13, dense_prefill = phase 14 (b), dense_prefill_f32_smoke and
-dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e);
+dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e),
+gemma_train and musicgen_train = phase 15;
 bounded, loop, gemma_serve and dense_serve launch no flash: their
 attention and ops are plain PyTorch, as the reference's are plain jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
@@ -800,14 +826,16 @@ def phase_profile(opt, params, batches):
         profile_once(f"b={b} s={s}", lambda: opt(params, batch))
 
 
-def profile_once(label: str, run) -> None:
+def profile_once(label: str, run, classify=None) -> None:
     """torch.profiler over one call of ``run``: device time by kernel and
-    the share of the call's wall time with a kernel running."""
+    the share of the call's wall time with a kernel running.  With
+    ``classify(op_name, input_shapes) -> part``, also the device time of
+    each operator's kernels and copies, summed by part."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=classify is not None) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -833,6 +861,32 @@ def profile_once(label: str, run) -> None:
     for us, count, key in rows[:10]:
         log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
             f"x{count:<4d} {key[:90]}")
+    if classify is None:
+        return
+    # each device event counted once, for the operator it is linked to
+    # (the outermost, where several operators carry the same id)
+    ops, parts, shared = {}, {}, 0
+    events = prof.profiler.kineto_results.events()
+    for ev in events:
+        if ev.device_type() == torch.autograd.DeviceType.CPU and \
+                ev.linked_correlation_id() == 0:
+            ops.setdefault(ev.correlation_id(), []).append(ev)
+    for ev in events:
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        cands = ops.get(ev.linked_correlation_id(), [])
+        shared += len(cands) > 1
+        part = "(linked to no operator)"
+        if cands:
+            op = max(cands, key=lambda e: e.duration_ns())
+            part = classify(op.name(), op.shapes())
+        parts[part] = parts.get(part, 0.0) + ev.duration_ns() / 1e3
+    log(f"[profile]   {label}: {sum(parts.values()) / 1e3:.3f} ms of device "
+        f"events by part ({shared} linked to an id several operators "
+        f"carry)")
+    for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {label} by part: {part}: {us / 1e3:.3f} ms "
+            f"{100 * us / busy:5.1f}%")
 
 
 @contextlib.contextmanager
@@ -1127,7 +1181,8 @@ def phase_train():
     return counts
 
 
-def compare_train_plain(cfg, params, opt_state, batch, want):
+def compare_train_plain(cfg, params, opt_state, batch, want,
+                        tag="[train]"):
     """The kernel path's uncapped train step (``want``) against an eager
     call of the plain step (``impl="ref"``) on the same state and batch:
     loss, the updated parameters and the moments, within TRAIN_PLAIN_TOL."""
@@ -1157,8 +1212,8 @@ def compare_train_plain(cfg, params, opt_state, batch, want):
         "v_rel": rel_norm(zip(pytree.tree_leaves(new_opt.v),
                               pytree.tree_leaves(r_opt.v))),
     }
-    b, s = batch["tokens"].shape
-    log(f"[train] ({b},{s}) kernel path vs plain step: loss "
+    b, s = batch["labels"].shape[:2]
+    log(f"{tag} ({b},{s}) kernel path vs plain step: loss "
         f"{loss.item():.6f} vs {r_loss.item():.6f}; "
         + ", ".join(f"{k} {v:.4g} (tol {TRAIN_PLAIN_TOL[k]})"
                     for k, v in err.items()))
@@ -3973,6 +4028,386 @@ def dense_row(r):
             "library_ms": r["lib"], "library_call": f"sdpa ({r['lib_how']})"}
 
 
+# -- phase 15: the bench archs' train steps at full width -------------------
+
+# (arch, layers): gemma_2b at its full depth; musicgen_medium cut from 48
+# to 24 layers, the deepest measured depth whose optimize stayed within
+# BENCH_OPTIMIZE_S on the H100 machine's host (48 layers took 124.5 s in
+# one run, 40 layers 161.1 s in another, 24 layers 47.7 s: capture there
+# took 1.2 to 3.0 s a layer from run to run)
+BENCH_TRAIN = (("gemma_2b", 18), ("musicgen_medium", 24))
+BENCH_OPTIMIZE_S = 120.0
+BENCH_LADDER = (0.90, 0.80, 0.70, 0.60, 0.50)   # of the uncapped device_peak
+BENCH_PLAIN_SHAPES = ((2, 1000), (8, 1024))      # at GEMMA_CUT_LAYERS
+MATMUL_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+              "aten::matmul", "aten::linear"}
+
+
+def train_batch_specs(cfg):
+    """The train batch with symbolic ``(b, s)`` as the reference's bench
+    declares it (``benchmarks/memplan_bench.py``'s ``_step_and_specs``):
+    tokens and labels, or f32 frame embeddings and (B, S, K) labels."""
+    import torch
+
+    from repro_torch.core import TensorSpec, symbolic_dims
+    B, S = symbolic_dims("b, s")
+    if cfg.input_mode == "tokens":
+        return {"tokens": TensorSpec((B, S), torch.int32),
+                "labels": TensorSpec((B, S), torch.int32)}
+    return {"frame_embed": TensorSpec((B, S, cfg.d_model), torch.float32),
+            "labels": TensorSpec((B, S, cfg.n_codebooks), torch.int32)}
+
+
+def train_batches(cfg, gen, shapes):
+    """Seeded train batches on the card per (b, s), in train_batch_specs'
+    layout."""
+    import torch
+    out = {}
+    for b, s in shapes:
+        if cfg.input_mode == "tokens":
+            out[(b, s)] = {k: torch.randint(0, cfg.vocab, (b, s),
+                                            generator=gen, device=DEV,
+                                            dtype=torch.int32)
+                           for k in ("tokens", "labels")}
+        else:
+            out[(b, s)] = {
+                "frame_embed": torch.randn((b, s, cfg.d_model),
+                                           generator=gen, device=DEV),
+                "labels": torch.randint(0, cfg.vocab,
+                                        (b, s, cfg.n_codebooks),
+                                        generator=gen, device=DEV,
+                                        dtype=torch.int32)}
+    return out
+
+
+def _nbytes(tree) -> int:
+    from torch.utils import _pytree as pytree
+    return sum(t.numel() * t.element_size()
+               for t in pytree.tree_leaves(tree))
+
+
+def train_parts(cfg, param_shapes, s):
+    """``profile_once``'s classifier for a train step at sequence ``s``:
+    AdamW and the gradient norm (every input parameter-shaped: the tied
+    embedding's two gradients' sum too), the readout and its cross
+    entropy (an input with the vocab's width), the plain attention
+    backward (an S x S input), the other GEMMs, the two kernels, the
+    rest."""
+    vocab = {cfg.vocab, cfg.padded_vocab}
+
+    def classify(name, shapes):
+        dims = [tuple(x) for x in shapes if x]
+        if name.startswith("repro_torch::"):
+            return name
+        if dims and all(d in param_shapes for d in dims):
+            return "AdamW, the gradient norm, other parameter-shaped work"
+        if any(vocab & set(d) for d in dims):
+            return "readout and cross entropy (a vocab-wide input)"
+        if any(len(d) >= 2 and d[-2:] == (s, s) for d in dims):
+            return "plain attention backward (an S x S input)"
+        if name in MATMUL_OPS:
+            return "other cuBLAS GEMMs"
+        return "other elementwise, reductions and copies"
+    return classify
+
+
+def phase_bench_train_model(arch, n_layers):
+    """Phase 15 for one model: the train step at full width through one
+    plan, uncapped at TRAIN_SHAPES, a profile at (8,1024), the ladder of
+    BENCH_LADDER limits and the plain step at GEMMA_CUT_LAYERS.  The
+    state is made anew from seed 0 on the card for every step (each
+    step's result, as large, is freed or moved to the host before the
+    next).  Returns the summary row."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MemoryLimitExceeded, optimize, spec_like
+    from repro_torch.launch.steps import adamw_config_for, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    tag = f"[bench_train] {arch} L{n_layers}"
+
+    def fresh_state(c=cfg):
+        params = init_params(c, seed=0, device=DEV)
+        return params, init_state(params, adamw_config_for(c))
+
+    params, opt_state = fresh_state()
+    state_bytes = _nbytes((params, opt_state))
+    param_shapes = {tuple(t.shape) for t in pytree.tree_leaves(params)}
+    specs = (spec_like(params), spec_like(opt_state), train_batch_specs(cfg))
+    del params, opt_state
+    t0 = time.perf_counter()
+    opt = optimize(make_train_step(cfg), *specs, dynamic_dims=DYNAMIC_DIMS,
+                   donate_inputs=True, device=DEV)
+    optimize_s = time.perf_counter() - t0
+    rep = opt.report
+    nodes = len(opt.plan.graph.nodes)
+    log(f"{tag}: optimize {optimize_s:.2f} s (budget {BENCH_OPTIMIZE_S} s; "
+        f"{span_summary(opt.trace)}), graph {opt.plan.graph.stats()}, "
+        f"guards {rep.guards}, remat candidates {rep.n_candidates} "
+        f"(recomputable {rep.n_recomputable}), state {state_bytes} B, "
+        f"guaranteed_peak_bytes {opt.guaranteed_peak_bytes}, "
+        f"arena_bound_bytes {opt.arena_bound_bytes}")
+    if rep.guards:
+        raise AssertionError(f"{tag}: the capture left guards {rep.guards}")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    batches = train_batches(cfg, gen, TRAIN_SHAPES)
+
+    def step(fn, batch):
+        """One donated call on a fresh state: outputs, stats, wall ms and
+        the allocator's peak of the step less what was held outside it
+        (the step's inputs counted)."""
+        args = [*fresh_state(), batch]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - state_bytes - _nbytes(batch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn.call_donated(args)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        return (out, fn.last_report.stats, wall,
+                torch.cuda.max_memory_allocated() - held)
+
+    want_launches = {"sm90": cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
+                     "rmsnorm": 2 * cfg.n_layers + 1}
+
+    def check(out, st, alloc, slack, launched, limit, what):
+        if not torch.isfinite(out[0]):
+            raise AssertionError(f"{tag} {what}: non-finite loss")
+        if int(out[2].step) != 1:
+            raise AssertionError(f"{tag} {what}: the wrong AdamW step")
+        if limit is None:
+            ok = launched == want_launches
+        else:   # a recompute may launch a kernel again
+            ok = all(launched[k] >= n if n else launched[k] == 0
+                     for k, n in want_launches.items())
+        if not ok:
+            raise AssertionError(f"{tag} {what}: launches {launched}, want "
+                                 f"{want_launches}")
+        bound = opt.guaranteed_peak_bytes if limit is None else limit
+        if st.device_peak > bound:
+            raise AssertionError(f"{tag} {what}: device_peak "
+                                 f"{st.device_peak} above {bound}")
+        if alloc > (st.device_peak if limit is None else limit) + slack:
+            raise AssertionError(f"{tag} {what}: the allocator's peak "
+                                 f"{alloc} is above device_peak "
+                                 f"{st.device_peak} (limit {limit}) + "
+                                 f"{slack}")
+        if st.arena_bytes > opt.arena_bound_bytes:
+            raise AssertionError(f"{tag} {what}: arena_bytes "
+                                 f"{st.arena_bytes} above its bound")
+
+    def launched_since(c0):
+        c1 = _launch_counts()
+        return {k: c1[k] - c0[k] for k in c1}
+
+    # the uncapped step at (8,1024) must fit the card: its planned peak
+    big = TRAIN_SHAPES[-1]
+    env_big = {"b": big[0], "s": big[1]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    planned = opt.program.resolve(env_big).stats_template.device_peak
+    big_slack = allocator_slack(opt.program, env_big)
+    log(f"{tag}: the plan's device_peak at {big}, {planned} B, + slack "
+        f"{big_slack}; the card has {free} B free of {total}")
+    if planned + big_slack > free:
+        raise AssertionError(f"{tag}: the uncapped step at {big} does not "
+                             f"fit the card")
+    rows, want, t_part = [], None, time.perf_counter()
+    for (b, s) in TRAIN_SHAPES:
+        env, batch = {"b": b, "s": s}, batches[(b, s)]
+        slack = allocator_slack(opt.program, env)
+        step(opt, batch)                      # warm-up, outside the timing
+        walls = []
+        for rep_i in range(TRAIN_REPS):
+            c0 = _launch_counts()
+            out, st, wall, alloc = step(opt, batch)
+            launched = launched_since(c0)
+            walls.append(wall)
+            check(out, st, alloc, slack, launched, None, f"({b},{s})")
+            loss = out[0].item()
+            if (b, s) == big and rep_i == TRAIN_REPS - 1:
+                # the step's result, on the host: the ladder's reference
+                want = [t.cpu() for t in pytree.tree_leaves(out)]
+                peak = st.device_peak
+            del out
+        med = statistics.median(walls)
+        row = dict(b=b, s=s, median_ms=med, min_ms=min(walls),
+                   max_ms=max(walls), tokens_per_s=b * s / med * 1e3,
+                   loss=loss, device_peak=st.device_peak, alloc_peak=alloc,
+                   alloc_slack=slack, evictions=st.evictions,
+                   arena_bytes=st.arena_bytes, launches=launched)
+        rows.append(row)
+        log(f"{tag} ({b},{s}) uncapped: median {med:.3f} ms (min "
+            f"{min(walls):.3f}, max "
+            f"{max(walls):.3f}) over {TRAIN_REPS} steps, "
+            f"{row['tokens_per_s']:.0f} tokens/s, loss {loss:.6f}, "
+            f"device_peak {st.device_peak} (guaranteed "
+            f"{opt.guaranteed_peak_bytes}), allocator peak of the step "
+            f"{alloc} (device_peak + {alloc - st.device_peak}; slack "
+            f"{slack}), arena {st.arena_bytes} (bound "
+            f"{opt.arena_bound_bytes}), evictions {st.evictions}, launches "
+            f"per step {launched}")
+    split = {"optimize": optimize_s, "uncapped": time.perf_counter() - t_part}
+    t_part = time.perf_counter()
+    args = [*fresh_state(), batches[big]]
+    profile_once(f"{arch} train {big}", lambda: opt.call_donated(args),
+                 classify=train_parts(cfg, param_shapes, big[1]))
+    del args
+    split["profile"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # the ladder at (8,1024): bitwise equal to the step above, leaf by leaf
+    batch, ladder = batches[big], []
+    for frac in BENCH_LADDER:
+        cap = int(frac * peak)
+        fn = opt.with_memory_limit(cap)
+        slack = allocator_slack(fn.program, env_big) + \
+            MAX_SUBGRAPH * LARGE_OVERHEAD
+        c0 = _launch_counts()
+        try:
+            out, st, wall, alloc = step(fn, batch)
+        except MemoryLimitExceeded as e:
+            log(f"{tag} ladder {frac:.2f} x {peak} = {cap}: "
+                f"MemoryLimitExceeded ({e}); the ladder ends here")
+            break
+        launched = launched_since(c0)
+        leaves = pytree.tree_leaves(out)
+        equal = len(leaves) == len(want) and all(
+            torch.equal(x, w.to(x.device)) for x, w in zip(leaves, want))
+        check(out, st, alloc, slack, launched, cap, f"ladder {frac:.2f}")
+        del out, leaves
+        row = dict(frac=frac, cap=cap, ms=wall, device_peak=st.device_peak,
+                   alloc_peak=alloc, alloc_slack=slack,
+                   evictions=st.evictions, offloads=st.offloads,
+                   reloads=st.reloads, recomputes=st.recomputes,
+                   recompute_fallbacks=st.recompute_fallbacks,
+                   evicted_bytes=st.evicted_bytes, host_peak=st.host_peak,
+                   launches=launched, bitwise_equal=equal)
+        ladder.append(row)
+        log(f"{tag} ladder {frac:.2f} x {peak} = {cap}: step {wall:.3f} ms, "
+            f"device_peak {st.device_peak}, allocator peak of the step "
+            f"{alloc} (limit + {alloc - cap}; slack {slack}), evictions "
+            f"{st.evictions} (offloads {st.offloads}, reloads {st.reloads}, "
+            f"recomputes {st.recomputes}, recompute fallbacks "
+            f"{st.recompute_fallbacks}), evicted {st.evicted_bytes} B, host "
+            f"peak {st.host_peak} B, launches per step {launched}, loss, "
+            f"parameters and moments bitwise equal to the uncapped step: "
+            f"{equal}")
+        if not equal:
+            raise AssertionError(f"{tag} ladder {frac:.2f}: the step differs "
+                                 f"from the uncapped one")
+    if not any(r["evictions"] for r in ladder):
+        raise AssertionError(f"{tag}: no rung of the ladder evicted")
+    guaranteed = opt.guaranteed_peak_bytes
+    del want, opt, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    split["ladder"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    plain = bench_train_plain(cfg, fresh_state)
+    split["plain"] = time.perf_counter() - t_part
+    log(f"{tag}: seconds by part {split}")
+    return dict(arch=arch, n_layers=n_layers, optimize_s=optimize_s,
+                seconds_by_part=split, nodes=nodes, state_bytes=state_bytes,
+                guaranteed=guaranteed,
+                planned_big=planned, uncapped=rows, ladder=ladder,
+                plain=plain)
+
+
+def bench_train_plain(cfg, fresh_state):
+    """Phase 15's plain comparison: the first GEMMA_CUT_LAYERS layers at
+    full width through a kernel plan (donated, on a copy of the seed-0
+    state) against an eager call of the plain step (``impl="ref"``) on
+    the same state, within TRAIN_PLAIN_TOL, at BENCH_PLAIN_SHAPES.
+    Returns the optimize seconds and nodes at that depth."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import optimize, spec_like
+    from repro_torch.launch.steps import make_train_step
+
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_CUT_LAYERS)
+    params, opt_state = fresh_state(cut)
+    t0 = time.perf_counter()
+    opt = optimize(make_train_step(cut), spec_like(params),
+                   spec_like(opt_state), train_batch_specs(cut),
+                   dynamic_dims=DYNAMIC_DIMS, donate_inputs=True,
+                   device=DEV)
+    optimize_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    batches = train_batches(cut, gen, BENCH_PLAIN_SHAPES)
+    for shape in BENCH_PLAIN_SHAPES:
+        batch = batches[shape]
+        want = opt.call_donated([pytree.tree_map(torch.clone, params),
+                                 pytree.tree_map(torch.clone, opt_state),
+                                 batch])
+        compare_train_plain(
+            cut, params, opt_state, batch, want,
+            tag=f"[bench_train] {cfg.name} L{GEMMA_CUT_LAYERS}")
+        del want
+    log(f"[bench_train] {cfg.name} L{GEMMA_CUT_LAYERS}: optimize "
+        f"{optimize_s:.2f} s, {len(opt.plan.graph.nodes)} nodes; the kernel "
+        f"plan's step within TRAIN_PLAIN_TOL of the plain step at "
+        f"{list(BENCH_PLAIN_SHAPES)}")
+    return dict(optimize_s=optimize_s, nodes=len(opt.plan.graph.nodes))
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Yields a list that gets an entry for every capture ``optimize``
+    makes inside the block."""
+    import repro_torch.core.api as api
+    captures, real_capture = [], api.capture
+
+    def counted(*a, **kw):
+        captures.append(1)
+        return real_capture(*a, **kw)
+
+    api.capture = counted
+    try:
+        yield captures
+    finally:
+        api.capture = real_capture
+
+
+def phase_bench_train():
+    """Phase 15: gemma_2b and musicgen_medium trained at full width, one
+    model at a time.  Returns the launches per path."""
+    import torch
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    for arch, n_layers in BENCH_TRAIN:
+        t0 = time.perf_counter()
+        path = arch.split("_")[0] + "_train"
+        with counted_captures() as captures:
+            launches[path], summary[arch] = counted_launches(
+                lambda: phase_bench_train_model(arch, n_layers))
+        # one capture for the model's plan, one for the 2-layer cut's:
+        # no call captured again
+        if len(captures) != 2:
+            raise AssertionError(f"[bench_train] {arch}: {len(captures)} "
+                                 f"captures, want 2")
+        summary[arch]["captures"] = len(captures)
+        summary[arch]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[bench_train] phase 15 {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {launches}; {json.dumps(summary, default=str)}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4034,6 +4469,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense_rows, dense_launches = phase_dense()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_launches = phase_bench_train()
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -4079,6 +4517,8 @@ def main() -> int:
         by_path["resilience"] = res_launches[counter]
         by_path.update({path: n[counter]
                         for path, n in dense_launches.items()})
+        by_path.update({path: n[counter]
+                        for path, n in bench_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \

@@ -1,7 +1,9 @@
 """Rolled loops in the port, against the reference.
 
-The decode cells of ``benchmarks/loop_bench.py`` for ``llama2_1b`` (token
-input) and ``musicgen_medium`` (embedding input), at their smoke widths:
+The decode cells of ``benchmarks/loop_bench.py`` for the reference's four
+bench archs (``tests/test_loops.py``'s ``ARCHS``: ``llama2_1b``,
+``gemma_2b`` and ``granite_8b`` take token input, ``musicgen_medium``
+embedding input), at their smoke widths:
 one ``scan`` with a symbolic trip count ``t``, captured once and lowered
 to a single ``Loop`` instruction.  On the same seeded numpy inputs:
 
@@ -36,7 +38,7 @@ from repro_torch.core.lowering import lower_plan
 from repro_torch.kernels import masked_select
 from test_torch_planning import bridge
 
-ARCHS = ["llama2_1b", "musicgen_medium"]
+ARCHS = ["llama2_1b", "gemma_2b", "granite_8b", "musicgen_medium"]
 TRIPS = [1, 2, 17]
 T_RANGE = (1, 64)
 B, V = LB.B, LB.V

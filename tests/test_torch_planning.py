@@ -1,7 +1,9 @@
 """The port's planning modules against the reference's, on the same IR.
 
 A test-only bridge turns the reference's traced ``Graph`` of the smoke
-``llama2_1b`` train step (``benchmarks/memplan_bench.py``) into a port
+train step of each bench arch (``benchmarks/memplan_bench.py``'s
+``_step_and_specs``: ``llama2_1b``, ``gemma_2b``, ``granite_8b``,
+``musicgen_medium``) into a port
 ``Graph`` with the same value and node ids, sizes and edges (bounded dims
 and rolled loops included: ``test_torch_bounded`` and ``test_torch_loops``
 bridge those graphs).  The copied
@@ -26,6 +28,7 @@ from repro_torch.core.scheduling import schedule_graph as p_schedule
 from repro_torch.core.scheduling import simulate_peak as p_peak
 from repro_torch.core.scheduling import simulate_peak_bound as p_bound
 from repro_torch.core.scheduling.exchange import exchange_pass as p_exchange
+from test_torch_bench_archs import BENCH_ARCHS
 
 RANGES = {"b": (1, 64), "s": (16, 4096)}        # memplan_bench's ranges
 ENVS = [{"b": 1, "s": 16}, {"b": 8, "s": 512}, {"b": 64, "s": 4096}]
@@ -88,11 +91,11 @@ def bridge(ref_graph) -> Graph:
     return g
 
 
-@pytest.fixture(scope="module")
-def graphs():
+@pytest.fixture(scope="module", params=BENCH_ARCHS)
+def graphs(request):
     from benchmarks.memplan_bench import _step_and_specs
     from repro.core.ir import trace_to_graph
-    step, args = _step_and_specs("llama2_1b")
+    step, args = _step_and_specs(request.param)
     ref_graph, _ = trace_to_graph(step, *args)
     return ref_graph, bridge(ref_graph)
 

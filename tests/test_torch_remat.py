@@ -1,7 +1,7 @@
 """The port's rematerialization against the reference's, and under caps.
 
-* **Bridged candidates.** On the reference's traced smoke ``llama2_1b``
-  train graph, bridged into a port ``Graph`` (``test_torch_planning``),
+* **Bridged candidates.** On the reference's traced smoke train graph of
+  each bench arch, bridged into a port ``Graph`` (``test_torch_planning``),
   the port's recompute search must find exactly the reference's
   candidates, recompute subgraphs, sources, intervals and static methods.
   The bridge carries each ``dot_general``'s contracting dims in the node
@@ -36,6 +36,7 @@ from repro_torch.core.scheduling import schedule_graph as p_schedule
 from repro_torch.launch.steps import adamw_config_for, make_train_step
 from repro_torch.models import init_params
 from repro_torch.optim import init_state
+from test_torch_bench_archs import BENCH_ARCHS
 from test_torch_planning import RANGES, bridge
 
 
@@ -52,14 +53,14 @@ def _one_thread():
 # -- bridged candidates --------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def searched():
+@pytest.fixture(scope="module", params=BENCH_ARCHS)
+def searched(request):
     from benchmarks.memplan_bench import _step_and_specs
     from repro.core.ir import trace_to_graph
     from repro.core.remat.planner import build_plan as r_build_plan
     from repro.core.scheduling import schedule_graph as r_schedule
 
-    step, args = _step_and_specs("llama2_1b")
+    step, args = _step_and_specs(request.param)
     ref_graph, _ = trace_to_graph(step, *args)
     port_graph = bridge(ref_graph)
     for rn, pn in zip(ref_graph.nodes, port_graph.nodes):

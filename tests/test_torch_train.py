@@ -1,6 +1,8 @@
-"""The port's ``llama2_1b`` train step on the CPU, against the reference's.
+"""The port's train step on the CPU, against the reference's, on the
+reference's four bench archs (``llama2_1b``, ``gemma_2b``, ``granite_8b``,
+``musicgen_medium``; musicgen's batch in the ``embeddings`` layout).
 
-* ``optimize(make_train_step)`` of the smoke ``llama2_1b`` against the
+* ``optimize(make_train_step)`` of each smoke config against the
   JAX ``make_train_step`` on the same weights and AdamW state
   (``params_from_jax``, ``opt_state_from_jax``; moments drawn from a
   seed): loss and updated params within 2e-4, the moments within 2e-4
@@ -10,7 +12,8 @@
   guards and the declared dims as its only symbols; the VM's outputs
   equal an eager call of the step bit for bit;
 * ``torch.autograd.gradcheck`` of both kernel ops' backward on the plain
-  (``ref``) route, in float64.
+  (``ref``) route, in float64, the flash op at MHA, GQA and MQA
+  (gemma_2b's 4/1) heads.
 """
 import dataclasses
 
@@ -21,11 +24,13 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs.llama2_1b import SMOKE
-from repro_torch.core import TensorSpec, optimize, spec_like, symbolic_dims
+from repro_torch.core import optimize, spec_like
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import loss_fn, opt_state_from_jax, params_from_jax
+from test_torch_bench_archs import BENCH_ARCHS, batch_specs
 
 ENVS = [(1, 16), (2, 40), (3, 96)]
 DYNAMIC_DIMS = {"b": (1, 8), "s": (16, 128)}
@@ -42,10 +47,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _batch_np(b, s, seed):
+def _batch_np(cfg, b, s, seed):
+    """A seeded batch in the config's input layout."""
     rng = np.random.RandomState(seed)
-    return {k: rng.randint(0, SMOKE.vocab, (b, s)).astype(np.int32)
-            for k in ("tokens", "labels")}
+    if cfg.input_mode == "tokens":
+        return {k: rng.randint(0, cfg.vocab, (b, s)).astype(np.int32)
+                for k in ("tokens", "labels")}
+    return {"frame_embed": rng.randn(b, s, cfg.d_model).astype(np.float32),
+            "labels": rng.randint(0, cfg.vocab, (b, s, cfg.n_codebooks))
+            .astype(np.int32)}
 
 
 def _torch_batch(nb):
@@ -69,17 +79,19 @@ def _assert_trees_close(got, want, scaled=False):
                                    atol=atol, err_msg=str(k))
 
 
-@pytest.fixture(scope="module")
-def reference():
-    """The reference's smoke model, an AdamW state three steps old (moments
-    drawn from a seed), and its train step and loss gradients per shape."""
-    from repro.configs.llama2_1b import SMOKE as JSMOKE
+@pytest.fixture(scope="module", params=BENCH_ARCHS)
+def reference(request):
+    """The reference's smoke model of one bench arch, an AdamW state three
+    steps old (moments drawn from a seed), and its train step and loss
+    gradients per shape."""
+    from repro.configs import get_smoke_config as jget_smoke_config
     from repro.launch.steps import make_train_step as jstep
     from repro.models import init_params
     from repro.models import loss_fn as jloss_fn
     from repro.optim import AdamWState
 
-    jcfg = dataclasses.replace(JSMOKE, scan_layers=False)
+    arch = request.param
+    jcfg = dataclasses.replace(jget_smoke_config(arch), scan_layers=False)
     params = init_params(jcfg, jax.random.PRNGKey(0))
     rng = np.random.RandomState(7)
     opt_state = AdamWState(
@@ -100,58 +112,58 @@ def reference():
     def run(b, s):
         if (b, s) not in results:
             nb = {k: jnp.asarray(v) for k, v in
-                  _batch_np(b, s, b * 1000 + s).items()}
+                  _batch_np(jcfg, b, s, b * 1000 + s).items()}
             results[(b, s)] = jax.tree.map(
                 np.asarray, step_and_grads(params, opt_state, nb))
         return results[(b, s)]
-    return params, opt_state, run
+    return arch, params, opt_state, run
 
 
 @pytest.fixture(scope="module")
 def port(reference):
-    jparams, jopt, _ = reference
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), SMOKE,
+    arch, jparams, jopt, _ = reference
+    cfg = get_smoke_config(arch)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                              device="cpu")
-    opt_state = opt_state_from_jax(jax.tree.map(np.asarray, jopt), SMOKE,
+    opt_state = opt_state_from_jax(jax.tree.map(np.asarray, jopt), cfg,
                                    device="cpu")
-    B, S = symbolic_dims("b, s")
-    batch = {"tokens": TensorSpec((B, S), torch.int32),
-             "labels": TensorSpec((B, S), torch.int32)}
-    opt = optimize(make_train_step(SMOKE), spec_like(params),
-                   spec_like(opt_state), batch, dynamic_dims=DYNAMIC_DIMS,
-                   device="cpu")
-    return opt, params, opt_state
+    opt = optimize(make_train_step(cfg), spec_like(params),
+                   spec_like(opt_state), batch_specs(cfg),
+                   dynamic_dims=DYNAMIC_DIMS, device="cpu")
+    return cfg, opt, params, opt_state
 
 
 def test_capture_is_one_flat_graph_without_guards(port):
-    opt, _, _ = port
+    cfg, opt, _, _ = port
     g = opt.plan.graph
     assert opt.report.guards == []
     assert g.free_symbols() == {"b", "s"}
     names = [n.prim_name for n in g.nodes]
     assert names.count("repro_torch.flash_attention.default") == \
-        SMOKE.n_layers
+        cfg.n_layers
     assert names.count("repro_torch.rmsnorm.default") == \
-        2 * SMOKE.n_layers + 1
-    assert "aten.embedding_dense_backward.default" in names   # backward
+        2 * cfg.n_layers + 1
+    # backward: the token embedding's (frames enter without one)
+    embed_bwd = "aten.embedding_dense_backward.default" in names
+    assert embed_bwd == (cfg.input_mode == "tokens")
     assert "aten.sqrt.default" in names                       # AdamW
     assert len(g.nodes) > 1000
 
 
 @pytest.mark.parametrize("b,s", ENVS)
 def test_train_step_matches_reference(reference, port, b, s):
-    opt, params, opt_state = port
-    (jloss, jnew, jnew_opt), _ = reference[2](b, s)
-    nb = _torch_batch(_batch_np(b, s, b * 1000 + s))
+    cfg, opt, params, opt_state = port
+    (jloss, jnew, jnew_opt), _ = reference[3](b, s)
+    nb = _torch_batch(_batch_np(cfg, b, s, b * 1000 + s))
     loss, new, new_opt = opt(params, opt_state, nb)
     np.testing.assert_allclose(loss.numpy(), jloss, rtol=TOL, atol=TOL)
-    _assert_trees_close(new, params_from_jax(jnew, SMOKE, "cpu"))
-    want_opt = opt_state_from_jax(jnew_opt, SMOKE, "cpu")
+    _assert_trees_close(new, params_from_jax(jnew, cfg, "cpu"))
+    want_opt = opt_state_from_jax(jnew_opt, cfg, "cpu")
     _assert_trees_close(new_opt.m, want_opt.m, scaled=True)
     _assert_trees_close(new_opt.v, want_opt.v, scaled=True)
     assert int(new_opt.step) == int(want_opt.step) == int(opt_state.step) + 1
     # the VM runs the same ops as an eager call of the step
-    eager = make_train_step(SMOKE)(params, opt_state, nb)
+    eager = make_train_step(cfg)(params, opt_state, nb)
     got = pytree.tree_leaves((loss, new, new_opt))
     assert all(torch.equal(x, y) for x, y in
                zip(got, pytree.tree_leaves(eager)))
@@ -161,15 +173,15 @@ def test_train_step_matches_reference(reference, port, b, s):
 
 @pytest.mark.parametrize("b,s", ENVS)
 def test_gradients_match_reference(reference, port, b, s):
-    _, params, _ = port
-    _, jgrads = reference[2](b, s)
+    cfg, _, params, _ = port
+    _, jgrads = reference[3](b, s)
     leaves, tree = pytree.tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
-    loss = loss_fn(SMOKE, pytree.tree_unflatten(leaves, tree),
-                   _torch_batch(_batch_np(b, s, b * 1000 + s)))
+    loss = loss_fn(cfg, pytree.tree_unflatten(leaves, tree),
+                   _torch_batch(_batch_np(cfg, b, s, b * 1000 + s)))
     grads = pytree.tree_unflatten(list(torch.autograd.grad(loss, leaves)),
                                   tree)
-    _assert_trees_close(grads, params_from_jax(jgrads, SMOKE, "cpu"))
+    _assert_trees_close(grads, params_from_jax(jgrads, cfg, "cpu"))
 
 
 def test_train_step_refuses_what_is_not_ported():
@@ -180,7 +192,7 @@ def test_train_step_refuses_what_is_not_ported():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=str)
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)], ids=str)
 def test_flash_attention_backward_gradcheck(causal, heads):
     hq, hkv = heads
     gen = torch.Generator().manual_seed(0)
