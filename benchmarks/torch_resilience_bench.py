@@ -14,7 +14,9 @@ Measured surfaces:
 * **degraded-path cost** — a call that takes one transient-fault retry
   at its first compute against the healthy call on the same plan
   (``degraded_over_healthy``: the retry repeats only the work before the
-  fault, plus the ladder's bookkeeping);
+  fault, plus the ladder's bookkeeping, so at a fault before the first op
+  the two medians differ by bookkeeping and noise), and the ops each
+  dispatches, counted (``degraded_ops`` >= ``healthy_ops``);
 * **quarantine recovery** — a bucket whose specialization an injected
   compile fault failed, then healed: ``recovery_s`` is the wall time from
   the fault clearing until the specialized plan is resident again
@@ -156,11 +158,40 @@ def degraded_cost(fn, args: Sequence[Any], rounds: int) -> Dict[str, Any]:
     c = res.counters()
     if c["retries_transient"] != rounds or c["failures"]:
         raise AssertionError(f"faults did not all fire and recover: {c}")
+    # the work itself, counted rather than timed: a fault at the first
+    # compute repeats nothing, so the two medians differ by bookkeeping
+    # and noise, while the degraded call runs every op the healthy one does
+    healthy_ops = _ops_of(lambda: fn(*args))
+    fn._fault_ref.plan = FaultPlan([FaultSpec("kernel", call=None, step=0)])
+    degraded_ops = _ops_of(lambda: fn(*args))
+    fn._fault_ref.plan = None
+    c = res.counters()
+    if c["retries_transient"] != rounds + 1 or c["failures"]:
+        raise AssertionError(f"the counted fault did not recover: {c}")
     med_h, med_d = statistics.median(healthy), statistics.median(degraded)
     return dict(degraded_rounds=rounds, healthy_call_us=1e6 * med_h,
                 degraded_call_us=1e6 * med_d,
                 degraded_over_healthy=med_d / med_h,
-                degraded_over_healthy_min=min(degraded) / min(healthy))
+                degraded_over_healthy_min=min(degraded) / min(healthy),
+                retries_transient=c["retries_transient"] - 1,
+                failures=c["failures"], healthy_ops=healthy_ops,
+                degraded_ops=degraded_ops)
+
+
+def _ops_of(call: Callable[[], Any]) -> int:
+    """The operator calls (aten and custom ops) that ``call`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as counter:
+        call()
+    return counter.n
 
 
 def recovery(fn, args: Sequence[Any], kind: str = "compile",

@@ -242,7 +242,7 @@ Phases (any failure exits non-zero):
    GEMMA_CUT_LAYERS layers, the full depth's reading printed beside a
    control (the plain forward vs the kernel forward).
 
-15. bench train (``[bench_train]`` lines), run last after a garbage
+15. bench train (``[bench_train]`` lines), run after a garbage
    collection: the reference's bench step (``make_train_step``, symbolic
    b in [1, 8], s in [16, 1024], the state donated) for ``gemma_2b`` at
    full width and depth (18 layers, 8/1 heads at hd 256, GeGLU, the tied
@@ -267,6 +267,30 @@ Phases (any failure exits non-zero):
    GEMMA_CUT_LAYERS layers through a kernel plan against an eager plain
    step (``impl="ref"``) at (2,1000) and (8,1024) within TRAIN_PLAIN_TOL.
 
+16. moe (``[moe]`` lines), after phase 15: the MoE family at full width
+   in bf16, eagerly, depth cut to what one card holds (MOE_MODELS:
+   ``kimi_k2_1t_a32b`` at 1 layer, 38.85 GB of weights; ``deepseek_v3_671b``
+   at 2, 49.74 GB), one model at a time: (d) the flash kernel at kimi's
+   64/8 heads at hd 112, which ``route_of`` sends to the mma kernel's 128
+   instance (cp.async 16 bytes wide on the model's views), against its
+   plain version at (8, 1024) with kernel, plain, SDPA, device and bound
+   ms; (b) ``launch.serve.serve`` (seed 0, batch 4, a 32-token prompt, 16
+   greedy tokens): no flash launch, 3 (kimi) or 9 (deepseek) RMSNorm
+   launches a step, cache length 48 of 49 rows (an ``MLACache`` for
+   deepseek), ms a step; (a) ``models.prefill`` on the same seed-0
+   weights at every request shape: 1 mma-bf16 flash and 3 RMSNorm
+   launches a request (kimi), 0 and 9 (deepseek), finite logits, the
+   median of 5 calls, ``max_memory_allocated`` beside the weights' bytes
+   and the dropped (token, choice) pairs; (c) at (8, 1024), part by part
+   on the kernel path's hidden state: kimi's attention kernel vs plain on
+   the same q, k, v (1e-2, GEMMA_LAYER_REL), RMSNorm at d 7168, 1536 and
+   512 vs plain (1e-2, timed with ``F.rms_norm`` and the bound), every
+   MoE layer on its ln2 through the kernel and through the plain version
+   with identical routing and outputs within 5e-2; (b) the logits after
+   the last prompt step against the eager forward on the prompt at a
+   no-drop capacity, < 2e-2, with the (layer, token)s whose expert sets
+   differ.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
@@ -274,12 +298,15 @@ phase 11 (a), table1 = phase 11 (b), gemma_prefill = phase 12 (b),
 gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
 = phase 13, dense_prefill = phase 14 (b), dense_prefill_f32_smoke and
 dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e),
-gemma_train and musicgen_train = phase 15;
-bounded, loop, gemma_serve and dense_serve launch no flash: their
-attention and ops are plain PyTorch, as the reference's are plain jnp;
+gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a)
+and moe_serve = phase 16 (b);
+bounded, loop, gemma_serve, dense_serve and moe_serve launch no flash:
+their attention and ops are plain PyTorch, as the reference's are plain
+jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
-requests, the mma entries at hd 12, 16 and 48 and the sm90 entry at
-starcoder2's and musicgen's heads; the mma route has an entry per dtype,
+requests, the mma entries at hd 12, 16 and 48 (the bf16 one also at
+kimi_k2's hd 112) and the sm90 entry at starcoder2's and musicgen's
+heads, the rmsnorm entry at the MoE family's widths; the mma route has an entry per dtype,
 counted by ``mma_f32_launches`` and ``mma_bf16_launches``); the last
 line is
 ``{"ok": true, "device": {...}}``.
@@ -4408,6 +4435,439 @@ def phase_bench_train():
     return launches
 
 
+# -- phase 16: the MoE family at full width, eager and through serve ---------
+
+# (arch, layers): full width, the depth cut to what one card holds beside
+# an (8, 1024) request: kimi_k2 takes 38.85 GB of bf16 weights at 1 layer
+# (73.0 at 2), deepseek_v3 49.74 GB at 2 (72.75 at 3); widths, heads,
+# experts, top-k, capacity and vocab are the configs' own
+MOE_MODELS = (("kimi_k2_1t_a32b", 1), ("deepseek_v3_671b", 2))
+MOE_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}
+MOE_REPS = 5            # (a): calls per request shape for the median
+MOE_TOL = 5e-2          # (c): the MoE layer, kernel path vs plain path
+MOE_ATTN_AT = (8, 1024)  # (c): the request whose layers are checked
+MOE_KIMI_HEADS = (64, 8, 112)   # (d): kimi's (hq, hkv, hd) at full width
+
+
+def moe_expected_launches(cfg):
+    """Launches an eager prefill request makes: one flash a GQA layer, on
+    the route of its dtype and hd; RMSNorm ln1, ln2 (and MLA's q_norm,
+    kv_norm) a layer and the final norm.  A decode step makes the same
+    RMSNorm launches and no flash."""
+    from repro_torch.kernels.flash_attention import route_of
+    n = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0, "rmsnorm": 0}
+    per = 2 + ((1 + bool(cfg.r_q)) if cfg.attn_kind == "mla" else 0)
+    n["rmsnorm"] = per * cfg.n_layers + 1
+    if cfg.attn_kind != "mla":
+        route = route_of(cfg.torch_dtype, cfg.resolved_head_dim)
+        if route == "mma":
+            route += "_f32" if cfg.dtype == "float32" else "_bf16"
+        n[route] = cfg.n_layers
+    return n
+
+
+def moe_part_of(cfg):
+    """A ``profile_once`` classifier for the eager MoE prefill: the
+    readout (a product with the vocab's width), the experts' grouped
+    products (the ``bmm`` an einsum runs over the expert dim), MLA's
+    plain attention (its einsums' other ``bmm``s), the other GEMMs,
+    flash, RMSNorm, the routing and dispatch (sort, top-k, gather,
+    scatter), the rest."""
+    routing = ("sort", "topk", "gather", "scatter", "searchsorted",
+               "bincount", "index", "cumsum")
+
+    def part(name, shapes):
+        dims = [sh for sh in shapes if sh]
+        if "flash_attention" in name:
+            return "flash attention (kernel)"
+        if "rmsnorm" in name:
+            return "RMSNorm (kernel)"
+        if name in MATMUL_OPS:
+            if any(sh[-1] == cfg.padded_vocab for sh in dims):
+                return "readout GEMM"
+            if name == "aten::bmm":
+                return "expert GEMMs" if dims[0][0] == cfg.n_experts \
+                    else "plain attention GEMMs (MLA, f32)"
+            return "other GEMMs"
+        if any(w in name for w in routing):
+            return "routing and dispatch"
+        return "elementwise, casts and copies"
+    return part
+
+
+def moe_requests(cfg, params, batches):
+    """Phase 16 (a), the counted path: one eager ``prefill`` per request
+    shape: its launches, the allocator's peak beside the bytes held
+    before it, the pairs its MoE layers dropped, finite logits (B, V)."""
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.models.ffn import observe_routing
+
+    want = moe_expected_launches(cfg)
+    rows = []
+    for (b, s), batch in zip(REQUESTS, batches):
+        dropped = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        n0 = _launch_counts()
+        with observe_routing(lambda r: dropped.append(r.dropped())):
+            logits = prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        n = {k: v - n0[k] for k, v in _launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated()
+        if n != want:
+            raise AssertionError(f"{cfg.name} (b={b}, s={s}): launches {n}, "
+                                 f"want {want}")
+        _check_logits(cfg, logits, b, f"{cfg.name} (b={b}, s={s})")
+        drops = sum(int(d) for d in dropped)
+        rows.append(dict(shape=[b, s], launches=n, peak_bytes=peak,
+                         held_bytes=held, dropped_pairs=drops,
+                         pairs=b * s * cfg.top_k * cfg.n_layers))
+        del logits
+    return rows
+
+
+def moe_flash_row():
+    """Phase 16 (d): the flash kernel at kimi's full-width heads (64/8 at
+    hd 112, bf16, which ``route_of`` sends to the mma kernel's 128
+    instance) at MOE_ATTN_AT in the model layout, against its plain
+    version (1e-2), with kernel, plain, SDPA, device and bound ms.
+    Outside every counted path."""
+    import torch
+
+    from repro_torch.kernels import flash_attention_cuda, reference_attention
+    from repro_torch.kernels.flash_attention import mma_copy_width, route_of
+
+    hq, hkv, hd = MOE_KIMI_HEADS
+    b, s = MOE_ATTN_AT
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(16)
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEV
+                           ).to(torch.bfloat16).transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    if route_of(q.dtype, hd) != "mma":
+        raise AssertionError(f"bf16 hd {hd} routes to "
+                             f"{route_of(q.dtype, hd)}, want mma")
+    width = mma_copy_width(hd, 2, [(t.shape, t.stride(), t.data_ptr())
+                                   for t in (q, k, v)])
+    err, rel = agree(flash_routed(q, k, v), reference_attention(q, k, v),
+                     TOL["bfloat16"], f"flash kimi hd {hd}")
+    ms, plain, libs = time_flash(q, k, v)
+    how = min(libs, key=libs.get)
+    bound, by = flash_bound(b, hq, hkv, s, s, hd, "bfloat16", 2)
+    dev = device_ms(lambda: flash_attention_cuda(q, k, v))
+    log(f"[moe] (d) flash/mma kimi (b={b},hq={hq},hkv={hkv},s={s},hd={hd}) "
+        f"bfloat16, cp.async width {width} B: max err {err:.3g} rel norm "
+        f"{rel:.3g} (tol {TOL['bfloat16']}); kernel {ms:.4f} ms (device "
+        f"{'not measured' if dev is None else f'{dev:.4f} ms'} a launch) "
+        f"plain {plain:.4f} ms sdpa "
+        f"{', '.join(f'{k_} {t:.4f} ms' for k_, t in libs.items())} bound "
+        f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of bound")
+    if width != 16:
+        raise AssertionError(f"kimi's views copy {width} B wide, want 16")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(shape=[b, hq, hkv, s, s, hd], err=err, ms=ms, device=dev,
+                plain=plain, lib=libs[how], lib_how=how, bound=bound, by=by)
+
+
+def moe_norm_row(x, scale, what):
+    """RMSNorm at one of the models' widths on the model's own rows:
+    kernel vs plain (1e-2), with kernel, plain, ``F.rms_norm`` and bound
+    ms."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import reference_rmsnorm, rmsnorm_cuda
+    d = x.shape[-1]
+    rows = x.numel() // d
+    err, rel = agree(rmsnorm_cuda(x, scale), reference_rmsnorm(x, scale),
+                     TOL["bfloat16"], f"rmsnorm {what}")
+    ms = time_ms(lambda: rmsnorm_cuda(x, scale))
+    plain = time_ms(lambda: reference_rmsnorm(x, scale))
+    w = 1.0 + scale
+    lib = time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
+    bound, by = rmsnorm_bound(rows, d, "bfloat16", 2)
+    log(f"[moe] (c) rmsnorm {what} ({rows},{d}) bf16: max err {err:.3g} rel "
+        f"norm {rel:.3g} (tol {TOL['bfloat16']}); kernel {ms:.4f} ms plain "
+        f"{plain:.4f} ms F.rms_norm {lib:.4f} ms bound {bound:.4f} ms ({by}),"
+        f" {100 * bound / ms:.1f}% of bound")
+    return dict(shape=[rows, d], err=err, rel=rel, ms=ms, plain=plain,
+                lib=lib, bound=bound, by=by)
+
+
+def moe_parts(cfg, params, batch):
+    """Phase 16 (c): the model held part by part on the same inputs,
+    walking the kernel path's hidden state eagerly: every GQA layer's
+    attention, kernel vs plain on the same q, k, v (1e-2 elementwise and
+    GEMMA_LAYER_REL in norm); every RMSNorm width, kernel vs plain (1e-2,
+    timed on the model's rows); every MoE layer on the kernel path's
+    hidden state, its ln2 through the kernel and through the plain
+    version: identical routing (dest, token_of, top_i) and outputs within
+    MOE_TOL.  Returns the per-layer rows and the RMSNorm rows by width."""
+    import torch
+
+    from repro_torch.models.attention import attention
+    from repro_torch.models.blocks import gqa_qkv
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.ffn import moe_apply, moe_route
+    from repro_torch.models.lm import _embed_inputs
+    from repro_torch.models.mla import mla_prefill
+
+    hd = cfg.resolved_head_dim
+    x = _embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :]
+    layers, norms = [], {}
+    for i, lp in enumerate(params["layers"]):
+        row = {}
+        h = rms_norm(x, lp["ln1"])
+        if i == 0:
+            norms[f"d{cfg.d_model}"] = moe_norm_row(
+                x, lp["ln1"], f"{cfg.name} ln1")
+        if cfg.attn_kind == "mla":
+            a = lp["attn"]
+            if i == 0:
+                norms[f"d{cfg.r_q}"] = moe_norm_row(
+                    h @ a["w_dq"], a["q_norm"], f"{cfg.name} q_norm")
+                norms[f"d{cfg.r_kv}"] = moe_norm_row(
+                    h @ a["w_dkv"], a["kv_norm"], f"{cfg.name} kv_norm")
+            attn_out, _ = mla_prefill(a, cfg.mla_config(), h)
+        else:
+            q, k, v = gqa_qkv(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads, hd,
+                              positions, cfg.rope_theta)
+            got = attention(q, k, v)
+            want = attention(q, k, v, impl="ref")
+            d = got.float() - want.float()
+            rel = (d.norm() / want.float().norm()).item()
+            ok = bool(torch.allclose(got.float(), want.float(),
+                                     rtol=GEMMA_LAYER_TOL,
+                                     atol=GEMMA_LAYER_TOL))
+            row["attn_err"], row["attn_rel"] = d.abs().max().item(), rel
+            if not (ok and rel <= GEMMA_LAYER_REL):
+                raise AssertionError(
+                    f"{cfg.name} layer {i}: attention kernel vs plain max "
+                    f"err {row['attn_err']:.3g} rel {rel:.3g} (tol "
+                    f"{GEMMA_LAYER_TOL}, {GEMMA_LAYER_REL})")
+            attn_out = got.reshape(b, s, cfg.n_heads * hd) @ lp["attn"]["wo"]
+            del q, k, v, got, want, d
+        x = x + attn_out
+        del h, attn_out
+        hk = rms_norm(x, lp["ln2"])
+        hp = rms_norm(x, lp["ln2"], impl="ref")
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.moe_capacity)
+        rk = moe_route(lp["moe"]["router"], hk, **kw)
+        rp = moe_route(lp["moe"]["router"], hp, **kw)
+        flips = int((rk.top_i.sort(-1).values != rp.top_i.sort(-1).values
+                     ).any(-1).sum())
+        same = flips == 0 and torch.equal(rk.dest, rp.dest) and \
+            torch.equal(rk.token_of, rp.token_of)
+        row.update(ln2_bitwise=bool(torch.equal(hk, hp)),
+                   routing_identical=same, tokens_routed_apart=flips,
+                   dropped_pairs=int(rk.dropped()), cap=rk.cap)
+        del rk, rp
+        yk, aux_k = moe_apply(lp["moe"], hk, ffn_kind=cfg.ffn_kind, **kw)
+        yp, aux_p = moe_apply(lp["moe"], hp, ffn_kind=cfg.ffn_kind, **kw)
+        row["moe_err"] = (yk.float() - yp.float()).abs().max().item()
+        row["aux"], row["aux_plain"] = float(aux_k), float(aux_p)
+        if not same:
+            raise AssertionError(f"{cfg.name} layer {i}: the MoE routes "
+                                 f"{flips} tokens apart on the kernel and the "
+                                 f"plain RMSNorm")
+        torch.testing.assert_close(yk, yp, rtol=MOE_TOL, atol=MOE_TOL,
+                                   msg=lambda m: f"{cfg.name} layer {i} MoE: "
+                                   f"{m}")
+        if not torch.isfinite(yk.float()).all():
+            raise AssertionError(f"{cfg.name} layer {i}: non-finite MoE")
+        x = x + yk
+        del hk, hp, yk, yp
+        layers.append(row)
+        log(f"[moe] (c) {cfg.name} layer {i} at (b={b}, s={s}): "
+            f"{json.dumps(row)}")
+    return layers, norms
+
+
+def moe_serve(cfg, arch):
+    """Phase 16 (b), the counted path: ``launch.serve.serve`` (seed 0,
+    MOE_SERVE): no flash launch (decode attention is plain, as the
+    reference's), the decode's RMSNorm launches a step, cache length 48
+    of 49 rows (an ``MLACache`` for deepseek), tokens in the vocab; ms a
+    step.  Records every decode step's expert choices (``top_i``)."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.ffn import observe_routing
+
+    choices = []
+    with observe_routing(lambda r: choices.append(r.top_i)):
+        launches, out = counted_launches(
+            lambda: serve(cfg, **MOE_SERVE, seed=0, device=DEV))
+    steps = MOE_SERVE["prompt_len"] + MOE_SERVE["gen"]
+    kv = out["state"].caches[0].kv
+    lengths = {int(c.kv.length) for c in out["state"].caches}
+    rows = kv[0].shape[1]
+    want = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
+            "rmsnorm": moe_expected_launches(cfg)["rmsnorm"] * steps}
+    log(f"[moe] (b) {arch} serve batch {MOE_SERVE['batch']} prompt "
+        f"{MOE_SERVE['prompt_len']} gen {MOE_SERVE['gen']}: prefill "
+        f"{1e3 * out['prefill_s']:.1f} ms ("
+        f"{1e3 * out['prefill_s'] / MOE_SERVE['prompt_len']:.2f} ms a step),"
+        f" decode {1e3 * out['decode_s']:.1f} ms ("
+        f"{1e3 * out['decode_s'] / MOE_SERVE['gen']:.2f} ms a step), "
+        f"decode_tok_per_s {out['decode_tok_per_s']:.1f}; cache "
+        f"{type(kv).__name__} {[tuple(t.shape) for t in kv[:2]]}, lengths "
+        f"{lengths}; launches {launches}")
+    if lengths != {steps} or rows != steps + 1:
+        raise AssertionError(f"{arch} serve: cache lengths {lengths} of "
+                             f"{rows} rows")
+    if launches != want:
+        raise AssertionError(f"{arch} serve launches {launches}, want {want}")
+    if out["tokens"].shape != (MOE_SERVE["batch"], MOE_SERVE["gen"]) or \
+            out["tokens"].max() >= cfg.vocab:
+        raise AssertionError(f"{arch} serve tokens {out['tokens'].shape}")
+    if len(choices) != steps * cfg.n_layers:
+        raise AssertionError(f"{arch} serve: {len(choices)} MoE calls")
+    row = dict(prefill_ms=1e3 * out["prefill_s"],
+               decode_ms=1e3 * out["decode_s"],
+               decode_ms_per_step=1e3 * out["decode_s"] / MOE_SERVE["gen"],
+               decode_tok_per_s=out["decode_tok_per_s"])
+    prompt = dict(prompt=out["prompt"], prompt_logits=out["prompt_logits"],
+                  choices=choices[:MOE_SERVE["prompt_len"] * cfg.n_layers])
+    return launches, row, prompt
+
+
+def moe_decode_vs_forward(cfg, params, served):
+    """Phase 16 (b): the logits after the last prompt step of ``serve``
+    against the eager forward on the same prompt at a no-drop capacity
+    (``moe_capacity = E / top_k``, so ``cap = s``: the decode, one token
+    at a time, drops nothing either; tests/test_models.py:83-84), max
+    |diff| / max |forward| < GEMMA_DECODE_TOL; and how many (layer,
+    token)s the two route to different expert sets."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import prefill
+    from repro_torch.models.ffn import observe_routing
+
+    nodrop = dataclasses.replace(cfg,
+                                 moe_capacity=cfg.n_experts / cfg.top_k)
+    prompt = torch.from_numpy(served["prompt"]).to(torch.int32).to(DEV)
+    fwd = []
+    with observe_routing(lambda r: fwd.append(r)):
+        full = prefill(nodrop, params, {"tokens": prompt})
+    if any(int(r.dropped()) for r in fwd):
+        raise AssertionError(f"{cfg.name}: the no-drop forward dropped pairs")
+    full = full.float()
+    dec = served["prompt_logits"][:, 0].float()
+    if not torch.isfinite(dec).all():
+        raise AssertionError(f"{cfg.name} serve: non-finite decode logits")
+    rel = (dec - full).abs().max().item() / max(full.abs().max().item(), 1e-6)
+    same = int((dec.argmax(-1) == full.argmax(-1)).sum())
+    apart = 0
+    L = cfg.n_layers
+    for layer, r in enumerate(fwd):
+        want = r.top_i.sort(-1).values                          # (B, S, k)
+        got = torch.cat([served["choices"][t * L + layer]
+                         for t in range(prompt.shape[1])], dim=1)
+        apart += int((got.sort(-1).values != want).any(-1).sum())
+    n = prompt.numel() * L
+    log(f"[moe] (b) {cfg.name}: the prompt's last decode logits vs the "
+        f"forward (no-drop capacity), max |diff| / max |forward| {rel:.4g} "
+        f"(tol {GEMMA_DECODE_TOL}); argmax equal in {same} of "
+        f"{dec.shape[0]}; expert sets differ at {apart} of {n} (layer, "
+        f"token)s")
+    if not rel < GEMMA_DECODE_TOL:
+        raise AssertionError(f"{cfg.name} serve: the prompt's last decode "
+                             f"logits stand {rel:.4g} from the forward's")
+    return dict(decode_forward_rel=rel, argmax_equal=same,
+                routed_apart=apart, routed_of=n)
+
+
+def phase_moe():
+    """Phase 16: (d) the flash kernel at kimi's heads; then per model of
+    MOE_MODELS, one at a time: (b) ``serve`` (counted), (a) the eager
+    prefill at REQUESTS (counted) and its medians, (c) the model part by
+    part at MOE_ATTN_AT, and (b)'s decode against the forward.  Returns
+    the kernel rows and the launches per path."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+
+    t_phase = time.perf_counter()
+    rows = {"hd112_kimi": moe_flash_row()}
+    zero = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0, "rmsnorm": 0}
+    prefill_l, serve_l = dict(zero), dict(zero)
+    summary = {}
+    for arch, layers in MOE_MODELS:
+        t_model = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        # serve first: it makes its own seed-0 weights, which the card
+        # cannot hold twice; (a)-(c) then make the same weights again
+        sl, srow, served = moe_serve(cfg, arch)
+        serve_l = {k: serve_l[k] + sl[k] for k in serve_l}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in pytree.tree_leaves(params))
+        heads = (f"MLA, {cfg.n_heads} heads, q.k over "
+                 f"{cfg.qk_nope + cfg.qk_rope}, v {cfg.v_dim}, r_kv "
+                 f"{cfg.r_kv}, r_q {cfg.r_q}" if cfg.attn_kind == "mla" else
+                 f"GQA, heads {cfg.n_heads}/{cfg.n_kv_heads} hd "
+                 f"{cfg.resolved_head_dim}")
+        log(f"[moe] {arch} at {layers} layer(s): {cfg.param_count()} params "
+            f"({cfg.param_count(active_only=True)} active), {weight_bytes} B "
+            f"of weights, init {time.perf_counter() - t0:.2f} s; {heads}; "
+            f"experts {cfg.n_experts} top {cfg.top_k} shared {cfg.n_shared} "
+            f"capacity {cfg.moe_capacity}, vocab {cfg.vocab}")
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(16)
+        batches = [{"tokens": torch.randint(0, cfg.vocab, (b, s),
+                                            generator=gen, device=DEV,
+                                            dtype=torch.int32)}
+                   for (b, s) in REQUESTS]
+        launches, req_rows = counted_launches(
+            lambda: moe_requests(cfg, params, batches))
+        prefill_l = {k: prefill_l[k] + launches[k] for k in prefill_l}
+        medians = phase_latency(lambda p, bt: prefill(cfg, p, bt), params,
+                                batches, reps=MOE_REPS, tag=f"moe {arch}")
+        for r in req_rows:
+            b, s = r["shape"]
+            r["median_ms"] = medians[(b, s)]
+            log(f"[moe] (a) {arch} (b={b}, s={s}): median {r['median_ms']:.3f}"
+                f" ms; launches {r['launches']}; max_memory_allocated "
+                f"{r['peak_bytes']} B ({r['held_bytes']} B held before, "
+                f"{weight_bytes} B of them weights); dropped "
+                f"{r['dropped_pairs']} of {r['pairs']} (token, choice) "
+                f"pairs")
+        profile_once(f"{arch} b={REQUESTS[-1][0]} s={REQUESTS[-1][1]}",
+                     lambda: prefill(cfg, params, batches[-1]),
+                     classify=moe_part_of(cfg))
+        part_rows, norms = moe_parts(
+            cfg, params, batches[REQUESTS.index(MOE_ATTN_AT)])
+        rows.update({f"rmsnorm_{k}": v for k, v in norms.items()})
+        dvf = moe_decode_vs_forward(cfg, params, served)
+        del params, batches, served
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary[arch] = dict(layers=layers, weight_bytes=weight_bytes,
+                             requests=req_rows, parts=part_rows, serve=srow,
+                             decode_vs_forward=dvf,
+                             seconds=time.perf_counter() - t_model)
+    log(f"[moe] phase 16 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"prefill {prefill_l}, serve {serve_l}; "
+        f"{json.dumps(summary, default=str)}")
+    return rows, {"moe_prefill": prefill_l, "moe_serve": serve_l}
+
+
 def main() -> int:
     try:
         import torch
@@ -4472,6 +4932,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bench_launches = phase_bench_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rows, moe_launches = phase_moe()
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -4519,6 +4982,8 @@ def main() -> int:
                         for path, n in dense_launches.items()})
         by_path.update({path: n[counter]
                         for path, n in bench_launches.items()})
+        by_path.update({path: n[counter]
+                        for path, n in moe_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \
@@ -4538,6 +5003,19 @@ def main() -> int:
                                                    dt)])
             entry["hd48"] = dense_row(dense_rows[("hd48", *DENSE_TIMED_AT,
                                                   dt)])
+        if key == "flash_mma_bf16":
+            # the mma kernel's 128 instance at kimi_k2's full-width heads
+            entry["hd112_kimi"] = dense_row(moe_rows["hd112_kimi"])
+        if key == "rmsnorm":
+            # the MoE family's widths on the models' own (8, 1024) rows
+            for row_key, r in moe_rows.items():
+                if row_key.startswith("rmsnorm_"):
+                    entry[row_key[len("rmsnorm_"):]] = {
+                        "shape": r["shape"], "max_abs_err": r["err"],
+                        "ms": r["ms"], "plain_ms": r["plain"],
+                        "bound_ms": r["bound"], "bound_by": r["by"],
+                        "library_ms": r["lib"],
+                        "library_call": "F.rms_norm"}
         if key == "flash_bfloat16":
             # the sm90 route at the dense family's new full-width heads
             for model in DENSE_SM90_HEADS:
@@ -4557,7 +5035,8 @@ def main() -> int:
     log(f"[done] total {time.perf_counter() - t_start:.1f} s; kernel numbers "
         f"at (b, s) = {REQUESTS[-1]}; launches per path, each counted from 0 "
         f"just before the path and read just after it (the mma route runs "
-        f"only on the f32 and smoke paths); requests {json.dumps(req_rows)}")
+        f"only on the f32, smoke and MoE paths); requests "
+        f"{json.dumps(req_rows)}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,12 @@ import importlib
 from .base import ModelConfig
 
 ARCHS = ["llama2_1b", "gemma_2b", "gemma_7b", "granite_8b", "starcoder2_7b",
-         "musicgen_medium", "internvl2_2b"]
+         "musicgen_medium", "internvl2_2b", "kimi_k2_1t_a32b",
+         "deepseek_v3_671b"]
 
-# the reference's CLI names (``repro/configs/__init__.py``); the dense
-# family is ported (the ARCHS above), the others resolve to a module not
-# yet here
+# the reference's CLI names (``repro/configs/__init__.py``); the dense and
+# MoE families are ported (the ARCHS above), the others resolve to a
+# module not yet here
 _ALIASES = {
     "hymba-1.5b": "hymba_1p5b", "internvl2-2b": "internvl2_2b",
     "musicgen-medium": "musicgen_medium", "starcoder2-7b": "starcoder2_7b",

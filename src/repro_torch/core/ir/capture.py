@@ -181,6 +181,25 @@ def _hints(names: Sequence[str], ranges: Mapping[str, Any]) -> Dict[str, int]:
     return out
 
 
+def _refuse_pinned_exprs(shape_env, names: Mapping[Any, str]) -> None:
+    """Raise on a guard that pins an expression of the dims to a number
+    (``Eq(round(2.5 * s / 8), 5)``: an ``int()`` of a size the step
+    computes, such as an MoE capacity): the plan would hold only where
+    the expression keeps its trace-time value, not over the dims' range."""
+    import sympy
+    for gd in shape_env.guards:
+        expr = gd.expr
+        if not isinstance(expr, sympy.Eq):
+            continue
+        used = sorted(names[s] for s in expr.free_symbols if s in names)
+        lhs, rhs = expr.args
+        if used and (lhs.is_number or rhs.is_number):
+            raise ValueError(
+                f"tracing pinned {expr} (dims {used}): the step computes a "
+                f"number from their sizes and branches on it, so no single "
+                f"plan covers their range")
+
+
 def _is_view_op(op) -> bool:
     return bool(getattr(op, "is_view", False)) or op in _STORAGE_ALIASES
 
@@ -241,6 +260,7 @@ def capture(fn: Callable, specs: Sequence[Any], *,
             raise ValueError(
                 f"tracing specialised dim {name!r} to {rep}: the step "
                 f"branches on its size, so no single plan covers its range")
+    _refuse_pinned_exprs(shape_env, names)
 
     _name_bound_symbols(gm, shape_env, names)
     g = _convert(gm, [(s.dim_exprs(), s.dtype) for s in flat_specs], names)

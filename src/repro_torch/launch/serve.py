@@ -4,8 +4,9 @@ front end.
 ``serve`` is the reference's server loop (``repro/launch/serve.py:345``):
 a cache-filling prefill token (or frame) by token, then greedy decode,
 eagerly over the port's ``decode_step``; ``python -m
-repro_torch.launch.serve --arch gemma-2b`` runs it (any dense-family
-arch: ``musicgen-medium`` decodes frames into 4 codebooks).
+repro_torch.launch.serve --arch gemma-2b`` runs it (any dense or MoE
+arch: ``musicgen-medium`` decodes frames into 4 codebooks,
+``deepseek-v3-671b`` over MLA's latent cache).
 
 ``BucketBatcher`` groups queued requests by specialization bucket before
 dispatch, so one specialized plan — lowered to a flat executable

@@ -44,7 +44,9 @@ def batch_specs(cfg: ModelConfig, batch: Any, seq: Any) -> Dict[str, TensorSpec]
 
 
 def decode_input_specs(cfg: ModelConfig, batch: Any) -> Dict[str, TensorSpec]:
-    """One decode step's input: a token (B, 1), or a frame (B, 1, D)."""
+    """One decode step's input: a token (B, 1), or a frame (B, 1, D).  The
+    cache is the step's state, not its input, so a latent (MLA) cache
+    changes nothing here."""
     if cfg.input_mode in ("tokens", "vlm"):
         return {"token": TensorSpec((batch, 1), torch.int32)}
     return {"frame_embed": TensorSpec((batch, 1, cfg.d_model),

@@ -1,19 +1,29 @@
-"""The dense transformer block (``repro/models/blocks.py:89-151``) with its
-GQA attention sub-block (``gqa_qkv``/``gqa_full``/``gqa_decode`` at
-``:30-64``): the full-sequence forward and the one-token decode."""
+"""The transformer block (``repro/models/blocks.py:67-151``): GQA attention
+(``gqa_qkv``/``gqa_full``/``gqa_decode`` at ``:30-64``) or MLA, and a
+dense FFN or a mixture of experts; the full-sequence forward and the
+one-token decode.  The reference's hybrid (SSM) branches are not ported
+yet."""
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from .attention import KVCache, attention, decode_attention, kv_cache_update
 from .common import apply_rope, dense_init, rms_norm
-from .ffn import ffn_apply, ffn_init
+from .ffn import ffn_apply, ffn_init, moe_apply, moe_init
+from .mla import mla_decode, mla_init, mla_prefill
 
-# the families whose layers are this dense block: the text models, and
+# the families whose layers are the dense block: the text models, and
 # musicgen and internvl2 (their frontends are stubs before the same stack)
 DENSE_FAMILIES = ("dense", "audio", "vlm")
+# ... and the mixture-of-experts family (kimi: GQA; deepseek: MLA)
+FAMILIES = DENSE_FAMILIES + ("moe",)
+
+
+def check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.family} blocks are not ported yet")
 
 
 def gqa_init(gen: torch.Generator, d_model: int, n_heads: int,
@@ -67,47 +77,76 @@ def gqa_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def block_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> Dict:
-    if cfg.family not in DENSE_FAMILIES:
-        raise NotImplementedError(f"{cfg.family} blocks are not ported yet")
-    return {
+    check_family(cfg)
+    p: Dict[str, Any] = {
         "ln1": torch.zeros(cfg.d_model, dtype=dtype, device=gen.device),
         "ln2": torch.zeros(cfg.d_model, dtype=dtype, device=gen.device),
-        "attn": gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.resolved_head_dim, dtype),
-        "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if cfg.attn_kind == "mla":
+        p["attn"] = mla_init(gen, cfg.mla_config(), dtype)
+    else:
+        p["attn"] = gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, dtype)
+    if cfg.n_experts:
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.n_shared, dtype)
+    else:
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _ffn(params: Dict, cfg, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed h: (out, the MoE aux or None)."""
+    if cfg.n_experts:
+        return moe_apply(params["moe"], h, top_k=cfg.top_k,
+                         capacity_factor=cfg.moe_capacity,
+                         ffn_kind=cfg.ffn_kind)
+    return ffn_apply(params["ffn"], h, kind=cfg.ffn_kind), None
 
 
 def block_apply(params: Dict, cfg, x: torch.Tensor, *,
-                impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence dense block forward."""
+                impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence block forward -> (y, the layer's MoE aux loss, or None
+    for a dense FFN, where the reference's is a zero)."""
     h = rms_norm(x, params["ln1"], impl=impl)
-    x = x + gqa_full(params["attn"], h, n_heads=cfg.n_heads,
-                     n_kv_heads=cfg.n_kv_heads,
-                     head_dim=cfg.resolved_head_dim,
-                     rope_theta=cfg.rope_theta, impl=impl)
-    return x + ffn_apply(params["ffn"], rms_norm(x, params["ln2"], impl=impl),
-                         kind=cfg.ffn_kind)
+    if cfg.attn_kind == "mla":
+        attn_out, _ = mla_prefill(params["attn"], cfg.mla_config(), h,
+                                  impl=impl)
+    else:
+        attn_out = gqa_full(params["attn"], h, n_heads=cfg.n_heads,
+                            n_kv_heads=cfg.n_kv_heads,
+                            head_dim=cfg.resolved_head_dim,
+                            rope_theta=cfg.rope_theta, impl=impl)
+    x = x + attn_out
+    y, aux = _ffn(params, cfg, rms_norm(x, params["ln2"], impl=impl))
+    return x + y, aux
 
 
 class BlockCache(NamedTuple):
-    kv: Optional[KVCache] = None   # the reference's ``ssm`` comes with hymba
+    # a KVCache, or an MLACache for MLA; the reference's ``ssm`` comes
+    # with hymba
+    kv: Optional[Any] = None
 
 
 def block_decode(params: Dict, cfg, x: torch.Tensor, cache: BlockCache, *,
                  window: Optional[int] = None
                  ) -> Tuple[torch.Tensor, BlockCache]:
-    """One-token dense block forward against the layer's KV cache.  The
-    reference's MLA, SSM and MoE branches are not ported yet."""
-    if cfg.family not in DENSE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.family} decode (MLA, SSM or MoE) is not ported yet")
+    """One-token block forward against the layer's KV or latent cache; the
+    MoE routes the token as the forward does (its aux is dropped, as in
+    the reference).  The reference's SSM branch is not ported yet."""
+    check_family(cfg)
     h = rms_norm(x, params["ln1"])
-    attn_out, kv = gqa_decode(params["attn"], h, cache.kv,
-                              n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                              head_dim=cfg.resolved_head_dim,
-                              rope_theta=cfg.rope_theta, window=window)
+    if cfg.attn_kind == "mla":
+        attn_out, kv = mla_decode(params["attn"], cfg.mla_config(), h,
+                                  cache.kv)
+    else:
+        attn_out, kv = gqa_decode(params["attn"], h, cache.kv,
+                                  n_heads=cfg.n_heads,
+                                  n_kv_heads=cfg.n_kv_heads,
+                                  head_dim=cfg.resolved_head_dim,
+                                  rope_theta=cfg.rope_theta, window=window)
     x = x + attn_out
-    x = x + ffn_apply(params["ffn"], rms_norm(x, params["ln2"]),
-                      kind=cfg.ffn_kind)
-    return x, BlockCache(kv=kv)
+    y, _ = _ffn(params, cfg, rms_norm(x, params["ln2"]))
+    return x + y, BlockCache(kv=kv)

@@ -1,9 +1,10 @@
 """Weights and optimizer state of the reference model in the port's layout.
 
 ``params_from_jax`` takes the reference's ``init_params`` pytree as numpy
-arrays (``params["layers"]`` stacked on axis 0) and returns the port's
-parameter dict with the stacks split per layer, so the two packages can
-be compared on identical weights.  ``opt_state_from_jax`` does the same
+arrays (``params["layers"]`` stacked on axis 0; an MoE layer's experts
+(L, E, D, F) and its f32 router (L, D, E)) and returns the port's
+parameter dict with the stacks split per layer, each leaf in its own
+dtype, so the two packages can be compared on identical weights.  ``opt_state_from_jax`` does the same
 for the reference's ``AdamWState``, and ``cache_from_jax`` for its decode
 state, so a decode can be compared mid-stream.
 """
@@ -20,6 +21,7 @@ from ..optim import AdamWState
 from .attention import KVCache
 from .blocks import BlockCache
 from .lm import DecodeState
+from .mla import MLACache
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -60,14 +62,14 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig,
 
 def cache_from_jax(np_state: Any, cfg: ModelConfig,
                    device: Any = None) -> DecodeState:
-    """The reference's ``DecodeState`` (numpy leaves; its KV caches stacked
-    on a leading layer axis: k/v (L, B, Smax, Hkv, hd), length (L,)) as
-    the port's list of per-layer caches."""
+    """The reference's ``DecodeState`` (numpy leaves; its caches stacked on
+    a leading layer axis: a ``KVCache``'s k/v (L, B, Smax, Hkv, hd) or an
+    ``MLACache``'s c_kv (L, B, Smax, r_kv) and k_rope (L, B, Smax, rope),
+    length (L,)) as the port's list of per-layer caches."""
     dev = resolve_device(device)
     kv = np_state.caches.kv
-    k, v, length = (np.asarray(a) for a in (kv.k, kv.v, kv.length))
+    kind = MLACache if cfg.attn_kind == "mla" else KVCache
+    leaves = [np.asarray(getattr(kv, f)) for f in kind._fields]
     return DecodeState(caches=[
-        BlockCache(kv=KVCache(k=_to_tensor(k[i], dev),
-                              v=_to_tensor(v[i], dev),
-                              length=_to_tensor(length[i], dev)))
+        BlockCache(kv=kind(*(_to_tensor(a[i], dev) for a in leaves)))
         for i in range(cfg.n_layers)])

@@ -1,9 +1,12 @@
 """Top-level language model: init / forward / loss / prefill and the
-KV-cache decode (dense family), in the reference's three input modes
-(``repro/models/lm.py:54-311``): ``tokens``; ``embeddings`` (musicgen:
-frame embeddings in, an ``n_codebooks``-way head out, logits
+cached decode (dense and MoE families), in the reference's three input
+modes (``repro/models/lm.py:54-311``): ``tokens``; ``embeddings``
+(musicgen: frame embeddings in, an ``n_codebooks``-way head out, logits
 ``(B, S, K, V)``); ``vlm`` (internvl2: ``vis_tokens`` patch embeddings
-before the text tokens, the loss over the text positions only).
+before the text tokens, the loss over the text positions only).  MoE
+layers add their aux load-balance loss, summed over the layers
+(``forward_aux``), to ``loss_fn`` at 0.01; MLA layers decode over a
+latent cache (``MLACache``).
 
 Layers are unrolled in Python, as the reference does with
 ``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
@@ -22,9 +25,12 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
 from .attention import KVCache
-from .blocks import (DENSE_FAMILIES, BlockCache, block_apply, block_decode,
-                     block_init)
+from .blocks import (BlockCache, block_apply, block_decode, block_init,
+                     check_family)
 from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
+from .mla import MLACache
+
+MOE_AUX_WEIGHT = 0.01   # the reference's loss_fn (repro/models/lm.py:202)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -87,32 +93,55 @@ def _lm_logits(cfg: ModelConfig, params: Dict, h: torch.Tensor,
     return _mask_pad_vocab(cfg, h @ w.to(h.dtype))
 
 
+def _forward(cfg: ModelConfig, params: Dict, batch: Dict,
+             impl: Optional[str]
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(logits, the MoE aux summed over the layers, or None if dense)."""
+    x = _embed_inputs(cfg, params, batch)
+    aux = None
+    for layer_p in params["layers"]:
+        x, a = block_apply(layer_p, cfg, x, impl=impl)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return _lm_logits(cfg, params, x, impl), aux
+
+
 def forward(cfg: ModelConfig, params: Dict, batch: Dict,
             impl: Optional[str] = None) -> torch.Tensor:
     """Full-sequence logits (B, S, V), or (B, S, K, V) with ``K =
     n_codebooks``; in ``vlm`` mode S counts the vision prefix too.
     ``impl`` picks the kernel ops' implementation (``None``: by device;
     ``"ref"``: plain PyTorch)."""
-    x = _embed_inputs(cfg, params, batch)
-    for layer_p in params["layers"]:
-        x = block_apply(layer_p, cfg, x, impl=impl)
-    return _lm_logits(cfg, params, x, impl)
+    return _forward(cfg, params, batch, impl)[0]
+
+
+def forward_aux(cfg: ModelConfig, params: Dict, batch: Dict,
+                impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``forward``: (logits, the f32 MoE aux loss summed
+    over the layers; 0 for a dense model)."""
+    logits, aux = _forward(cfg, params, batch, impl)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
             impl: Optional[str] = None) -> torch.Tensor:
     """Mean next-token cross entropy against ``batch["labels"]``
-    (``repro/models/lm.py:193``; dense models have no auxiliary loss):
-    over the text positions only in ``vlm`` mode, and over (B, S, K)
-    labels with a codebook head (which takes no mask, as the
-    reference's)."""
-    logits = forward(cfg, params, batch, impl)
+    (``repro/models/lm.py:193``), plus 0.01 x the MoE aux loss for an MoE
+    model (a dense one adds nothing): over the text positions only in
+    ``vlm`` mode, and over (B, S, K) labels with a codebook head (which
+    takes no mask, as the reference's)."""
+    logits, aux = _forward(cfg, params, batch, impl)
     labels = batch["labels"]
     if cfg.input_mode == "vlm":
         logits = logits[:, -labels.shape[1]:]
     if cfg.n_codebooks:
-        return softmax_cross_entropy(logits, labels)
-    return softmax_cross_entropy(logits, labels, batch.get("mask"))
+        loss = softmax_cross_entropy(logits, labels)
+    else:
+        loss = softmax_cross_entropy(logits, labels, batch.get("mask"))
+    return loss if aux is None else loss + MOE_AUX_WEIGHT * aux
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
@@ -134,18 +163,30 @@ class DecodeState(NamedTuple):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = None) -> DecodeState:
-    """Zeroed K/V caches of ``max_len`` rows per layer and a length of 0,
-    on ``device`` (``cuda`` unless given); the KV branch of
-    ``repro/models/lm.py:213-242``."""
-    if cfg.family not in DENSE_FAMILIES:
-        raise NotImplementedError(f"{cfg.family} caches are not ported yet")
+    """Zeroed caches of ``max_len`` rows per layer and a length of 0, on
+    ``device`` (``cuda`` unless given): K/V (B, Smax, Hkv, hd), or for MLA
+    the latent (B, Smax, r_kv) and the RoPE key (B, Smax, qk_rope); the KV
+    and MLA branches of ``repro/models/lm.py:213-242``."""
+    check_family(cfg)
     dev = resolve_device(device)
+    dt = cfg.torch_dtype
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def length():
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    if cfg.attn_kind == "mla":
+        return DecodeState(caches=[
+            BlockCache(kv=MLACache(c_kv=zeros(batch, max_len, cfg.r_kv),
+                                   k_rope=zeros(batch, max_len, cfg.qk_rope),
+                                   length=length()))
+            for _ in range(cfg.n_layers)])
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return DecodeState(caches=[
-        BlockCache(kv=KVCache(
-            k=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            v=torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            length=torch.zeros((), dtype=torch.int32, device=dev)))
+        BlockCache(kv=KVCache(k=zeros(*shape), v=zeros(*shape),
+                              length=length()))
         for _ in range(cfg.n_layers)])
 
 
@@ -155,8 +196,9 @@ def decode_step(cfg: ModelConfig, params: Dict, state: DecodeState,
     ``inp["frame_embed"]`` (B,1,D) in ``embeddings`` mode, against the
     running cache -> (logits (B,1,V) or (B,1,K,V), the new state).  Layers
     unrolled; each layer's cache is written in place
-    (``attention.kv_cache_update``).  RMSNorm runs its kernel op; decode
-    attention is plain PyTorch, as the reference's is plain jnp."""
+    (``attention.kv_cache_update``, ``mla.mla_cache_update``).  RMSNorm
+    runs its kernel op; decode attention (GQA or absorbed MLA) and the
+    MoE are plain PyTorch, as the reference's are plain jnp."""
     if cfg.input_mode in ("tokens", "vlm"):
         x = F.embedding(inp["token"], params["embed"]).to(cfg.torch_dtype)
     else:

@@ -849,3 +849,115 @@ def test_dense_family_smoke_prefill_on_the_card(gen, arch, dtype):
         torch.testing.assert_close(got[..., :cfg.vocab].float(),
                                    want[..., :cfg.vocab].float(),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_mma_flash_at_kimis_hd112_matches_the_plain_version(gen, offset):
+    """kimi_k2's attention (64/8 heads, hd 112, bf16) takes the mma
+    kernel's 128 instance: its model-layout views copy 16 bytes wide (one
+    element off, plain loads), causal and not, one row, ragged S, S < T."""
+    import math
+
+    from repro_torch.kernels.flash_attention import mma_copy_width
+    hd = 112
+    assert route_of(torch.bfloat16, hd) == "mma"
+    for (b, s, t) in [(1, 1, 1), (2, 100, 100), (1, 37, 160), (2, 256, 256)]:
+        def view(n, h):
+            if offset:
+                flat = _randn(gen, (b * n * h * hd + 1,), torch.bfloat16)
+                return flat[1:].view(b, n, h, hd).transpose(1, 2)
+            return _randn(gen, (b, n, h, hd), torch.bfloat16).transpose(1, 2)
+        q, k, v = view(s, 64), view(t, 8), view(t, 8)
+        width = mma_copy_width(hd, 2, [(x.shape, x.stride(), x.data_ptr())
+                                       for x in (q, k, v)])
+        assert width == (0 if offset else 16)
+        for causal in (True, False):
+            m0 = flash_attention_cuda.mma_bf16_launches
+            got = flash_attention(q, k, v, causal, None, None)
+            assert flash_attention_cuda.mma_bf16_launches == m0 + 1
+            want = reference_attention(q, k, v, causal=causal)
+            torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+            rel = ((got.float() - want.float()).norm()
+                   / want.float().norm()).item()
+            assert math.isfinite(rel) and rel <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [7168, 1536, 512])
+def test_rmsnorm_at_the_moe_widths_matches_the_plain_version(gen, dtype, d):
+    """d_model 7168 (kimi_k2, deepseek_v3) and MLA's latent norms, q_norm
+    at 1536 and kv_norm at 512."""
+    for rows in (1, 300, 4096):
+        x = _randn(gen, (rows, d), dtype)
+        sc = _randn(gen, (d,), dtype, 0.1)
+        n0 = rmsnorm_cuda.launches
+        got = rmsnorm(x, sc, 1e-6, None)
+        assert rmsnorm_cuda.launches == n0 + 1
+        torch.testing.assert_close(got, reference_rmsnorm(x, sc),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "deepseek_v3_671b"])
+def test_moe_smoke_prefill_on_the_card(gen, arch):
+    """The MoE smoke configs eagerly on the card: per request one mma flash
+    a GQA layer (kimi, hd 16) and none for MLA, RMSNorm ln1, ln2 (and
+    q_norm, kv_norm) a layer and the final norm; in f32 the logits equal
+    the plain path's (``impl="ref"``) to 2e-4; in bf16 the routing is the
+    plain path's, pair for pair, and the logits finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.ffn import observe_routing
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+        params = init_params(cfg, seed=0)            # cuda by default
+        mla = cfg.attn_kind == "mla"
+        for b, s in [(1, 16), (3, 96)]:
+            batch = {"tokens": torch.randint(0, cfg.vocab, (b, s),
+                                             generator=gen, device="cuda",
+                                             dtype=torch.int32)}
+            f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+            k_routes, p_routes = [], []
+            with observe_routing(k_routes.append):
+                got = prefill(cfg, params, batch)
+            assert flash_attention_cuda.launches - f0 == \
+                (0 if mla else cfg.n_layers)
+            assert rmsnorm_cuda.launches - n0 == \
+                (4 if mla else 2) * cfg.n_layers + 1
+            with observe_routing(p_routes.append):
+                want = prefill(cfg, params, batch, impl="ref")
+            assert torch.isfinite(got.float()).all()
+            if dtype == "float32":
+                torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+            else:
+                for rk, rp in zip(k_routes, p_routes):
+                    assert torch.equal(rk.dest, rp.dest)
+                    assert torch.equal(rk.token_of, rp.token_of)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "deepseek_v3_671b"])
+def test_moe_serve_on_the_card_is_deterministic(gen, arch):
+    """``serve`` in bf16 twice gives the same greedy tokens and the same
+    prompt logits bit for bit (the MoE combine sums each token's slots in
+    a fixed order; no atomics), with a latent cache for deepseek."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.mla import MLACache
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    r1 = serve(cfg, batch=4, prompt_len=16, gen=8, seed=1)
+    r2 = serve(cfg, batch=4, prompt_len=16, gen=8, seed=1)
+    assert r1["tokens"].shape == (4, 8)
+    assert (r1["tokens"] == r2["tokens"]).all()
+    assert torch.equal(r1["prompt_logits"], r2["prompt_logits"])
+    kv = r1["state"].caches[0].kv
+    assert isinstance(kv, MLACache) == (cfg.attn_kind == "mla")
+    assert int(kv.length) == 24

@@ -26,6 +26,7 @@ Twin of ``tests/test_resilience.py``:
   on the CPU.
 """
 import dataclasses
+import math
 import os
 import threading
 import time
@@ -730,6 +731,13 @@ def test_resilience_bench_smoke_on_cpu():
     row = bench.run(smoke=True, device="cpu")
     assert row["device"] == "cpu" and row["smoke"]
     assert row["disabled_check_frac"] <= bench.OVERHEAD_TOL - 1
-    assert row["degraded_over_healthy"] > 1.0
+    # every injected fault retried and none failed; the degraded call ran
+    # every op the healthy one did (a fault before the first op repeats
+    # none, so the wall-clock ratio is noise around 1 and only reported)
+    assert row["retries_transient"] == row["degraded_rounds"]
+    assert row["failures"] == 0
+    assert row["degraded_ops"] >= row["healthy_ops"] > 0
+    assert math.isfinite(row["degraded_over_healthy"])
+    assert row["degraded_over_healthy"] > 0
     assert row["recovery_s"] > 0 and row["faults_mapped_frac"] == 1.0
     assert row["chaos_fired"] > 0
