@@ -9,7 +9,9 @@ Phases (any failure exits non-zero):
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once; build
    seconds, ptxas register/smem report; no instance of the flash kernels
    may spill: the sm90 kernel's at hd 32, 64, 128 and 256, the mma
-   kernel's at hd 16, 32, 48, 64, 128 and 256 in f32 and bf16);
+   kernel's at hd 16, 32, 48, 64, 128 and 256 in f32 and bf16; nor may
+   RMSNorm's register path at any vectors a thread the geometry picks,
+   1-8 in f32 and 1-7 in bf16);
 2. kernels against their plain PyTorch versions at the main path's shapes
    and layout and at the reference kernel tests' shapes, f32 and bf16
    (elementwise rtol = atol and ||got - want|| / ||want|| both within
@@ -18,7 +20,16 @@ Phases (any failure exits non-zero):
    ``flash_attention_mma.cu`` (mma.sync, 3xTF32); each with kernel, plain
    and library-call times and the card's bound for the same work at every
    request shape (f32 flash on TF32 / 3, the FMA bound logged beside it
-   once);
+   once); RMSNorm's widest register-path row, and its loop path on a
+   view one element off a 16-byte boundary and one vector past that
+   row; then RMSNorm's sweep at every width a config uses (NORM_WIDTHS)
+   at 8192 and 4 rows in both dtypes: kernel vs plain, the register path
+   taken, rows bitwise equal alone, in a 4-row call and in the whole
+   call, and per row the device time from torch.profiler's kernel
+   records of back-to-back calls over inputs rotated across twice the
+   L2 (the kernel, the loop path -- the earlier one-CTA-a-row design --
+   ``F.rms_norm``, a device copy of x), the host microseconds per call
+   (the wrapper, the op, ``F.rms_norm``) and the bound;
 3. main path: ``optimize(make_prefill_step(llama2_1b))`` at full width
    (4 layers, bf16, random weights from seed 0), serving four requests of
    different (b, s) through one plan; asserts 4 flash-attention launches,
@@ -306,7 +317,9 @@ jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
 requests, the mma entries at hd 12, 16 and 48 (the bf16 one also at
 kimi_k2's hd 112) and the sm90 entry at starcoder2's and musicgen's
-heads, the rmsnorm entry at the MoE family's widths; the mma route has an entry per dtype,
+heads, the rmsnorm entry at the MoE family's widths, its sweep (phase
+2, ``sweep``) and its launches after phase 2 by path
+(``launches_by_norm_path``); the mma route has an entry per dtype,
 counted by ``mma_f32_launches`` and ``mma_bf16_launches``); the last
 line is
 ``{"ok": true, "device": {...}}``.
@@ -369,6 +382,16 @@ CAP_STEP = 0.05     # the ladder's rungs: 0.95, 0.90, ... of the peak
 MAX_SUBGRAPH = 24   # optimize's default recompute-subgraph size
 RMSNORM_TEST_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128),
                        (2, 33, 160)]
+# RMSNorm's sweep (phase 2): every width a config normalizes -- deepseek_v3's
+# MLA latents (512, 1536; musicgen's d_model), gemma_2b and internvl2
+# (2048), gemma_7b (3072), llama2_1b and granite (4096), starcoder2 (4608),
+# kimi_k2 and deepseek_v3 (7168) -- at a prefill's 8192 rows and a decode
+# step's 4
+NORM_WIDTHS = (512, 1536, 2048, 3072, 4096, 4608, 7168)
+NORM_ROWS = (8192, 4)
+NORM_TIMED = 50          # profiled calls per function, back to back
+NORM_HOST_CALLS = 200    # calls per function on the host clock
+NORM_BITWISE_ROWS = (0, 1, 4097, 8191)
 
 
 # what phase 10 ([obs]) reads from the phases it observes: the functions
@@ -461,36 +484,50 @@ def phase_device():
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
+    from repro_torch.kernels.rmsnorm import MAX_VECS
     from repro_torch.kernels.variants import MMA_HEAD_DIMS
-    flash = flash_ptxas(lib.ptxas_log)
-    for kernel, hd, dtype, regs, spill in flash:
-        log(f"[ptxas] flash_fwd_{kernel}<{hd}, {dtype}>: {regs} registers, "
+    insts = kernel_ptxas(lib.ptxas_log)
+    for kernel, n, dtype, regs, spill in insts:
+        log(f"[ptxas] {kernel}<{n}, {dtype}>: {regs} registers, "
             f"{spill} spill bytes")
-    want = sorted([("sm90", hd, "bfloat16") for hd in (32, 64, 128, 256)] +
-                  [("mma", hd, dtype) for hd in MMA_HEAD_DIMS
-                   for dtype in ("bfloat16", "float32")])
-    if sorted(r[:3] for r in flash) != want or any(r[4] for r in flash):
-        raise AssertionError(f"flash kernels: want the sm90 instances at hd "
-                             f"32/64/128/256 and the mma ones at "
-                             f"{MMA_HEAD_DIMS} in both dtypes, without "
-                             f"spills; ptxas says {flash}")
+    want = sorted([("flash_fwd_sm90", hd, "bfloat16")
+                   for hd in (32, 64, 128, 256)] +
+                  [("flash_fwd_mma", hd, dtype) for hd in MMA_HEAD_DIMS
+                   for dtype in ("bfloat16", "float32")] +
+                  [("rmsnorm_rows", k, str(dtype)[6:])
+                   for dtype, most in MAX_VECS.items()
+                   for k in range(1, most + 1)])
+    if sorted(r[:3] for r in insts) != want or any(r[4] for r in insts):
+        raise AssertionError(f"kernels: want the sm90 flash instances at hd "
+                             f"32/64/128/256, the mma ones at "
+                             f"{MMA_HEAD_DIMS} in both dtypes and "
+                             f"rmsnorm_rows at vectors a thread up to "
+                             f"{MAX_VECS}, without spills; ptxas says "
+                             f"{insts}")
     return name, smi_line
 
 
-def flash_ptxas(report: str):
-    """(kernel, hd, dtype, registers, spill bytes) of each instance of the
-    sm90 and mma flash kernels in nvcc's ``-Xptxas -v`` report."""
+def kernel_ptxas(report: str):
+    """(kernel, n, dtype, registers, spill bytes) of each instance of the
+    sm90 and mma flash kernels (n: hd) and of RMSNorm's register path (n:
+    vectors a thread) in nvcc's ``-Xptxas -v`` report."""
+    dtypes = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
     rows, inst, spill = [], None, 0
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            sm90 = re.search(r"flash_fwd_sm90ILi(\d+)E", entry.group(1))
+            name = entry.group(1)
+            sm90 = re.search(r"flash_fwd_sm90ILi(\d+)E", name)
             mma = re.search(r"flash_fwd_mmaILi(\d+)E(f|13__nv_bfloat16)E",
-                            entry.group(1))
-            inst = ("sm90", int(sm90.group(1)), "bfloat16") if sm90 else \
-                ("mma", int(mma.group(1)),
-                 "float32" if mma.group(2) == "f" else "bfloat16") if mma \
-                else None
+                            name)
+            rows_k = re.search(r"rmsnorm_rowsI(f|13__nv_bfloat16)Li(\d+)E",
+                               name)
+            inst = ("flash_fwd_sm90", int(sm90.group(1)), "bfloat16") \
+                if sm90 else \
+                ("flash_fwd_mma", int(mma.group(1)), dtypes[mma.group(2)]) \
+                if mma else \
+                ("rmsnorm_rows", int(rows_k.group(2)),
+                 dtypes[rows_k.group(1)]) if rows_k else None
             spill = 0
             continue
         if inst is None:
@@ -682,6 +719,198 @@ def phase_kernels():
         rows[(b, s)] = row
         del q, k, v, x, qkv32, x32
     torch.cuda.empty_cache()
+    return rows
+
+
+def profiled_kernels(run):
+    """torch.profiler over ``run()``: (name, start ns, duration ns) of
+    every device kernel it launched, in start order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = [(ev.name(), ev.start_ns(), ev.duration_ns())
+           for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    return sorted(out, key=lambda e: e[1])
+
+
+def norm_edge_checks(randn):
+    """RMSNorm's widest register-path row, and its loop path on a view one
+    element off a 16-byte boundary and on a row one vector past the
+    widest, against plain."""
+    import torch
+    from repro_torch.kernels import reference_rmsnorm, rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import max_reg_width
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        widest = max_reg_width(dtype)
+        flat = randn((3 * 4096 + 1,), dtype)
+        for what, x, path in (
+                (f"d {widest}", randn((5, widest), dtype), "reg"),
+                ("offset view", flat[1:].view(3, 4096), "loop"),
+                (f"d {widest + 16 // dtype.itemsize}",
+                 randn((5, widest + 16 // dtype.itemsize), dtype), "loop")):
+            sc = randn((x.shape[-1],), dtype, 0.1)
+            n0 = getattr(rmsnorm_cuda, f"{path}_launches")
+            agree(rmsnorm_cuda(x, sc), reference_rmsnorm(x, sc), TOL[name],
+                  f"rmsnorm {path} path, {what} {name}")
+            if getattr(rmsnorm_cuda, f"{path}_launches") != n0 + 1:
+                raise AssertionError(f"rmsnorm {what} {name}: the {path} "
+                                     f"path was not taken")
+        log(f"[kernels] rmsnorm ({name}): the register path at d {widest}, "
+            f"the loop path on an offset view and one vector wider agree "
+            f"with plain (tol {TOL[name]})")
+
+
+def rotated_device_ms(fn, xs, n_slots):
+    """Mean device ms of ``fn(x)`` over NORM_TIMED back-to-back calls, from
+    torch.profiler's kernel records (every kernel a call launches), and
+    the kernels' names.  ``xs(j)`` is the input of call j: the calls walk
+    ``n_slots`` inputs that together hold at least twice the L2, so each
+    finds its input in HBM; the outputs are held in a ring as long, so
+    each call writes fresh lines and the write-back of the lines it
+    evicts, earlier calls' outputs, lands inside some call's window.  A
+    first NORM_TIMED calls bring the L2 to that steady state.  A profile
+    whose kernels are not a whole number a call (the profiler dropped
+    records) is taken again, up to three times."""
+    import itertools
+    from collections import deque
+    ring = deque(maxlen=n_slots)
+    walk = itertools.count()
+
+    def run():
+        for _ in range(NORM_TIMED):
+            ring.append(fn(xs(next(walk) % n_slots)))
+
+    run()
+    for _ in range(3):
+        evs = profiled_kernels(run)
+        if evs and len(evs) % NORM_TIMED == 0:
+            return (sum(e[2] for e in evs) / NORM_TIMED / 1e6,
+                    [e[0] for e in evs])
+    raise AssertionError(f"the profile of {NORM_TIMED} calls holds "
+                         f"{len(evs)} kernels three times running")
+
+
+def norm_sweep_row(n, d, dtype, randn, l2):
+    """One row of RMSNorm's sweep at (n, d) in ``dtype``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import reference_rmsnorm, rmsnorm, rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm import launch_rmsnorm, rmsnorm_geometry
+    name = str(dtype).split(".")[1]
+    x_bytes = n * d * dtype.itemsize
+    n_slots = max(2, -(-2 * l2 // x_bytes) + 1)
+    big = randn((n_slots * n, d), dtype)
+
+    def xs(j):
+        return big[j * n:(j + 1) * n]
+
+    x, sc = xs(0), randn((d,), dtype, 0.1)
+    w = 1.0 + sc
+    geo = rmsnorm_geometry(d, dtype)
+    old_geo = rmsnorm_geometry(d, dtype, aligned=False)
+    r0 = rmsnorm_cuda.reg_launches
+    y = rmsnorm_cuda(x, sc)
+    if geo.path != "reg" or rmsnorm_cuda.reg_launches != r0 + 1:
+        raise AssertionError(f"rmsnorm ({n},{d}) {name}: geometry {geo}, "
+                             f"the register path not taken")
+    want = reference_rmsnorm(x, sc)
+    err, rel = agree(y, want, TOL[name], f"rmsnorm ({n},{d}) {name}")
+    # rows alone, in a 4-row call and in the whole call: bitwise
+    for i in (r for r in NORM_BITWISE_ROWS if r < n):
+        j = min(i, n - 4)
+        one = rmsnorm_cuda(x[i:i + 1], sc)[0]
+        four = rmsnorm_cuda(x[j:j + 4], sc)[i - j]
+        if not (torch.equal(one, y[i]) and torch.equal(four, y[i])):
+            raise AssertionError(f"rmsnorm ({n},{d}) {name}: row {i} alone "
+                                 f"or in rows {j}..{j + 3} is not bitwise "
+                                 f"the row of the whole call")
+
+    def old(xi):
+        out = torch.empty_like(xi)
+        launch_rmsnorm(xi, sc, out, old_geo, 1e-6)
+        return out
+
+    old_err, _ = agree(old(x), want, TOL[name],
+                       f"rmsnorm loop path ({n},{d}) {name}")
+    # a device copy of x: the same bytes read and written, what the card's
+    # HBM delivers in practice for this traffic
+    fns = {"kernel": (lambda xi: rmsnorm_cuda(xi, sc), "rmsnorm_rows<"),
+           "old": (old, "rmsnorm_loop<"),
+           "library": (lambda xi: F.rms_norm(xi, (d,), w, 1e-6), None),
+           "copy": (lambda xi: xi.clone(), None)}
+    dev = {}
+    for label, (fn, kernel) in fns.items():
+        dev[label], names = rotated_device_ms(fn, xs, n_slots)
+        if kernel is not None and (
+                len(names) != NORM_TIMED or any(kernel not in k
+                                                for k in names)):
+            raise AssertionError(f"rmsnorm ({n},{d}) {name} {label}: the "
+                                 f"profile holds {names[:4]}..., want "
+                                 f"{NORM_TIMED} {kernel} kernels")
+    host = {}
+    for label, fn in (("rmsnorm_cuda", lambda: rmsnorm_cuda(x, sc)),
+                      ("op", lambda: rmsnorm(x, sc, 1e-6, None)),
+                      ("F.rms_norm", lambda: F.rms_norm(x, (d,), w, 1e-6))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NORM_HOST_CALLS):
+            fn()
+        host[label] = 1e6 * (time.perf_counter() - t0) / NORM_HOST_CALLS
+        torch.cuda.synchronize()
+    bound, by = rmsnorm_bound(n, d, name, dtype.itemsize)
+    log(f"[norm] ({n},{d}) {name}: {geo.threads_per_row} threads x "
+        f"{geo.vecs_per_thread} vectors a row, {geo.rows_per_cta} rows a "
+        f"CTA; max err {err:.3g} rel norm {rel:.3g} (old {old_err:.3g}); "
+        f"device, inputs rotated over {n_slots} slots: kernel "
+        f"{dev['kernel']:.4f} ms [old {dev['old']:.4f}] F.rms_norm "
+        f"{dev['library']:.4f}, a copy of x {dev['copy']:.4f}; bound "
+        f"{bound:.4f} ms ({by}), {100 * bound / dev['kernel']:.1f}% of it "
+        f"(the copy {100 * bound / dev['copy']:.1f}%); host us per call: "
+        f"rmsnorm_cuda {host['rmsnorm_cuda']:.2f} op {host['op']:.2f} "
+        f"F.rms_norm {host['F.rms_norm']:.2f}")
+    del big, x, y, want
+    return {"rows": n, "d": d, "dtype": name, "path": geo.path,
+            "threads_per_row": geo.threads_per_row,
+            "vecs_per_thread": geo.vecs_per_thread,
+            "rows_per_cta": geo.rows_per_cta, "max_abs_err": err,
+            "device_ms": dev["kernel"], "old_device_ms": dev["old"],
+            "library_device_ms": dev["library"], "copy_device_ms": dev["copy"],
+            "host_us": host, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / dev["kernel"]}
+
+
+def phase_norm_sweep():
+    """Phase 2's RMSNorm sweep: ``norm_sweep_row`` at every width of
+    NORM_WIDTHS and row count of NORM_ROWS, in f32 and bf16."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def randn(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                ).to(dtype)
+
+    t0 = time.perf_counter()
+    norm_edge_checks(randn)
+    props = torch.cuda.get_device_properties(0)
+    l2 = int(getattr(props, "L2_cache_size", 50 << 20))
+    log(f"[norm] L2 {l2} B; device times from torch.profiler's kernel "
+        f"records of {NORM_TIMED} back-to-back calls, inputs rotated over "
+        f"slots holding at least {2 * l2} B; host time over "
+        f"{NORM_HOST_CALLS} calls")
+    rows = [norm_sweep_row(n, d, dtype, randn, l2)
+            for dtype in (torch.bfloat16, torch.float32)
+            for n in NORM_ROWS for d in NORM_WIDTHS]
+    torch.cuda.empty_cache()
+    log(f"[norm] sweep {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1361,7 +1590,7 @@ KB_REPEATS = 10
 VARIANT_COUNTER = {"sm90_bm128_bn128": "sm90",
                    "mma_f32_bq64_bkv64": "mma_f32",
                    "mma_bf16_bq64_bkv64": "mma_bf16",
-                   "cuda_row256": "rmsnorm"}
+                   "cuda_reg_rows": "rmsnorm"}
 
 
 def _launch_counts():
@@ -4887,6 +5116,11 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi_line = phase_device()
     rows = phase_kernels()
+    norm_rows = phase_norm_sweep()
+    # from here on every RMSNorm launch, main paths and checks alike, is
+    # at a width and alignment the register path takes
+    from repro_torch.kernels import rmsnorm_cuda
+    reg0, loop0 = rmsnorm_cuda.reg_launches, rmsnorm_cuda.loop_launches
     cfg, params, opt_ref, batches, outs, launches, req_rows, medians = \
         phase_main_path()
     plain = phase_plain(cfg, params, opt_ref, batches, outs)
@@ -4935,6 +5169,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_rows, moe_launches = phase_moe()
+    by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
+                    "loop": rmsnorm_cuda.loop_launches - loop0}
+    log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
+    if by_norm_path["loop"] or not by_norm_path["reg"]:
+        raise AssertionError(f"RMSNorm on the main paths took the loop path "
+                             f"or none: {by_norm_path}")
 
     big = rows[REQUESTS[-1]]
     flash_src = "src/repro/kernels/flash_attention.py:31"
@@ -5016,6 +5256,9 @@ def main() -> int:
                         "bound_ms": r["bound"], "bound_by": r["by"],
                         "library_ms": r["lib"],
                         "library_call": "F.rms_norm"}
+            # every launch after phase 2 by path, and the sweep
+            entry["launches_by_norm_path"] = by_norm_path
+            entry["sweep"] = norm_rows
         if key == "flash_bfloat16":
             # the sm90 route at the dense family's new full-width heads
             for model in DENSE_SM90_HEADS:

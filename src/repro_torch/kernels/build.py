@@ -40,7 +40,8 @@ _SIGNATURES = {
     "repro_flash_attention_mma_bf16": ([_P, _P, _P, _P, ctypes.POINTER(_LL),
                                         _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                         _P], _I),
-    "repro_rmsnorm": ([_P, _P, _P, _LL, _I, _I, _F, _P], _I),
+    # the geometry: threads a row, vectors a thread
+    "repro_rmsnorm": ([_P, _P, _P, _LL, _I, _I, _F, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -126,6 +127,8 @@ def _build(target: Path, log: Path) -> float:
 def load_library() -> KernelLibrary:
     """The loaded kernel library, building it first when needed."""
     global _loaded
+    if _loaded is not None:
+        return _loaded
     with _lock:
         if _loaded is None:
             digest = _digest()
@@ -146,6 +149,14 @@ def load_library() -> KernelLibrary:
 
 
 def stream_handle(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a C pointer value."""
+    """PyTorch's current CUDA stream on ``device``, as a C pointer value
+    (through the raw-stream call where this PyTorch has it: no Stream
+    object is built, which costs a launch a few microseconds)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return raw(index)

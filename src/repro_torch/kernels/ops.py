@@ -12,7 +12,7 @@ Dispatch rules (``impl``):
   ``"ref_unfused"``) run the plain PyTorch version, on any device;
 * a kernel variant's name (``"sm90_bm128_bn128"``,
   ``"mma_f32_bq64_bkv64"`` and ``"mma_bf16_bq64_bkv64"`` for flash
-  attention, ``"cuda_row256"`` for RMSNorm; see ``kernels/variants.py``)
+  attention, ``"cuda_reg_rows"`` for RMSNorm; see ``kernels/variants.py``)
   launches that kernel on a CUDA tensor and raises if the tensor's dtype
   (or, for flash attention, its head dim) is not one the kernel takes;
   on a CPU tensor it runs the plain version, the stand-in that Pallas
@@ -60,7 +60,7 @@ FLASH_IMPLS = {None: None, "ref": None, "ref_dense": None,
                "mma_f32_bq64_bkv64": torch.float32,
                "mma_bf16_bq64_bkv64": torch.bfloat16}
 RMSNORM_IMPLS = {None: None, "ref": None, "ref_unfused": None,
-                 "cuda_row256": None}
+                 "cuda_reg_rows": None}
 
 
 def _route(impl: Optional[str], x: torch.Tensor, impls) -> str:

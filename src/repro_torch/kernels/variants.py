@@ -66,6 +66,7 @@ import torch
 
 from .flash_attention import HEAD_DIMS, MAX_HEAD_DIM, route_of
 from .hw_model import DEFAULT_HW, HardwareModel
+from .rmsnorm import CTA_THREADS, MAX_SMEM_BYTES, rmsnorm_geometry
 
 # dims the cost model probes when a range has no upper bound: a pricing
 # point only — validity never relies on it (an unbounded transient or
@@ -182,10 +183,13 @@ REF_DENSE = KernelVariant(name="ref_dense", route="ref")
 FLASH_VARIANTS: Tuple[KernelVariant, ...] = (SM90, MMA_F32, MMA_BF16,
                                              REF_DENSE)
 
-ROW256 = KernelVariant(name="cuda_row256", route="cuda",
-                       dtypes=(torch.float32, torch.bfloat16), threads=256)
+# csrc/rmsnorm.cu: rows held in registers, several a CTA of 256 threads
+# (``rmsnorm.rmsnorm_geometry`` gives the rows a CTA and the path per d)
+REG_ROWS = KernelVariant(name="cuda_reg_rows", route="cuda",
+                         dtypes=(torch.float32, torch.bfloat16),
+                         threads=CTA_THREADS)
 REF_UNFUSED = KernelVariant(name="ref_unfused", route="ref")
-RMSNORM_VARIANTS: Tuple[KernelVariant, ...] = (ROW256, REF_UNFUSED)
+RMSNORM_VARIANTS: Tuple[KernelVariant, ...] = (REG_ROWS, REF_UNFUSED)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -241,13 +245,19 @@ def variant_block(variant: KernelVariant,
 
 
 def variant_smem_bytes(prim_name: str, variant: KernelVariant,
-                       hi_shape: Mapping[str, Optional[int]]
+                       hi_shape: Mapping[str, Optional[int]],
+                       dtype: Optional[torch.dtype] = None
                        ) -> Optional[int]:
-    """Shared memory one CTA of the variant takes (``None``: unboundable)."""
+    """Shared memory one CTA of the variant takes (``None``: unboundable).
+    RMSNorm's is its geometry's at ``d`` in ``dtype``; without either, the
+    most any geometry takes."""
     if variant.route == "ref":
         return 0
     if prim_name == "rmsnorm":
-        return 32 * 4                  # csrc/rmsnorm.cu: float red[32]
+        d = hi_shape.get("d")
+        if d is None or dtype is None:
+            return MAX_SMEM_BYTES
+        return rmsnorm_geometry(d, dtype).smem_bytes
     hd = hi_shape.get("hd")
     if hd is None:
         return None
@@ -320,7 +330,7 @@ def variant_invalid_reason(prim_name: str, variant: KernelVariant,
         why = flash_hd_invalid_reason(variant, hi_shape.get("hd"), dtype)
         if why is not None:
             return why
-    smem = variant_smem_bytes(prim_name, variant, hi_shape)
+    smem = variant_smem_bytes(prim_name, variant, hi_shape, dtype)
     if smem is None or smem > hw.smem_per_block_optin:
         return (f"shared memory {smem} B over the per-block "
                 f"{hw.smem_per_block_optin} B")
@@ -449,10 +459,12 @@ def rmsnorm_cost(variant: KernelVariant, shape: Mapping[str, int],
         work = (flops / hw.fp32_flops + hbm / hw.hbm_bw) / eff
         time = work + launches * hw.launch_s
         return VariantCost(time, flops, hbm, launches)
-    # one CTA per row: x read once, the output written once
+    # x read once, the output written once; the grid is the row groups of
+    # the geometry at d (``rows_per_cta`` rows a CTA; one on the loop path)
     hbm = (2 * n * d + d) * itemsize
     roof = max(flops / hw.fp32_flops, hbm / hw.hbm_bw)
-    fill = _fill(n, variant, 0, hw)
+    geo = rmsnorm_geometry(d, dtype)
+    fill = _fill(_ceil_div(n, geo.rows_per_cta), variant, geo.smem_bytes, hw)
     time = roof / (eff * fill) + hw.launch_s
     return VariantCost(time, flops, hbm, 1)
 
@@ -476,13 +488,16 @@ _HD16_8x1024_FLASH = {"b": 8, "hq": 4, "hkv": 2, "s": 1024, "t": 1024,
 # the mma kernel's rows: PERF.md §6, the device time of a launch,
 # chip_smoke.py's ``device_ms`` in phase 14 (a) on the same card: at hd
 # 16 a call's CUDA-event time, 0.0423 ms, holds the Python wrapper's host
-# time, which ``hw.launch_s`` does not model)
+# time, which ``hw.launch_s`` does not model; the RMSNorm kernel's row:
+# PERF.md §6, its device time from torch.profiler's kernel records of
+# back-to-back calls over inputs rotated across twice the L2,
+# chip_smoke.py phase 2's sweep on the same card)
 CALIBRATION: Dict[str, Tuple[Dict[str, int], torch.dtype, float]] = {
     SM90.name: (_LLAMA_8x1024_FLASH, torch.bfloat16, 0.2716e-3),  # ms col.
     MMA_F32.name: (_LLAMA_8x1024_FLASH, torch.float32, 1.4720e-3),  # device
     MMA_BF16.name: (_HD16_8x1024_FLASH, torch.bfloat16, 0.0320e-3),  # device
     REF_DENSE.name: (_LLAMA_8x1024_FLASH, torch.bfloat16, 5.3987e-3),  # plain
-    ROW256.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.0499e-3),  # ms col.
+    REG_ROWS.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.0472e-3),  # device
     REF_UNFUSED.name: (_LLAMA_8x1024_NORM, torch.bfloat16, 0.5538e-3),  # plain
 }
 # (the sm90 kernel's hd-256 instance, 64-key tiles, is priced with the
@@ -562,7 +577,7 @@ def _flash_default(dtype: torch.dtype, shape: Mapping[str, Any]
 register_kernel("flash_attention", FLASH_VARIANTS, _flash_default, flash_cost)
 register_kernel(
     "rmsnorm", RMSNORM_VARIANTS,
-    lambda dt, _shape: ROW256 if ROW256.takes(dt) else REF_UNFUSED,
+    lambda dt, _shape: REG_ROWS if REG_ROWS.takes(dt) else REF_UNFUSED,
     rmsnorm_cost)
 
 

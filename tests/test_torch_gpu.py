@@ -268,7 +268,7 @@ def test_bucketed_prefill_launches_what_each_bucket_selected(gen, dtype):
                      dynamic_dims=dims, buckets="geometric",
                      kernel_select=False)
     route = {"sm90_bm128_bn128": "sm90", "mma_f32_bq64_bkv64": "mma_f32",
-             "cuda_row256": "rmsnorm"}
+             "cuda_reg_rows": "rmsnorm"}
 
     def counts():
         return {"sm90": flash_attention_cuda.sm90_launches,
@@ -961,3 +961,103 @@ def test_moe_serve_on_the_card_is_deterministic(gen, arch):
     kv = r1["state"].caches[0].kv
     assert isinstance(kv, MLACache) == (cfg.attn_kind == "mla")
     assert int(kv.length) == 24
+
+
+# -- RMSNorm: the register path at every config width, the loop path ---------
+
+NORM_WIDTHS = (512, 1536, 2048, 3072, 4096, 4608, 7168)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_rmsnorm_register_path_matches_plain_at_every_config_width(gen, d,
+                                                                   dtype):
+    from repro_torch.kernels.rmsnorm import rmsnorm_geometry
+    assert rmsnorm_geometry(d, dtype).path == "reg"
+    sc = _randn(gen, (d,), dtype, 0.1)
+    for rows in (1, 3, 8, 8192):
+        x = _randn(gen, (rows, d), dtype)
+        n0, r0 = rmsnorm_cuda.launches, rmsnorm_cuda.reg_launches
+        l0 = rmsnorm_cuda.loop_launches
+        got = rmsnorm(x, sc, 1e-6, None)
+        assert (rmsnorm_cuda.launches - n0, rmsnorm_cuda.reg_launches - r0,
+                rmsnorm_cuda.loop_launches - l0) == (1, 1, 0)
+        torch.testing.assert_close(got, reference_rmsnorm(x, sc),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_rmsnorm_rows_are_bitwise_alone_and_in_any_call(gen, dtype):
+    """The geometry depends on (d, dtype) only: a row's result is the same
+    bits alone, inside a 4-row call and inside the whole call."""
+    for d in NORM_WIDTHS:
+        x = _randn(gen, (1000, d), dtype)
+        sc = _randn(gen, (d,), dtype, 0.1)
+        y = rmsnorm_cuda(x, sc)
+        for i in (0, 1, 517, 999):
+            j = min(i, 996)
+            assert torch.equal(rmsnorm_cuda(x[i:i + 1], sc)[0], y[i])
+            assert torch.equal(rmsnorm_cuda(x[j:j + 4], sc)[i - j], y[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_rmsnorm_loop_path_takes_offsets_and_wide_rows(gen, dtype):
+    """A view one element off a 16-byte boundary, a width that is not a
+    whole number of vectors, one vector past the register path's widest
+    row, d 16384 and d 16392 run on the loop path, against plain."""
+    from repro_torch.kernels.rmsnorm import max_reg_width, tensor_geometry
+    flat = _randn(gen, (3 * 4096 + 1,), dtype)
+    past = max_reg_width(dtype) + 16 // dtype.itemsize
+    cases = [flat[1:].view(3, 4096), _randn(gen, (5, 4099), dtype),
+             _randn(gen, (2, past), dtype), _randn(gen, (2, 16384), dtype),
+             _randn(gen, (2, 16392), dtype)]
+    for x in cases:
+        sc = _randn(gen, (x.shape[-1],), dtype, 0.1)
+        assert tensor_geometry(x, sc, torch.empty_like(x)).path == "loop"
+        r0, l0 = rmsnorm_cuda.reg_launches, rmsnorm_cuda.loop_launches
+        got = rmsnorm_cuda(x, sc)
+        assert (rmsnorm_cuda.reg_launches - r0,
+                rmsnorm_cuda.loop_launches - l0) == (0, 1)
+        torch.testing.assert_close(got, reference_rmsnorm(x, sc),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_rmsnorm_widest_register_row_matches_plain(gen, dtype):
+    """The widest row the register path takes runs there, in the
+    instance with the most vectors a thread."""
+    from repro_torch.kernels.rmsnorm import max_reg_width
+    d = max_reg_width(dtype)
+    x, sc = _randn(gen, (3, d), dtype), _randn(gen, (d,), dtype, 0.1)
+    r0 = rmsnorm_cuda.reg_launches
+    got = rmsnorm_cuda(x, sc)
+    assert rmsnorm_cuda.reg_launches == r0 + 1
+    torch.testing.assert_close(got, reference_rmsnorm(x, sc),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_rmsnorm_entry_point_refuses_a_geometry_that_does_not_cover_d(gen):
+    """The C entry point checks what Python hands it: too few vectors a
+    row, or the register path on an offset pointer, is an invalid value."""
+    from dataclasses import replace
+
+    from repro_torch.kernels.rmsnorm import launch_rmsnorm, rmsnorm_geometry
+    x = _randn(gen, (4, 4096), torch.bfloat16)
+    sc = _randn(gen, (4096,), torch.bfloat16, 0.1)
+    out = torch.empty_like(x)
+    geo = rmsnorm_geometry(4096, torch.bfloat16)
+    n0 = rmsnorm_cuda.launches
+    with pytest.raises(RuntimeError, match="rmsnorm launch"):
+        launch_rmsnorm(x, sc, out, replace(geo, vecs_per_thread=1), 1e-6)
+    flat = _randn(gen, (4 * 4096 + 8,), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="rmsnorm launch"):
+        launch_rmsnorm(flat[8 - 1:-1].view(4, 4096), sc, out, geo, 1e-6)
+    assert rmsnorm_cuda.launches == n0
+    launch_rmsnorm(x, sc, out, geo, 1e-6)
+    torch.testing.assert_close(out, reference_rmsnorm(x, sc), rtol=1e-2,
+                               atol=1e-2)

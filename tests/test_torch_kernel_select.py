@@ -243,10 +243,10 @@ def test_the_plain_attention_transients_rule_it_out_at_full_width():
 
 @pytest.mark.parametrize("bounds,want", [
     # llama2_1b's whole range: the kernels
-    ({"b": (1, 8), "s": (16, 1024)}, ("sm90_bm128_bn128", "cuda_row256")),
+    ({"b": (1, 8), "s": (16, 1024)}, ("sm90_bm128_bn128", "cuda_reg_rows")),
     # its smallest geometric bucket: the plain versions' transients still
     # exceed the limit at the bucket's hi corner
-    ({"b": (1, 2), "s": (16, 45)}, ("sm90_bm128_bn128", "cuda_row256")),
+    ({"b": (1, 2), "s": (16, 45)}, ("sm90_bm128_bn128", "cuda_reg_rows")),
 ])
 def test_llama2_1b_ranges_select_the_kernels(bounds, want):
     b, s = bounds["b"], bounds["s"]
@@ -348,7 +348,7 @@ def test_variant_names_run_the_plain_version_on_the_cpu():
     want = reference_attention(q, k, v)
     for impl in ("mma_f32_bq64_bkv64", "ref_dense", "ref", None):
         assert torch.equal(flash_attention(q, k, v, True, None, impl), want)
-    for impl in ("cuda_row256", "ref_unfused", "ref", None):
+    for impl in ("cuda_reg_rows", "ref_unfused", "ref", None):
         assert torch.equal(rmsnorm(x, scale, 1e-6, impl),
                            reference_rmsnorm(x, scale))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -364,7 +364,7 @@ def test_a_name_whose_kernel_does_not_take_the_dtype_raises():
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     with pytest.raises(ValueError, match="takes torch.float32"):
         flash_attention(qb, kb, vb, True, None, "mma_f32_bq64_bkv64")
-    for bad in ("cuda_row256", "pallas_128x128"):
+    for bad in ("cuda_reg_rows", "pallas_128x128"):
         with pytest.raises(ValueError, match="impl must be one of"):
             flash_attention(q, k, v, True, None, bad)
     with pytest.raises(ValueError, match="impl must be one of"):
@@ -405,7 +405,7 @@ def test_selection_per_bucket_follows_the_dtype():
             fn(*_args(b, s, dtype=dtype))
             names = _names(_bucket_plan(fn, b, s))
             assert names == {"flash_attention": want,
-                             "rmsnorm": "cuda_row256"}
+                             "rmsnorm": "cuda_reg_rows"}
         assert _names(fn.plan) == names
         sel = next(iter(fn.plan.kernel_selections.values()))
         assert sel.is_default and sel.model_speedup >= 1.0

@@ -34,6 +34,8 @@ FLASH_SHAPES = [  # (b, hq, hkv, s, hd) of tests/test_kernels.py:17-23
     (1, 6, 2, 384, 32), (3, 2, 1, 64, 64)]
 PALLAS_FLASH = {(2, 4, 4, 100, 64), (3, 2, 1, 64, 64)}
 NORM_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128), (2, 33, 160)]
+# 3 rows at every width a config normalizes (d_model; MLA's latents)
+NORM_SHAPES += [(3, d) for d in (512, 1536, 2048, 3072, 4096, 4608, 7168)]
 PALLAS_NORM = {(100, 300), (7, 128)}
 
 
