@@ -302,6 +302,39 @@ Phases (any failure exits non-zero):
    no-drop capacity, < 2e-2, with the (layer, token)s whose expert sets
    differ.
 
+17. hybrid (``[hybrid]`` lines), after phase 16: ``hymba_1p5b`` at full
+   width and depth (32 layers, d 1600, 25/5 heads at hd 64, SSM d_inner
+   3200 with state 16, window 1024, vocab 32001 padded to 32128, bf16,
+   seed-0 weights), eagerly: (b) the sm90 flash kernel at its 25/5 heads
+   (GQA group 5) at (8, 1024) against its plain version, with kernel,
+   plain, SDPA, device and bound ms; (d) ``launch.serve.serve`` (seed 0,
+   batch 4, a 32-token prompt, 16 greedy tokens): no flash launch, 97
+   RMSNorm launches a step, cache length 48 of 49 rows and an f32 SSM
+   state a layer, ms a step; (a) ``models.prefill`` at the request
+   shapes and past the window at (1,1536) (windowed layers through
+   dense attention) and (1,4096) (through blockwise attention): 32 sm90
+   flash launches a request up to T = 1024 and 3 (the global layers)
+   beyond, no mma, 97 RMSNorm launches, all on the register path, finite
+   logits with the 127 pad columns at -1e30 and never the argmax; the
+   median of 5 calls, ``max_memory_allocated`` beside the weights'
+   bytes, a profile by part at (8, 1024) (the SSM's chunk scan and its
+   other plain work apart); (b) at (8, 1024) every layer's attention,
+   kernel vs plain on the same q, k, v (1e-2, GEMMA_LAYER_REL), and the
+   same for the 3 global layers (the flash layers past the window) at
+   (1, 1536) and (1, 4096); RMSNorm at d 1600 vs plain (1e-2, timed), the
+   first GEMMA_CUT_LAYERS layers' logits kernel vs plain within 5e-2; at
+   (1, 4096) layer 1's q, k, v
+   in f32 through ``blockwise_attention`` and ``dense_attention`` with
+   the window, within 2e-4; (c) layer 0's SSM: the chunked scan against
+   the step-by-step ``ssm_decode_step`` recurrence in f32 on 320 tokens
+   (2e-4), one ``ssm_apply``'s device ms at (8, 1024) and its share of
+   the prefill's device time (torch.profiler: the call alone, and the
+   prefill profile's SSM parts); (d) the decode logits
+   against the forward: at 32 layers reported, at GEMMA_CUT_LAYERS hard
+   within 2e-2; the f32 smoke config at 4 layers (layer 1 windowed at 16)
+   decoding 56 tokens one at a time against the forward at every
+   position within 2e-4.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
@@ -309,15 +342,18 @@ phase 11 (a), table1 = phase 11 (b), gemma_prefill = phase 12 (b),
 gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
 = phase 13, dense_prefill = phase 14 (b), dense_prefill_f32_smoke and
 dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e),
-gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a)
-and moe_serve = phase 16 (b);
-bounded, loop, gemma_serve, dense_serve and moe_serve launch no flash:
+gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a),
+moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a) and
+hybrid_serve = phase 17 (d);
+bounded, loop, gemma_serve, dense_serve, moe_serve and hybrid_serve
+launch no flash:
 their attention and ops are plain PyTorch, as the reference's are plain
 jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
 requests, the mma entries at hd 12, 16 and 48 (the bf16 one also at
 kimi_k2's hd 112) and the sm90 entry at starcoder2's and musicgen's
-heads, the rmsnorm entry at the MoE family's widths, its sweep (phase
+heads and at hymba's (25/5 at hd 64), the rmsnorm entry at the MoE
+family's widths and hymba's d 1600, its sweep (phase
 2, ``sweep``) and its launches after phase 2 by path
 (``launches_by_norm_path``); the mma route has an entry per dtype,
 counted by ``mma_f32_launches`` and ``mma_bf16_launches``); the last
@@ -383,11 +419,12 @@ MAX_SUBGRAPH = 24   # optimize's default recompute-subgraph size
 RMSNORM_TEST_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128),
                        (2, 33, 160)]
 # RMSNorm's sweep (phase 2): every width a config normalizes -- deepseek_v3's
-# MLA latents (512, 1536; musicgen's d_model), gemma_2b and internvl2
-# (2048), gemma_7b (3072), llama2_1b and granite (4096), starcoder2 (4608),
+# MLA latents (512, 1536; musicgen's d_model), hymba_1p5b (1600), gemma_2b
+# and internvl2 (2048), gemma_7b (3072), llama2_1b and granite (4096),
+# starcoder2 (4608),
 # kimi_k2 and deepseek_v3 (7168) -- at a prefill's 8192 rows and a decode
 # step's 4
-NORM_WIDTHS = (512, 1536, 2048, 3072, 4096, 4608, 7168)
+NORM_WIDTHS = (512, 1536, 1600, 2048, 3072, 4096, 4608, 7168)
 NORM_ROWS = (8192, 4)
 NORM_TIMED = 50          # profiled calls per function, back to back
 NORM_HOST_CALLS = 200    # calls per function on the host clock
@@ -1053,14 +1090,15 @@ def phase_main_path():
 
 
 def phase_latency(opt, params, batches, reps: int = 10,
-                  tag: str = "latency"):
-    """Median and max wall time per request shape over ``reps`` calls,
-    each ending in ``synchronize()`` (after the counted run)."""
+                  tag: str = "latency", requests=None):
+    """Median and max wall time per request shape (``requests``, else
+    REQUESTS) over ``reps`` calls, each ending in ``synchronize()`` (after
+    the counted run)."""
     import statistics
 
     import torch
     medians = {}
-    for (b, s), batch in zip(REQUESTS, batches):
+    for (b, s), batch in zip(requests or REQUESTS, batches):
         walls = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -1082,11 +1120,13 @@ def phase_profile(opt, params, batches):
         profile_once(f"b={b} s={s}", lambda: opt(params, batch))
 
 
-def profile_once(label: str, run, classify=None) -> None:
+def profile_once(label: str, run, classify=None):
     """torch.profiler over one call of ``run``: device time by kernel and
     the share of the call's wall time with a kernel running.  With
     ``classify(op_name, input_shapes) -> part``, also the device time of
-    each operator's kernels and copies, summed by part."""
+    each operator's kernels and copies, summed by part.  Returns (kernel
+    us, {part: us}; empty without a classifier), or None without a device
+    record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1118,7 +1158,7 @@ def profile_once(label: str, run, classify=None) -> None:
         log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
             f"x{count:<4d} {key[:90]}")
     if classify is None:
-        return
+        return busy, {}
     # each device event counted once, for the operator it is linked to
     # (the outermost, where several operators carry the same id)
     ops, parts, shared = {}, {}, 0
@@ -1143,6 +1183,7 @@ def profile_once(label: str, run, classify=None) -> None:
     for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {label} by part: {part}: {us / 1e3:.3f} ms "
             f"{100 * us / busy:5.1f}%")
+    return busy, parts
 
 
 @contextlib.contextmanager
@@ -3021,38 +3062,51 @@ def phase_gemma_kernels():
     return rows
 
 
+def flash_layers(cfg, t):
+    """The layers whose attention runs the flash op on a T-token prefill:
+    every layer without a window, and those whose window covers T."""
+    from repro_torch.models.lm import layer_windows
+
+    windows = layer_windows(cfg) or [None] * cfg.n_layers
+    return [i for i, w in enumerate(windows) if w is None or t <= w]
+
+
 def dense_layer_errors(cfg, params, batch):
-    """Per layer, the flash kernel's attention output against the plain
-    version's on the same q, k, v, walking the kernel path's hidden state
-    eagerly with the model's own functions (any input mode): (max abs
-    err, rel norm, within GEMMA_LAYER_TOL elementwise and GEMMA_LAYER_REL
-    in norm)."""
+    """For each layer of ``flash_layers``, in order, the flash kernel's
+    attention output against the plain version's on the same q, k, v,
+    walking the kernel path's hidden state eagerly with the model's own
+    blocks under each layer's window (any input mode): (max abs err, rel
+    norm, within GEMMA_LAYER_TOL elementwise and GEMMA_LAYER_REL in
+    norm).  A layer whose window T reaches runs plain attention on both
+    paths and is not compared."""
     import torch
 
     from repro_torch.models.attention import attention
-    from repro_torch.models.blocks import gqa_qkv
+    from repro_torch.models.blocks import block_apply, gqa_qkv
     from repro_torch.models.common import rms_norm
-    from repro_torch.models.ffn import ffn_apply
-    from repro_torch.models.lm import _embed_inputs
+    from repro_torch.models.lm import _embed_inputs, layer_windows
 
     hd = cfg.resolved_head_dim
     x = _embed_inputs(cfg, params, batch)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     out = []
-    for lp in params["layers"]:
+    windows = layer_windows(cfg) or [None] * cfg.n_layers
+    compared = flash_layers(cfg, x.shape[1])
+    for i, (lp, w) in enumerate(zip(params["layers"], windows)):
+        if i not in compared:
+            x, _ = block_apply(lp, cfg, x, window=w)
+            continue
         q, k, v = gqa_qkv(lp["attn"], rms_norm(x, lp["ln1"]), cfg.n_heads,
                           cfg.n_kv_heads, hd, positions, cfg.rope_theta)
-        got = attention(q, k, v)
-        want = attention(q, k, v, impl="ref")
+        got = attention(q, k, v, window=w)
+        want = attention(q, k, v, window=w, impl="ref")
         d = got.float() - want.float()
         rel = (d.norm() / want.float().norm()).item()
         ok = bool(torch.allclose(got.float(), want.float(),
                                  rtol=GEMMA_LAYER_TOL, atol=GEMMA_LAYER_TOL))
         out.append((d.abs().max().item(), rel, ok and rel <= GEMMA_LAYER_REL))
-        x = x + got.reshape(b, s, cfg.n_heads * hd) @ lp["attn"]["wo"]
-        x = x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"]),
-                          kind=cfg.ffn_kind)
+        del q, k, v, got, want, d
+        x, _ = block_apply(lp, cfg, x, window=w)
     return out
 
 
@@ -4758,51 +4812,64 @@ def moe_requests(cfg, params, batches):
     return rows
 
 
-def moe_flash_row():
-    """Phase 16 (d): the flash kernel at kimi's full-width heads (64/8 at
-    hd 112, bf16, which ``route_of`` sends to the mma kernel's 128
-    instance) at MOE_ATTN_AT in the model layout, against its plain
-    version (1e-2), with kernel, plain, SDPA, device and bound ms.
-    Outside every counted path."""
+def flash_model_row(heads, at, route, tag, seed):
+    """The flash kernel at a model's full-width heads ``(hq, hkv, hd)`` in
+    bf16 at ``at`` = (b, s), in the model layout, on the route that
+    ``route_of`` must give: against its plain version (1e-2), with
+    kernel, plain, SDPA, device and bound ms (and on the mma route the
+    ``cp.async`` width the views take).  Outside every counted path."""
     import torch
 
     from repro_torch.kernels import flash_attention_cuda, reference_attention
     from repro_torch.kernels.flash_attention import mma_copy_width, route_of
 
-    hq, hkv, hd = MOE_KIMI_HEADS
-    b, s = MOE_ATTN_AT
+    hq, hkv, hd = heads
+    b, s = at
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(16)
+    gen.manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEV
                            ).to(torch.bfloat16).transpose(1, 2)
                for h in (hq, hkv, hkv))
-    if route_of(q.dtype, hd) != "mma":
+    if route_of(q.dtype, hd) != route:
         raise AssertionError(f"bf16 hd {hd} routes to "
-                             f"{route_of(q.dtype, hd)}, want mma")
+                             f"{route_of(q.dtype, hd)}, want {route}")
     width = mma_copy_width(hd, 2, [(t.shape, t.stride(), t.data_ptr())
-                                   for t in (q, k, v)])
+                                   for t in (q, k, v)]) \
+        if route == "mma" else None
     err, rel = agree(flash_routed(q, k, v), reference_attention(q, k, v),
-                     TOL["bfloat16"], f"flash kimi hd {hd}")
+                     TOL["bfloat16"], f"{tag} flash hd {hd}")
     ms, plain, libs = time_flash(q, k, v)
     how = min(libs, key=libs.get)
     bound, by = flash_bound(b, hq, hkv, s, s, hd, "bfloat16", 2)
     dev = device_ms(lambda: flash_attention_cuda(q, k, v))
-    log(f"[moe] (d) flash/mma kimi (b={b},hq={hq},hkv={hkv},s={s},hd={hd}) "
-        f"bfloat16, cp.async width {width} B: max err {err:.3g} rel norm "
-        f"{rel:.3g} (tol {TOL['bfloat16']}); kernel {ms:.4f} ms (device "
+    log(f"{tag} flash/{route} (b={b},hq={hq},hkv={hkv},s={s},hd={hd}) "
+        f"bfloat16{'' if width is None else f', cp.async width {width} B'}: "
+        f"max err {err:.3g} rel norm {rel:.3g} (tol {TOL['bfloat16']}); "
+        f"kernel {ms:.4f} ms (device "
         f"{'not measured' if dev is None else f'{dev:.4f} ms'} a launch) "
         f"plain {plain:.4f} ms sdpa "
         f"{', '.join(f'{k_} {t:.4f} ms' for k_, t in libs.items())} bound "
         f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of bound")
-    if width != 16:
-        raise AssertionError(f"kimi's views copy {width} B wide, want 16")
     del q, k, v
     torch.cuda.empty_cache()
     return dict(shape=[b, hq, hkv, s, s, hd], err=err, ms=ms, device=dev,
-                plain=plain, lib=libs[how], lib_how=how, bound=bound, by=by)
+                plain=plain, lib=libs[how], lib_how=how, bound=bound, by=by,
+                copy_width=width)
 
 
-def moe_norm_row(x, scale, what):
+def moe_flash_row():
+    """Phase 16 (d): the flash kernel at kimi's full-width heads (64/8 at
+    hd 112, which ``route_of`` sends to the mma kernel's 128 instance) at
+    MOE_ATTN_AT; the views must copy 16 bytes wide."""
+    row = flash_model_row(MOE_KIMI_HEADS, MOE_ATTN_AT, "mma",
+                          "[moe] (d) kimi", 16)
+    if row["copy_width"] != 16:
+        raise AssertionError(f"kimi's views copy {row['copy_width']} B wide,"
+                             f" want 16")
+    return row
+
+
+def moe_norm_row(x, scale, what, tag="[moe] (c)"):
     """RMSNorm at one of the models' widths on the model's own rows:
     kernel vs plain (1e-2), with kernel, plain, ``F.rms_norm`` and bound
     ms."""
@@ -4818,7 +4885,7 @@ def moe_norm_row(x, scale, what):
     w = 1.0 + scale
     lib = time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
     bound, by = rmsnorm_bound(rows, d, "bfloat16", 2)
-    log(f"[moe] (c) rmsnorm {what} ({rows},{d}) bf16: max err {err:.3g} rel "
+    log(f"{tag} rmsnorm {what} ({rows},{d}) bf16: max err {err:.3g} rel "
         f"norm {rel:.3g} (tol {TOL['bfloat16']}); kernel {ms:.4f} ms plain "
         f"{plain:.4f} ms F.rms_norm {lib:.4f} ms bound {bound:.4f} ms ({by}),"
         f" {100 * bound / ms:.1f}% of bound")
@@ -5097,6 +5164,453 @@ def phase_moe():
     return rows, {"moe_prefill": prefill_l, "moe_serve": serve_l}
 
 
+# -- phase 17: the hybrid family (hymba) at full width -----------------------
+
+HYBRID_ARCH = "hymba_1p5b"
+# the request shapes, then two past hymba's window of 1024: (1,1536) runs
+# its windowed layers through dense attention with the window, (1,4096)
+# through blockwise attention (T > 2048), the 3 global layers through flash
+HYBRID_PAST_WINDOW = [(1, 1536), (1, 4096)]
+HYBRID_REQUESTS = REQUESTS + HYBRID_PAST_WINDOW
+HYBRID_REPS = 5             # (a): calls per request shape for the median
+HYBRID_AT = (8, 1024)       # (b), (c): the request whose parts are checked
+HYBRID_LONG = (1, 4096)     # (b): the windowed layer's blockwise check
+HYBRID_BLOCKWISE_TOL = 2e-4  # (b): blockwise vs dense, f32, same q, k, v
+HYBRID_SSM_S = 320          # (c): the stepwise check's cut S (two chunks)
+HYBRID_SSM_TOL = 2e-4       # (c): chunked vs stepwise, f32
+HYBRID_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}
+HYBRID_WINDOW_LAYERS = 4    # (d): the f32 smoke cut where layer 1 is windowed
+HYBRID_WINDOW_TOKENS = 40   # (d): tokens decoded past the smoke window
+HYBRID_HEADS = (25, 5, 64)  # hymba's (hq, hkv, hd) at full width
+
+
+def hybrid_expected_launches(cfg, t):
+    """Launches an eager hybrid prefill of T tokens makes: one sm90 (or
+    f32 mma) flash a layer whose window covers T (every layer up to the
+    window, the global layers beyond it: the rest run the plain dense or
+    blockwise attention); RMSNorm ln1, ln_ssm, ln2 a layer and the final
+    norm.  A decode step makes the same RMSNorm launches and no flash."""
+    from repro_torch.kernels.flash_attention import route_of
+    from repro_torch.models.lm import layer_windows
+    n = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
+         "rmsnorm": 3 * cfg.n_layers + 1}
+    route = route_of(cfg.torch_dtype, cfg.resolved_head_dim)
+    if route == "mma":
+        route += "_f32" if cfg.dtype == "float32" else "_bf16"
+    n[route] = sum(w >= t for w in layer_windows(cfg))
+    return n
+
+
+def hybrid_part_of(cfg):
+    """A ``profile_once`` classifier for the eager hybrid prefill: the SSM's
+    chunk scan (operators on (B, Q, d_inner, N) or (B, Q, d_inner, 1)
+    tensors or the (d_inner, N) decay), its other plain work (operators on
+    (B, S, d_inner) or (B, S, 2 d_inner) tensors: the conv, gates and the
+    d_inner-wide projections), ``cat`` and ``stack`` (the profiler records
+    no shapes for a tensor list: the scan's interleave, RoPE's halves, the
+    conv's padding), the readout, the other GEMMs, flash, RMSNorm, the
+    rest."""
+    di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state or 16
+
+    def part(name, shapes):
+        dims = [sh for sh in shapes if sh]
+        if "flash_attention" in name:
+            return "flash attention (kernel)"
+        if "rmsnorm" in name:
+            return "RMSNorm (kernel)"
+        if any((len(sh) == 4 and sh[2] == di) or sh == [di, n]
+               for sh in dims):
+            return "SSM chunk scan (plain)"
+        if name in ("aten::cat", "aten::stack") and not dims:
+            return "cat and stack (shapes not recorded)"
+        if any(len(sh) == 3 and sh[-1] in (di, 2 * di) for sh in dims):
+            return "SSM conv, gates, projections (plain)"
+        if name in MATMUL_OPS:
+            if any(sh[-1] == cfg.padded_vocab for sh in dims):
+                return "readout GEMM"
+            return "other GEMMs"
+        return "elementwise, casts and copies"
+    return part
+
+
+def hybrid_requests(cfg, params, batches):
+    """Phase 17 (a), the counted path: one eager ``prefill`` per request
+    shape: its launches (all RMSNorm on the register path), the
+    allocator's peak beside the bytes held before it, finite logits."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm_cuda
+    from repro_torch.models import prefill
+
+    rows = []
+    for (b, s), batch in zip(HYBRID_REQUESTS, batches):
+        want = hybrid_expected_launches(cfg, s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        n0, reg0 = _launch_counts(), rmsnorm_cuda.reg_launches
+        logits = prefill(cfg, params, batch)
+        torch.cuda.synchronize()
+        n = {k: v - n0[k] for k, v in _launch_counts().items()}
+        reg = rmsnorm_cuda.reg_launches - reg0
+        peak = torch.cuda.max_memory_allocated()
+        if n != want or reg != want["rmsnorm"]:
+            raise AssertionError(f"{cfg.name} (b={b}, s={s}): launches {n} "
+                                 f"({reg} RMSNorm on the register path), "
+                                 f"want {want}")
+        _check_logits(cfg, logits, b, f"{cfg.name} (b={b}, s={s})")
+        rows.append(dict(shape=[b, s], launches=n, peak_bytes=peak,
+                         held_bytes=held))
+        del logits
+    return rows
+
+
+def hybrid_layers(cfg, params, batches):
+    """Phase 17 (b): at HYBRID_AT every layer's attention (T <= the window:
+    all of them on the flash op), at HYBRID_PAST_WINDOW the 3 global
+    layers' (the flash layers past the window), kernel vs plain on the
+    same q, k, v (``dense_layer_errors``: 1e-2 elementwise,
+    GEMMA_LAYER_REL in norm); RMSNorm at d_model on HYBRID_AT's
+    embeddings vs plain (1e-2, timed).  Returns {(b, s): rows}, the norm
+    row."""
+    from repro_torch.models.lm import _embed_inputs
+
+    out = {}
+    for at in [HYBRID_AT] + HYBRID_PAST_WINDOW:
+        b, s = at
+        batch = batches[HYBRID_REQUESTS.index(at)]
+        layers = flash_layers(cfg, s)
+        rows = dense_layer_errors(cfg, params, batch)
+        if len(rows) != hybrid_expected_launches(cfg, s)["sm90"]:
+            raise AssertionError(f"{cfg.name} (b={b}, s={s}): {len(rows)} "
+                                 f"flash layers compared")
+        if not all(ok for _e, _r, ok in rows):
+            raise AssertionError(
+                f"{cfg.name} (b={b}, s={s}): a layer's attention output "
+                f"misses {GEMMA_LAYER_TOL} elementwise or {GEMMA_LAYER_REL} "
+                f"in relative norm: {dict(zip(layers, rows))}")
+        worst = max(range(len(rows)), key=lambda i: rows[i][1])
+        log(f"[hybrid] (b) {cfg.name} at (b={b}, s={s}): the attention of "
+            f"{len(rows)} flash layers"
+            f"{f' {layers}' if len(layers) < 8 else ''} kernel vs plain within {GEMMA_LAYER_TOL} and {GEMMA_LAYER_REL};"
+            f" worst layer {layers[worst]} max err {rows[worst][0]:.3g} rel "
+            f"{rows[worst][1]:.3g}")
+        out[at] = rows
+    norm = moe_norm_row(
+        _embed_inputs(cfg, params, batches[HYBRID_REQUESTS.index(HYBRID_AT)]),
+        params["layers"][0]["ln1"], f"{cfg.name} ln1", tag="[hybrid] (b)")
+    return out, norm
+
+
+def hybrid_blockwise(cfg, params, batch):
+    """Phase 17 (b) at HYBRID_LONG: layer 1 (windowed) of the kernel
+    path's hidden state; its q, k, v in f32 through ``blockwise_attention``
+    and ``dense_attention`` with the window, within HYBRID_BLOCKWISE_TOL;
+    the blockwise call's ms beside the dense one's."""
+    import torch
+
+    from repro_torch.models.attention import (blockwise_attention,
+                                              dense_attention)
+    from repro_torch.models.blocks import block_apply, gqa_qkv
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _embed_inputs, layer_windows
+
+    windows = layer_windows(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    x, _ = block_apply(params["layers"][0], cfg, x, window=windows[0])
+    lp, w = params["layers"][1], windows[1]
+    s = x.shape[1]
+    q, k, v = (t.float() for t in gqa_qkv(
+        lp["attn"], rms_norm(x, lp["ln1"]), cfg.n_heads, cfg.n_kv_heads,
+        cfg.resolved_head_dim, torch.arange(s, device=x.device)[None, :],
+        cfg.rope_theta))
+    if w != cfg.window or s <= 2048:
+        raise AssertionError(f"layer 1 window {w} at T {s}: not the "
+                             f"blockwise route")
+    got = blockwise_attention(q, k, v, window=w)
+    want = dense_attention(q, k, v, window=w)
+    err, rel = agree(got, want, HYBRID_BLOCKWISE_TOL,
+                     f"{cfg.name} layer 1 blockwise vs dense at T {s}")
+    ms = time_ms(lambda: blockwise_attention(q, k, v, window=w), reps=3,
+                 warmup=1)
+    dense_ms = time_ms(lambda: dense_attention(q, k, v, window=w), reps=3,
+                       warmup=1)
+    log(f"[hybrid] (b) {cfg.name} layer 1 (window {w}) at T {s}, f32: "
+        f"blockwise vs dense max err {err:.3g} rel norm {rel:.3g} (tol "
+        f"{HYBRID_BLOCKWISE_TOL}); blockwise {ms:.3f} ms, dense {dense_ms:.3f}"
+        f" ms")
+    return dict(err=err, rel=rel, ms=ms, dense_ms=dense_ms)
+
+
+def hybrid_cut(cfg, params, batch):
+    """Phase 17 (b): the first GEMMA_CUT_LAYERS layers' logits through the
+    kernel path and the plain path (``impl="ref"``) within
+    GEMMA_LOGIT_TOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import prefill
+
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_CUT_LAYERS)
+    p = dict(params, layers=params["layers"][:GEMMA_CUT_LAYERS])
+    got = prefill(cut, p, batch)[..., :cfg.vocab].float()
+    ref = prefill(cut, p, batch, impl="ref")[..., :cfg.vocab].float()
+    err = (got - ref).abs().max().item()
+    log(f"[hybrid] (b) {cfg.name} at {GEMMA_CUT_LAYERS} layers: logits "
+        f"kernel vs plain max err {err:.4g} (tol {GEMMA_LOGIT_TOL})")
+    if not torch.allclose(got, ref, rtol=GEMMA_LOGIT_TOL,
+                          atol=GEMMA_LOGIT_TOL):
+        raise AssertionError(f"{cfg.name} at {GEMMA_CUT_LAYERS} layers: "
+                             f"logits miss {GEMMA_LOGIT_TOL} against the "
+                             f"plain path (max err {err:.4g})")
+    return err
+
+
+def hybrid_ssm(cfg, params, batch, profile):
+    """Phase 17 (c): layer 0's SSM at full width.  In f32 (TF32 off) on
+    the normed embeddings cut to HYBRID_SSM_S tokens: ``ssm_apply``'s
+    chunked scan against the step-by-step ``ssm_decode_step`` recurrence,
+    within HYBRID_SSM_TOL.  In the model's dtype at HYBRID_AT, by
+    torch.profiler: one ``ssm_apply``'s kernel time, its share of the
+    prefill's (n_layers x the call over the prefill's), and the prefill
+    profile's SSM parts."""
+    import torch
+
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _embed_inputs
+    from repro_torch.models.ssm import (ssm_apply, ssm_decode_step,
+                                        ssm_init_cache)
+
+    sc = cfg.ssm_config()
+    lp = params["layers"][0]
+    x = rms_norm(_embed_inputs(cfg, params, batch), lp["ln_ssm"])
+    p32 = {k: v.float() for k, v in lp["ssm"].items()}
+    xc = x[:, :HYBRID_SSM_S].float()
+    full = ssm_apply(p32, sc, xc)
+    cache = ssm_init_cache(sc, xc.shape[0], torch.float32, device=x.device)
+    steps = []
+    for t in range(xc.shape[1]):
+        y, cache = ssm_decode_step(p32, sc, xc[:, t:t + 1], cache)
+        steps.append(y)
+    err, rel = agree(full, torch.cat(steps, dim=1), HYBRID_SSM_TOL,
+                     f"{cfg.name} SSM chunked vs stepwise")
+    del p32, xc, full, cache, steps
+    alone = profile_once(f"hymba ssm_apply layer 0 b={x.shape[0]} "
+                         f"s={x.shape[1]}",
+                         lambda: ssm_apply(lp["ssm"], sc, x))
+    busy, parts = profile if profile else (None, {})
+    ssm_us = sum(us for part, us in parts.items() if part.startswith("SSM"))
+    prof_share = cfg.n_layers * alone[0] / busy if alone and busy else None
+    log(f"[hybrid] (c) {cfg.name} SSM (d_inner {sc.d_inner}, state "
+        f"{sc.d_state}, chunk {sc.chunk}): chunked vs stepwise in f32 at "
+        f"(b={x.shape[0]}, s={HYBRID_SSM_S}) max err {err:.3g} rel norm "
+        f"{rel:.3g} (tol {HYBRID_SSM_TOL}); one layer's ssm_apply at "
+        f"(b={x.shape[0]}, s={x.shape[1]}) by torch.profiler "
+        + (f"{alone[0] / 1e3:.3f} ms of kernel time a call, x "
+           f"{cfg.n_layers} = {100 * prof_share:.1f}% of the prefill's "
+           f"{busy / 1e3:.3f} ms (the prefill profile's SSM parts "
+           f"{ssm_us / 1e3:.3f} ms, {100 * ssm_us / busy:.1f}%, cat and "
+           f"stack apart)" if prof_share is not None else "not measured"))
+    return dict(stepwise_err=err, stepwise_rel=rel,
+                ssm_apply_device_ms=alone[0] / 1e3 if alone else None,
+                profile_share=prof_share,
+                profile_ssm_parts_ms=ssm_us / 1e3 if busy else None)
+
+
+def hybrid_serve(cfg):
+    """Phase 17 (d), the counted path: ``launch.serve.serve`` (seed 0,
+    HYBRID_SERVE) at full width and depth: no flash launch, the decode's
+    RMSNorm launches a step, cache length 48 of 49 rows, an SSM state a
+    layer in f32; ms a step."""
+    from repro_torch.launch.serve import serve
+
+    launches, out = counted_launches(
+        lambda: serve(cfg, **HYBRID_SERVE, seed=0, device=DEV))
+    steps = HYBRID_SERVE["prompt_len"] + HYBRID_SERVE["gen"]
+    caches = out["state"].caches
+    lengths = {int(c.kv.length) for c in caches}
+    rows = caches[0].kv.k.shape[1]
+    want = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
+            "rmsnorm": hybrid_expected_launches(cfg, 1)["rmsnorm"] * steps}
+    ssm = caches[0].ssm
+    log(f"[hybrid] (d) {cfg.name} serve batch {HYBRID_SERVE['batch']} prompt "
+        f"{HYBRID_SERVE['prompt_len']} gen {HYBRID_SERVE['gen']}: prefill "
+        f"{1e3 * out['prefill_s']:.1f} ms ("
+        f"{1e3 * out['prefill_s'] / HYBRID_SERVE['prompt_len']:.2f} ms a "
+        f"step), decode {1e3 * out['decode_s']:.1f} ms ("
+        f"{1e3 * out['decode_s'] / HYBRID_SERVE['gen']:.2f} ms a step), "
+        f"decode_tok_per_s {out['decode_tok_per_s']:.1f}; kv "
+        f"{tuple(caches[0].kv.k.shape)}, ssm conv {tuple(ssm.conv.shape)} "
+        f"h {tuple(ssm.h.shape)} {ssm.h.dtype}, lengths {lengths}; launches "
+        f"{launches}")
+    if lengths != {steps} or rows != steps + 1:
+        raise AssertionError(f"{cfg.name} serve: cache lengths {lengths} of "
+                             f"{rows} rows")
+    if any(c.ssm is None or str(c.ssm.h.dtype) != "torch.float32"
+           for c in caches):
+        raise AssertionError(f"{cfg.name} serve: a layer without an f32 "
+                             f"SSM state")
+    if launches != want:
+        raise AssertionError(f"{cfg.name} serve launches {launches}, want "
+                             f"{want}")
+    if out["tokens"].shape != (HYBRID_SERVE["batch"], HYBRID_SERVE["gen"]) \
+            or out["tokens"].max() >= cfg.vocab:
+        raise AssertionError(f"{cfg.name} serve tokens {out['tokens'].shape}")
+    row = dict(prefill_ms=1e3 * out["prefill_s"],
+               decode_ms=1e3 * out["decode_s"],
+               decode_ms_per_step=1e3 * out["decode_s"] / HYBRID_SERVE["gen"],
+               decode_tok_per_s=out["decode_tok_per_s"])
+    return launches, row, out
+
+
+def hybrid_decode_checks(cfg, params, served):
+    """Phase 17 (d): the logits after the last prompt step of ``serve``
+    against the eager forward on the same prompt: at full depth reported,
+    at GEMMA_CUT_LAYERS layers (a ``serve`` of its own) hard within
+    GEMMA_DECODE_TOL; then the f32 smoke config cut to
+    HYBRID_WINDOW_LAYERS layers (layer 1 windowed at 16), HYBRID_WINDOW_
+    TOKENS + 16 tokens decoded one at a time against the forward at every
+    position, within 2e-4."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, prefill)
+    from repro_torch.models.lm import layer_windows
+
+    full_rel, same, n, fwd = _decode_vs_forward(cfg, params, served)
+    # the control: the plain forward against the kernel forward
+    prompt = torch.from_numpy(served["prompt"]).to(torch.int32).to(DEV)
+    plain = prefill(cfg, params, {"tokens": prompt}, impl="ref")
+    control = (plain[..., :cfg.vocab].float() - fwd).abs().max().item() / \
+        max(fwd.abs().max().item(), 1e-6)
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_CUT_LAYERS)
+    out = serve(cut, **HYBRID_SERVE, seed=0, device=DEV)
+    rel, cut_same, _, _ = _decode_vs_forward(
+        cut, init_params(cut, seed=0, device=DEV), out)
+    log(f"[hybrid] (d) {cfg.name}: the prompt's last decode logits vs the "
+        f"forward, max |diff| / max |forward| {rel:.4g} at "
+        f"{GEMMA_CUT_LAYERS} layers (tol {GEMMA_DECODE_TOL}; argmax equal "
+        f"in {cut_same} of {n}), {full_rel:.4g} at {cfg.n_layers} layers "
+        f"(reported; argmax equal in {same} of {n}) beside the control, "
+        f"the plain forward vs the kernel forward, {control:.4g}")
+    if not rel < GEMMA_DECODE_TOL:
+        raise AssertionError(f"{cfg.name} serve at {GEMMA_CUT_LAYERS} layers:"
+                             f" decode logits stand {rel:.4g} from the "
+                             f"forward's")
+    smoke = dataclasses.replace(get_smoke_config(HYBRID_ARCH),
+                                n_layers=HYBRID_WINDOW_LAYERS)
+    if layer_windows(smoke)[1] != smoke.window:
+        raise AssertionError(f"{smoke.name}: layer 1 is not windowed")
+    p = init_params(smoke, seed=0, device=DEV)
+    s = HYBRID_WINDOW_TOKENS + smoke.window
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    toks = torch.randint(0, smoke.vocab, (2, s), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    n0 = _launch_counts()
+    full = forward(smoke, p, {"tokens": toks})
+    flash = {k: v - n0[k] for k, v in _launch_counts().items()}
+    if flash != hybrid_expected_launches(smoke, s):
+        raise AssertionError(f"{smoke.name} forward at T {s}: launches "
+                             f"{flash}, want "
+                             f"{hybrid_expected_launches(smoke, s)}")
+    state = init_cache(smoke, 2, max_len=s + 1, device=DEV)
+    outs = []
+    for t in range(s):
+        lg, state = decode_step(smoke, p, state, {"token": toks[:, t:t + 1]})
+        outs.append(lg[:, 0])
+    err, _ = agree(torch.stack(outs, dim=1), full, TOL["float32"],
+                   f"{smoke.name} at {smoke.n_layers} layers: decode past "
+                   f"the window vs forward")
+    log(f"[hybrid] (d) {smoke.name} f32 at {smoke.n_layers} layers (windows "
+        f"{layer_windows(smoke)}): {s} tokens decoded one at a time vs the "
+        f"forward (launches {flash}), max err {err:.3g} (tol "
+        f"{TOL['float32']})")
+    return dict(decode_forward_rel_cut=rel, decode_forward_rel_full=full_rel,
+                plain_forward_rel_full=control,
+                argmax_equal_cut=cut_same, argmax_equal_full=same,
+                smoke_window_err=err)
+
+
+def phase_hybrid():
+    """Phase 17: hymba_1p5b at full width and depth in bf16, eagerly:
+    (b) the sm90 flash at its 25/5 heads; (d) ``serve`` (counted); (a) the
+    prefill at HYBRID_REQUESTS (counted), medians, memory and a profile by
+    part at HYBRID_AT; (b) the model's kernels in place and the windowed
+    layer's blockwise attention; (c) the SSM; (d) decode vs forward.
+    Returns the kernel rows and the launches per path."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    # (b): the sm90 kernel at hymba's 25/5 heads (GQA group 5)
+    rows = {HYBRID_ARCH: flash_model_row(HYBRID_HEADS, HYBRID_AT, "sm90",
+                                         "[hybrid] (b) hymba", 17)}
+    serve_l, serve_row, served = hybrid_serve(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in pytree.tree_leaves(params))
+    log(f"[hybrid] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, SSM d_inner {cfg.ssm_config().d_inner} state "
+        f"{cfg.ssm_config().d_state}, window {cfg.window}, vocab {cfg.vocab} "
+        f"({cfg.padded_vocab}); {cfg.param_count()} params, {weight_bytes} B "
+        f"of weights, init {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(17)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                        device=DEV, dtype=torch.int32)}
+               for (b, s) in HYBRID_REQUESTS]
+    prefill_l, req_rows = counted_launches(
+        lambda: hybrid_requests(cfg, params, batches))
+    medians = phase_latency(lambda p, bt: prefill(cfg, p, bt), params,
+                            batches, reps=HYBRID_REPS, tag="hybrid",
+                            requests=HYBRID_REQUESTS)
+    for r in req_rows:
+        b, s = r["shape"]
+        r["median_ms"] = medians[(b, s)]
+        log(f"[hybrid] (a) (b={b}, s={s}): median {r['median_ms']:.3f} ms; "
+            f"launches {r['launches']}; max_memory_allocated "
+            f"{r['peak_bytes']} B ({r['held_bytes']} B held before, "
+            f"{weight_bytes} B of them weights)")
+    at = batches[HYBRID_REQUESTS.index(HYBRID_AT)]
+    profile = profile_once(f"hymba b={HYBRID_AT[0]} s={HYBRID_AT[1]}",
+                           lambda: prefill(cfg, params, at),
+                           classify=hybrid_part_of(cfg))
+    layer_rows, norm = hybrid_layers(cfg, params, batches)
+    rows[f"rmsnorm_d{cfg.d_model}"] = norm
+    blockwise = hybrid_blockwise(
+        cfg, params, batches[HYBRID_REQUESTS.index(HYBRID_LONG)])
+    cut_err = hybrid_cut(cfg, params, at)
+    ssm = hybrid_ssm(cfg, params, at, profile)
+    del batches, at
+    dvf = hybrid_decode_checks(cfg, params, served)
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(weight_bytes=weight_bytes, requests=req_rows,
+                   layers_checked={f"{b}x{s}": len(r) for (b, s), r
+                                   in layer_rows.items()},
+                   blockwise=blockwise,
+                   cut_logits_err=cut_err, ssm=ssm, serve=serve_row,
+                   decode_vs_forward=dvf)
+    log(f"[hybrid] phase 17 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"prefill {prefill_l}, serve {serve_l}; "
+        f"{json.dumps(summary, default=str)}")
+    return rows, {"hybrid_prefill": prefill_l, "hybrid_serve": serve_l}
+
+
 def main() -> int:
     try:
         import torch
@@ -5169,6 +5683,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_rows, moe_launches = phase_moe()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_rows, hybrid_launches = phase_hybrid()
     by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
                     "loop": rmsnorm_cuda.loop_launches - loop0}
     log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
@@ -5224,6 +5741,8 @@ def main() -> int:
                         for path, n in bench_launches.items()})
         by_path.update({path: n[counter]
                         for path, n in moe_launches.items()})
+        by_path.update({path: n[counter]
+                        for path, n in hybrid_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \
@@ -5247,8 +5766,9 @@ def main() -> int:
             # the mma kernel's 128 instance at kimi_k2's full-width heads
             entry["hd112_kimi"] = dense_row(moe_rows["hd112_kimi"])
         if key == "rmsnorm":
-            # the MoE family's widths on the models' own (8, 1024) rows
-            for row_key, r in moe_rows.items():
+            # the MoE family's and hymba's widths on the models' own
+            # (8, 1024) rows
+            for row_key, r in {**moe_rows, **hybrid_rows}.items():
                 if row_key.startswith("rmsnorm_"):
                     entry[row_key[len("rmsnorm_"):]] = {
                         "shape": r["shape"], "max_abs_err": r["err"],
@@ -5264,6 +5784,8 @@ def main() -> int:
             for model in DENSE_SM90_HEADS:
                 entry[model] = dense_row(
                     dense_rows[(model, *DENSE_TIMED_AT, "bfloat16")])
+            # ... and at hymba's 25/5 heads (GQA group 5, hd 64)
+            entry[HYBRID_ARCH] = dense_row(hybrid_rows[HYBRID_ARCH])
         if key in ("flash_bfloat16", "flash_float32"):
             # the hd-256 instances at gemma's (8, 1024) requests
             for model in GEMMA_HEADS:

@@ -1,17 +1,21 @@
-"""ModelConfig: the dense and MoE subset of the reference's config.
+"""ModelConfig: the dense, MoE and hybrid subset of the reference's config.
 
-Field names and defaults follow ``repro/configs/base.py``; the fields of
-the SSM, hybrid and xLSTM families arrive with those models.  Here: the
-dense family's three input modes, ``tokens``, ``embeddings`` (musicgen's
-frame embeddings, with an ``n_codebooks``-way head) and ``vlm``
-(internvl2's ``vis_tokens`` patch embeddings before the text); the MoE
-FFN (``n_experts``, ``top_k``, ``n_shared``, ``moe_capacity``); and
+Field names and defaults follow ``repro/configs/base.py``; the xLSTM
+family's fields arrive with that model.  Here: the dense family's three
+input modes, ``tokens``, ``embeddings`` (musicgen's frame embeddings,
+with an ``n_codebooks``-way head) and ``vlm`` (internvl2's
+``vis_tokens`` patch embeddings before the text); the MoE FFN
+(``n_experts``, ``top_k``, ``n_shared``, ``moe_capacity``);
 DeepSeek-style multi-head latent attention (``attn_kind="mla"`` with its
-widths, ``mla_config()``).
+widths, ``mla_config()``); and the hybrid family (hymba): a selective
+SSM beside the attention in every layer (``ssm_state``, ``ssm_expand``,
+``ssm_config()``) and sliding-window attention (``window``; the
+layers it applies to come from ``models.lm.layer_windows``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -19,7 +23,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | audio | vlm | moe
+    family: str                    # dense | audio | vlm | moe | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,6 +38,7 @@ class ModelConfig:
     optimizer_dtype: str = "float32"  # AdamW moments (bfloat16 option)
     # attention: gqa | mla
     attn_kind: str = "gqa"
+    window: Optional[int] = None   # sliding-window size (hybrid layers)
     # MLA (deepseek-style): per-head q/k widths without and with RoPE, the
     # value width, the KV latent's and the query latent's ranks (r_q 0:
     # a full-rank query projection)
@@ -48,6 +53,10 @@ class ModelConfig:
     top_k: int = 0
     n_shared: int = 0
     moe_capacity: float = 1.25
+    # SSM / hybrid: the SSM's state size (0 -> 16) and its inner width as
+    # a multiple of d_model
+    ssm_state: int = 0
+    ssm_expand: int = 2
     # modality frontend (stub): tokens | embeddings | vlm
     input_mode: str = "tokens"
     n_codebooks: int = 0           # musicgen-style multi-head output
@@ -74,6 +83,12 @@ class ModelConfig:
                          v_dim=self.v_dim, r_kv=self.r_kv, r_q=self.r_q,
                          rope_theta=self.rope_theta)
 
+    def ssm_config(self):
+        from ..models.ssm import SSMConfig
+        return SSMConfig(d_model=self.d_model,
+                         d_inner=self.ssm_expand * self.d_model,
+                         d_state=self.ssm_state or 16)
+
     def param_count(self, active_only: bool = False) -> int:
         """Parameters, or with ``active_only`` those a token runs through
         (``top_k`` of the routed experts)."""
@@ -91,6 +106,11 @@ class ModelConfig:
             ffn = (n_exp + self.n_shared) * 3 * d * f + d * self.n_experts
         else:
             ffn = 3 * d * f
+        if self.family == "hybrid":
+            di = self.ssm_expand * d
+            r = -(-d // 16)
+            ffn += d * 2 * di + di * (r + 2 * (self.ssm_state or 16)) \
+                + r * di + di * d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         if self.n_codebooks:
             emb += self.n_codebooks * d * self.vocab

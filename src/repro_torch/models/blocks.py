@@ -1,8 +1,9 @@
 """The transformer block (``repro/models/blocks.py:67-151``): GQA attention
-(``gqa_qkv``/``gqa_full``/``gqa_decode`` at ``:30-64``) or MLA, and a
-dense FFN or a mixture of experts; the full-sequence forward and the
-one-token decode.  The reference's hybrid (SSM) branches are not ported
-yet."""
+(``gqa_qkv``/``gqa_full``/``gqa_decode`` at ``:30-64``, with an optional
+sliding window) or MLA, and a dense FFN or a mixture of experts; in the
+hybrid family (hymba) a selective SSM on its own norm runs beside the
+attention and the two are averaged; the full-sequence forward and the
+one-token decode."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -13,12 +14,14 @@ from .attention import KVCache, attention, decode_attention, kv_cache_update
 from .common import apply_rope, dense_init, rms_norm
 from .ffn import ffn_apply, ffn_init, moe_apply, moe_init
 from .mla import mla_decode, mla_init, mla_prefill
+from .ssm import SSMCache, ssm_apply, ssm_decode_step, ssm_init
 
 # the families whose layers are the dense block: the text models, and
 # musicgen and internvl2 (their frontends are stubs before the same stack)
 DENSE_FAMILIES = ("dense", "audio", "vlm")
-# ... and the mixture-of-experts family (kimi: GQA; deepseek: MLA)
-FAMILIES = DENSE_FAMILIES + ("moe",)
+# ... the mixture-of-experts family (kimi: GQA; deepseek: MLA) and the
+# hybrid family (hymba: attention and an SSM side by side)
+FAMILIES = DENSE_FAMILIES + ("moe", "hybrid")
 
 
 def check_family(cfg) -> None:
@@ -52,12 +55,14 @@ def gqa_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
 
 def gqa_full(params: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads,
              n_kv_heads, head_dim, rope_theta, q_offset: int = 0,
+             window: Optional[int] = None,
              impl: Optional[str] = None) -> torch.Tensor:
     b, s, _ = x.shape
     positions = q_offset + torch.arange(s, device=x.device)[None, :]
     q, k, v = gqa_qkv(params, x, n_heads, n_kv_heads, head_dim, positions,
                       rope_theta)
-    out = attention(q, k, v, causal=True, q_offset=q_offset, impl=impl)
+    out = attention(q, k, v, causal=True, q_offset=q_offset, window=window,
+                    impl=impl)
     return out.view(b, s, n_heads * head_dim) @ params["wo"]
 
 
@@ -92,6 +97,9 @@ def block_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> Dict:
                             cfg.n_shared, dtype)
     else:
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_init(gen, cfg.ssm_config(), dtype)
+        p["ln_ssm"] = torch.zeros(cfg.d_model, dtype=dtype, device=gen.device)
     return p
 
 
@@ -106,10 +114,11 @@ def _ffn(params: Dict, cfg, h: torch.Tensor
 
 
 def block_apply(params: Dict, cfg, x: torch.Tensor, *,
-                impl: Optional[str] = None
+                window: Optional[int] = None, impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence block forward -> (y, the layer's MoE aux loss, or None
-    for a dense FFN, where the reference's is a zero)."""
+    for a dense FFN, where the reference's is a zero).  ``window``: the
+    layer's sliding window (GQA), as ``lm.layer_windows`` gives it."""
     h = rms_norm(x, params["ln1"], impl=impl)
     if cfg.attn_kind == "mla":
         attn_out, _ = mla_prefill(params["attn"], cfg.mla_config(), h,
@@ -118,24 +127,28 @@ def block_apply(params: Dict, cfg, x: torch.Tensor, *,
         attn_out = gqa_full(params["attn"], h, n_heads=cfg.n_heads,
                             n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.resolved_head_dim,
-                            rope_theta=cfg.rope_theta, impl=impl)
+                            rope_theta=cfg.rope_theta, window=window,
+                            impl=impl)
+    if cfg.family == "hybrid":  # parallel attn + SSM heads (hymba)
+        ssm_out = ssm_apply(params["ssm"], cfg.ssm_config(),
+                            rms_norm(x, params["ln_ssm"], impl=impl))
+        attn_out = 0.5 * (attn_out + ssm_out)
     x = x + attn_out
     y, aux = _ffn(params, cfg, rms_norm(x, params["ln2"], impl=impl))
     return x + y, aux
 
 
 class BlockCache(NamedTuple):
-    # a KVCache, or an MLACache for MLA; the reference's ``ssm`` comes
-    # with hymba
-    kv: Optional[Any] = None
+    kv: Optional[Any] = None         # a KVCache, or an MLACache for MLA
+    ssm: Optional[SSMCache] = None   # the hybrid family's SSM state
 
 
 def block_decode(params: Dict, cfg, x: torch.Tensor, cache: BlockCache, *,
                  window: Optional[int] = None
                  ) -> Tuple[torch.Tensor, BlockCache]:
-    """One-token block forward against the layer's KV or latent cache; the
-    MoE routes the token as the forward does (its aux is dropped, as in
-    the reference).  The reference's SSM branch is not ported yet."""
+    """One-token block forward against the layer's KV or latent cache (and
+    in the hybrid family its SSM state); the MoE routes the token as the
+    forward does (its aux is dropped, as in the reference)."""
     check_family(cfg)
     h = rms_norm(x, params["ln1"])
     if cfg.attn_kind == "mla":
@@ -147,6 +160,12 @@ def block_decode(params: Dict, cfg, x: torch.Tensor, cache: BlockCache, *,
                                   n_kv_heads=cfg.n_kv_heads,
                                   head_dim=cfg.resolved_head_dim,
                                   rope_theta=cfg.rope_theta, window=window)
+    new_ssm = cache.ssm
+    if cfg.family == "hybrid":
+        ssm_out, new_ssm = ssm_decode_step(params["ssm"], cfg.ssm_config(),
+                                           rms_norm(x, params["ln_ssm"]),
+                                           cache.ssm)
+        attn_out = 0.5 * (attn_out + ssm_out)
     x = x + attn_out
     y, _ = _ffn(params, cfg, rms_norm(x, params["ln2"]))
-    return x + y, BlockCache(kv=kv)
+    return x + y, BlockCache(kv=kv, ssm=new_ssm)

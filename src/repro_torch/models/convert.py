@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the reference's ``init_params`` pytree as numpy
 arrays (``params["layers"]`` stacked on axis 0; an MoE layer's experts
-(L, E, D, F) and its f32 router (L, D, E)) and returns the port's
+(L, E, D, F) and its f32 router (L, D, E); a hybrid layer's ``ssm``
+sub-dict, its f32 ``a_log`` included, and ``ln_ssm``) and returns the port's
 parameter dict with the stacks split per layer, each leaf in its own
 dtype, so the two packages can be compared on identical weights.  ``opt_state_from_jax`` does the same
 for the reference's ``AdamWState``, and ``cache_from_jax`` for its decode
@@ -22,6 +23,7 @@ from .attention import KVCache
 from .blocks import BlockCache
 from .lm import DecodeState
 from .mla import MLACache
+from .ssm import SSMCache
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -65,11 +67,17 @@ def cache_from_jax(np_state: Any, cfg: ModelConfig,
     """The reference's ``DecodeState`` (numpy leaves; its caches stacked on
     a leading layer axis: a ``KVCache``'s k/v (L, B, Smax, Hkv, hd) or an
     ``MLACache``'s c_kv (L, B, Smax, r_kv) and k_rope (L, B, Smax, rope),
-    length (L,)) as the port's list of per-layer caches."""
+    length (L,); in the hybrid family an ``SSMCache``'s conv (L, B, K-1,
+    di) and f32 h (L, B, di, N)) as the port's list of per-layer caches."""
     dev = resolve_device(device)
-    kv = np_state.caches.kv
+
+    def layer(kind, tree, i):
+        return kind(*(_to_tensor(np.asarray(getattr(tree, f))[i], dev)
+                      for f in kind._fields))
+
     kind = MLACache if cfg.attn_kind == "mla" else KVCache
-    leaves = [np.asarray(getattr(kv, f)) for f in kind._fields]
+    ssm = np_state.caches.ssm
     return DecodeState(caches=[
-        BlockCache(kv=kind(*(_to_tensor(a[i], dev) for a in leaves)))
+        BlockCache(kv=layer(kind, np_state.caches.kv, i),
+                   ssm=None if ssm is None else layer(SSMCache, ssm, i))
         for i in range(cfg.n_layers)])

@@ -6,7 +6,9 @@ modes (``repro/models/lm.py:54-311``): ``tokens``; ``embeddings``
 before the text tokens, the loss over the text positions only).  MoE
 layers add their aux load-balance loss, summed over the layers
 (``forward_aux``), to ``loss_fn`` at 0.01; MLA layers decode over a
-latent cache (``MLACache``).
+latent cache (``MLACache``); hybrid layers (hymba) carry an SSM state
+(``SSMCache``) beside their KV cache and a per-layer sliding window
+(``layer_windows``) in the forward and the decode.
 
 Layers are unrolled in Python, as the reference does with
 ``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
@@ -29,8 +31,22 @@ from .blocks import (BlockCache, block_apply, block_decode, block_init,
                      check_family)
 from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
 from .mla import MLACache
+from .ssm import ssm_init_cache
 
 MOE_AUX_WEIGHT = 0.01   # the reference's loss_fn (repro/models/lm.py:202)
+GLOBAL_WINDOW = 2 ** 30  # a global layer's window: effectively unbounded
+
+
+def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
+    """hymba-style (``repro/models/lm.py:31-39``): the config's sliding
+    window at every layer except {first, middle, last}, which get
+    ``GLOBAL_WINDOW``; None without a window."""
+    if cfg.window is None:
+        return None
+    w = [cfg.window] * cfg.n_layers
+    for g in {0, cfg.n_layers // 2, cfg.n_layers - 1}:
+        w[g] = GLOBAL_WINDOW
+    return w
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -99,8 +115,9 @@ def _forward(cfg: ModelConfig, params: Dict, batch: Dict,
     """(logits, the MoE aux summed over the layers, or None if dense)."""
     x = _embed_inputs(cfg, params, batch)
     aux = None
-    for layer_p in params["layers"]:
-        x, a = block_apply(layer_p, cfg, x, impl=impl)
+    windows = layer_windows(cfg) or [None] * cfg.n_layers
+    for layer_p, w in zip(params["layers"], windows):
+        x, a = block_apply(layer_p, cfg, x, window=w, impl=impl)
         if a is not None:
             aux = a if aux is None else aux + a
     return _lm_logits(cfg, params, x, impl), aux
@@ -165,8 +182,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Any = None) -> DecodeState:
     """Zeroed caches of ``max_len`` rows per layer and a length of 0, on
     ``device`` (``cuda`` unless given): K/V (B, Smax, Hkv, hd), or for MLA
-    the latent (B, Smax, r_kv) and the RoPE key (B, Smax, qk_rope); the KV
-    and MLA branches of ``repro/models/lm.py:213-242``."""
+    the latent (B, Smax, r_kv) and the RoPE key (B, Smax, qk_rope); in the
+    hybrid family also an ``SSMCache`` a layer (the last K-1 conv inputs,
+    the f32 state); ``repro/models/lm.py:213-242``."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
@@ -184,9 +202,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                    length=length()))
             for _ in range(cfg.n_layers)])
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def ssm():
+        if cfg.family != "hybrid":
+            return None
+        return ssm_init_cache(cfg.ssm_config(), batch, dt, device=dev)
+
     return DecodeState(caches=[
         BlockCache(kv=KVCache(k=zeros(*shape), v=zeros(*shape),
-                              length=length()))
+                              length=length()), ssm=ssm())
         for _ in range(cfg.n_layers)])
 
 
@@ -195,16 +219,18 @@ def decode_step(cfg: ModelConfig, params: Dict, state: DecodeState,
     """One new token ``inp["token"]`` (B,1), or one frame
     ``inp["frame_embed"]`` (B,1,D) in ``embeddings`` mode, against the
     running cache -> (logits (B,1,V) or (B,1,K,V), the new state).  Layers
-    unrolled; each layer's cache is written in place
-    (``attention.kv_cache_update``, ``mla.mla_cache_update``).  RMSNorm
-    runs its kernel op; decode attention (GQA or absorbed MLA) and the
+    unrolled, each with its window (``layer_windows``); each layer's cache
+    is written in place (``attention.kv_cache_update``,
+    ``mla.mla_cache_update``; an SSM state is replaced).  RMSNorm runs its
+    kernel op; decode attention (GQA or absorbed MLA), the SSM step and the
     MoE are plain PyTorch, as the reference's are plain jnp."""
     if cfg.input_mode in ("tokens", "vlm"):
         x = F.embedding(inp["token"], params["embed"]).to(cfg.torch_dtype)
     else:
         x = inp["frame_embed"].to(cfg.torch_dtype)
     caches = []
-    for layer_p, cache in zip(params["layers"], state.caches):
-        x, cache = block_decode(layer_p, cfg, x, cache)
+    windows = layer_windows(cfg) or [None] * cfg.n_layers
+    for layer_p, cache, w in zip(params["layers"], state.caches, windows):
+        x, cache = block_decode(layer_p, cfg, x, cache, window=w)
         caches.append(cache)
     return _lm_logits(cfg, params, x, None)[:, -1:], DecodeState(caches)

@@ -26,11 +26,11 @@ from repro_torch.kernels.rmsnorm import (CTA_THREADS, MAX_SMEM_BYTES,
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
 # every width a config normalizes: d_model, and deepseek_v3's MLA latents
-WIDTHS = (512, 1536, 2048, 3072, 4096, 4608, 7168)
+WIDTHS = (512, 1536, 1600, 2048, 3072, 4096, 4608, 7168)
 DTYPES = (torch.float32, torch.bfloat16)
 ARCHS = ("llama2_1b", "gemma_2b", "gemma_7b", "granite_8b", "starcoder2_7b",
          "musicgen_medium", "internvl2_2b", "kimi_k2_1t_a32b",
-         "deepseek_v3_671b")
+         "deepseek_v3_671b", "hymba_1p5b")
 
 
 def test_the_widths_are_the_configs_widths():
@@ -73,7 +73,8 @@ def test_the_widths_split_as_designed():
     got = {d: (rmsnorm_geometry(d, torch.bfloat16).threads_per_row,
                rmsnorm_geometry(d, torch.float32).threads_per_row)
            for d in WIDTHS}
-    assert got == {512: (32, 32), 1536: (32, 64), 2048: (64, 64),
+    assert got == {512: (32, 32), 1536: (32, 64), 1600: (32, 64),
+                   2048: (64, 64),
                    3072: (64, 128), 4096: (128, 128), 4608: (128, 256),
                    7168: (128, 256)}
     assert rmsnorm_geometry(512, torch.bfloat16).rows_per_cta == 8
