@@ -335,6 +335,31 @@ Phases (any failure exits non-zero):
    decoding 56 tokens one at a time against the forward at every
    position within 2e-4.
 
+18. xlstm (``[xlstm]`` lines), after phase 17: ``xlstm_1p3b`` at full
+   width and depth (48 layers: 6 groups of 7 mLSTM layers and one
+   sLSTM, d 2048, d_inner 4096, 4 heads of hd 1024, chunk 128, vocab
+   50304, bf16, seed-0 weights, 7,260,345,664 B as the config implies:
+   the gate weights f32), eagerly: (e) ``launch.serve.serve`` (seed 0,
+   batch 4, a 32-token prompt, 16 greedy tokens): no flash launch, a
+   step's 49 bf16 RMSNorm launches at d 2048 and 42 f32 ones at d 4096
+   (the mLSTM output norms on the f32 state's output), an f32
+   ``MLSTMCache`` / ``SLSTMCache`` a layer, ms a step beside the bytes a
+   step must move; (a) ``models.prefill`` at the request shapes: no
+   flash, 49 bf16 RMSNorm launches at d 2048 and 42 at d 4096, all on
+   the register path, finite logits; the median of 5 calls,
+   ``max_memory_allocated`` beside the weights' bytes, a profile by part
+   at (8, 1024) (the mLSTM's f32 chunk products and its other chunk math,
+   the sLSTM's time loop, the GEMMs, RMSNorm, the readout); (b) at (8,
+   1024) RMSNorm at d 2048 and at the mLSTM output norm's d 4096 on the
+   model's own rows vs plain (1e-2, timed), one group's 8 layers' logits
+   kernel vs plain within 5e-2; (c) layer 0's mLSTM and the first sLSTM
+   in f32 on 300 tokens (chunks of 128, 128 and 44): the full-sequence
+   form against the step-by-step decode recurrence within 1e-3; (d)
+   each layer kind alone at (8, 1024): kernel time, device records (the
+   launches a layer makes) and host time, and their shares of the
+   prefill; (e) the decode logits against the forward: one group deep
+   in f32 hard within 1e-3, in bf16 and at 48 layers reported.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
@@ -343,17 +368,19 @@ gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
 = phase 13, dense_prefill = phase 14 (b), dense_prefill_f32_smoke and
 dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e),
 gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a),
-moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a) and
-hybrid_serve = phase 17 (d);
-bounded, loop, gemma_serve, dense_serve, moe_serve and hybrid_serve
-launch no flash:
+moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a),
+hybrid_serve = phase 17 (d), xlstm_prefill = phase 18 (a) and
+xlstm_serve = phase 18 (e);
+bounded, loop, gemma_serve, dense_serve, moe_serve, hybrid_serve and
+both xlstm paths launch no flash:
 their attention and ops are plain PyTorch, as the reference's are plain
 jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
 requests, the mma entries at hd 12, 16 and 48 (the bf16 one also at
 kimi_k2's hd 112) and the sm90 entry at starcoder2's and musicgen's
 heads and at hymba's (25/5 at hd 64), the rmsnorm entry at the MoE
-family's widths and hymba's d 1600, its sweep (phase
+family's widths, hymba's d 1600 and xlstm's d 2048 and 4096, its sweep
+(phase
 2, ``sweep``) and its launches after phase 2 by path
 (``launches_by_norm_path``); the mma route has an entry per dtype,
 counted by ``mma_f32_launches`` and ``mma_bf16_launches``); the last
@@ -370,6 +397,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 REQUESTS = [(1, 16), (4, 128), (2, 1000), (8, 1024)]
@@ -1120,13 +1148,20 @@ def phase_profile(opt, params, batches):
         profile_once(f"b={b} s={s}", lambda: opt(params, batch))
 
 
+class Profile(NamedTuple):
+    """What ``profile_once`` read of one call."""
+    busy_us: float      # device time of its kernels, copies and sets
+    parts: dict         # {part: us} by the classifier; empty without one
+    wall_us: float      # the profiled call's host time, to its sync
+    records: int        # device records (kernels, copies, sets) it made
+
+
 def profile_once(label: str, run, classify=None):
     """torch.profiler over one call of ``run``: device time by kernel and
     the share of the call's wall time with a kernel running.  With
     ``classify(op_name, input_shapes) -> part``, also the device time of
-    each operator's kernels and copies, summed by part.  Returns (kernel
-    us, {part: us}; empty without a classifier), or None without a device
-    record."""
+    each operator's kernels and copies, summed by part.  Returns a
+    ``Profile``, or None without a device record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1136,17 +1171,20 @@ def profile_once(label: str, run, classify=None):
         run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side kernel rows only: CPU op rows (aten::mm ...) repeat
-    # the time of the kernels they launched
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
+    # device records only (kernels, copies, sets): CPU operator rows
+    # (aten::mm ...) repeat the time of the kernels they launched.  Read
+    # from the kineto events: key_averages() builds a Python event for
+    # every record first, tens of seconds for an eager recurrence's 10^5
+    # operators
+    events = prof.profiler.kineto_results.events()
+    by_name = {}
+    for ev in events:
+        if ev.device_type() == torch.autograd.DeviceType.CUDA \
+                and ev.duration_ns() > 0:
+            us, n = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {label}: no device time recorded "
@@ -1157,12 +1195,12 @@ def profile_once(label: str, run, classify=None):
     for us, count, key in rows[:10]:
         log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
             f"x{count:<4d} {key[:90]}")
+    records = sum(r[1] for r in rows)
     if classify is None:
-        return busy, {}
+        return Profile(busy, {}, wall_us, records)
     # each device event counted once, for the operator it is linked to
     # (the outermost, where several operators carry the same id)
     ops, parts, shared = {}, {}, 0
-    events = prof.profiler.kineto_results.events()
     for ev in events:
         if ev.device_type() == torch.autograd.DeviceType.CPU and \
                 ev.linked_correlation_id() == 0:
@@ -1183,7 +1221,7 @@ def profile_once(label: str, run, classify=None):
     for part, us in sorted(parts.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {label} by part: {part}: {us / 1e3:.3f} ms "
             f"{100 * us / busy:5.1f}%")
-    return busy, parts
+    return Profile(busy, parts, wall_us, records)
 
 
 @contextlib.contextmanager
@@ -5399,7 +5437,8 @@ def hybrid_ssm(cfg, params, batch, profile):
     alone = profile_once(f"hymba ssm_apply layer 0 b={x.shape[0]} "
                          f"s={x.shape[1]}",
                          lambda: ssm_apply(lp["ssm"], sc, x))
-    busy, parts = profile if profile else (None, {})
+    busy, parts = (profile.busy_us, profile.parts) if profile \
+        else (None, {})
     ssm_us = sum(us for part, us in parts.items() if part.startswith("SSM"))
     prof_share = cfg.n_layers * alone[0] / busy if alone and busy else None
     log(f"[hybrid] (c) {cfg.name} SSM (d_inner {sc.d_inner}, state "
@@ -5611,6 +5650,498 @@ def phase_hybrid():
     return rows, {"hybrid_prefill": prefill_l, "hybrid_serve": serve_l}
 
 
+# -- phase 18: the xLSTM family (xlstm_1p3b) at full width and depth --------
+
+XLSTM_ARCH = "xlstm_1p3b"
+XLSTM_REPS = 5             # (a): calls per request shape for the median
+XLSTM_AT = (8, 1024)       # (b), (d): the request whose parts are checked
+XLSTM_MIXER_S = 300        # (c): the cut S: chunks of 128, 128 and 44
+XLSTM_MIXER_B = 2          # (c): the rows of XLSTM_AT's batch it takes
+XLSTM_MIXER_TOL = 1e-3     # (c): tests/test_models.py's bound for this check
+XLSTM_DECODE_TOL = 1e-3    # (e): decode vs forward in f32, one group deep
+XLSTM_LAYER_REPS = 3       # (d): host-clock calls of one layer, median
+XLSTM_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}
+
+
+@contextlib.contextmanager
+def norm_launches_by_width():
+    """Yields a dict that counts every RMSNorm launch inside the block by
+    (d, dtype, path): an observer around the wrapper's launch."""
+    import importlib
+
+    # the module (the package's ``rmsnorm`` is the op)
+    rmsnorm_mod = importlib.import_module("repro_torch.kernels.rmsnorm")
+    counts = {}
+    launch = rmsnorm_mod.launch_rmsnorm
+
+    def counting(x, scale, out, geo, eps):
+        key = (geo.d, str(x.dtype).replace("torch.", ""), geo.path)
+        counts[key] = counts.get(key, 0) + 1
+        return launch(x, scale, out, geo, eps)
+
+    rmsnorm_mod.launch_rmsnorm = counting
+    try:
+        yield counts
+    finally:
+        rmsnorm_mod.launch_rmsnorm = launch
+
+
+def xlstm_norm_launches(cfg, decode=False, steps=1):
+    """RMSNorm launches by (d, dtype, path) of ``steps`` requests or decode
+    steps: a pre-norm a layer and the final norm at d_model in the model
+    dtype, and every mLSTM layer's output norm at d_inner, in the model
+    dtype in the forward and in f32 in decode; all on the register
+    path."""
+    from repro_torch.models.lm import xlstm_meta
+    meta = xlstm_meta(cfg)
+    di = cfg.xlstm_config().d_inner
+    want = {(cfg.d_model, cfg.dtype, "reg"): steps * (cfg.n_layers + 1)}
+    key = (di, "float32" if decode else cfg.dtype, "reg")
+    want[key] = want.get(key, 0) + \
+        steps * meta["n_groups"] * meta["m_per_group"]
+    return want
+
+
+def xlstm_weight_bytes(cfg):
+    """The bytes the config's weights take: the model dtype, f32 for the
+    mLSTM's gate weights and biases and the sLSTM's ``w_i``, ``w_f``,
+    ``b_f`` (as the reference keeps them); the tied embedding and the
+    final norm."""
+    from repro_torch.models.lm import xlstm_meta
+    xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+    d, di, h, k = cfg.d_model, xc.d_inner, xc.n_heads, xc.conv_kernel
+    w = cfg.torch_dtype.itemsize
+    m_layer = w * (d + 2 * d * di + k * di + di + 3 * di * di + di + di * d) \
+        + 4 * (2 * di * h + 2 * h)
+    s_layer = w * (d + 3 * d * di) + 4 * (2 * d * di + di)
+    return meta["n_groups"] * meta["m_per_group"] * m_layer + \
+        meta["n_s"] * s_layer + w * (cfg.padded_vocab * d + d)
+
+
+def xlstm_part_of(cfg):
+    """A ``profile_once`` classifier for the eager xLSTM prefill: the
+    mLSTM's chunk products (its batched matmuls over (B, H): f32 GEMMs,
+    launched as ``bmm`` on 3-D operands, where the projections and the
+    readout fold to 2-D ``mm``) and its other chunk math (operators on
+    (B, H, ...) tensors), the sLSTM's time loop
+    (operators on a step's (B, d_inner) slices), the readout, the other
+    GEMMs (the projections, bf16 and the f32 gates), RMSNorm, ``cat`` and
+    ``stack`` (no shapes recorded for a tensor list), the rest."""
+    xc = cfg.xlstm_config()
+    h, di = xc.n_heads, xc.d_inner
+
+    def part(name, shapes):
+        dims = [sh for sh in shapes if sh]
+        if "flash_attention" in name:
+            return "flash attention (kernel)"
+        if "rmsnorm" in name:
+            return "RMSNorm (kernel)"
+        if name in MATMUL_OPS:
+            if any(sh[-1] == cfg.padded_vocab for sh in dims):
+                return "readout GEMM"
+            if any(len(sh) >= 3 for sh in dims):
+                return "mLSTM chunk products (f32 GEMMs)"
+            return "projection GEMMs"
+        if any((len(sh) >= 3 and sh[1] == h) or (len(sh) == 2
+                                                  and sh[-1] == h)
+               for sh in dims):
+            return "mLSTM chunk math (plain)"
+        if any(len(sh) == 2 and sh[-1] == di for sh in dims):
+            return "sLSTM time loop (plain)"
+        if name in ("aten::cat", "aten::stack") and not dims:
+            return "cat and stack (shapes not recorded)"
+        return "elementwise, casts and copies"
+    return part
+
+
+def host_ms(fn, reps):
+    """Median host time of ``reps`` calls, each ending in a sync."""
+    import statistics
+
+    import torch
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls)
+
+
+def xlstm_requests(cfg, params, batches):
+    """Phase 18 (a), the counted path: one eager ``prefill`` per request
+    shape: no flash launch, the RMSNorm launches by width and dtype (all
+    on the register path), finite logits, the allocator's peak beside the
+    bytes held before it."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    want = xlstm_norm_launches(cfg)
+    rows = []
+    for (b, s), batch in zip(REQUESTS, batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        n0 = _launch_counts()
+        with norm_launches_by_width() as norms:
+            logits = prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+        n = {k: v - n0[k] for k, v in _launch_counts().items()}
+        peak = torch.cuda.max_memory_allocated()
+        if n["sm90"] or n["mma_f32"] or n["mma_bf16"] or norms != want \
+                or n["rmsnorm"] != sum(want.values()):
+            raise AssertionError(f"{cfg.name} (b={b}, s={s}): launches {n},"
+                                 f" RMSNorm by width {norms}, want no flash"
+                                 f" and {want}")
+        _check_logits(cfg, logits, b, f"{cfg.name} (b={b}, s={s})")
+        rows.append(dict(shape=[b, s], launches=n,
+                         norms={f"d{d} {dt} {path}": c
+                                for (d, dt, path), c in norms.items()},
+                         peak_bytes=peak, held_bytes=held))
+        del logits
+    return rows
+
+
+def xlstm_in_place(cfg, params, batch):
+    """Phase 18 (b) at XLSTM_AT: RMSNorm at d_model on the embeddings
+    (layer 0's pre-norm) and at d_inner on layer 0's mLSTM output norm
+    input, kernel vs plain (1e-2, timed); one group's layers (the
+    first ``slstm_every``: its mLSTM layers and its sLSTM) through the
+    kernel path and the plain path (``impl="ref"``): in f32 (the weights
+    cast) the logits within GEMMA_LOGIT_TOL; in bf16 reported beside the
+    bf16 plain path against the f32 plain path (the model's own bf16
+    error), since a group of random bf16 layers carries one rounding flip
+    of a norm into the logits many ulps wide.  Returns the norm rows and
+    the cut's readings."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import prefill
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _embed_inputs
+
+    xc = cfg.xlstm_config()
+    lp = params["mlstm"][0][0]
+    emb = _embed_inputs(cfg, params, batch)
+    rows = {f"rmsnorm_d{cfg.d_model}": moe_norm_row(
+        emb, lp["ln"], f"{cfg.name} ln", tag="[xlstm] (b)")}
+    seen = []
+    norm = xlstm_mod.rms_norm
+
+    def first_input(x, scale, *args, **kw):
+        if not seen:
+            seen.append((x, scale))
+        return norm(x, scale, *args, **kw)
+
+    xlstm_mod.rms_norm = first_input
+    try:
+        xlstm_mod.mlstm_apply(lp, xc, rms_norm(emb, lp["ln"]))
+    finally:
+        xlstm_mod.rms_norm = norm
+    hx, out_norm = seen[0]
+    if hx.shape[-1] != xc.d_inner:
+        raise AssertionError(f"the output norm's input {tuple(hx.shape)}")
+    rows[f"rmsnorm_d{xc.d_inner}"] = moe_norm_row(
+        hx, out_norm, f"{cfg.name} mLSTM out_norm", tag="[xlstm] (b)")
+    del emb, hx, seen
+    group = cfg.slstm_every
+    cut = dataclasses.replace(cfg, n_layers=group)
+    p = dict(params, mlstm=params["mlstm"][:1], slstm=params["slstm"][:1])
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    p32 = pytree.tree_map(lambda t: t.float(), p)
+    logits = {}
+    for name, c, w, impl in (("kernel", cut, p, None),
+                             ("plain", cut, p, "ref"),
+                             ("kernel32", cut32, p32, None),
+                             ("plain32", cut32, p32, "ref")):
+        logits[name] = prefill(c, w, batch, impl=impl)[
+            ..., :cfg.vocab].float()
+    del p32
+
+    def err(a, b):
+        return (logits[a] - logits[b]).abs().max().item()
+
+    cut_row = dict(f32_err=err("kernel32", "plain32"),
+                   bf16_err=err("kernel", "plain"),
+                   bf16_plain_vs_f32_plain=err("plain", "plain32"),
+                   max_abs_logit=logits["plain32"].abs().max().item())
+    log(f"[xlstm] (b) {cfg.name} at {group} layers (one group: "
+        f"{group - 1} mLSTM + 1 sLSTM): logits kernel vs plain max err in "
+        f"f32 {cut_row['f32_err']:.4g} (tol {GEMMA_LOGIT_TOL}); in bf16 "
+        f"{cut_row['bf16_err']:.4g} (reported) beside the bf16 plain path "
+        f"vs the f32 plain path {cut_row['bf16_plain_vs_f32_plain']:.4g}; "
+        f"max |logit| {cut_row['max_abs_logit']:.4g}")
+    if not torch.allclose(logits["kernel32"], logits["plain32"],
+                          rtol=GEMMA_LOGIT_TOL, atol=GEMMA_LOGIT_TOL):
+        raise AssertionError(f"{cfg.name} at {group} layers in f32: logits "
+                             f"miss {GEMMA_LOGIT_TOL} against the plain "
+                             f"path (max err {cut_row['f32_err']:.4g})")
+    return rows, cut_row
+
+
+def xlstm_mixers(cfg, params, batch, profile, median_ms):
+    """Phase 18 (c): layer 0's mLSTM and the first sLSTM at full width in
+    f32 (TF32 off) on XLSTM_MIXER_B rows of the normed embeddings cut to
+    XLSTM_MIXER_S tokens: the full-sequence form against the step-by-step
+    decode recurrence, within XLSTM_MIXER_TOL.  (d): each layer alone in
+    the model's dtype at XLSTM_AT: torch.profiler's kernel time and device
+    records (the launches a layer makes), the host time of a call, and
+    their shares of the prefill's (x the layers of each kind)."""
+    import torch
+
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.lm import _embed_inputs, xlstm_meta
+    from repro_torch.models.xlstm import (mlstm_apply, mlstm_decode_step,
+                                          mlstm_init_cache, slstm_apply,
+                                          slstm_decode_step,
+                                          slstm_init_cache)
+
+    xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+    n_m = meta["n_groups"] * meta["m_per_group"]
+    emb = _embed_inputs(cfg, params, batch)
+    out = {}
+    for kind, lp, n_kind in (("mLSTM", params["mlstm"][0][0], n_m),
+                             ("sLSTM", params["slstm"][0], meta["n_s"])):
+        apply = mlstm_apply if kind == "mLSTM" else slstm_apply
+        x = rms_norm(emb, lp["ln"])
+        p32 = {k: v.float() for k, v in lp.items()}
+        xc32 = x[:XLSTM_MIXER_B, :XLSTM_MIXER_S].float()
+        full = apply(p32, xc, xc32)
+        if kind == "mLSTM":
+            step, cache = mlstm_decode_step, mlstm_init_cache(
+                xc, XLSTM_MIXER_B, torch.float32, device=x.device)
+        else:
+            step, cache = slstm_decode_step, slstm_init_cache(
+                xc, XLSTM_MIXER_B, device=x.device)
+        steps = []
+        for t in range(XLSTM_MIXER_S):
+            y, cache = step(p32, xc, xc32[:, t:t + 1], cache)
+            steps.append(y)
+        err, rel = agree(full, torch.cat(steps, dim=1), XLSTM_MIXER_TOL,
+                         f"{cfg.name} {kind} full sequence vs recurrence")
+        del p32, xc32, full, cache, steps
+        alone = profile_once(f"xlstm {kind} layer b={x.shape[0]} "
+                             f"s={x.shape[1]}", lambda: apply(lp, xc, x))
+        wall = host_ms(lambda: apply(lp, xc, x), XLSTM_LAYER_REPS)
+        busy = profile.busy_us if profile else None
+        row = dict(recurrence_err=err, recurrence_rel=rel, host_ms=wall,
+                   host_share=n_kind * wall / median_ms,
+                   device_ms=alone.busy_us / 1e3 if alone else None,
+                   device_records=alone.records if alone else None,
+                   device_share=n_kind * alone.busy_us / busy
+                   if alone and busy else None)
+        log(f"[xlstm] (c) {cfg.name} {kind} (d_inner {xc.d_inner}, "
+            f"{xc.n_heads} heads of {xc.head_dim}, chunk {xc.chunk}) in f32 "
+            f"at (b={XLSTM_MIXER_B}, s={XLSTM_MIXER_S}): full sequence vs "
+            f"recurrence max err {err:.3g} rel norm {rel:.3g} (tol "
+            f"{XLSTM_MIXER_TOL})")
+        log(f"[xlstm] (d) one {kind} layer at (b={x.shape[0]}, "
+            f"s={x.shape[1]}): host {wall:.3f} ms a call (x {n_kind} = "
+            f"{100 * row['host_share']:.1f}% of the prefill's median "
+            f"{median_ms:.3f} ms); "
+            + (f"kernel time {row['device_ms']:.3f} ms over "
+               f"{row['device_records']} device records (x {n_kind} = "
+               + (f"{100 * row['device_share']:.1f}% of the prefill's "
+                  f"kernel time)" if row["device_share"] is not None
+                  else "the prefill's not measured)")
+               if alone else "kernel time not measured"))
+        out[kind] = row
+        del x
+    return out
+
+
+def xlstm_serve(cfg):
+    """Phase 18 (e), the counted path: ``launch.serve.serve`` (seed 0,
+    XLSTM_SERVE) at full width and depth: no flash launch, the RMSNorm
+    launches a step by width and dtype (the mLSTM output norms in f32), an
+    f32 ``MLSTMCache`` and ``SLSTMCache`` a layer; ms a step beside the
+    bytes a step must move (every weight read once, the recurrent states
+    read and written once) and their time at the HBM rate."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch.serve import serve
+
+    steps = XLSTM_SERVE["prompt_len"] + XLSTM_SERVE["gen"]
+    want = xlstm_norm_launches(cfg, decode=True, steps=steps)
+    with norm_launches_by_width() as norms:
+        launches, out = counted_launches(
+            lambda: serve(cfg, **XLSTM_SERVE, seed=0, device=DEV))
+    xc = cfg.xlstm_config()
+    b = XLSTM_SERVE["batch"]
+    m_caches, s_caches = out["state"].xlstm
+    states = [c for g in m_caches for c in g] + list(s_caches)
+    if out["state"].caches is not None or any(
+            t.dtype.itemsize != 4 for c in states for t in
+            (c.c, c.n, c.m)) or any(
+            tuple(c.c.shape) != (b, xc.n_heads, xc.head_dim, xc.head_dim)
+            for g in m_caches for c in g):
+        raise AssertionError(f"{cfg.name} serve: the state is not an f32 "
+                             f"MLSTMCache / SLSTMCache a layer")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(out["state"].xlstm))
+    step_bytes = xlstm_weight_bytes(cfg) + 2 * state_bytes
+    bound_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    ms_step = 1e3 * out["decode_s"] / XLSTM_SERVE["gen"]
+    log(f"[xlstm] (e) {cfg.name} serve batch {b} prompt "
+        f"{XLSTM_SERVE['prompt_len']} gen {XLSTM_SERVE['gen']}: prefill "
+        f"{1e3 * out['prefill_s']:.1f} ms ("
+        f"{1e3 * out['prefill_s'] / XLSTM_SERVE['prompt_len']:.2f} ms a "
+        f"step), decode {1e3 * out['decode_s']:.1f} ms ({ms_step:.2f} ms a "
+        f"step), decode_tok_per_s {out['decode_tok_per_s']:.1f}; state "
+        f"{state_bytes} B (C {tuple(m_caches[0][0].c.shape)} f32 a mLSTM "
+        f"layer); a step moves at least {step_bytes} B, {bound_ms:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({100 * bound_ms / ms_step:.1f}% "
+        f"of the step); launches {launches}, RMSNorm by width {norms}")
+    if launches["sm90"] or launches["mma_f32"] or launches["mma_bf16"] or \
+            norms != want or launches["rmsnorm"] != sum(want.values()):
+        raise AssertionError(f"{cfg.name} serve launches {launches}, "
+                             f"RMSNorm by width {norms}, want no flash and "
+                             f"{want}")
+    if out["tokens"].shape != (b, XLSTM_SERVE["gen"]) \
+            or out["tokens"].max() >= cfg.vocab:
+        raise AssertionError(f"{cfg.name} serve tokens {out['tokens'].shape}")
+    row = dict(prefill_ms=1e3 * out["prefill_s"],
+               decode_ms=1e3 * out["decode_s"], decode_ms_per_step=ms_step,
+               decode_tok_per_s=out["decode_tok_per_s"],
+               state_bytes=state_bytes, step_bytes=step_bytes,
+               step_bound_ms=bound_ms)
+    del out["state"]
+    return launches, row, out
+
+
+def xlstm_decode_checks(cfg, params, served):
+    """Phase 18 (e): the logits after the last prompt step of ``serve``
+    against the eager forward on the same prompt (max |diff| / max
+    |forward|): one group deep (``slstm_every`` layers, a ``serve`` of its
+    own) in f32 hard within XLSTM_DECODE_TOL and in bf16 reported; at full
+    depth in bf16 reported."""
+    import dataclasses
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params
+
+    full_rel, same, n, _ = _decode_vs_forward(cfg, params, served)
+    out = dict(decode_forward_rel_full_bf16=full_rel,
+               argmax_equal_full_bf16=same)
+    group = cfg.slstm_every
+    for dtype in ("float32", "bfloat16"):
+        cut = dataclasses.replace(cfg, n_layers=group, dtype=dtype)
+        served_cut = serve(cut, **XLSTM_SERVE, seed=0, device=DEV)
+        rel, cut_same, _, _ = _decode_vs_forward(
+            cut, init_params(cut, seed=0, device=DEV), served_cut)
+        out[f"decode_forward_rel_cut_{dtype}"] = rel
+        out[f"argmax_equal_cut_{dtype}"] = cut_same
+        del served_cut
+    log(f"[xlstm] (e) {cfg.name}: the prompt's last decode logits vs the "
+        f"forward, max |diff| / max |forward|: at {group} layers f32 "
+        f"{out['decode_forward_rel_cut_float32']:.4g} (tol "
+        f"{XLSTM_DECODE_TOL}; argmax equal in "
+        f"{out['argmax_equal_cut_float32']} of {n}), bf16 "
+        f"{out['decode_forward_rel_cut_bfloat16']:.4g} (reported; "
+        f"{out['argmax_equal_cut_bfloat16']} of {n}); at {cfg.n_layers} "
+        f"layers bf16 {full_rel:.4g} (reported; {same} of {n})")
+    if not out["decode_forward_rel_cut_float32"] < XLSTM_DECODE_TOL:
+        raise AssertionError(
+            f"{cfg.name} serve at {group} layers in f32: decode logits stand "
+            f"{out['decode_forward_rel_cut_float32']:.4g} from the forward's")
+    return out
+
+
+def phase_xlstm():
+    """Phase 18: xlstm_1p3b at full width and depth in bf16, eagerly: (e)
+    ``serve`` (counted); (a) the prefill at REQUESTS (counted), medians,
+    memory and a profile by part at XLSTM_AT; (b) RMSNorm at both widths
+    on the model's rows and one group's logits vs plain; (c) the mixers'
+    full-sequence forms against their recurrences in f32; (d) each layer
+    kind's time alone and its share; (e) decode vs forward.  Returns the
+    RMSNorm rows and the launches per path."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def stamp(part):
+        secs[part] = time.perf_counter() - t_phase - sum(secs.values())
+
+    cfg = get_config(XLSTM_ARCH)
+    serve_l, serve_row, served = xlstm_serve(cfg)
+    stamp("serve")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in pytree.tree_leaves(params))
+    xc = cfg.xlstm_config()
+    log(f"[xlstm] {cfg.name}: {cfg.n_layers} layers ({cfg.slstm_every - 1} "
+        f"mLSTM + 1 sLSTM a group), d {cfg.d_model}, d_inner {xc.d_inner}, "
+        f"{xc.n_heads} heads of {xc.head_dim}, chunk {xc.chunk}, vocab "
+        f"{cfg.vocab} ({cfg.padded_vocab}); {cfg.param_count()} params, "
+        f"{weight_bytes} B of weights (the config implies "
+        f"{xlstm_weight_bytes(cfg)} B), init {time.perf_counter() - t0:.2f} "
+        f"s")
+    if weight_bytes != xlstm_weight_bytes(cfg):
+        raise AssertionError(f"{cfg.name}: {weight_bytes} B of weights, the "
+                             f"config implies {xlstm_weight_bytes(cfg)} B")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(18)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                        device=DEV, dtype=torch.int32)}
+               for (b, s) in REQUESTS]
+    stamp("init")
+    prefill_l, req_rows = counted_launches(
+        lambda: xlstm_requests(cfg, params, batches))
+    medians = phase_latency(lambda p, bt: prefill(cfg, p, bt), params,
+                            batches, reps=XLSTM_REPS, tag="xlstm")
+    stamp("requests")
+    for r in req_rows:
+        b, s = r["shape"]
+        r["median_ms"] = medians[(b, s)]
+        log(f"[xlstm] (a) (b={b}, s={s}): median {r['median_ms']:.3f} ms; "
+            f"launches {r['launches']}, RMSNorm {r['norms']}; "
+            f"max_memory_allocated {r['peak_bytes']} B ({r['held_bytes']} B "
+            f"held before, {weight_bytes} B of them weights)")
+    at = batches[REQUESTS.index(XLSTM_AT)]
+    profile = profile_once(f"xlstm b={XLSTM_AT[0]} s={XLSTM_AT[1]}",
+                           lambda: prefill(cfg, params, at),
+                           classify=xlstm_part_of(cfg))
+    stamp("profile")
+    norm_rows, cut = xlstm_in_place(cfg, params, at)
+    stamp("in_place")
+    layers = xlstm_mixers(cfg, params, at, profile, medians[XLSTM_AT])
+    stamp("mixers")
+    del batches, at
+    dvf = xlstm_decode_checks(cfg, params, served)
+    stamp("decode_checks")
+    del params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(weight_bytes=weight_bytes, requests=req_rows,
+                   profile=None if profile is None else dict(
+                       kernel_ms=profile.busy_us / 1e3,
+                       wall_ms=profile.wall_us / 1e3,
+                       busy_share=profile.busy_us / profile.wall_us,
+                       kernel_over_median=profile.busy_us / 1e3
+                       / medians[XLSTM_AT],
+                       device_records=profile.records,
+                       parts_ms={k: v / 1e3
+                                 for k, v in profile.parts.items()}),
+                   cut_logits=cut, layers=layers, serve=serve_row,
+                   decode_vs_forward=dvf, seconds=secs)
+    log(f"[xlstm] phase 18 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"prefill {prefill_l}, serve {serve_l}; "
+        f"{json.dumps(summary, default=str)}")
+    return norm_rows, {"xlstm_prefill": prefill_l, "xlstm_serve": serve_l}
+
+
 def main() -> int:
     try:
         import torch
@@ -5686,6 +6217,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hybrid_rows, hybrid_launches = phase_hybrid()
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm_rows, xlstm_launches = phase_xlstm()
     by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
                     "loop": rmsnorm_cuda.loop_launches - loop0}
     log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
@@ -5743,6 +6277,8 @@ def main() -> int:
                         for path, n in moe_launches.items()})
         by_path.update({path: n[counter]
                         for path, n in hybrid_launches.items()})
+        by_path.update({path: n[counter]
+                        for path, n in xlstm_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \
@@ -5766,9 +6302,10 @@ def main() -> int:
             # the mma kernel's 128 instance at kimi_k2's full-width heads
             entry["hd112_kimi"] = dense_row(moe_rows["hd112_kimi"])
         if key == "rmsnorm":
-            # the MoE family's and hymba's widths on the models' own
-            # (8, 1024) rows
-            for row_key, r in {**moe_rows, **hybrid_rows}.items():
+            # the MoE family's, hymba's and xlstm's widths on the models'
+            # own (8, 1024) rows
+            for row_key, r in {**moe_rows, **hybrid_rows,
+                               **xlstm_rows}.items():
                 if row_key.startswith("rmsnorm_"):
                     entry[row_key[len("rmsnorm_"):]] = {
                         "shape": r["shape"], "max_abs_err": r["err"],

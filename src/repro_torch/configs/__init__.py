@@ -7,11 +7,10 @@ from .base import ModelConfig
 
 ARCHS = ["llama2_1b", "gemma_2b", "gemma_7b", "granite_8b", "starcoder2_7b",
          "musicgen_medium", "internvl2_2b", "kimi_k2_1t_a32b",
-         "deepseek_v3_671b", "hymba_1p5b"]
+         "deepseek_v3_671b", "hymba_1p5b", "xlstm_1p3b"]
 
-# the reference's CLI names (``repro/configs/__init__.py``); the dense,
-# MoE and hybrid families are ported (the ARCHS above), xLSTM resolves to
-# a module not yet here
+# the reference's CLI names (``repro/configs/__init__.py``), every one a
+# config of the ARCHS above
 _ALIASES = {
     "hymba-1.5b": "hymba_1p5b", "internvl2-2b": "internvl2_2b",
     "musicgen-medium": "musicgen_medium", "starcoder2-7b": "starcoder2_7b",

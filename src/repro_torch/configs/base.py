@@ -1,16 +1,21 @@
-"""ModelConfig: the dense, MoE and hybrid subset of the reference's config.
+"""ModelConfig: the reference's config (``repro/configs/base.py``) for
+every family the port runs.
 
-Field names and defaults follow ``repro/configs/base.py``; the xLSTM
-family's fields arrive with that model.  Here: the dense family's three
-input modes, ``tokens``, ``embeddings`` (musicgen's frame embeddings,
-with an ``n_codebooks``-way head) and ``vlm`` (internvl2's
+Field names and defaults follow the reference.  Here: the dense family's
+three input modes, ``tokens``, ``embeddings`` (musicgen's frame
+embeddings, with an ``n_codebooks``-way head) and ``vlm`` (internvl2's
 ``vis_tokens`` patch embeddings before the text); the MoE FFN
 (``n_experts``, ``top_k``, ``n_shared``, ``moe_capacity``);
 DeepSeek-style multi-head latent attention (``attn_kind="mla"`` with its
-widths, ``mla_config()``); and the hybrid family (hymba): a selective
-SSM beside the attention in every layer (``ssm_state``, ``ssm_expand``,
-``ssm_config()``) and sliding-window attention (``window``; the
-layers it applies to come from ``models.lm.layer_windows``).
+widths, ``mla_config()``); the hybrid family (hymba): a selective SSM
+beside the attention in every layer (``ssm_state``, ``ssm_expand``,
+``ssm_config()``) and sliding-window attention (``window``; the layers it
+applies to come from ``models.lm.layer_windows``); and the xLSTM family
+(``block_kind="xlstm"``): runs of mLSTM layers with an sLSTM every
+``slstm_every``-th layer, their inner width ``xlstm_proj_factor`` x
+d_model (``xlstm_config()``; the groups come from ``models.lm.xlstm_meta``).
+The reference's ``remat_policy`` and ``scan_layers`` have no twin: the
+port unrolls its layers and leaves remat to ``optimize``.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | audio | vlm | moe | hybrid
+    family: str                    # dense | audio | vlm | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,6 +62,11 @@ class ModelConfig:
     # a multiple of d_model
     ssm_state: int = 0
     ssm_expand: int = 2
+    # xLSTM: transformer | xlstm blocks; every k-th layer an sLSTM; the
+    # mLSTM/sLSTM inner width as a multiple of d_model
+    block_kind: str = "transformer"
+    slstm_every: int = 8
+    xlstm_proj_factor: float = 2.0
     # modality frontend (stub): tokens | embeddings | vlm
     input_mode: str = "tokens"
     n_codebooks: int = 0           # musicgen-style multi-head output
@@ -89,10 +99,22 @@ class ModelConfig:
                          d_inner=self.ssm_expand * self.d_model,
                          d_state=self.ssm_state or 16)
 
+    def xlstm_config(self):
+        from ..models.xlstm import XLSTMConfig
+        return XLSTMConfig(d_model=self.d_model, n_heads=self.n_heads,
+                           proj_factor=self.xlstm_proj_factor)
+
     def param_count(self, active_only: bool = False) -> int:
         """Parameters, or with ``active_only`` those a token runs through
         (``top_k`` of the routed experts)."""
         d, f, hd = self.d_model, self.d_ff, self.resolved_head_dim
+        if self.block_kind == "xlstm":
+            di = int(self.xlstm_proj_factor * d)
+            per_m = d * 2 * di + 3 * di * di + di * d + 2 * di * self.n_heads
+            per_s = 4 * d * di + di * d
+            n_s = self.n_layers // self.slstm_every if self.slstm_every else 0
+            layers = per_m * (self.n_layers - n_s) + per_s * n_s
+            return layers + self.vocab * d * (1 if self.tie_embeddings else 2)
         if self.attn_kind == "mla":
             h = self.n_heads
             attn = (d * self.r_q + self.r_q * h * (self.qk_nope + self.qk_rope)

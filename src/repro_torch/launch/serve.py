@@ -5,9 +5,10 @@ front end.
 a cache-filling prefill token (or frame) by token, then greedy decode,
 eagerly over the port's ``decode_step``; ``python -m
 repro_torch.launch.serve --arch gemma-2b`` runs it (any dense, MoE or
-hybrid arch: ``musicgen-medium`` decodes frames into 4 codebooks,
-``deepseek-v3-671b`` over MLA's latent cache, ``hymba-1.5b`` with an SSM
-state beside each layer's KV cache and its sliding windows).
+hybrid or xLSTM arch: ``musicgen-medium`` decodes frames into 4
+codebooks, ``deepseek-v3-671b`` over MLA's latent cache, ``hymba-1.5b``
+with an SSM state beside each layer's KV cache and its sliding windows,
+``xlstm-1.3b`` over recurrent mLSTM / sLSTM states and no KV cache).
 
 ``BucketBatcher`` groups queued requests by specialization bucket before
 dispatch, so one specialized plan — lowered to a flat executable

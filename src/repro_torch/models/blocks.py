@@ -25,8 +25,14 @@ FAMILIES = DENSE_FAMILIES + ("moe", "hybrid")
 
 
 def check_family(cfg) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"{cfg.family} blocks are not ported yet")
+    """Refuses a config the port cannot run: a transformer block of a
+    family not in FAMILIES, or a block kind other than ``transformer`` and
+    ``xlstm`` (whose layers are ``models/xlstm.py``'s, not this block)."""
+    ported = cfg.family in FAMILIES if cfg.block_kind == "transformer" \
+        else cfg.block_kind == "xlstm"
+    if not ported:
+        raise NotImplementedError(
+            f"{cfg.family} {cfg.block_kind} blocks are not ported yet")
 
 
 def gqa_init(gen: torch.Generator, d_model: int, n_heads: int,

@@ -8,14 +8,20 @@ layers add their aux load-balance loss, summed over the layers
 (``forward_aux``), to ``loss_fn`` at 0.01; MLA layers decode over a
 latent cache (``MLACache``); hybrid layers (hymba) carry an SSM state
 (``SSMCache``) beside their KV cache and a per-layer sliding window
-(``layer_windows``) in the forward and the decode.
+(``layer_windows``) in the forward and the decode.  The xLSTM family
+(``block_kind="xlstm"``) has no transformer block: groups of mLSTM
+layers, each group closed by an sLSTM layer (``xlstm_meta``), decoding
+over an ``MLSTMCache`` / ``SLSTMCache`` a layer (``DecodeState.xlstm``).
 
 Layers are unrolled in Python, as the reference does with
 ``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
-what the dynamic-shape optimizer schedules and plans.  Parameters are a
-plain dict of tensors (the reference's pytree layout, with the per-layer
-stacks split into a list), so a step ``fn(params, batch)`` takes its
-weights as graph inputs, as the reference's steps do.
+what the dynamic-shape optimizer schedules and plans.  The reference
+scans an xLSTM group's mLSTM layers whatever ``scan_layers`` says
+(``:171-175``); the port unrolls those too.  Parameters are a plain dict
+of tensors (the reference's pytree layout, with the per-layer stacks
+split into lists: ``layers[i]``, or for xLSTM ``mlstm[g][j]`` and
+``slstm[g]``), so a step ``fn(params, batch)`` takes its weights as graph
+inputs, as the reference's steps do.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ from .blocks import (BlockCache, block_apply, block_decode, block_init,
 from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
 from .mla import MLACache
 from .ssm import ssm_init_cache
+from .xlstm import (mlstm_apply, mlstm_decode_step, mlstm_init,
+                    mlstm_init_cache, slstm_apply, slstm_decode_step,
+                    slstm_init, slstm_init_cache)
 
 MOE_AUX_WEIGHT = 0.01   # the reference's loss_fn (repro/models/lm.py:202)
 GLOBAL_WINDOW = 2 ** 30  # a global layer's window: effectively unbounded
@@ -47,6 +56,16 @@ def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
     for g in {0, cfg.n_layers // 2, cfg.n_layers - 1}:
         w[g] = GLOBAL_WINDOW
     return w
+
+
+def xlstm_meta(cfg: ModelConfig) -> Dict[str, int]:
+    """The xLSTM layer groups (``repro/models/lm.py:42-46``): ``n_s``
+    sLSTM layers, one closing each of ``n_groups`` groups of
+    ``m_per_group`` mLSTM layers."""
+    n_s = cfg.n_layers // cfg.slstm_every if cfg.slstm_every else 0
+    n_groups = max(n_s, 1)
+    m_per_group = (cfg.n_layers - n_s) // n_groups
+    return dict(n_groups=n_groups, m_per_group=m_per_group, n_s=n_s)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -65,6 +84,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         p["lm_head"] = dense_init(
             gen, (cfg.d_model, max(cfg.n_codebooks, 1) * vpad), dtype)
     p["final_norm"] = torch.zeros(cfg.d_model, dtype=dtype, device=dev)
+    if cfg.block_kind == "xlstm":
+        xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+        p["mlstm"] = [[mlstm_init(gen, xc, dtype)
+                       for _ in range(meta["m_per_group"])]
+                      for _ in range(meta["n_groups"])]
+        if meta["n_s"]:
+            p["slstm"] = [slstm_init(gen, xc, dtype)
+                          for _ in range(meta["n_s"])]
+        return p
     p["layers"] = [block_init(gen, cfg, dtype) for _ in range(cfg.n_layers)]
     return p
 
@@ -109,11 +137,30 @@ def _lm_logits(cfg: ModelConfig, params: Dict, h: torch.Tensor,
     return _mask_pad_vocab(cfg, h @ w.to(h.dtype))
 
 
+def _xlstm_forward(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                   impl: Optional[str]) -> torch.Tensor:
+    """Each group's mLSTM layers, then its sLSTM layer, each on its own
+    pre-norm with a residual (``repro/models/lm.py:164-179``)."""
+    xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+    for g in range(meta["n_groups"]):
+        for lp in params["mlstm"][g]:
+            x = x + mlstm_apply(lp, xc, rms_norm(x, lp["ln"], impl=impl),
+                                impl=impl)
+        if meta["n_s"]:
+            sp = params["slstm"][g]
+            x = x + slstm_apply(sp, xc, rms_norm(x, sp["ln"], impl=impl))
+    return x
+
+
 def _forward(cfg: ModelConfig, params: Dict, batch: Dict,
              impl: Optional[str]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(logits, the MoE aux summed over the layers, or None if dense)."""
+    """(logits, the MoE aux summed over the layers, or None if dense or
+    xLSTM)."""
     x = _embed_inputs(cfg, params, batch)
+    if cfg.block_kind == "xlstm":
+        return _lm_logits(cfg, params, _xlstm_forward(cfg, params, x, impl),
+                          impl), None
     aux = None
     windows = layer_windows(cfg) or [None] * cfg.n_layers
     for layer_p, w in zip(params["layers"], windows):
@@ -136,7 +183,7 @@ def forward_aux(cfg: ModelConfig, params: Dict, batch: Dict,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``forward``: (logits, the f32 MoE aux loss summed
-    over the layers; 0 for a dense model)."""
+    over the layers; 0 for a dense or xLSTM model)."""
     logits, aux = _forward(cfg, params, batch, impl)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -174,8 +221,11 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict,
 class DecodeState(NamedTuple):
     """The running decode state: one ``BlockCache`` per layer (the
     reference stacks them on a leading layer axis for its scan; the port
-    unrolls its layers, so it keeps a list)."""
-    caches: List[BlockCache]
+    unrolls its layers, so it keeps a list); for xLSTM ``caches`` is None
+    and ``xlstm`` holds (``MLSTMCache`` lists ``[g][j]``, ``SLSTMCache``
+    list ``[g]``)."""
+    caches: Optional[List[BlockCache]]
+    xlstm: Any = None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -184,10 +234,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``device`` (``cuda`` unless given): K/V (B, Smax, Hkv, hd), or for MLA
     the latent (B, Smax, r_kv) and the RoPE key (B, Smax, qk_rope); in the
     hybrid family also an ``SSMCache`` a layer (the last K-1 conv inputs,
-    the f32 state); ``repro/models/lm.py:213-242``."""
+    the f32 state); ``repro/models/lm.py:213-242``.  xLSTM: an
+    ``MLSTMCache`` an mLSTM layer (the conv inputs, the f32 C (B, H, hd,
+    hd), n, m) and an ``SLSTMCache`` an sLSTM layer; no KV cache, so
+    ``max_len`` is unused."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
+    if cfg.block_kind == "xlstm":
+        xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+        return DecodeState(caches=None, xlstm=(
+            [[mlstm_init_cache(xc, batch, dt, device=dev)
+              for _ in range(meta["m_per_group"])]
+             for _ in range(meta["n_groups"])],
+            [slstm_init_cache(xc, batch, device=dev)
+             for _ in range(meta["n_s"])]))
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -221,16 +282,44 @@ def decode_step(cfg: ModelConfig, params: Dict, state: DecodeState,
     running cache -> (logits (B,1,V) or (B,1,K,V), the new state).  Layers
     unrolled, each with its window (``layer_windows``); each layer's cache
     is written in place (``attention.kv_cache_update``,
-    ``mla.mla_cache_update``; an SSM state is replaced).  RMSNorm runs its
-    kernel op; decode attention (GQA or absorbed MLA), the SSM step and the
-    MoE are plain PyTorch, as the reference's are plain jnp."""
+    ``mla.mla_cache_update``; an SSM or xLSTM state is replaced).  RMSNorm
+    runs its kernel op (the mLSTM's output norm too, in f32); decode
+    attention (GQA or absorbed MLA), the SSM and xLSTM steps and the MoE
+    are plain PyTorch, as the reference's are plain jnp."""
     if cfg.input_mode in ("tokens", "vlm"):
         x = F.embedding(inp["token"], params["embed"]).to(cfg.torch_dtype)
     else:
         x = inp["frame_embed"].to(cfg.torch_dtype)
+    if cfg.block_kind == "xlstm":
+        x, xlstm = _xlstm_decode(cfg, params, state, x)
+        return _lm_logits(cfg, params, x, None)[:, -1:], \
+            DecodeState(caches=None, xlstm=xlstm)
     caches = []
     windows = layer_windows(cfg) or [None] * cfg.n_layers
     for layer_p, cache, w in zip(params["layers"], state.caches, windows):
         x, cache = block_decode(layer_p, cfg, x, cache, window=w)
         caches.append(cache)
     return _lm_logits(cfg, params, x, None)[:, -1:], DecodeState(caches)
+
+
+def _xlstm_decode(cfg: ModelConfig, params: Dict, state: DecodeState,
+                  x: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """One token through every group's mLSTM steps and its sLSTM step
+    (``repro/models/lm.py:267-294``) -> (x, the new ``xlstm`` state)."""
+    xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+    m_caches, s_caches = state.xlstm
+    new_m, new_s = [], []
+    for g in range(meta["n_groups"]):
+        group = []
+        for lp, cache in zip(params["mlstm"][g], m_caches[g]):
+            y, cache = mlstm_decode_step(lp, xc, rms_norm(x, lp["ln"]), cache)
+            x = x + y
+            group.append(cache)
+        new_m.append(group)
+        if meta["n_s"]:
+            sp = params["slstm"][g]
+            y, cache = slstm_decode_step(sp, xc, rms_norm(x, sp["ln"]),
+                                         s_caches[g])
+            x = x + y
+            new_s.append(cache)
+    return x, (new_m, new_s)

@@ -1061,3 +1061,46 @@ def test_rmsnorm_entry_point_refuses_a_geometry_that_does_not_cover_d(gen):
     launch_rmsnorm(x, sc, out, geo, 1e-6)
     torch.testing.assert_close(out, reference_rmsnorm(x, sc), rtol=1e-2,
                                atol=1e-2)
+
+
+# -- xLSTM: the smoke config on the card --------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_smoke_forward_and_decode_on_the_card(gen, dtype):
+    """The xLSTM smoke config eagerly on the card: no flash launch; per
+    request and per decode step a pre-norm a layer, the final norm and
+    every mLSTM layer's output norm on the RMSNorm kernel (in decode the
+    output norm's input is f32 whatever the model dtype); the logits equal
+    the plain path's (``impl="ref"``) to 2e-4 in f32 and 5e-2 in bf16; in
+    f32 one decode step equals the forward's first position to 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params)
+    from repro_torch.models.lm import xlstm_meta
+
+    cfg = dataclasses.replace(get_smoke_config("xlstm_1p3b"), dtype=dtype)
+    meta = xlstm_meta(cfg)
+    norms = cfg.n_layers + 1 + meta["n_groups"] * meta["m_per_group"]
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    params = init_params(cfg, seed=0)                # cuda by default
+    toks = torch.randint(0, cfg.vocab, (3, 150), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+    got = forward(cfg, params, {"tokens": toks})
+    assert flash_attention_cuda.launches == f0
+    assert rmsnorm_cuda.launches - n0 == norms
+    want = forward(cfg, params, {"tokens": toks}, impl="ref")
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    state = init_cache(cfg, 3, max_len=2)
+    n0 = rmsnorm_cuda.launches
+    step, state = decode_step(cfg, params, state, {"token": toks[:, :1]})
+    assert rmsnorm_cuda.launches - n0 == norms
+    assert state.xlstm[0][0][0].c.dtype == torch.float32
+    if dtype == "float32":
+        torch.testing.assert_close(step[:, 0], got[:, 0], rtol=tol, atol=tol)
+

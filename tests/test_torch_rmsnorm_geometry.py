@@ -25,12 +25,13 @@ from repro_torch.kernels.rmsnorm import (CTA_THREADS, MAX_SMEM_BYTES,
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
-# every width a config normalizes: d_model, and deepseek_v3's MLA latents
+# every width a config normalizes: d_model, deepseek_v3's MLA latents and
+# xlstm's mLSTM output norm at d_inner
 WIDTHS = (512, 1536, 1600, 2048, 3072, 4096, 4608, 7168)
 DTYPES = (torch.float32, torch.bfloat16)
 ARCHS = ("llama2_1b", "gemma_2b", "gemma_7b", "granite_8b", "starcoder2_7b",
          "musicgen_medium", "internvl2_2b", "kimi_k2_1t_a32b",
-         "deepseek_v3_671b", "hymba_1p5b")
+         "deepseek_v3_671b", "hymba_1p5b", "xlstm_1p3b")
 
 
 def test_the_widths_are_the_configs_widths():
@@ -40,6 +41,8 @@ def test_the_widths_are_the_configs_widths():
         widths.add(cfg.d_model)
         if cfg.attn_kind == "mla":
             widths |= {cfg.r_kv, cfg.r_q}
+        if cfg.block_kind == "xlstm":
+            widths.add(cfg.xlstm_config().d_inner)
     assert widths == set(WIDTHS)
 
 
