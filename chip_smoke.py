@@ -300,7 +300,8 @@ Phases (any failure exits non-zero):
    with identical routing and outputs within 5e-2; (b) the logits after
    the last prompt step against the eager forward on the prompt at a
    no-drop capacity, < 2e-2, with the (layer, token)s whose expert sets
-   differ.
+   differ (the decode's choices read from the prompt's steps replayed
+   eagerly, whose logits must equal ``serve``'s compiled ones bitwise).
 
 17. hybrid (``[hybrid]`` lines), after phase 16: ``hymba_1p5b`` at full
    width and depth (32 layers, d 1600, 25/5 heads at hd 64, SSM d_inner
@@ -308,9 +309,11 @@ Phases (any failure exits non-zero):
    seed-0 weights), eagerly: (b) the sm90 flash kernel at its 25/5 heads
    (GQA group 5) at (8, 1024) against its plain version, with kernel,
    plain, SDPA, device and bound ms; (d) ``launch.serve.serve`` (seed 0,
-   batch 4, a 32-token prompt, 16 greedy tokens): no flash launch, 97
-   RMSNorm launches a step, cache length 48 of 49 rows and an f32 SSM
-   state a layer, ms a step; (a) ``models.prefill`` at the request
+   batch 4, a 32-token prompt, 16 greedy tokens) at HYBRID_SERVE_LAYERS
+   = 8 layers (its compiled step's capture at 32 would push the script
+   past ~900 s): no flash launch, 25 RMSNorm launches a step, cache
+   length 48 of 49 rows and an f32 SSM state a layer, ms a step; (a)
+   ``models.prefill`` at the request
    shapes and past the window at (1,1536) (windowed layers through
    dense attention) and (1,4096) (through blockwise attention): 32 sm90
    flash launches a request up to T = 1024 and 3 (the global layers)
@@ -330,7 +333,7 @@ Phases (any failure exits non-zero):
    (2e-4), one ``ssm_apply``'s device ms at (8, 1024) and its share of
    the prefill's device time (torch.profiler: the call alone, and the
    prefill profile's SSM parts); (d) the decode logits
-   against the forward: at 32 layers reported, at GEMMA_CUT_LAYERS hard
+   against the forward: at 8 layers reported, at GEMMA_CUT_LAYERS hard
    within 2e-2; the f32 smoke config at 4 layers (layer 1 windowed at 16)
    decoding 56 tokens one at a time against the forward at every
    position within 2e-4.
@@ -340,9 +343,11 @@ Phases (any failure exits non-zero):
    sLSTM, d 2048, d_inner 4096, 4 heads of hd 1024, chunk 128, vocab
    50304, bf16, seed-0 weights, 7,260,345,664 B as the config implies:
    the gate weights f32), eagerly: (e) ``launch.serve.serve`` (seed 0,
-   batch 4, a 32-token prompt, 16 greedy tokens): no flash launch, a
-   step's 49 bf16 RMSNorm launches at d 2048 and 42 f32 ones at d 4096
-   (the mLSTM output norms on the f32 state's output), an f32
+   batch 4, a 32-token prompt, 16 greedy tokens) one group deep (8
+   layers: its compiled step's capture at 48 would push the script past
+   ~900 s): no flash launch, a step's 9 bf16 RMSNorm launches at d 2048
+   and 7 f32 ones at d 4096 (the mLSTM output norms on the f32 state's
+   output), an f32
    ``MLSTMCache`` / ``SLSTMCache`` a layer, ms a step beside the bytes a
    step must move; (a) ``models.prefill`` at the request shapes: no
    flash, 49 bf16 RMSNorm launches at d 2048 and 42 at d 4096, all on
@@ -358,7 +363,26 @@ Phases (any failure exits non-zero):
    each layer kind alone at (8, 1024): kernel time, device records (the
    launches a layer makes) and host time, and their shares of the
    prefill; (e) the decode logits against the forward: one group deep
-   in f32 hard within 1e-3, in bf16 and at 48 layers reported.
+   in f32 hard within 1e-3, in bf16 reported.
+
+19. decode (``[decode]`` lines), after phase 18: ``serve``'s compiled
+   decode step, ``launch.serve.decode_plan`` (``optimize`` of
+   ``decode_step`` with the batch ``b`` symbolic in [1, 8], the 49-row
+   cache of ``cache_specs`` and the weights as arguments), for
+   ``gemma_2b`` at full width and depth (18 layers, bf16, seed-0
+   weights), one plan run at b = 1, 4, 8: no second capture and no
+   guard; the logits and every state leaf bitwise equal to the eager
+   ``decode_step``'s from the same cache 17 steps in; ``device_peak`` <=
+   ``guaranteed_peak_bytes`` and the allocator's peak of the call within
+   ``device_peak`` plus its block overheads; RMSNorm launches a step =
+   the rmsnorm nodes selected to ``cuda_reg_rows``, at least 37; each
+   node's variant, ms a step compiled beside eager (the median of 20
+   steps each, in turns, each ending in ``synchronize()``), one compiled
+   step's device busy share and compile seconds by span reported.
+   ``serve`` runs every step through such a plan, so phases 12 (e), 14
+   (e), 16 (b), 17 (d) and 18 (e) run it too; each also reports, from
+   ``serve``'s final state, ms a step compiled beside eager and the
+   seconds ``serve``'s ``optimize`` took (``serve_decode_times``).
 
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
@@ -369,10 +393,10 @@ gemma_prefill_f32 = phase 12 (d), gemma_serve = phase 12 (e), resilience
 dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e),
 gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a),
 moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a),
-hybrid_serve = phase 17 (d), xlstm_prefill = phase 18 (a) and
-xlstm_serve = phase 18 (e);
-bounded, loop, gemma_serve, dense_serve, moe_serve, hybrid_serve and
-both xlstm paths launch no flash:
+hybrid_serve = phase 17 (d), xlstm_prefill = phase 18 (a),
+xlstm_serve = phase 18 (e) and decode = phase 19;
+bounded, loop, gemma_serve, dense_serve, moe_serve, hybrid_serve,
+both xlstm paths and decode launch no flash:
 their attention and ops are plain PyTorch, as the reference's are plain
 jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
@@ -3444,6 +3468,7 @@ def phase_gemma_serve(cfg, params, opt):
     if launches != {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
                     "rmsnorm": (2 * cfg.n_layers + 1) * steps}:
         raise AssertionError(f"gemma serve launches {launches}")
+    times = serve_decode_times("[gemma] (e)", cfg, params, out)
     # one more decode step (the cache's last free row), profiled: where a
     # step's 31 ms go when the 5.01 GB of weights bound it at 1.50 ms
     from repro_torch.models import decode_step
@@ -3472,7 +3497,7 @@ def phase_gemma_serve(cfg, params, opt):
                           decode_ms=1e3 * out["decode_s"],
                           decode_tok_per_s=out["decode_tok_per_s"],
                           decode_forward_rel=rel,
-                          tokens=out["tokens"].tolist())
+                          tokens=out["tokens"].tolist(), **times)
 
 
 def phase_gemma():
@@ -4283,6 +4308,7 @@ def phase_dense_serve(cfg, arch, params, opt):
     if launches != {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
                     "rmsnorm": (2 * cfg.n_layers + 1) * steps}:
         raise AssertionError(f"{arch} serve launches {launches}")
+    times = serve_decode_times(f"[dense] (e) {arch}", cfg, params, out)
     want_tok = (batch, DENSE_SERVE["gen"]) + \
         ((cfg.n_codebooks,) if cfg.n_codebooks else ())
     if out["tokens"].shape != want_tok or out["tokens"].max() >= cfg.vocab:
@@ -4290,7 +4316,7 @@ def phase_dense_serve(cfg, arch, params, opt):
     row = dict(prefill_ms=1e3 * out["prefill_s"],
                decode_ms=1e3 * out["decode_s"],
                decode_ms_per_step=1e3 * out["decode_s"] / DENSE_SERVE["gen"],
-               decode_tok_per_s=out["decode_tok_per_s"])
+               decode_tok_per_s=out["decode_tok_per_s"], **times)
     plan = opt if cfg.input_mode == "embeddings" else None
     rel, same, n, full = _decode_vs_forward(cfg, params, out, opt=plan)
     ctrl = _decode_vs_forward(cfg, params, dict(
@@ -5027,16 +5053,13 @@ def moe_serve(cfg, arch):
     MOE_SERVE): no flash launch (decode attention is plain, as the
     reference's), the decode's RMSNorm launches a step, cache length 48
     of 49 rows (an ``MLACache`` for deepseek), tokens in the vocab; ms a
-    step.  Records every decode step's expert choices (``top_i``)."""
-    import torch
-
+    step.  Every step runs in ``serve``'s compiled plan, where no Python
+    routing observer runs: ``moe_decode_vs_forward`` replays the prompt
+    eagerly to read the expert choices."""
     from repro_torch.launch.serve import serve
-    from repro_torch.models.ffn import observe_routing
 
-    choices = []
-    with observe_routing(lambda r: choices.append(r.top_i)):
-        launches, out = counted_launches(
-            lambda: serve(cfg, **MOE_SERVE, seed=0, device=DEV))
+    launches, out = counted_launches(
+        lambda: serve(cfg, **MOE_SERVE, seed=0, device=DEV))
     steps = MOE_SERVE["prompt_len"] + MOE_SERVE["gen"]
     kv = out["state"].caches[0].kv
     lengths = {int(c.kv.length) for c in out["state"].caches}
@@ -5060,14 +5083,12 @@ def moe_serve(cfg, arch):
     if out["tokens"].shape != (MOE_SERVE["batch"], MOE_SERVE["gen"]) or \
             out["tokens"].max() >= cfg.vocab:
         raise AssertionError(f"{arch} serve tokens {out['tokens'].shape}")
-    if len(choices) != steps * cfg.n_layers:
-        raise AssertionError(f"{arch} serve: {len(choices)} MoE calls")
     row = dict(prefill_ms=1e3 * out["prefill_s"],
                decode_ms=1e3 * out["decode_s"],
                decode_ms_per_step=1e3 * out["decode_s"] / MOE_SERVE["gen"],
                decode_tok_per_s=out["decode_tok_per_s"])
-    prompt = dict(prompt=out["prompt"], prompt_logits=out["prompt_logits"],
-                  choices=choices[:MOE_SERVE["prompt_len"] * cfg.n_layers])
+    prompt = {k: out[k] for k in ("prompt", "prompt_logits", "tokens",
+                                  "state", "step", "compile_s")}
     return launches, row, prompt
 
 
@@ -5077,17 +5098,34 @@ def moe_decode_vs_forward(cfg, params, served):
     (``moe_capacity = E / top_k``, so ``cap = s``: the decode, one token
     at a time, drops nothing either; tests/test_models.py:83-84), max
     |diff| / max |forward| < GEMMA_DECODE_TOL; and how many (layer,
-    token)s the two route to different expert sets."""
+    token)s the two route to different expert sets.  The decode's expert
+    choices come from the prompt's steps replayed eagerly on ``params``
+    (serve's seed-0 weights), whose logits must equal ``serve``'s compiled
+    ones bitwise, one MoE call a layer a step."""
     import dataclasses
 
     import torch
 
-    from repro_torch.models import prefill
+    from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.models.ffn import observe_routing
 
     nodrop = dataclasses.replace(cfg,
                                  moe_capacity=cfg.n_experts / cfg.top_k)
     prompt = torch.from_numpy(served["prompt"]).to(torch.int32).to(DEV)
+    b, n_prompt = prompt.shape
+    state = init_cache(cfg, b, n_prompt + MOE_SERVE["gen"] + 1, device=DEV)
+    choices = []
+    with observe_routing(lambda r: choices.append(r.top_i)):
+        for t in range(n_prompt):
+            logits, state = decode_step(cfg, params, state, {
+                "token": prompt[:, t:t + 1].contiguous()})
+    del state
+    if len(choices) != n_prompt * cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {len(choices)} MoE calls in "
+                             f"the eager prompt steps")
+    if not torch.equal(logits, served["prompt_logits"]):
+        raise AssertionError(f"{cfg.name}: serve's compiled prompt steps "
+                             f"are not the eager ones bitwise")
     fwd = []
     with observe_routing(lambda r: fwd.append(r)):
         full = prefill(nodrop, params, {"tokens": prompt})
@@ -5103,8 +5141,8 @@ def moe_decode_vs_forward(cfg, params, served):
     L = cfg.n_layers
     for layer, r in enumerate(fwd):
         want = r.top_i.sort(-1).values                          # (B, S, k)
-        got = torch.cat([served["choices"][t * L + layer]
-                         for t in range(prompt.shape[1])], dim=1)
+        got = torch.cat([choices[t * L + layer]
+                         for t in range(n_prompt)], dim=1)
         apart += int((got.sort(-1).values != want).any(-1).sum())
     n = prompt.numel() * L
     log(f"[moe] (b) {cfg.name}: the prompt's last decode logits vs the "
@@ -5188,6 +5226,8 @@ def phase_moe():
         part_rows, norms = moe_parts(
             cfg, params, batches[REQUESTS.index(MOE_ATTN_AT)])
         rows.update({f"rmsnorm_{k}": v for k, v in norms.items()})
+        srow.update(serve_decode_times(f"[moe] (b) {arch}", cfg, params,
+                                       served))
         dvf = moe_decode_vs_forward(cfg, params, served)
         del params, batches, served
         gc.collect()
@@ -5217,6 +5257,11 @@ HYBRID_BLOCKWISE_TOL = 2e-4  # (b): blockwise vs dense, f32, same q, k, v
 HYBRID_SSM_S = 320          # (c): the stepwise check's cut S (two chunks)
 HYBRID_SSM_TOL = 2e-4       # (c): chunked vs stepwise, f32
 HYBRID_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}
+# (d): serve's depth.  Its compiled step's capture takes 82-87 s at 32
+# layers on the card's host (PR 27), which with phase 18's would push
+# the script past ~900 s; 8 layers keep global (0, 4, 7) and windowed
+# layers, and are the seed-0 weights' first 8 layers
+HYBRID_SERVE_LAYERS = 8
 HYBRID_WINDOW_LAYERS = 4    # (d): the f32 smoke cut where layer 1 is windowed
 HYBRID_WINDOW_TOKENS = 40   # (d): tokens decoded past the smoke window
 HYBRID_HEADS = (25, 5, 64)  # hymba's (hq, hkv, hd) at full width
@@ -5459,9 +5504,9 @@ def hybrid_ssm(cfg, params, batch, profile):
 
 def hybrid_serve(cfg):
     """Phase 17 (d), the counted path: ``launch.serve.serve`` (seed 0,
-    HYBRID_SERVE) at full width and depth: no flash launch, the decode's
-    RMSNorm launches a step, cache length 48 of 49 rows, an SSM state a
-    layer in f32; ms a step."""
+    HYBRID_SERVE) at full width and ``cfg``'s depth: no flash launch, the
+    decode's RMSNorm launches a step, cache length 48 of 49 rows, an SSM
+    state a layer in f32; ms a step."""
     from repro_torch.launch.serve import serve
 
     launches, out = counted_launches(
@@ -5583,6 +5628,8 @@ def phase_hybrid():
     part at HYBRID_AT; (b) the model's kernels in place and the windowed
     layer's blockwise attention; (c) the SSM; (d) decode vs forward.
     Returns the kernel rows and the launches per path."""
+    import dataclasses
+
     import torch
     from torch.utils import _pytree as pytree
 
@@ -5594,7 +5641,8 @@ def phase_hybrid():
     # (b): the sm90 kernel at hymba's 25/5 heads (GQA group 5)
     rows = {HYBRID_ARCH: flash_model_row(HYBRID_HEADS, HYBRID_AT, "sm90",
                                          "[hybrid] (b) hymba", 17)}
-    serve_l, serve_row, served = hybrid_serve(cfg)
+    scfg = dataclasses.replace(cfg, n_layers=HYBRID_SERVE_LAYERS)
+    serve_l, serve_row, served = hybrid_serve(scfg)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
@@ -5634,7 +5682,11 @@ def phase_hybrid():
     cut_err = hybrid_cut(cfg, params, at)
     ssm = hybrid_ssm(cfg, params, at, profile)
     del batches, at
-    dvf = hybrid_decode_checks(cfg, params, served)
+    p_serve = dict(params, layers=params["layers"][:HYBRID_SERVE_LAYERS])
+    serve_row.update(serve_decode_times(f"[hybrid] (d) {cfg.name}", scfg,
+                                        p_serve, served))
+    dvf = hybrid_decode_checks(scfg, p_serve, served)
+    del p_serve
     del params, served
     gc.collect()
     torch.cuda.empty_cache()
@@ -5661,6 +5713,9 @@ XLSTM_MIXER_TOL = 1e-3     # (c): tests/test_models.py's bound for this check
 XLSTM_DECODE_TOL = 1e-3    # (e): decode vs forward in f32, one group deep
 XLSTM_LAYER_REPS = 3       # (d): host-clock calls of one layer, median
 XLSTM_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}
+# (e): serve runs one group deep (``slstm_every`` layers), as (e)'s cut
+# does: its compiled step's capture takes 59-62 s at 48 layers on the
+# card's host (PR 27), which would push the script past ~900 s
 
 
 @contextlib.contextmanager
@@ -5957,11 +6012,12 @@ def xlstm_mixers(cfg, params, batch, profile, median_ms):
 
 def xlstm_serve(cfg):
     """Phase 18 (e), the counted path: ``launch.serve.serve`` (seed 0,
-    XLSTM_SERVE) at full width and depth: no flash launch, the RMSNorm
-    launches a step by width and dtype (the mLSTM output norms in f32), an
-    f32 ``MLSTMCache`` and ``SLSTMCache`` a layer; ms a step beside the
-    bytes a step must move (every weight read once, the recurrent states
-    read and written once) and their time at the HBM rate."""
+    XLSTM_SERVE) at full width and ``cfg``'s depth: no flash launch, the
+    RMSNorm launches a step by width and dtype (the mLSTM output norms in
+    f32), an f32 ``MLSTMCache`` and ``SLSTMCache`` a layer; ms a step
+    beside the bytes a step must move (every weight read once, the
+    recurrent states read and written once) and their time at the HBM
+    rate."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.launch.serve import serve
@@ -6010,45 +6066,42 @@ def xlstm_serve(cfg):
                decode_tok_per_s=out["decode_tok_per_s"],
                state_bytes=state_bytes, step_bytes=step_bytes,
                step_bound_ms=bound_ms)
-    del out["state"]
     return launches, row, out
 
 
 def xlstm_decode_checks(cfg, params, served):
     """Phase 18 (e): the logits after the last prompt step of ``serve``
+    (one group deep, ``cfg``, on its own seed-0 weights ``params``)
     against the eager forward on the same prompt (max |diff| / max
-    |forward|): one group deep (``slstm_every`` layers, a ``serve`` of its
-    own) in f32 hard within XLSTM_DECODE_TOL and in bf16 reported; at full
-    depth in bf16 reported."""
+    |forward|): in bf16 reported, and in f32 (a ``serve`` of its own)
+    hard within XLSTM_DECODE_TOL."""
     import dataclasses
 
     from repro_torch.launch.serve import serve
     from repro_torch.models import init_params
 
-    full_rel, same, n, _ = _decode_vs_forward(cfg, params, served)
-    out = dict(decode_forward_rel_full_bf16=full_rel,
-               argmax_equal_full_bf16=same)
-    group = cfg.slstm_every
-    for dtype in ("float32", "bfloat16"):
-        cut = dataclasses.replace(cfg, n_layers=group, dtype=dtype)
-        served_cut = serve(cut, **XLSTM_SERVE, seed=0, device=DEV)
-        rel, cut_same, _, _ = _decode_vs_forward(
-            cut, init_params(cut, seed=0, device=DEV), served_cut)
-        out[f"decode_forward_rel_cut_{dtype}"] = rel
-        out[f"argmax_equal_cut_{dtype}"] = cut_same
-        del served_cut
+    rel, same, n, _ = _decode_vs_forward(cfg, params, served)
+    out = dict(decode_forward_rel_cut_bfloat16=rel,
+               argmax_equal_cut_bfloat16=same)
+    cut = dataclasses.replace(cfg, dtype="float32")
+    served_cut = serve(cut, **XLSTM_SERVE, seed=0, device=DEV)
+    rel, cut_same, _, _ = _decode_vs_forward(
+        cut, init_params(cut, seed=0, device=DEV), served_cut)
+    del served_cut
+    out["decode_forward_rel_cut_float32"] = rel
+    out["argmax_equal_cut_float32"] = cut_same
     log(f"[xlstm] (e) {cfg.name}: the prompt's last decode logits vs the "
-        f"forward, max |diff| / max |forward|: at {group} layers f32 "
+        f"forward, max |diff| / max |forward| at {cfg.n_layers} layers: f32 "
         f"{out['decode_forward_rel_cut_float32']:.4g} (tol "
         f"{XLSTM_DECODE_TOL}; argmax equal in "
         f"{out['argmax_equal_cut_float32']} of {n}), bf16 "
         f"{out['decode_forward_rel_cut_bfloat16']:.4g} (reported; "
-        f"{out['argmax_equal_cut_bfloat16']} of {n}); at {cfg.n_layers} "
-        f"layers bf16 {full_rel:.4g} (reported; {same} of {n})")
+        f"{out['argmax_equal_cut_bfloat16']} of {n})")
     if not out["decode_forward_rel_cut_float32"] < XLSTM_DECODE_TOL:
         raise AssertionError(
-            f"{cfg.name} serve at {group} layers in f32: decode logits stand "
-            f"{out['decode_forward_rel_cut_float32']:.4g} from the forward's")
+            f"{cfg.name} serve at {cfg.n_layers} layers in f32: decode "
+            f"logits stand {out['decode_forward_rel_cut_float32']:.4g} from "
+            f"the forward's")
     return out
 
 
@@ -6060,6 +6113,8 @@ def phase_xlstm():
     full-sequence forms against their recurrences in f32; (d) each layer
     kind's time alone and its share; (e) decode vs forward.  Returns the
     RMSNorm rows and the launches per path."""
+    import dataclasses
+
     import torch
     from torch.utils import _pytree as pytree
 
@@ -6073,7 +6128,8 @@ def phase_xlstm():
         secs[part] = time.perf_counter() - t_phase - sum(secs.values())
 
     cfg = get_config(XLSTM_ARCH)
-    serve_l, serve_row, served = xlstm_serve(cfg)
+    scfg = dataclasses.replace(cfg, n_layers=cfg.slstm_every)
+    serve_l, serve_row, served = xlstm_serve(scfg)
     stamp("serve")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=DEV)
@@ -6118,10 +6174,16 @@ def phase_xlstm():
     stamp("in_place")
     layers = xlstm_mixers(cfg, params, at, profile, medians[XLSTM_AT])
     stamp("mixers")
-    del batches, at
-    dvf = xlstm_decode_checks(cfg, params, served)
+    del batches, at, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_serve = init_params(scfg, seed=0, device=DEV)     # serve's weights
+    serve_row.update(serve_decode_times(f"[xlstm] (e) {cfg.name}", scfg,
+                                        p_serve, served))
+    stamp("decode_times")
+    dvf = xlstm_decode_checks(scfg, p_serve, served)
     stamp("decode_checks")
-    del params, served
+    del p_serve, served
     gc.collect()
     torch.cuda.empty_cache()
     summary = dict(weight_bytes=weight_bytes, requests=req_rows,
@@ -6140,6 +6202,199 @@ def phase_xlstm():
         f"prefill {prefill_l}, serve {serve_l}; "
         f"{json.dumps(summary, default=str)}")
     return norm_rows, {"xlstm_prefill": prefill_l, "xlstm_serve": serve_l}
+
+
+# -- phase 19: serve's decode step as one compiled plan -----------------------
+
+DECODE_ARCH = "gemma_2b"
+DECODE_BATCHES = (1, 4, 8)
+DECODE_MID = 17         # the cache length the compared step starts from
+DECODE_MAX_LEN = 49     # serve's default rows: prompt 32 + gen 16 + 1
+DECODE_TIMED = 20       # steps timed a path, compiled and eager in turns
+
+
+def decode_times(cfg, params, state, inp, step):
+    """ms a decode step through the compiled plan ``step`` beside the eager
+    ``decode_step`` on the same weights, state and input: the median of
+    DECODE_TIMED steps each, the two in turns, each step ending in
+    ``synchronize()``.  The state is not written (the step is functional),
+    so every step starts from it."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import decode_step
+
+    runs = {"compiled": lambda: step(params, state, inp),
+            "eager": lambda: decode_step(cfg, params, state, inp)}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    times = {k: [] for k in runs}
+    for _ in range(DECODE_TIMED):
+        for k, run in runs.items():
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    return {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+
+
+def serve_decode_times(tag, cfg, params, served):
+    """A serve path's ms a step compiled beside eager (``decode_times``)
+    from ``serve``'s final state (its cache's last free row) on its last
+    greedy tokens (a zero frame with a codebook head), and the seconds
+    ``serve``'s ``optimize`` took.  Logged under ``tag``."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    state = served["state"]
+    b = served["tokens"].shape[0]
+    dev = pytree.tree_leaves(params)[0].device
+    if cfg.n_codebooks:
+        inp = {"frame_embed": torch.zeros((b, 1, cfg.d_model),
+                                          dtype=cfg.torch_dtype, device=dev)}
+    else:
+        inp = {"token": torch.from_numpy(served["tokens"][:, -1:]).to(
+            torch.int32).to(dev)}
+    row = decode_times(cfg, params, state, inp, served["step"])
+    row["compile_s"] = served["compile_s"]
+    log(f"{tag} decode step at batch {b}, median of {DECODE_TIMED} in "
+        f"turns: compiled {row['compiled_ms']:.3f} ms, eager "
+        f"{row['eager_ms']:.3f} ms; serve's optimize {row['compile_s']:.2f} "
+        f"s ({span_summary(served['step'].trace)})")
+    return row
+
+
+def phase_decode():
+    """Phase 19 (``[decode]`` lines): ``serve``'s compiled decode step for
+    DECODE_ARCH at full width and depth (18 layers, bf16, seed-0
+    weights): one ``launch.serve.decode_plan`` (``b`` symbolic in [1, 8],
+    49 cache rows) run at b = 1, 4, 8.  Hard, at each b: no second capture
+    and no guard; the logits and every state leaf bitwise equal to the
+    eager ``decode_step``'s from the same cache DECODE_MID steps in;
+    ``device_peak`` <= ``guaranteed_peak_bytes`` and the allocator's peak
+    of the call <= ``device_peak`` + its block overheads; RMSNorm kernel
+    launches a step = the rmsnorm nodes the selection sent to
+    ``cuda_reg_rows``, at least 2 n_layers + 1.  Reported: each rmsnorm
+    node's selected variant, the eager step's allocator peak beside
+    ``device_peak`` (nothing is donated), ms a step compiled beside eager
+    (``decode_times``), one compiled step's device busy share, compile
+    seconds by span.  Returns the launches of the counted calls."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.ir.capture import tree_flatten
+    from repro_torch.kernels import rmsnorm_cuda
+    from repro_torch.launch.serve import decode_plan
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config(DECODE_ARCH)
+    params = init_params(cfg, seed=0, device=DEV)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in pytree.tree_leaves(params))
+    t0 = time.perf_counter()
+    plan = decode_plan(cfg, params, max_len=DECODE_MAX_LEN, device=DEV)
+    compile_s = time.perf_counter() - t0
+    program = plan.program
+    graph = plan.plan.graph
+    node_of = {n.id: n for n in graph.nodes}
+    norms = {nid: sel.variant.name
+             for nid, sel in plan.plan.kernel_selections.items()
+             if "rmsnorm" in node_of[nid].prim_name}
+    on_kernel = sum(v == "cuda_reg_rows" for v in norms.values())
+    log(f"[decode] {DECODE_ARCH} at {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.dtype}, {param_bytes} B of weights: decode_plan in "
+        f"{compile_s:.2f} s ({span_summary(plan.trace)}); "
+        f"{len(graph.nodes)} nodes, {program.n_instructions} instructions, "
+        f"guards {plan.report.guards}, dims {sorted(graph.free_symbols())}, "
+        f"guaranteed_peak_bytes {plan.guaranteed_peak_bytes}")
+    log(f"[decode] rmsnorm nodes by selected variant: {norms}")
+    if plan.report.guards or graph.free_symbols() != {"b"}:
+        raise AssertionError(f"decode plan: guards {plan.report.guards}, "
+                             f"dims {graph.free_symbols()}")
+    if on_kernel < 2 * cfg.n_layers + 1:
+        raise AssertionError(f"decode plan: {on_kernel} rmsnorm nodes on "
+                             f"cuda_reg_rows, want >= {2 * cfg.n_layers + 1}")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    rows, launches = {}, {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
+                          "rmsnorm": 0}
+    for b in DECODE_BATCHES:
+        toks = torch.randint(1, cfg.vocab, (b, DECODE_MID + 1),
+                             generator=gen, device=DEV, dtype=torch.int32)
+        state = init_cache(cfg, b, DECODE_MAX_LEN, device=DEV)
+        for t in range(DECODE_MID):
+            _, state = decode_step(cfg, params, state,
+                                   {"token": toks[:, t:t + 1]})
+        inp = {"token": toks[:, DECODE_MID:]}
+        in_bytes = param_bytes + sum(
+            t.numel() * t.element_size()
+            for t in tree_flatten((state, inp))[0])
+        # the eager step's allocator peak, its inputs counted as the plan's
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - in_bytes
+        torch.cuda.reset_peak_memory_stats()
+        want = decode_step(cfg, params, state, inp)
+        torch.cuda.synchronize()
+        eager_alloc = torch.cuda.max_memory_allocated() - held
+        held = torch.cuda.memory_allocated() - in_bytes
+        torch.cuda.reset_peak_memory_stats()
+        counts, got = counted_launches(lambda: plan(params, state, inp))
+        torch.cuda.synchronize()
+        step_alloc = torch.cuda.max_memory_allocated() - held
+        launches = {k: launches[k] + counts[k] for k in launches}
+        st = plan.last_report.stats
+        slack = allocator_slack(program, plan.last_report.env)
+        (g, g_tree), (w, w_tree) = tree_flatten(got), tree_flatten(want)
+        unequal = [i for i, (x, y) in enumerate(zip(g, w))
+                   if not torch.equal(x, y)]
+        times = decode_times(cfg, params, state, inp, plan)
+        lengths = {int(c.kv.length) for c in got[1].caches}
+        rows[b] = dict(device_peak=st.device_peak, allocator_peak=step_alloc,
+                       eager_allocator_peak=eager_alloc, slack=slack,
+                       launches=counts, **times)
+        log(f"[decode] b={b}: logits {tuple(got[0].shape)} and "
+            f"{len(g) - 1} state leaves vs eager: {len(g) - len(unequal)} of "
+            f"{len(g)} bitwise equal (unequal {unequal}); cache lengths "
+            f"{lengths}; device_peak {st.device_peak} guaranteed "
+            f"{plan.guaranteed_peak_bytes}; allocator peak of the call "
+            f"{step_alloc} (device_peak + {step_alloc - st.device_peak}; "
+            f"block-overhead slack {slack}); the eager step's allocator "
+            f"peak {eager_alloc} (device_peak - eager "
+            f"{st.device_peak - eager_alloc}); launches {counts}; ms a step "
+            f"compiled {times['compiled_ms']:.3f}, eager "
+            f"{times['eager_ms']:.3f}")
+        if plan.program is not program or plan.last_report.env != {"b": b}:
+            raise AssertionError(f"decode b={b}: a second capture")
+        if g_tree != w_tree or len(g) != len(w) or unequal:
+            raise AssertionError(f"decode b={b}: the plan is not the eager "
+                                 f"step bitwise (leaves {unequal})")
+        if lengths != {DECODE_MID + 1}:
+            raise AssertionError(f"decode b={b}: cache lengths {lengths}")
+        if st.device_peak > plan.guaranteed_peak_bytes:
+            raise AssertionError(f"decode b={b}: device_peak above the "
+                                 f"guarantee")
+        if step_alloc > st.device_peak + slack:
+            raise AssertionError(
+                f"decode b={b}: the allocator's peak of the call, "
+                f"{step_alloc}, is above device_peak + {slack}")
+        if counts != {"sm90": 0, "mma_f32": 0, "mma_bf16": 0,
+                      "rmsnorm": on_kernel}:
+            raise AssertionError(f"decode b={b}: launches {counts}, want "
+                                 f"{on_kernel} RMSNorm and no flash")
+        if b == DECODE_BATCHES[1]:
+            prof = profile_once(f"{DECODE_ARCH} compiled decode step b={b}",
+                                lambda: plan(params, state, inp))
+            if prof is not None:
+                rows[b]["busy_share"] = prof.busy_us / prof.wall_us
+        del state, want, got, g, w
+    log(f"[decode] phase 19 {time.perf_counter() - t_phase:.1f} s; "
+        f"{json.dumps(dict(compile_s=compile_s, rows=rows), default=str)}")
+    del params, plan
+    return launches
 
 
 def main() -> int:
@@ -6220,6 +6475,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     xlstm_rows, xlstm_launches = phase_xlstm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_launches = phase_decode()
     by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
                     "loop": rmsnorm_cuda.loop_launches - loop0}
     log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
@@ -6279,6 +6537,7 @@ def main() -> int:
                         for path, n in hybrid_launches.items()})
         by_path.update({path: n[counter]
                         for path, n in xlstm_launches.items()})
+        by_path["decode"] = decode_launches[counter]
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \

@@ -59,7 +59,8 @@ from .executor.memory import MemoryLimitExceeded
 from .executor.vm import ProgramVM, RunReport
 from .ir.dynamism import complete_bound_env
 from .ir.capture import (TensorSpec, capture, check_declared_ranges,
-                         solve_env, spec_like, symbolic_dims)
+                         solve_env, spec_like, symbolic_dims, tree_flatten,
+                         tree_unflatten)
 from .lowering import Program, lower_plan
 from .memplan import ArenaPlan, build_arena_plan
 from .memplan.arena import ArenaExhausted
@@ -605,8 +606,9 @@ class DynamicShapeFunction:
         tensor.  A plain call cannot arrange that: the caller's arguments
         stay referenced until the call returns.  A caller that puts the
         arguments in a list, keeps no other reference to them, and passes
-        the list here donates them for real."""
-        flat, in_tree = pytree.tree_flatten(tuple(args))
+        the list here donates them for real.  A ``None`` in an argument or
+        output pytree is an empty subtree, as in the reference's pytrees."""
+        flat, in_tree = tree_flatten(tuple(args))
         args.clear()
         if in_tree != self._in_tree:
             raise TypeError(f"pytree structure mismatch: traced "
@@ -617,7 +619,7 @@ class DynamicShapeFunction:
             outs = self._call_resilient(res, flat)
         else:
             outs = self._dispatch(flat)
-        return pytree.tree_unflatten(outs, self._out_tree)
+        return tree_unflatten(outs, self._out_tree)
 
     def _dispatch(self, flat: List[Any], *, force_fallback: bool = False,
                   faults: Any = None) -> List[Any]:

@@ -102,6 +102,31 @@ def spec_like(tree: Any) -> Any:
         torch.Tensor, lambda t: TensorSpec(tuple(t.shape), t.dtype), tree)
 
 
+@dataclass(frozen=True)
+class TreeDef:
+    """The structure of an argument or output pytree, with ``None`` as an
+    empty subtree, as in the reference's (JAX) pytrees: torch's pytree
+    keeps ``None`` as a leaf, so ``holes`` records where its Nones were."""
+    spec: Any
+    holes: Tuple[int, ...]
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
+    """``tree``'s leaves without its Nones, and its ``TreeDef``."""
+    leaves, spec = pytree.tree_flatten(tree)
+    holes = tuple(i for i, x in enumerate(leaves) if x is None)
+    return [x for x in leaves if x is not None], TreeDef(spec, holes)
+
+
+def tree_unflatten(leaves: Sequence[Any], tree: TreeDef) -> Any:
+    """The inverse of ``tree_flatten``: the Nones go back where they were."""
+    it = iter(leaves)
+    holes = set(tree.holes)
+    return pytree.tree_unflatten(
+        [None if i in holes else next(it)
+         for i in range(tree.spec.num_leaves)], tree.spec)
+
+
 # ---------------------------------------------------------------------------
 # Argument templates
 # ---------------------------------------------------------------------------
@@ -211,14 +236,15 @@ def capture(fn: Callable, specs: Sequence[Any], *,
     """Trace ``fn(*specs)`` once with symbolic dims; return the graph and
     the ShapeEnv's guards (as strings, for inspection).
 
-    ``specs`` is the positional argument pytree with ``TensorSpec`` leaves;
+    ``specs`` is the positional argument pytree with ``TensorSpec`` leaves
+    (a ``None`` in it is an empty subtree, passed to ``fn`` as ``None``);
     ``ranges`` the declared dim ranges (used only to pick trace hints)."""
     from torch._dynamo.source import ConstantSource
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.fx.experimental.symbolic_shapes import DimDynamic, ShapeEnv
 
-    flat_specs, in_tree = pytree.tree_flatten(tuple(specs))
+    flat_specs, in_tree = tree_flatten(tuple(specs))
     for s in flat_specs:
         if not isinstance(s, TensorSpec):
             raise TypeError(f"optimize() arguments must be TensorSpec pytrees,"
@@ -247,8 +273,8 @@ def capture(fn: Callable, specs: Sequence[Any], *,
     out_tree_box: List[Any] = []
 
     def flat_fn(*flat):
-        out = fn(*pytree.tree_unflatten(list(flat), in_tree))
-        flat_out, out_tree = pytree.tree_flatten(out)
+        out = fn(*tree_unflatten(flat, in_tree))
+        flat_out, out_tree = tree_flatten(out)
         out_tree_box.append(out_tree)
         return tuple(flat_out)
 

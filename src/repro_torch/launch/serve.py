@@ -3,7 +3,9 @@ front end.
 
 ``serve`` is the reference's server loop (``repro/launch/serve.py:345``):
 a cache-filling prefill token (or frame) by token, then greedy decode,
-eagerly over the port's ``decode_step``; ``python -m
+every step through one plan of the port's ``decode_step`` that
+``decode_plan`` builds with ``optimize`` over a symbolic batch, as the
+reference runs them through one ``jax.jit``; ``python -m
 repro_torch.launch.serve --arch gemma-2b`` runs it (any dense, MoE or
 hybrid or xLSTM arch: ``musicgen-medium`` decodes frames into 4
 codebooks, ``deepseek-v3-671b`` over MLA's latent cache, ``hymba-1.5b``
@@ -28,9 +30,11 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_smoke_config
-from ..core.api import resolve_device
+from ..core.api import (DynamicShapeFunction, optimize, resolve_device,
+                        spec_like, symbolic_dims)
 from ..core.obs import AdmissionEvent
 from ..models import decode_step, init_cache, init_params
+from .specs import cache_specs, decode_input_specs
 
 
 # -- bucket-aware batching -----------------------------------------------------
@@ -350,6 +354,23 @@ class BucketBatcher:
 # -- the decode loop ------------------------------------------------------------
 
 
+def decode_plan(cfg, params: Dict[str, Any], *, max_len: int,
+                max_batch: int = 8, device: Any = None
+                ) -> DynamicShapeFunction:
+    """``decode_step`` as one ``optimize`` plan: captured once with the
+    batch ``b`` symbolic in ``[1, max_batch]``, the cache of ``max_len``
+    rows (``cache_specs``) and the weights as arguments, so one plan runs
+    a step at any batch in range.  Nothing is donated (``donate_inputs``
+    is all or nothing, and the weights outlive the call), so the plan's
+    ``device_peak`` holds the old state and the new one.  A step that
+    capture refuses raises here: there is no eager fallback."""
+    b, = symbolic_dims("b")
+    return optimize(lambda p, s, i: decode_step(cfg, p, s, i),
+                    spec_like(params), cache_specs(cfg, b, max_len),
+                    decode_input_specs(cfg, b),
+                    dynamic_dims={"b": (1, max_batch)}, device=device)
+
+
 def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           seed: int = 0, greedy: bool = True,
           device: Any = None) -> Dict[str, Any]:
@@ -360,32 +381,45 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     standard-normal f32 frames; a codebook head's argmax is taken per
     codebook, (B, K), and a zero frame is fed after it, as the reference
     does (``repro/launch/serve.py:352-378``; ``vlm`` decodes text tokens
-    without a vision prefix, as there).  Runs eagerly on ``device``
-    (``cuda`` unless given; the reference's ``jax.jit`` has no counterpart
-    here) and waits for the device after the prefill and after every
-    decode step, where the reference blocks.
+    without a vision prefix, as there).  A prompt step's token or frame
+    enters the plan as a contiguous copy (a frame in the model's dtype,
+    the step's first cast), as the plan was captured on contiguous
+    arguments.
+
+    Every step runs through one ``decode_plan`` (``b`` symbolic in
+    ``[1, max(8, batch)]``), as the reference runs them through one
+    ``jax.jit``; the plan is built before the prefill and its seconds are
+    ``compile_s``.  Runs on ``device`` (``cuda`` unless given) and waits
+    for the device after the prefill and after every decode step, where
+    the reference blocks.
 
     Returns the reference's keys (``prefill_s``, ``decode_s``,
-    ``decode_tok_per_s``, ``tokens`` (B, gen) or (B, gen, K)) and
-    ``prompt`` (B, prompt_len) tokens or (B, prompt_len, D) frames,
-    ``prompt_logits`` (the logits after the last prompt step, (B, 1, V) or
-    (B, 1, K, V)) and ``state`` (the final ``DecodeState``)."""
+    ``decode_tok_per_s``, ``tokens`` (B, gen) or (B, gen, K)),
+    ``compile_s``, ``prompt`` (B, prompt_len) tokens or (B, prompt_len, D)
+    frames, ``prompt_logits`` (the logits after the last prompt step,
+    (B, 1, V) or (B, 1, K, V)), ``state`` (the final ``DecodeState``) and
+    ``step`` (the plan every step ran through)."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     params = init_params(cfg, seed=seed, device=dev)
-    state = init_cache(cfg, batch, max_len=prompt_len + gen + 1, device=dev)
+    max_len = prompt_len + gen + 1
+    t_c = time.perf_counter()
+    step = decode_plan(cfg, params, max_len=max_len,
+                       max_batch=max(8, batch), device=dev)
+    compile_s = time.perf_counter() - t_c
+    state = init_cache(cfg, batch, max_len=max_len, device=dev)
     if cfg.input_mode == "embeddings":
         prompt = rng.randn(batch, prompt_len, cfg.d_model).astype(np.float32)
-        frames = torch.from_numpy(prompt).to(dev)
+        frames = torch.from_numpy(prompt).to(dev).to(cfg.torch_dtype)
 
         def feed(t):
-            return {"frame_embed": frames[:, t:t + 1]}
+            return {"frame_embed": frames[:, t:t + 1].contiguous()}
     else:
         prompt = rng.randint(1, cfg.vocab, (batch, prompt_len))
         prompt_toks = torch.from_numpy(prompt).to(torch.int32).to(dev)
 
         def feed(t):
-            return {"token": prompt_toks[:, t:t + 1]}
+            return {"token": prompt_toks[:, t:t + 1].contiguous()}
 
     def sync():
         if dev.type == "cuda":
@@ -394,7 +428,7 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     t0 = time.perf_counter()
     logits = None
     for t in range(prompt_len):           # cache-filling prefill
-        logits, state = decode_step(cfg, params, state, feed(t))
+        logits, state = step(params, state, feed(t))
     sync()
     prefill_s = time.perf_counter() - t0
     prompt_logits = logits
@@ -406,10 +440,10 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         out_tokens.append(nxt.cpu().numpy())
         if cfg.n_codebooks:
             inp = {"frame_embed": torch.zeros(
-                (batch, 1, cfg.d_model), dtype=torch.float32, device=dev)}
+                (batch, 1, cfg.d_model), dtype=cfg.torch_dtype, device=dev)}
         else:
             inp = {"token": nxt[:, None].to(torch.int32)}
-        logits, state = decode_step(cfg, params, state, inp)
+        logits, state = step(params, state, inp)
         sync()
     decode_s = time.perf_counter() - t1
     return {
@@ -417,9 +451,11 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         "decode_s": decode_s,
         "decode_tok_per_s": batch * gen / max(decode_s, 1e-9),
         "tokens": np.stack(out_tokens, axis=1) if out_tokens else None,
+        "compile_s": compile_s,
         "prompt": prompt,
         "prompt_logits": prompt_logits,
         "state": state,
+        "step": step,
     }
 
 
@@ -436,7 +472,8 @@ def main() -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     r = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
               gen=args.gen, device=args.device)
-    print(f"[serve] prefill {r['prefill_s']*1000:.0f} ms, "
+    print(f"[serve] compile {r['compile_s']:.1f} s, "
+          f"prefill {r['prefill_s']*1000:.0f} ms, "
           f"decode {r['decode_tok_per_s']:.1f} tok/s")
     if r["tokens"] is not None:
         print("[serve] sample:", r["tokens"][0][:10].tolist())

@@ -85,8 +85,16 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(b, s, hkv, hq // hkv, hd).to(torch.float32) * scale
-    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.to(torch.float32))
+    g = hq // hkv
+    # the reference's einsums "bshgd,bthd->bhgst" and "bhgst,bthd->bshgd"
+    # as batched products over (b, h) of contiguous operands: an einsum
+    # lays its operands out by which dims are 1, so at b = 1 it hands the
+    # product a transposed operand where a plan captured with a symbolic b
+    # hands it a contiguous copy, and the two round differently
+    qg = (q.reshape(b, s, hkv, g, hd).to(torch.float32) * scale).permute(
+        0, 2, 3, 1, 4).reshape(b, hkv, g * s, hd).contiguous()
+    kt = k.to(torch.float32).permute(0, 2, 3, 1).contiguous()  # (B,H,hd,T)
+    scores = torch.matmul(qg, kt).view(b, hkv, g, s, t)
     q_pos = q_offset + torch.arange(s, device=q.device)[:, None]   # (S,1)
     kv_pos = torch.arange(t, device=q.device)[None, :]              # (1,T)
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -98,9 +106,11 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.where(mask, scores, neg)
     if pad_mask is not None:
         scores = torch.where(pad_mask[:, None, None, None, :], scores, neg)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", p, v.to(torch.float32))
-    return out.reshape(b, s, hq, v.shape[-1]).to(q.dtype)
+    p = torch.softmax(scores, dim=-1).reshape(b, hkv, g * s, t)
+    vh = v.to(torch.float32).permute(0, 2, 1, 3).contiguous()   # (B,H,T,dv)
+    out = torch.matmul(p.contiguous(), vh).view(b, hkv, g, s, -1)
+    return out.permute(0, 3, 1, 2, 4).contiguous().view(
+        b, s, hq, v.shape[-1]).to(q.dtype)
 
 
 # -- blockwise (flash-style) attention in plain PyTorch ------------------------
@@ -249,19 +259,19 @@ class KVCache(NamedTuple):
 def kv_cache_update(cache: KVCache, k_new: torch.Tensor,
                     v_new: torch.Tensor) -> KVCache:
     """Write ``k_new``/``v_new`` (B,s,Hkv,hd) at rows ``cache.length`` ..
-    ``+ s`` and return the cache with its length advanced.
+    ``+ s`` and return the new cache with its length advanced.
 
-    Unlike the reference (``repro/models/attention.py:244``), which
-    returns new arrays, this writes into ``cache.k`` and ``cache.v`` in
-    place (``index_copy_``), so a step does not copy the cache; only the
-    returned ``length`` is a new tensor.  The rows come from the device
-    length: nothing is read back to the host."""
+    As the reference's (``repro/models/attention.py:244``), which returns
+    new arrays from ``dynamic_update_slice``, the write is out of place
+    (``index_copy``): ``cache`` is left as it was, so the step is
+    functional and ``optimize`` can capture it.  The rows come from the
+    device length: nothing is read back to the host."""
     s = k_new.shape[1]
     rows = cache.length.to(torch.int64) + torch.arange(
         s, device=cache.k.device)
-    cache.k.index_copy_(1, rows, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, rows, v_new.to(cache.v.dtype))
-    return KVCache(cache.k, cache.v, cache.length + s)
+    return KVCache(cache.k.index_copy(1, rows, k_new.to(cache.k.dtype)),
+                   cache.v.index_copy(1, rows, v_new.to(cache.v.dtype)),
+                   cache.length + s)
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, *,

@@ -77,7 +77,7 @@ def gqa_decode(params: Dict[str, torch.Tensor], x: torch.Tensor,
                window: Optional[int] = None
                ) -> Tuple[torch.Tensor, KVCache]:
     """One token x (B,1,D) at position ``cache.length``: its k/v go into
-    the cache (in place), its q attends to every valid row."""
+    a new cache (``kv_cache_update``), its q attends to every valid row."""
     b, s, _ = x.shape  # s == 1
     positions = cache.length.expand(b, s)
     q, k, v = gqa_qkv(params, x, n_heads, n_kv_heads, head_dim, positions,

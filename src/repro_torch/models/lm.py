@@ -281,8 +281,10 @@ def decode_step(cfg: ModelConfig, params: Dict, state: DecodeState,
     ``inp["frame_embed"]`` (B,1,D) in ``embeddings`` mode, against the
     running cache -> (logits (B,1,V) or (B,1,K,V), the new state).  Layers
     unrolled, each with its window (``layer_windows``); each layer's cache
-    is written in place (``attention.kv_cache_update``,
-    ``mla.mla_cache_update``; an SSM or xLSTM state is replaced).  RMSNorm
+    is written out of place (``attention.kv_cache_update``,
+    ``mla.mla_cache_update``; an SSM or xLSTM state is replaced), so the
+    step is functional: ``serve`` runs it eagerly or as one ``optimize``
+    plan with a symbolic batch.  RMSNorm
     runs its kernel op (the mLSTM's output norm too, in f32); decode
     attention (GQA or absorbed MLA), the SSM and xLSTM steps and the MoE
     are plain PyTorch, as the reference's are plain jnp."""

@@ -8,8 +8,8 @@ head dim for q, k and v, so MLA never reaches it).  Decode: the absorbed
 path, which caches only the latent (``r_kv`` per token) and the shared
 RoPE key (``qk_rope`` per token) and folds W_UK and W_UV into the query
 and the output; K and V are never expanded.  The latent norms go through
-the ``rms_norm`` kernel op.  The cache is written in place
-(``index_copy_``) at its device-side length, as the port's ``KVCache``
+the ``rms_norm`` kernel op.  The cache is written out of place
+(``index_copy``) at its device-side length, as the port's ``KVCache``
 is (``attention.kv_cache_update``).
 """
 from __future__ import annotations
@@ -114,14 +114,16 @@ class MLACache(NamedTuple):
 
 def mla_cache_update(cache: MLACache, c_new: torch.Tensor,
                      kr_new: torch.Tensor) -> MLACache:
-    """Write the new rows at ``cache.length`` (in place) and return the
-    cache with its length advanced; no host read."""
+    """Write the new rows at ``cache.length`` out of place (``index_copy``)
+    and return the new cache with its length advanced, as the reference's
+    returns new arrays; no host read."""
     s = c_new.shape[1]
     rows = cache.length.to(torch.int64) + torch.arange(
         s, device=cache.c_kv.device)
-    cache.c_kv.index_copy_(1, rows, c_new.to(cache.c_kv.dtype))
-    cache.k_rope.index_copy_(1, rows, kr_new.to(cache.k_rope.dtype))
-    return MLACache(cache.c_kv, cache.k_rope, cache.length + s)
+    return MLACache(
+        cache.c_kv.index_copy(1, rows, c_new.to(cache.c_kv.dtype)),
+        cache.k_rope.index_copy(1, rows, kr_new.to(cache.k_rope.dtype)),
+        cache.length + s)
 
 
 def mla_decode(params: Dict, cfg: MLAConfig, x: torch.Tensor,

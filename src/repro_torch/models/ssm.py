@@ -84,7 +84,12 @@ def _ssm_params_from_u(params: Dict, cfg: SSMConfig, u: torch.Tensor
     """u (B,S,di) -> dt (B,S,di), Bm (B,S,N), Cm (B,S,N)."""
     r, n = cfg.rank, cfg.d_state
     proj = u @ params["x_proj"]
-    dt = F.softplus(proj[..., :r] @ params["dt_proj"] + params["dt_bias"])
+    # a contiguous copy of the strided slice: a plan captured with a
+    # symbolic b cannot prove it folds into one 2-D product, so it would
+    # run a batched product where the eager step runs one, and on the card
+    # the two round differently
+    dt = F.softplus(proj[..., :r].contiguous() @ params["dt_proj"]
+                    + params["dt_bias"])
     return dt, proj[..., r:r + n], proj[..., r + n:]
 
 
@@ -181,6 +186,15 @@ def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
     return y[:, :s], h
 
 
+def _depthwise_conv(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reference's ``einsum("bkd,kd->bd")`` over the last K inputs,
+    (B, K, di) -> (B, 1, di), as a product and a sum over K: the einsum
+    picks its operand layouts by which dims are 1, so at b = 1 the eager
+    step and a plan captured with a symbolic b would hand the next product
+    differently strided inputs, which round differently."""
+    return (window * w).sum(dim=1, keepdim=True)
+
+
 class SSMCache(NamedTuple):
     conv: torch.Tensor   # (B, K-1, di) last inputs
     h: torch.Tensor      # (B, di, N) f32
@@ -212,8 +226,7 @@ def ssm_decode_step(params: Dict, cfg: SSMConfig, x: torch.Tensor,
     """One token: x (B,1,D) -> (B,1,D), O(1) state update."""
     u, z = (x @ params["in_proj"]).chunk(2, dim=-1)        # (B,1,di)
     window = torch.cat([cache.conv, u], dim=1)             # (B,K,di)
-    u_conv = torch.einsum("bkd,kd->bd", window, params["conv_w"]
-                          )[:, None, :] + params["conv_b"]
+    u_conv = _depthwise_conv(window, params["conv_w"]) + params["conv_b"]
     u_conv = F.silu(u_conv)
     dt, bm, cm = _ssm_params_from_u(params, cfg, u_conv)
     a = -torch.exp(params["a_log"].to(torch.float32))

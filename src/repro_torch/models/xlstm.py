@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import dense_init, rms_norm
-from .ssm import _causal_conv
+from .ssm import _causal_conv, _depthwise_conv
 
 NEG_INF = -1e30   # not -inf: m_p + F - m_t must stay finite
 
@@ -223,9 +223,13 @@ def mlstm_decode_step(params: Dict, cfg: XLSTMConfig, x: torch.Tensor,
     RMSNorm on B rows whatever the model dtype, cast to x's dtype after."""
     f32 = torch.float32
     main, z = (x @ params["up_proj"]).chunk(2, dim=-1)
+    # a contiguous copy of the chunk: a plan captured with a symbolic b
+    # cannot prove the strided chunk folds into one 2-D product, so it
+    # would run ``main @ wv`` as a batched product where the eager step
+    # runs it as one, and the two round differently
+    main = main.contiguous()
     window = torch.cat([cache.conv, main], dim=1)          # (B,K,di)
-    conv = torch.einsum("bkd,kd->bd", window, params["conv_w"]
-                        )[:, None, :] + params["conv_b"]
+    conv = _depthwise_conv(window, params["conv_w"]) + params["conv_b"]
     conv = F.silu(conv)
     h, hd = cfg.n_heads, cfg.head_dim
     q = _heads(conv @ params["wq"], h)[:, :, 0].to(f32)    # (B,H,hd)

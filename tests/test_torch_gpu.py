@@ -1104,3 +1104,73 @@ def test_xlstm_smoke_forward_and_decode_on_the_card(gen, dtype):
     if dtype == "float32":
         torch.testing.assert_close(step[:, 0], got[:, 0], rtol=tol, atol=tol)
 
+
+
+# -- serve's compiled decode step ------------------------------------------------
+
+DECODE_ARCHS = ["llama2_1b", "gemma_2b", "musicgen_medium", "internvl2_2b",
+                "kimi_k2_1t_a32b", "deepseek_v3_671b", "hymba_1p5b",
+                "xlstm_1p3b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_compiled_decode_is_the_eager_step_on_the_card(gen, arch, dtype):
+    """``serve``'s plan (``decode_plan``, b symbolic in [1, 8], 49 rows) at
+    each family's smoke config: its logits and every state leaf bitwise
+    equal to the eager ``decode_step`` at b = 1, 3, 8 from a cache 17
+    steps in, with the same RMSNorm kernel launches a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.ir.capture import tree_flatten
+    from repro_torch.launch.serve import decode_plan
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    params = init_params(cfg, seed=0)
+    plan = decode_plan(cfg, params, max_len=49)
+    assert plan.report.guards == []
+    for b in (1, 3, 8):
+        def inp():
+            if cfg.input_mode == "embeddings":
+                return {"frame_embed": _randn(gen, (b, 1, cfg.d_model),
+                                              cfg.torch_dtype)}
+            return {"token": torch.randint(1, cfg.vocab, (b, 1),
+                                           generator=gen, device="cuda",
+                                           dtype=torch.int32)}
+        state = init_cache(cfg, b, 49)
+        for _ in range(17):
+            _, state = decode_step(cfg, params, state, inp())
+        x = inp()
+        n0 = rmsnorm_cuda.launches
+        want = decode_step(cfg, params, state, x)
+        n_eager = rmsnorm_cuda.launches - n0
+        got = plan(params, state, x)
+        assert rmsnorm_cuda.launches - n0 == 2 * n_eager > 0
+        (g, g_tree), (w, w_tree) = tree_flatten(got), tree_flatten(want)
+        assert g_tree == w_tree
+        for i, (a, c) in enumerate(zip(g, w)):
+            assert torch.equal(a, c), f"b {b}: leaf {i}"
+
+
+@pytest.mark.gpu
+def test_serve_raises_where_capture_refuses_on_the_card(gen, monkeypatch):
+    """No eager fallback: a step that reads a device value on the host
+    raises out of ``serve``; the step never runs eagerly."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import decode_step
+
+    calls = []
+
+    def host_read(c, p, s, i):
+        calls.append(int(s.caches[0].kv.length))
+        return decode_step(c, p, s, i)
+
+    monkeypatch.setattr(serve_mod, "decode_step", host_read)
+    with pytest.raises(Exception, match="data-dependent|Data dependent"):
+        serve_mod.serve(get_smoke_config("llama2_1b"), batch=2,
+                        prompt_len=3, gen=2)
+    assert calls == []
