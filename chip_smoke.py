@@ -384,6 +384,31 @@ Phases (any failure exits non-zero):
    ``serve``'s final state, ms a step compiled beside eager and the
    seconds ``serve``'s ``optimize`` took (``serve_decode_times``).
 
+20. accum (``[accum]`` lines), after phase 19, ``llama2_1b`` at full
+   width (bf16, seed-0 weights, AdamW from zero): (a)
+   ``make_train_step(grad_accum=2)`` through one donated plan, the batch
+   static at 8 and ``s`` symbolic in [16, 1024], no guard; at (8,16),
+   (8,1000), (8,1024) against phase 6's ``grad_accum=1`` plan on the
+   same state and batch: loss, parameters and moments within
+   TRAIN_PLAIN_TOL, twice its flash and RMSNorm launches a step,
+   ``device_peak`` <= ``guaranteed_peak_bytes`` and the allocator within
+   its slack; ``device_peak``, the allocator's peak and the median ms of
+   5 steps beside ``grad_accum=1``'s, optimize seconds by span and nodes
+   reported; (b) ``make_train_step(compress=True)`` at (8,1024), from a
+   zero error and then from the first step's: the loss within 1e-4 of
+   the uncompressed plan's (bitwise reported), on eager kernel-path
+   grads g_hat + new_err = g + err within f32 rounding, the plan's
+   |new_err| <= the block's scale / 2 + rounding and within one
+   quantization step of the eager one, the memory contracts as (a); ms
+   and the compression's share of the step's device time reported; (c)
+   a static-length ``core.scan`` of 4 RMSNorms (one scale each) over
+   (b, s, 4096) bf16 rows, (b, s) symbolic, at (1,16) and (8,1024): one
+   opaque node, bitwise to the eager loop, VM == interpreter, 4 RMSNorm
+   launches a call; the allocator's peak above ``device_peak`` (the
+   body's memory, outside the plan) reported; (d) ``masked_select`` rows
+   + x at (s, 4096), s in {16, 1024}, occupancies 0, 0.5, 1: bitwise to
+   the eager padded form, the output at the cap.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
@@ -394,9 +419,11 @@ dense_prefill_bf16_smoke = phase 14 (d), dense_serve = phase 14 (e),
 gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a),
 moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a),
 hybrid_serve = phase 17 (d), xlstm_prefill = phase 18 (a),
-xlstm_serve = phase 18 (e) and decode = phase 19;
+xlstm_serve = phase 18 (e), decode = phase 19, accum_train = phase 20
+(a), compress_train = phase 20 (b), opaque_scan = phase 20 (c) and
+mixed_op = phase 20 (d);
 bounded, loop, gemma_serve, dense_serve, moe_serve, hybrid_serve,
-both xlstm paths and decode launch no flash:
+both xlstm paths, decode, opaque_scan and mixed_op launch no flash:
 their attention and ops are plain PyTorch, as the reference's are plain
 jnp;
 the flash entries also hold their numbers at gemma's hd-256 (8, 1024)
@@ -1342,6 +1369,24 @@ def phase_f32_path():
     return mma
 
 
+def state_call(fn, state, batch):
+    """One donated call of a train plan on fresh copies of ``state``:
+    outputs, stats, wall ms and the allocator's peak of the step (its
+    peak less what was held outside it, the step's inputs excepted)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    args = [pytree.tree_map(torch.clone, x) for x in state] + [batch]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - _nbytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn.call_donated(args)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    return (out, fn.last_report.stats, wall,
+            torch.cuda.max_memory_allocated() - held)
+
+
 def phase_train():
     """The train path (phase 6).  Returns the kernels' launches over it."""
     import statistics
@@ -1390,21 +1435,7 @@ def phase_train():
                for shape in TRAIN_SHAPES}
 
     def step(fn, batch):
-        """One donated call on fresh copies of the state: outputs, stats,
-        wall ms, and the allocator's peak of the step (its peak less what
-        was held outside the step, the step's inputs excepted)."""
-        args = [pytree.tree_map(torch.clone, params),
-                pytree.tree_map(torch.clone, opt_state), batch]
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated() - state_bytes - sum(
-            t.numel() * t.element_size() for t in batch.values())
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = fn.call_donated(args)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-        return (out, fn.last_report.stats, wall,
-                torch.cuda.max_memory_allocated() - held)
+        return state_call(fn, (params, opt_state), batch)
 
     def launches():
         return flash_attention_cuda.sm90_launches, rmsnorm_cuda.launches
@@ -1534,6 +1565,7 @@ def phase_train():
     observe_dynamic_stream(opt, step, params, opt_state, batch, state_bytes,
                            int(OBS_RUNG * peak), want[0])
     OBS["train"] = opt
+    TRAIN_PLAN["opt"] = opt
     compare_train_plain(cfg, params, opt_state, batch, want)
     del params, opt_state, want, want_leaves, opt, fn, last
     torch.cuda.empty_cache()
@@ -1546,31 +1578,13 @@ def compare_train_plain(cfg, params, opt_state, batch, want,
     call of the plain step (``impl="ref"``) on the same state and batch:
     loss, the updated parameters and the moments, within TRAIN_PLAIN_TOL."""
     import torch
-    from torch.utils import _pytree as pytree
 
     from repro_torch.launch.steps import make_train_step
     ref = make_train_step(cfg, impl="ref")(params, opt_state, batch)
     torch.cuda.synchronize()
-    loss, new_params, new_opt = want
-    r_loss, r_params, r_opt = ref
-
-    def rel_norm(pairs):
-        num = den = 0.0
-        for got, exp in pairs:
-            num += (got.float() - exp.float()).square().sum().item()
-            den += exp.float().square().sum().item()
-        return (num / den) ** 0.5
-
-    err = {
-        "loss": abs(loss.item() - r_loss.item()),
-        "params_max_abs": max(
-            (x.float() - y.float()).abs().max().item() for x, y in
-            zip(pytree.tree_leaves(new_params), pytree.tree_leaves(r_params))),
-        "m_rel": rel_norm(zip(pytree.tree_leaves(new_opt.m),
-                              pytree.tree_leaves(r_opt.m))),
-        "v_rel": rel_norm(zip(pytree.tree_leaves(new_opt.v),
-                              pytree.tree_leaves(r_opt.v))),
-    }
+    loss, _, new_opt = want
+    r_loss, _, r_opt = ref
+    err = train_errors(want, ref)
     b, s = batch["labels"].shape[:2]
     log(f"{tag} ({b},{s}) kernel path vs plain step: loss "
         f"{loss.item():.6f} vs {r_loss.item():.6f}; "
@@ -1579,8 +1593,33 @@ def compare_train_plain(cfg, params, opt_state, batch, want,
     bad = {k: v for k, v in err.items() if not v <= TRAIN_PLAIN_TOL[k]}
     if bad or int(r_opt.step) != int(new_opt.step):
         raise AssertionError(f"train step differs from the plain step: {bad}")
-    del ref, r_params, r_opt
+    del ref, r_opt
     torch.cuda.empty_cache()
+
+
+def train_errors(got, want):
+    """Two train steps' outputs ``(loss, params, opt_state, ...)`` apart:
+    the loss, the parameters' largest difference and the moments'
+    relative error norms (TRAIN_PLAIN_TOL's keys)."""
+    from torch.utils import _pytree as pytree
+
+    def rel_norm(pairs):
+        num = den = 0.0
+        for g, w in pairs:
+            num += (g.float() - w.float()).square().sum().item()
+            den += w.float().square().sum().item()
+        return (num / den) ** 0.5
+
+    return {
+        "loss": abs(got[0].item() - want[0].item()),
+        "params_max_abs": max(
+            (x.float() - y.float()).abs().max().item() for x, y in
+            zip(pytree.tree_leaves(got[1]), pytree.tree_leaves(want[1]))),
+        "m_rel": rel_norm(zip(pytree.tree_leaves(got[2].m),
+                              pytree.tree_leaves(want[2].m))),
+        "v_rel": rel_norm(zip(pytree.tree_leaves(got[2].v),
+                              pytree.tree_leaves(want[2].v))),
+    }
 
 
 OBS_RUNG = 0.85    # phase 10 (c): the ladder rung whose dynamic stream is read
@@ -4405,11 +4444,12 @@ def dense_row(r):
 # -- phase 15: the bench archs' train steps at full width -------------------
 
 # (arch, layers): gemma_2b at its full depth; musicgen_medium cut from 48
-# to 24 layers, the deepest measured depth whose optimize stayed within
-# BENCH_OPTIMIZE_S on the H100 machine's host (48 layers took 124.5 s in
-# one run, 40 layers 161.1 s in another, 24 layers 47.7 s: capture there
-# took 1.2 to 3.0 s a layer from run to run)
-BENCH_TRAIN = (("gemma_2b", 18), ("musicgen_medium", 24))
+# to 16 layers so that optimize stays within BENCH_OPTIMIZE_S on the H100
+# machine's host and the whole script within its time limit (48 layers
+# took 124.5 s in one run, 40 layers 161.1 s in another, 24 layers 47.7 s
+# in one and 127.8 s in another, the script then 1046.6 s: capture there
+# takes 1.2 to 4.5 s a layer from run to run)
+BENCH_TRAIN = (("gemma_2b", 18), ("musicgen_medium", 16))
 BENCH_OPTIMIZE_S = 120.0
 BENCH_LADDER = (0.90, 0.80, 0.70, 0.60, 0.50)   # of the uncapped device_peak
 BENCH_PLAIN_SHAPES = ((2, 1000), (8, 1024))      # at GEMMA_CUT_LAYERS
@@ -6397,6 +6437,443 @@ def phase_decode():
     return launches
 
 
+# -- phase 20: capture parity and the train step's last two options ---------
+
+TRAIN_PLAN = {}        # phase 6's capture (grad_accum = 1), kept for phase 20
+ACCUM = 2              # (a): micro-batches a step
+ACCUM_DIMS = {"s": (16, 1024)}      # (a), (c), (d): b static at 8 in (a)
+ACCUM_SHAPES = [(8, 16), (8, 1000), (8, 1024)]
+ACCUM_REPS = 5
+BASE_REPS = 3          # (a): grad_accum=1 steps timed beside it
+COMPRESS_AT = (8, 1024)             # (b)
+SCAN_LEN = 4                        # (c): the opaque scan's static length
+SCAN_SHAPES = [(1, 16), (8, 1024)]  # (c): (b, s) of its (b, s, d) rows
+MIXED_S = (16, 1024)                # (d): rows of the (s, d) input
+MIXED_OCCS = (0.0, 0.5, 1.0)
+
+
+def accum_train(cfg, base, params, opt_state, batches):
+    """(a): ``make_train_step(grad_accum=ACCUM)`` through one plan, b
+    static, against phase 6's ``grad_accum=1`` plan on the same state:
+    the loss against the mean of that plan's losses on the micro-batches
+    (the same tokens through GEMMs of the same shapes), the full batch's
+    loss beside it, and the parameters and moments against the full
+    batch's step.  Returns the launches of its steps and the rows."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core import TensorSpec, optimize, spec_like, \
+        symbolic_dims
+    from repro_torch.launch.steps import make_train_step
+
+    S, = symbolic_dims("s")
+    b = ACCUM_SHAPES[0][0]
+    spec = {k: TensorSpec((b, S), torch.int32) for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    opt = optimize(make_train_step(cfg, grad_accum=ACCUM), spec_like(params),
+                   spec_like(opt_state), spec, dynamic_dims=ACCUM_DIMS,
+                   donate_inputs=True)
+    compile_s = time.perf_counter() - t0
+    log(f"[accum] (a) grad_accum={ACCUM}: optimize {compile_s:.2f} s "
+        f"({span_summary(opt.trace)}), {len(opt.plan.graph.nodes)} nodes "
+        f"(grad_accum=1: {len(base.plan.graph.nodes)}), guards "
+        f"{opt.report.guards}, guaranteed_peak_bytes "
+        f"{opt.guaranteed_peak_bytes} (grad_accum=1: "
+        f"{base.guaranteed_peak_bytes})")
+    if opt.report.guards:
+        raise AssertionError(f"the grad_accum capture left guards "
+                             f"{opt.report.guards}")
+    total, rows = {}, []
+    state = (params, opt_state)
+    for (b, s) in ACCUM_SHAPES:
+        batch, env = batches[(b, s)], {"s": s}
+        state_call(base, state, batch)            # warm-up, uncounted
+        walls1 = []
+        for _ in range(BASE_REPS):
+            n1, (want, st1, wall1, alloc1) = counted_launches(
+                lambda: state_call(base, state, batch))
+            walls1.append(wall1)
+        m = b // ACCUM
+        micro_loss = torch.zeros((), dtype=torch.float32, device=DEV)
+        for i in range(ACCUM):
+            micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            micro_loss = micro_loss + state_call(base, state, micro)[0][0]
+        micro_loss = micro_loss * (1.0 / ACCUM)
+        state_call(opt, state, batch)             # warm-up, uncounted
+        slack = allocator_slack(opt.program, env)
+        walls = []
+        for _ in range(ACCUM_REPS):
+            n, (out, st, wall, alloc) = counted_launches(
+                lambda: state_call(opt, state, batch))
+            walls.append(wall)
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+            if (n["sm90"], n["rmsnorm"]) != (ACCUM * n1["sm90"],
+                                             ACCUM * n1["rmsnorm"]):
+                raise AssertionError(
+                    f"grad_accum={ACCUM} step launched {n}, grad_accum=1 "
+                    f"{n1}: want {ACCUM}x the flash and RMSNorm launches")
+            if st.device_peak > opt.guaranteed_peak_bytes:
+                raise AssertionError("device_peak above guaranteed_peak")
+            if alloc > st.device_peak + slack:
+                raise AssertionError(
+                    f"the allocator's peak of the step, {alloc}, is above "
+                    f"device_peak {st.device_peak} + {slack}")
+        err = train_errors(out, want)
+        full_loss_err = err.pop("loss")
+        err["loss"] = abs(out[0].item() - micro_loss.item())
+        bad = {k: v for k, v in err.items() if not v <= TRAIN_PLAIN_TOL[k]}
+        row = dict(b=b, s=s, median_ms=statistics.median(walls),
+                   base_median_ms=statistics.median(walls1),
+                   device_peak=st.device_peak,
+                   alloc_peak=alloc, alloc_slack=slack,
+                   base_device_peak=st1.device_peak, base_alloc_peak=alloc1,
+                   launches=n, base_launches=n1,
+                   loss=out[0].item(), micro_loss=micro_loss.item(),
+                   full_batch_loss=want[0].item(),
+                   full_batch_loss_err=full_loss_err, errors=err)
+        rows.append(row)
+        log(f"[accum] (a) ({b},{s}): step median {row['median_ms']:.3f} ms "
+            f"(min {min(walls):.3f}, max {max(walls):.3f}; grad_accum=1 "
+            f"median {row['base_median_ms']:.3f} of {BASE_REPS}), "
+            f"device_peak {st.device_peak} "
+            f"(grad_accum=1 {st1.device_peak}), allocator peak {alloc} "
+            f"(grad_accum=1 {alloc1}; slack {slack}), loss "
+            f"{row['loss']:.6f} vs the micro-batches' mean "
+            f"{row['micro_loss']:.6f} (the full batch's {want[0].item():.6f}"
+            f", |diff| {full_loss_err:.4g}: its GEMMs round apart in bf16); "
+            + ", ".join(f"{k} {v:.4g} (tol {TRAIN_PLAIN_TOL[k]})"
+                        for k, v in err.items())
+            + f"; launches a step {n} (grad_accum=1 {n1})")
+        if bad:
+            raise AssertionError(f"grad_accum={ACCUM} step differs from "
+                                 f"grad_accum=1's: {bad}")
+        del out, want
+    del opt
+    return total, rows
+
+
+def compress_checks(grads, err, new_err, tag):
+    """(b): eager grads on the kernel path compressed by
+    ``distributed.compression`` from ``err``: per leaf, g_hat + new_err
+    = g + err within f32 rounding and the plan's |new_err| <= the block's
+    scale / 2 + rounding; the plan's ``new_err`` within one quantization
+    step of the eager one.  Returns the largest readings."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.distributed.compression import (dequantize_int8,
+                                                     quantize_int8)
+
+    eps = torch.finfo(torch.float32).eps
+    worst = {"sum_err": 0.0, "bound_err": 0.0, "plan_vs_eager_steps": 0.0}
+    bitwise = True
+    for g, e, plan_e in zip(pytree.tree_leaves(grads),
+                            pytree.tree_leaves(err),
+                            pytree.tree_leaves(new_err)):
+        if g.numel() % 256:
+            raise AssertionError(
+                f"a {tuple(g.shape)} leaf is not a whole number of blocks: "
+                f"its blocks would span layers, which this check does not")
+        target = g.float() + e
+        q, scale = quantize_int8(target)
+        g_hat = dequantize_int8(q, scale, g.shape, torch.float32)
+        new_e = target - g_hat
+        per = torch.repeat_interleave(scale, 256)[:target.numel()].reshape(
+            target.shape)
+        # f32 rounding: the sum, the quotient and the product each round
+        # once, each within an ulp of the target or of its block's range
+        tol = 4 * eps * (target.abs() + 127 * per)
+        worst["sum_err"] = max(worst["sum_err"], (
+            ((g_hat + new_e) - target).abs() - tol).max().item())
+        worst["bound_err"] = max(worst["bound_err"], (
+            plan_e.abs() - (per / 2 + tol)).max().item())
+        worst["plan_vs_eager_steps"] = max(
+            worst["plan_vs_eager_steps"],
+            ((plan_e - new_e).abs() / per).max().item())
+        bitwise = bitwise and torch.equal(plan_e, new_e)
+        del target, q, scale, g_hat, new_e, per, tol
+    log(f"[accum] (b) {tag}: g_hat + new_err - (g + err) beyond f32 "
+        f"rounding {worst['sum_err']:.3g} (<= 0), |plan new_err| beyond "
+        f"scale/2 + rounding {worst['bound_err']:.3g} (<= 0), plan new_err "
+        f"vs eager in quantization steps {worst['plan_vs_eager_steps']:.3g} "
+        f"(<= 1), bitwise {bitwise}")
+    if worst["sum_err"] > 0 or worst["bound_err"] > 0 or \
+            worst["plan_vs_eager_steps"] > 1:
+        raise AssertionError(f"compression {tag}: {worst}")
+    return dict(worst, new_err_bitwise=bitwise)
+
+
+def compress_train(cfg, base, params, opt_state, batch):
+    """(b): ``make_train_step(compress=True)`` through one plan at
+    COMPRESS_AT, from a zero error and then from the first step's, against
+    phase 6's uncompressed plan on the same state.  Returns the launches
+    of its steps and the rows."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core import TensorSpec, optimize, spec_like, \
+        symbolic_dims
+    from repro_torch.distributed import (compress_gradients,
+                                         init_compression_state)
+    from repro_torch.launch.steps import make_train_step
+
+    comp = init_compression_state(params)
+    log(f"[accum] (b) compress=True: the error's f32 bytes "
+        f"{_nbytes(comp)} beside the weights' {_nbytes(params)}")
+    B, S = symbolic_dims("b, s")
+    spec = {k: TensorSpec((B, S), torch.int32) for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    opt = optimize(make_train_step(cfg, compress=True), spec_like(params),
+                   spec_like(opt_state), spec_like(comp), spec,
+                   dynamic_dims=DYNAMIC_DIMS, donate_inputs=True)
+    compile_s = time.perf_counter() - t0
+    log(f"[accum] (b) optimize {compile_s:.2f} s ({span_summary(opt.trace)})"
+        f", {len(opt.plan.graph.nodes)} nodes, guards {opt.report.guards}, "
+        f"guaranteed_peak_bytes {opt.guaranteed_peak_bytes}")
+    if opt.report.guards:
+        raise AssertionError(f"the compress capture left guards "
+                             f"{opt.report.guards}")
+    b, s = batch["labels"].shape
+    env = {"b": b, "s": s}
+    slack = allocator_slack(opt.program, env)
+    total, rows = {}, []
+    state = (params, opt_state, comp)
+    for k in (1, 2):
+        n1, (want, _, _, _) = counted_launches(
+            lambda: state_call(base, state[:2], batch))
+        state_call(opt, state, batch)             # warm-up, uncounted
+        walls = []
+        for _ in range(ACCUM_REPS):
+            n, (out, st, wall, alloc) = counted_launches(
+                lambda: state_call(opt, state, batch))
+            walls.append(wall)
+            for key, v in n.items():
+                total[key] = total.get(key, 0) + v
+            if (n["sm90"], n["rmsnorm"]) != (n1["sm90"], n1["rmsnorm"]):
+                raise AssertionError(f"compressed step launched {n}, the "
+                                     f"uncompressed {n1}")
+            if st.device_peak > opt.guaranteed_peak_bytes:
+                raise AssertionError("device_peak above guaranteed_peak")
+            if alloc > st.device_peak + slack:
+                raise AssertionError(
+                    f"the allocator's peak of the step, {alloc}, is above "
+                    f"device_peak {st.device_peak} + {slack}")
+        d_loss = abs(out[0].item() - want[0].item())
+        row = dict(step=k, median_ms=statistics.median(walls),
+                   device_peak=st.device_peak, alloc_peak=alloc,
+                   alloc_slack=slack, loss=out[0].item(),
+                   base_loss=want[0].item(), loss_err=d_loss,
+                   loss_bitwise=torch.equal(out[0], want[0]), launches=n)
+        del want
+        grads = _eager_grads(cfg, state[0], batch)
+        row.update(compress_checks(grads, state[2].error, out[3].error,
+                                   f"step {k}"))
+        rows.append(row)
+        log(f"[accum] (b) ({b},{s}) step {k} from a "
+            f"{'zero' if k == 1 else 'nonzero'} error: median "
+            f"{row['median_ms']:.3f} ms (min {min(walls):.3f}, max "
+            f"{max(walls):.3f}), loss {row['loss']:.6f} vs uncompressed "
+            f"{row['base_loss']:.6f} (|diff| {d_loss:.3g}, tol 1e-4; "
+            f"bitwise {row['loss_bitwise']}), device_peak {st.device_peak}, "
+            f"allocator peak {alloc} (slack {slack}), launches {n}")
+        if d_loss > 1e-4:
+            raise AssertionError(f"compressed loss {row['loss']} vs "
+                                 f"{row['base_loss']}")
+        if k == 1:
+            prof = profile_once(f"[accum] (b) compressed step ({b},{s})",
+                                lambda: state_call(opt, state, batch))
+            comp_prof = profile_once(
+                "[accum] (b) compress_gradients alone",
+                lambda: compress_gradients(grads, comp))
+            if prof is not None and comp_prof is not None:
+                log(f"[accum] (b) compression's share of the step's device "
+                    f"time: {comp_prof.busy_us / prof.busy_us:.4f} "
+                    f"({comp_prof.busy_us:.0f} of {prof.busy_us:.0f} us)")
+        del grads
+        state = tuple(out[1:])
+        del out
+    del opt, state
+    return total, rows
+
+
+def _eager_grads(cfg, params, batch):
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import loss_fn
+    leaves, tree = pytree.tree_flatten(params)
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        loss = loss_fn(cfg, pytree.tree_unflatten(leaves, tree), batch)
+        return pytree.tree_unflatten(
+            list(torch.autograd.grad(loss, leaves)), tree)
+
+
+def _scan_rows(x, scales):
+    """(c): SCAN_LEN RMSNorms in a row, one scale each, as a static-length
+    ``core.scan``: one opaque node under ``optimize``."""
+    from repro_torch.core import scan
+    from repro_torch.kernels import rmsnorm
+
+    def body(h, scale):
+        h = rmsnorm(h, scale)
+        return h, h.float().square().mean(-1)
+    return scan(body, x, scales)
+
+
+def opaque_scan(cfg):
+    """(c): the opaque scan node at full width: the plan (VM and
+    interpreter) bitwise to the eager loop, SCAN_LEN RMSNorm launches a
+    call, and the allocator's peak above ``device_peak`` (the body's
+    memory, which the plan does not cover, as the reference's does not)."""
+    import torch
+
+    from repro_torch.core import TensorSpec, optimize, symbolic_dims
+
+    d, dt = cfg.d_model, torch.bfloat16
+    B, S = symbolic_dims("b, s")
+    specs = (TensorSpec((B, S, d), dt), TensorSpec((SCAN_LEN, d), dt))
+    dims = {"b": DYNAMIC_DIMS["b"], "s": ACCUM_DIMS["s"]}
+    t0 = time.perf_counter()
+    fn = optimize(_scan_rows, *specs, dynamic_dims=dims, device=DEV)
+    ref = optimize(_scan_rows, *specs, dynamic_dims=dims, device=DEV,
+                   executor="reference")
+    names = [n.prim_name for n in fn.plan.graph.nodes]
+    log(f"[accum] (c) optimize {time.perf_counter() - t0:.2f} s (both "
+        f"executors), nodes {names}, guards {fn.report.guards}")
+    if names != ["scan"] or fn.report.guards:
+        raise AssertionError(f"the static scan is not one opaque node: "
+                             f"{names}, guards {fn.report.guards}")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20)
+    total, rows = {}, []
+    for (b, s) in SCAN_SHAPES:
+        x = torch.randn(b, s, d, generator=gen, device=DEV, dtype=dt)
+        scales = 0.1 * torch.randn(SCAN_LEN, d, generator=gen, device=DEV,
+                                   dtype=dt)
+        want = _scan_rows(x, scales)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n, got = counted_launches(lambda: fn(x, scales))
+        torch.cuda.synchronize()
+        alloc = torch.cuda.max_memory_allocated() - held + _nbytes((x,
+                                                                    scales))
+        st = fn.last_report.stats
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        other = ref(x, scales)
+        eager_eq = all(torch.equal(a, w) for a, w in zip(got, want))
+        vm_eq = all(torch.equal(a, w) for a, w in zip(got, other)) and \
+            st.as_dict() == ref.last_report.stats.as_dict()
+        row = dict(b=b, s=s, device_peak=st.device_peak, alloc_peak=alloc,
+                   above=alloc - st.device_peak, launches=n,
+                   eager_bitwise=eager_eq, vm_eq_interpreter=vm_eq)
+        rows.append(row)
+        log(f"[accum] (c) ({b},{s},{d}) bf16: bitwise to the eager loop "
+            f"{eager_eq}, VM == interpreter {vm_eq}, launches {n}, "
+            f"device_peak {st.device_peak}, allocator peak {alloc}: "
+            f"{alloc - st.device_peak} B above it (the body's own tensors, "
+            f"outside the plan; one (b, s, d) bf16 carry is "
+            f"{b * s * d * 2} B)")
+        if not (eager_eq and vm_eq) or n["rmsnorm"] != SCAN_LEN:
+            raise AssertionError(f"opaque scan at ({b},{s}): {row}")
+        del x, scales, want, got, other
+    return total, rows
+
+
+def _mixed(x, mask):
+    from repro_torch.kernels import masked_select
+    rows, cnt = masked_select(x, mask)
+    return rows + x, cnt
+
+
+def mixed_op(cfg):
+    """(d): a bounded dim meeting a full-extent one (``masked_select``
+    rows + x) at full width: bitwise to the eager padded form, the output
+    at the cap."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import TensorSpec, optimize, symbolic_dims
+
+    d, dt = cfg.d_model, torch.bfloat16
+    S, = symbolic_dims("s")
+    fn = optimize(_mixed, TensorSpec((S, d), dt), TensorSpec((S,),
+                                                              torch.bool),
+                  dynamic_dims=ACCUM_DIMS, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
+    total, rows = {}, []
+    for s in MIXED_S:
+        x = torch.randn(s, d, generator=gen, device=DEV, dtype=dt)
+        for occ in MIXED_OCCS:
+            keep = torch.randperm(s, generator=gen, device=DEV)[
+                :int(round(occ * s))]
+            mask = torch.zeros(s, dtype=torch.bool, device=DEV)
+            mask[keep] = True
+            n, (out, cnt) = counted_launches(lambda: fn(x, mask))
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+            sel = x[mask]
+            want = F.pad(sel, (0, 0, 0, s - sel.shape[0])) + x
+            eq = torch.equal(out, want) and int(cnt) == sel.shape[0]
+            st = fn.last_report.stats
+            rows.append(dict(s=s, occ=occ, count=int(cnt), bitwise=eq,
+                             shape=list(out.shape),
+                             device_peak=st.device_peak,
+                             measured=dict(st.measured_dims)))
+            log(f"[accum] (d) s {s} occupancy {occ}: count {int(cnt)}, "
+                f"output {tuple(out.shape)} (the cap), bitwise to the eager "
+                f"padded form {eq}, device_peak {st.device_peak}, measured "
+                f"{dict(st.measured_dims)}")
+            if not eq or tuple(out.shape) != (s, d):
+                raise AssertionError(f"mixed op at s {s}, occupancy {occ}")
+    return total, rows
+
+
+def phase_accum():
+    """Phase 20 ([accum] lines): (a) grad_accum, (b) compress, (c) the
+    opaque scan node, (d) the mixed op, llama2_1b at full width.  Returns
+    the launches of each path."""
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+    from repro_torch.launch.steps import adamw_config_for
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    t0 = time.perf_counter()
+    cfg = CONFIG
+    base = TRAIN_PLAN.pop("opt")
+    params = init_params(cfg, seed=0, device=DEV)
+    opt_state = init_state(params, adamw_config_for(cfg))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    shapes = sorted(set(ACCUM_SHAPES) | {COMPRESS_AT})
+    batches = {shape: {k: torch.randint(0, cfg.vocab, shape, generator=gen,
+                                        device=DEV, dtype=torch.int32)
+                       for k in ("tokens", "labels")} for shape in shapes}
+    launches = {}
+    launches["accum_train"], rows_a = accum_train(cfg, base, params,
+                                                  opt_state, batches)
+    torch.cuda.empty_cache()
+    launches["compress_train"], rows_b = compress_train(
+        cfg, base, params, opt_state, batches[COMPRESS_AT])
+    del base, params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["opaque_scan"], rows_c = opaque_scan(cfg)
+    launches["mixed_op"], rows_d = mixed_op(cfg)
+    log(f"[accum] phase 20 {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}; rows "
+        f"{json.dumps(dict(a=rows_a, b=rows_b, c=rows_c, d=rows_d))}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6478,6 +6955,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     decode_launches = phase_decode()
+    gc.collect()
+    torch.cuda.empty_cache()
+    accum_launches = phase_accum()
     by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
                     "loop": rmsnorm_cuda.loop_launches - loop0}
     log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
@@ -6538,6 +7018,8 @@ def main() -> int:
         by_path.update({path: n[counter]
                         for path, n in xlstm_launches.items()})
         by_path["decode"] = decode_launches[counter]
+        by_path.update({path: n[counter]
+                        for path, n in accum_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \

@@ -99,24 +99,26 @@ def scan(body: Callable, init: Any, xs: Any) -> Tuple[Any, Any]:
     under :func:`optimize`; ``body(carry, x) -> (carry, y)`` over the
     leading dim of ``xs``.
 
-    Inside a function passed to :func:`optimize`, a scan whose ``xs`` have
-    a *symbolic* length is captured once as a sub-graph (torch's
-    ``torch.ops.higher_order.scan`` is the capture marker) and compiled to
-    a single ``Loop`` instruction: the lowered ``Program`` stays O(body
-    size) and the planned arena bound is independent of the trip count
-    (carried values ping-pong between two slot generations across the
-    back-edge; per-iteration temporaries die and their slots are reused
-    every iteration).  A scan the roll gate refuses (a static length, a
-    body with a bounded dim, a carry passed through to another slot)
-    raises ``NotImplementedError`` at capture.  Outside ``optimize`` this
-    runs the body in a Python loop and stacks the ``ys``.
+    Inside a function passed to :func:`optimize`, the scan is captured
+    once (torch's ``torch.ops.higher_order.scan`` is the capture marker).
+    One whose ``xs`` have a *symbolic* length is compiled to a single
+    ``Loop`` instruction: the lowered ``Program`` stays O(body size) and
+    the planned arena bound is independent of the trip count (carried
+    values ping-pong between two slot generations across the back-edge;
+    per-iteration temporaries die and their slots are reused every
+    iteration).  A scan the roll gate refuses (a static length, a body
+    with a bounded dim, a carry passed through to another slot, a scan
+    nested in a rolled body) becomes one opaque node, as the reference
+    keeps it: the plan counts its outputs, and its body runs as one op,
+    its own temporaries outside ``device_peak``.  Outside ``optimize``
+    this runs the body in a Python loop and stacks the ``ys``.
     """
     from torch._subclasses.fake_tensor import FakeTensor
 
     leaves = pytree.tree_leaves((init, xs))
-    if any(isinstance(t, FakeTensor) for t in leaves):
-        from torch._higher_order_ops.scan import scan as torch_scan
-        return torch_scan(body, init, xs)
+    if torch.compiler.is_dynamo_compiling() or \
+            any(isinstance(t, FakeTensor) for t in leaves):
+        return _traced_scan(body, init, xs)
     x_leaves, x_tree = pytree.tree_flatten(xs)
     n = x_leaves[0].shape[0] if x_leaves else 0
     if n == 0:
@@ -130,6 +132,44 @@ def scan(body: Callable, init: Any, xs: Any) -> Tuple[Any, Any]:
     y_tree = pytree.tree_flatten(ys[0])[1]
     return carry, pytree.tree_unflatten(
         [torch.stack(col) for col in zip(*y_leaves)], y_tree)
+
+
+def _traced_scan(body: Callable, init: Any, xs: Any) -> Tuple[Any, Any]:
+    """torch's scan under capture (or inside the body of one, which dynamo
+    traces).  Its body may not return one of its inputs, or one tensor
+    twice, so such an output (a carry passed through) is copied.  torch
+    compiles the outermost scan with dynamo, whose cache is kept on the
+    code of torch's own wrapper: an earlier capture's entry would match a
+    symbolic size at its static trace-time value and pin it, so the entry
+    is dropped first."""
+    from torch._higher_order_ops.scan import scan as torch_scan
+
+    def unaliased(carry, x):
+        seen = pytree.tree_leaves((carry, x))
+        out_leaves, out_tree = pytree.tree_flatten(body(carry, x))
+        owned = []
+        for o in out_leaves:
+            if any(o is t for t in seen):
+                o = o.clone()
+            seen.append(o)
+            owned.append(o)
+        return pytree.tree_unflatten(owned, out_tree)
+
+    if torch.compiler.is_dynamo_compiling():
+        return torch_scan(unaliased, init, xs)
+    for code in torch_scan.__code__.co_consts:
+        if getattr(code, "co_name", "") == "run_flattened_scan":
+            torch._C._dynamo.eval_frame.reset_code(code)
+    try:
+        return torch_scan(unaliased, init, xs)
+    except Exception as e:
+        if "PendingUnbackedSymbolNotFound" not in f"{type(e).__name__} {e}":
+            raise
+        # torch 2.11's scan cannot trace a body that makes a size from
+        # values (a bounded op) without returning it; 2.13's can
+        raise NotImplementedError(
+            f"a bounded dim inside a scan body: torch {torch.__version__}'s "
+            f"scan cannot capture it ({type(e).__name__})") from e
 
 
 @dataclass

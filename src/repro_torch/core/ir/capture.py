@@ -35,14 +35,19 @@ Two node kinds get more than a template:
   introducer's input, and torch's fake tensors carry it through every
   consumer (``mm``, ``tanh``, ``cumsum``...).  An op that equates a bound
   dim with a full-extent dim (``rows + x``) makes the ShapeEnv replace
-  ``u<k>`` by that dim; tight tensors would then meet at run time, so
-  capture raises instead.  An introducer whose input carries a bound dim
-  gets that dim's declared extent as its ``pad_to`` argument: it pads the
-  tight input with zeros to that length, which is what the reference's
-  op sees there.
-* **rolled loops** (``ir.loop``): a ``torch.ops.higher_order.scan`` whose
-  ``xs`` have a symbolic length becomes one loop node, its body converted
-  once (with the outer dim names) into a sub-``Graph``.
+  ``u<k>`` by that dim; capture keeps the unreplaced ``__b<k>`` and pads
+  the tight operand with zeros to its declared extent before every op
+  that meets a full-extent operand, which is what the reference's op
+  sees: that op's output stays at the cap, as the reference's
+  ``_propagate`` leaves it.  An introducer whose input carries a bound
+  dim gets that dim's declared extent as its ``pad_to`` argument: it
+  pads the tight input with zeros to that length, for the same reason.
+* **scans** (``ir.loop``): a ``torch.ops.higher_order.scan`` whose ``xs``
+  have a symbolic length becomes one rolled loop node, its body converted
+  once (with the outer dim names) into a sub-``Graph``.  A scan the roll
+  gate refuses becomes one opaque node (``OpaqueScan``) that runs the
+  captured body, as the reference keeps it; so does a scan inside a
+  rolled body, whose body the reference traces with ``roll_loops=False``.
 """
 from __future__ import annotations
 
@@ -59,7 +64,7 @@ from ..symbolic.expr import Atom
 from ..symbolic.from_torch import dim_to_expr, parse_range_spec
 from .dynamism import BoundIntro, introduces_dim
 from .graph import Graph, Value
-from .loop import LOOP_PARAM, LoopBody, rollable_body
+from .loop import LOOP_PARAM, LoopBody, OpaqueScan, rollable_body
 
 _CLONE = torch.ops.aten.clone.default
 # ops that return their input's storage without the schema marking an alias
@@ -288,8 +293,9 @@ def capture(fn: Callable, specs: Sequence[Any], *,
                 f"branches on its size, so no single plan covers its range")
     _refuse_pinned_exprs(shape_env, names)
 
-    _name_bound_symbols(gm, shape_env, names)
-    g = _convert(gm, [(s.dim_exprs(), s.dtype) for s in flat_specs], names)
+    mixed = _name_bound_symbols(gm, shape_env, names)
+    g = _convert(gm, [(s.dim_exprs(), s.dtype) for s in flat_specs], names,
+                 mixed=mixed)
     g.in_tree = in_tree
     g.out_tree = out_tree_box[-1]
     return g, [str(gd.expr) for gd in shape_env.guards]
@@ -305,10 +311,12 @@ def _introduced_symbol(node) -> Any:
     return next(iter(bindings))
 
 
-def _name_bound_symbols(gm, shape_env, names: Dict[Any, str]) -> None:
+def _name_bound_symbols(gm, shape_env, names: Dict[Any, str]
+                        ) -> Optional["_Mixed"]:
     """Map each introducer's unbacked size onto ``__b<k>`` (in ``names``),
-    in introduction order; raise where the trace equated one with another
-    dim (an op mixing a tight payload with a full-extent tensor)."""
+    in introduction order.  Return the bound symbols the trace equated
+    with another dim (an op mixing a tight payload with a full-extent
+    tensor), or ``None``."""
     bound: Dict[Any, str] = {}
     for node in gm.graph.nodes:
         if node.op != "call_function":
@@ -316,58 +324,57 @@ def _name_bound_symbols(gm, shape_env, names: Dict[Any, str]) -> None:
         if introduces_dim(str(node.target)) is not None:
             bound[_introduced_symbol(node)] = f"__b{len(bound)}"
     names.update(bound)
-    for sym, bname in bound.items():
-        rep = shape_env.replacements.get(sym)
-        if rep is None:
-            continue
-        other = dim_to_expr(rep, names)
-        op = _mixing_op(gm, sym, rep)
-        raise NotImplementedError(
-            f"{op or 'an op'} mixes the bounded dim {bname} with the "
-            f"full-extent dim {other}: the bounded tensor is tight at run "
-            f"time, so the two cannot meet; padding back to the cap at such "
-            f"a consumer is not supported")
+    reps = shape_env.replacements
+    equated = {sym: reps[sym] for sym in bound if reps.get(sym) is not None}
+    if not equated:
+        return None
+    return _Mixed(
+        syms=frozenset(equated),
+        others={k: v for k, v in reps.items() if k not in equated},
+        extent={bound[sym]: dim_to_expr(rep, names)
+                for sym, rep in equated.items()})
 
 
-def _mixing_op(gm, sym, rep) -> Optional[str]:
-    """The first op reading one tensor sized by ``sym`` and another sized
-    by ``rep`` (raw, unreplaced sizes)."""
-    for node in gm.graph.nodes:
-        if node.op != "call_function":
-            continue
-        bounded = full = False
-        for x in pytree.tree_leaves((node.args, node.kwargs)):
-            val = getattr(x, "meta", {}).get("val")
-            if not isinstance(val, torch.Tensor):
-                continue
-            for d in val.shape:
-                if not isinstance(d, torch.SymInt):
-                    continue
-                raw = d.node._expr
-                if sym in raw.free_symbols:
-                    bounded = True
-                elif raw == rep:
-                    full = True
-        if bounded and full:
-            return str(node.target)
-    return None
+@dataclass(frozen=True)
+class _Mixed:
+    """Bound symbols the trace equated with a full-extent dim: ``syms``
+    (sympy), the ShapeEnv's other replacements, and per bound name the
+    dim it was equated with."""
+    syms: frozenset
+    others: Dict[Any, Any]
+    extent: Dict[str, SymbolicExpr]
+
+    def unreplaced(self, d: Any) -> Any:
+        """``d``'s expression with these symbols left unreplaced."""
+        if isinstance(d, torch.SymInt):
+            raw = d.node._expr
+            if raw.free_symbols & self.syms:
+                return raw.xreplace(self.others)
+        return d
 
 
 def _convert(gm, in_dims: Sequence[Any], names: Mapping[Any, str], *,
              positions: Optional[Sequence[int]] = None,
-             is_body: bool = False) -> Graph:
+             is_body: bool = False, mixed: Optional[_Mixed] = None
+             ) -> Graph:
     """Convert one fx graph.  ``in_dims`` holds each placeholder's dims and
     dtype, or a ``SymbolicExpr`` for a size a scan passes its body;
     ``positions`` a tensor placeholder's index in ``Graph.inputs``
     (default: in order).  A loop body (``is_body``) returns an owning copy
-    of every view."""
+    of every view, and a scan inside it stays opaque.  ``mixed``: the
+    bound dims an op equated with a full-extent dim."""
     g = Graph()
     env: Dict[Any, Any] = {}      # fx node -> Value | SymbolicExpr | [Value]
     # bound symbol -> the declared extent its dim has in the reference
     # (where the payload is padded to it)
     extent_of: Dict[Atom, SymbolicExpr] = {}
+    # bound name -> extent, for the bound dims an op mixes with a full
+    # extent (their operands are padded to it there)
+    pad_to: Dict[str, SymbolicExpr] = {}
 
     def exprs_of(shape) -> Tuple[SymbolicExpr, ...]:
+        if mixed is not None:
+            shape = [mixed.unreplaced(d) for d in shape]
         return tuple(dim_to_expr(d, names) for d in shape)
 
     placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
@@ -401,13 +408,10 @@ def _convert(gm, in_dims: Sequence[Any], names: Mapping[Any, str], *,
             env[node] = v
         elif node.op == "call_function":
             if node.target is torch.ops.higher_order.scan:
-                if is_body:
-                    raise NotImplementedError(
-                        "a scan inside a scan body is not rolled")
-                _convert_scan(g, node, env, names)
+                _convert_scan(g, node, env, names, roll=not is_body)
             else:
-                _convert_call(g, node, env, exprs_of)
-                _record_intro(g, node, env, extent_of)
+                _convert_call(g, node, env, exprs_of, pad_to)
+                _record_intro(g, node, env, extent_of, pad_to, mixed)
         elif node.op == "output":
             for x in pytree.tree_leaves(node.args[0]):
                 v = env.get(x)
@@ -433,9 +437,13 @@ def _convert(gm, in_dims: Sequence[Any], names: Mapping[Any, str], *,
 
 
 def _record_intro(g: Graph, node, env: Dict[Any, Any],
-                  extent_of: Dict[Atom, SymbolicExpr]) -> None:
+                  extent_of: Dict[Atom, SymbolicExpr],
+                  pad_to: Dict[str, SymbolicExpr],
+                  mixed: Optional[_Mixed]) -> None:
     """Record a bounded-dim introducer's ``BoundIntro`` and cap; give a
-    chained one its ``pad_to`` (the declared extent of its input there)."""
+    chained one its ``pad_to`` (the declared extent of its input there).
+    A bound dim the trace equated with a full-extent dim goes into
+    ``pad_to``, if that dim is its declared extent."""
     spec = introduces_dim(str(node.target))
     if spec is None:
         return
@@ -452,6 +460,13 @@ def _record_intro(g: Graph, node, env: Dict[Any, Any],
         leaves, tspec = override_template(n, {"pad_to": extent})
         n.params["leaves"], n.params["spec"] = leaves, tspec
     extent_of[Atom(bname)] = extent
+    if mixed is not None and bname in mixed.extent:
+        if mixed.extent[bname] != extent:
+            raise NotImplementedError(
+                f"an op equates the bounded dim {bname} with "
+                f"{mixed.extent[bname]}, which is not its declared extent "
+                f"{extent}: the reference's padded payload could not meet it")
+        pad_to[bname] = extent
     g.bound_dims[bname] = cap
     g.bound_intros[n.id] = BoundIntro(
         name=bname, cap=cap, node_id=n.id, padded_out=spec.padded_out,
@@ -459,8 +474,11 @@ def _record_intro(g: Graph, node, env: Dict[Any, Any],
 
 
 def _convert_scan(g: Graph, node, env: Dict[Any, Any],
-                  names: Mapping[Any, str]) -> None:
-    """A symbolic-length forward scan -> one rolled loop node."""
+                  names: Mapping[Any, str], *, roll: bool) -> None:
+    """A scan -> one rolled loop node where the roll gate admits it (a
+    symbolic length, no bounded dim in the body, every carry produced or
+    kept in its own slot; ``roll``: not inside a rolled body), else one
+    opaque node (``OpaqueScan``), as the reference's trace keeps it."""
     import torch.fx
 
     args = node.args
@@ -484,14 +502,62 @@ def _convert_scan(g: Graph, node, env: Dict[Any, Any],
             isinstance(v, (Value, SymbolicExpr)) for v in extra):
         raise NotImplementedError("scan over a non-tensor input")
     nc, nk, nx = len(consts), len(carries), len(xs)
-    if nx == 0 or not xs[0].dims or not xs[0].dims[0].free_vars():
-        raise NotImplementedError(
-            "a scan whose xs length is static is not rolled")
     holders = [n for n in sub.graph.nodes if n.op == "placeholder"]
     if len(holders) != nk + nx + len(extra):
         raise NotImplementedError(
             f"scan body takes {len(holders)} inputs, expected "
             f"{nk + nx + len(extra)}")
+    invals = list(ins)
+    for v in ins:
+        if v.base is not None and v.base not in invals:
+            invals.append(v.base)
+    fakes = list(node.meta["val"])
+    if len(fakes) < nk:
+        raise NotImplementedError("scan outputs do not match its body")
+    outs = [g.new_value(tuple(dim_to_expr(d, names) for d in f.shape),
+                        f.dtype) for f in fakes]
+    known = set(names.values())
+    for v in outs:
+        for d in v.dims:
+            if not d.free_vars() <= known:
+                raise NotImplementedError(
+                    f"a scan output's size {d} depends on values computed "
+                    f"inside its body")
+    body = _rolled_body(sub, holders, names, extra, nc, nk, nx, xs) \
+        if roll else None
+    if body is not None:
+        if len(fakes) != len(body.graph.outputs):
+            raise NotImplementedError("scan outputs do not match its body")
+        g.add_node(node.target, invals, outs,
+                   {LOOP_PARAM: body, "multi": True},
+                   prim_name="scan", n_args=len(ins))
+    else:
+        # opaque: the node reads every input and writes the scan's outputs
+        # at the fakes' shapes; its op runs the captured body
+        const_arg = iter(range(nc))
+        add_leaves = [Arg(next(const_arg)) if isinstance(v, Value) else
+                      (v.evaluate({}) if not v.free_vars() else v)
+                      for v in extra]
+        leaves, spec = pytree.tree_flatten((
+            ([Arg(nc + i) for i in range(nk)],
+             [Arg(nc + nk + i) for i in range(nx)], add_leaves), {}))
+        g.add_node(OpaqueScan(sub, nk), invals, outs,
+                   {"leaves": leaves, "spec": spec, "multi": True},
+                   prim_name="scan", n_args=len(ins))
+    env[node] = outs
+
+
+def _rolled_body(sub, holders, names: Mapping[Any, str], extra, nc: int,
+                 nk: int, nx: int, xs: Sequence[Value]
+                 ) -> Optional[LoopBody]:
+    """The scan's ``LoopBody`` when the roll gate admits it, else None."""
+    if nx == 0 or not xs[0].dims or not xs[0].dims[0].free_vars():
+        return None                   # a static length gains nothing
+    if any(introduces_dim(str(n.target)) for n in sub.graph.nodes
+           if n.op == "call_function"):
+        # a bounded dim would need a BindDim per iteration; the rolled
+        # accounting has no per-step env, so the scan stays opaque
+        return None
     # torch's body order is (carries, xs slices, additional inputs); ours
     # (consts, carries, xs)
     positions = [nc + i for i in range(nk + nx)] + list(range(nc))
@@ -499,38 +565,21 @@ def _convert_scan(g: Graph, node, env: Dict[Any, Any],
                 h.meta["val"].dtype) for h in holders[:nk + nx]]
     in_dims += [v if isinstance(v, SymbolicExpr) else
                 (v.dims, v.dtype) for v in extra]
-    if any(introduces_dim(str(n.target)) for n in sub.graph.nodes
-           if n.op == "call_function"):
-        raise NotImplementedError(
-            "a bounded dim inside a scan body is not supported")
     bg = _convert(sub, in_dims, names, positions=positions, is_body=True)
     if not rollable_body(bg, nc, nk):
-        raise NotImplementedError(
-            "the scan body passes a carry through to another slot, so it "
-            "cannot be rolled")
+        return None                   # a carry passed to another slot
     tensor_holders = list(range(nk + nx)) + [
         nk + nx + i for i, v in enumerate(extra) if isinstance(v, Value)]
     torch_index = [0] * len(positions)
     for ti, pos in zip(tensor_holders, positions):
         torch_index[pos] = ti
-    body = LoopBody(graph=bg, num_consts=nc, num_carry=nk, num_xs=nx,
+    return LoopBody(graph=bg, num_consts=nc, num_carry=nk, num_xs=nx,
                     length_expr=xs[0].dims[0],
                     torch_index=tuple(torch_index))
-    invals = list(ins)
-    for v in ins:
-        if v.base is not None and v.base not in invals:
-            invals.append(v.base)
-    fakes = list(node.meta["val"])
-    if len(fakes) != len(bg.outputs):
-        raise NotImplementedError("scan outputs do not match its body")
-    outs = [g.new_value(tuple(dim_to_expr(d, names) for d in f.shape),
-                        f.dtype) for f in fakes]
-    g.add_node(node.target, invals, outs, {LOOP_PARAM: body, "multi": True},
-               prim_name="scan", n_args=len(ins))
-    env[node] = outs
 
 
-def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of) -> None:
+def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of,
+                  pad_to: Mapping[str, SymbolicExpr]) -> None:
     import torch.fx
 
     val = node.meta.get("val")
@@ -568,6 +617,10 @@ def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of) -> None:
         else:
             out_leaves.append(x)
     n_args = len(invals)
+    subst = _pad_mixed(g, invals, pad_to) if pad_to else {}
+    if subst:
+        out_leaves = [x.substitute(subst) if isinstance(x, SymbolicExpr)
+                      else x for x in out_leaves]
     # view bases stay live for as long as a view of them is read
     for v in list(invals[:n_args]):
         b = v.base
@@ -582,12 +635,64 @@ def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of) -> None:
     if _is_view_op(target):
         src = invals[0]
         base = src.base if src.base is not None else src
-    outs = [g.new_value(exprs_of(f.shape), f.dtype, base=base)
+    outs = [g.new_value(tuple(d.substitute(subst) if subst else d
+                              for d in exprs_of(f.shape)), f.dtype,
+                        base=base)
             for f in fakes]
     g.add_node(target, invals, outs,
                {"leaves": out_leaves, "spec": spec, "multi": multi},
                n_args=n_args)
     env[node] = outs if multi else outs[0]
+
+
+def _pad_mixed(g: Graph, invals: List[Value],
+               pad_to: Mapping[str, SymbolicExpr]) -> Dict[Atom, SymbolicExpr]:
+    """An op that meets a tight operand carrying a bound dim the trace
+    equated with a full extent, and an operand with that full extent:
+    pad the tight operand (``invals``, in place) with zeros to the dim's
+    declared extent, which is what the reference's op reads.  Return, for
+    every such dim that no operand carries tight any more, its extent:
+    the op's output and its size arguments are at the cap there (the
+    trace wrote them in the bound symbol)."""
+    subst: Dict[Atom, SymbolicExpr] = {}
+    for bname, extent in pad_to.items():
+        tight = [i for i, v in enumerate(invals)
+                 if any(bname in d.free_vars() for d in v.dims)]
+        if tight and any(d == extent for i, v in enumerate(invals)
+                         if i not in tight for d in v.dims):
+            padded: Dict[int, Value] = {}
+            for i in tight:
+                v = invals[i]
+                if v.id not in padded:
+                    padded[v.id] = _pad_to_extent(g, v, bname, extent)
+                invals[i] = padded[v.id]
+            tight = []
+        if not tight:
+            subst[Atom(bname)] = extent
+    return subst
+
+
+def _pad_to_extent(g: Graph, v: Value, bname: str,
+                   extent: SymbolicExpr) -> Value:
+    """A ``constant_pad_nd`` node padding ``v``'s bound dim ``bname`` with
+    zeros to ``extent``."""
+    var = SymbolicExpr.var(bname)
+    axes = [a for a, d in enumerate(v.dims) if bname in d.free_vars()]
+    if any(v.dims[a] != var for a in axes):
+        raise NotImplementedError(
+            f"an op mixes the bounded dim {bname}, inside {v.dims}, with the "
+            f"full-extent dim {extent}: padding to the cap needs the bounded "
+            f"dim as a dim of its own")
+    pad: List[Any] = []
+    for a in reversed(range(len(v.dims))):
+        pad += [0, extent - var] if a in axes else [0, 0]
+    leaves, spec = pytree.tree_flatten(((Arg(0), pad), {}))
+    out = g.new_value(tuple(extent if a in axes else d
+                            for a, d in enumerate(v.dims)), v.dtype)
+    ins = [v] if v.base is None else [v, v.base]
+    g.add_node(torch.ops.aten.constant_pad_nd.default, ins, [out],
+               {"leaves": leaves, "spec": spec, "multi": False}, n_args=1)
+    return out
 
 
 # ---------------------------------------------------------------------------

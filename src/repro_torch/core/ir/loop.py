@@ -1,4 +1,5 @@
-"""Symbolic control flow: the rolled ``scan`` loop node.
+"""Symbolic control flow: the rolled ``scan`` loop node, and the opaque
+scan node (:class:`OpaqueScan`) of a scan the roll gate refuses.
 
 Port of ``repro/core/ir/loop.py``.  A ``torch.ops.higher_order.scan``
 whose ``xs`` have a *symbolic* length ``t`` becomes one :class:`Node` in
@@ -54,6 +55,68 @@ from .graph import Graph, Node, Value
 
 # params key marking a rolled loop node; the value is the LoopBody
 LOOP_PARAM = "_loop_body"
+
+
+class OpaqueScan:
+    """The op of an *opaque* scan node: a scan the roll gate refuses (a
+    static length, a bounded dim in the body, a carry passed through to
+    another slot, a scan inside a rolled body) stays one node, as the
+    reference keeps it (``repro/core/ir/trace.py:181-204``).
+
+    Called as ``op(init, xs, additional)`` (torch's operand groups), it
+    runs the captured body (the scan's fx ``GraphModule``) in forward
+    order over the leading dim of ``xs`` and stacks the ``ys``: the
+    reference's ``lax.scan`` semantics.  The plan counts the node's
+    outputs only; what the body allocates while it runs is outside
+    ``device_peak``, as it is outside the reference's.  A scan nested in
+    the body runs through the same loop (``_own_nested_scans``)."""
+
+    def __init__(self, body: Any, num_carry: int):
+        _own_nested_scans(body)
+        self.body = body
+        self.num_carry = num_carry
+
+    def __call__(self, init: Sequence[torch.Tensor],
+                 xs: Sequence[torch.Tensor], additional: Sequence[Any]
+                 ) -> List[torch.Tensor]:
+        nk = self.num_carry
+        carries = list(init)
+        n = xs[0].shape[0]
+        ys: List[torch.Tensor] = []
+        for i in range(n):
+            out = self.body(*carries, *[x[i] for x in xs], *additional)
+            carries = list(out[:nk])
+            if i == 0:
+                # stacked outputs allocated whole on the first step: what
+                # stacking the ys gives, without holding them all twice
+                ys = [torch.empty((n,) + tuple(y.shape), dtype=y.dtype,
+                                  device=y.device) for y in out[nk:]]
+            for buf, y in zip(ys, out[nk:]):
+                buf[i].copy_(y)
+            del out
+        # a final carry that is a view would pin its body's base
+        return [c.clone() if c._is_view() else c for c in carries] + ys
+
+
+def _run_scan(combine: Any, init: Sequence[torch.Tensor],
+              xs: Sequence[torch.Tensor], additional: Sequence[Any]
+              ) -> List[torch.Tensor]:
+    """``torch.ops.higher_order.scan``'s signature, run by
+    :class:`OpaqueScan`'s loop."""
+    return OpaqueScan(combine, len(init))(init, xs, additional)
+
+
+def _own_nested_scans(gm: Any) -> None:
+    """Route the scans inside a captured body through :func:`_run_scan`,
+    so an opaque body runs every level of nesting by the same loop."""
+    changed = False
+    for n in gm.graph.nodes:
+        if n.op == "call_function" and \
+                n.target is torch.ops.higher_order.scan:
+            n.target = _run_scan
+            changed = True
+    if changed:
+        gm.recompile()
 
 
 def loop_body_of(node: Node) -> Optional["LoopBody"]:

@@ -71,7 +71,7 @@ def train(cfg, *, steps: int = 50, batch_size: int = 8, mode: str = "dynamic",
     if mode != "dynamic":
         raise NotImplementedError(
             f"train(mode={mode!r}): the compiled path (jit + mesh sharding "
-            f"in the reference) is not ported yet (ROADMAP A8, distributed "
+            f"in the reference) is not ported yet (ROADMAP A6, distributed "
             f"and launch tooling)")
     dev = resolve_device(device)
     params = init_params(cfg, seed, device=dev)

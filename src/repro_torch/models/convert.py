@@ -8,8 +8,9 @@ sub-dict, its f32 ``a_log`` included, and ``ln_ssm``; for xLSTM the
 (n_s, ...), gate weights in f32) and returns the port's parameter dict
 with the stacks split per layer, each leaf in its own dtype, so the two
 packages can be compared on identical weights.  ``opt_state_from_jax``
-does the same for the reference's ``AdamWState``, and ``cache_from_jax``
-for its decode state, so a decode can be compared mid-stream.
+does the same for the reference's ``AdamWState``, ``comp_state_from_jax`` for its
+gradient-compression ``CompressionState``, and ``cache_from_jax`` for its
+decode state, so a decode can be compared mid-stream.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.api import resolve_device
+from ..distributed.compression import CompressionState
 from ..optim import AdamWState
 from .attention import KVCache
 from .blocks import BlockCache
@@ -77,6 +79,14 @@ def opt_state_from_jax(np_state: Any, cfg: ModelConfig,
     return AdamWState(step=_to_tensor(np_state.step, dev),
                       m=params_from_jax(np_state.m, cfg, dev),
                       v=params_from_jax(np_state.v, cfg, dev))
+
+
+def comp_state_from_jax(np_state: Any, cfg: ModelConfig,
+                        device: Any = None) -> CompressionState:
+    """The reference's ``CompressionState`` (numpy leaves: ``error`` laid
+    out as its params, f32) as the port's."""
+    return CompressionState(error=params_from_jax(np_state.error, cfg,
+                                                  resolve_device(device)))
 
 
 def cache_from_jax(np_state: Any, cfg: ModelConfig,

@@ -14,8 +14,8 @@ port's (``optimize(..., device="cpu")``):
   with the ``pad_to`` argument capture gives the chained op.
 * the VM equals the interpreter bitwise, with identical stats; the
   reference's rebinding (cache-alias) and measured-zero regressions
-  (``tests/test_bounded_dims.py``); the capture refusal of an op that
-  mixes a bounded dim with a full-extent one.
+  (``tests/test_bounded_dims.py``).  An op that mixes a bounded dim with
+  a full-extent one is held in ``test_torch_capture_parity.py``.
 * on the reference's traced graphs bridged into port graphs
   (``test_torch_planning.bridge``), the port's planning equals the
   reference's: schedule, remat candidates, slots, ``arena_bound_bytes``,
@@ -362,18 +362,6 @@ def test_measured_zero_frees_and_reuses():
             assert list(fn.last_report.stats.measured_dims.values()) == [0]
             assert int(o_vm[1]) == 0
     assert fn.last_report.stats.arena_growth_bytes == 0
-
-
-def test_capture_refuses_a_mixed_bounded_and_full_extent_op():
-    def mixed(x, mask):
-        rows, cnt = masked_select(x, mask)
-        return rows + x, cnt
-
-    with pytest.raises(NotImplementedError,
-                       match=r"aten\.add\.Tensor mixes the bounded dim __b0 "
-                             r"with the full-extent dim s"):
-        optimize(mixed, *SELECT_SPECS, dynamic_dims={"s": (1, 64)},
-                 device="cpu")
 
 
 # -- bridged planning ------------------------------------------------------------

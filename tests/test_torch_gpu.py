@@ -1174,3 +1174,127 @@ def test_serve_raises_where_capture_refuses_on_the_card(gen, monkeypatch):
         serve_mod.serve(get_smoke_config("llama2_1b"), batch=2,
                         prompt_len=3, gen=2)
     assert calls == []
+
+
+# -- gradient accumulation, compression and the opaque scan node ---------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("option", ["grad_accum", "compress"])
+def test_accum_and_compress_steps_are_the_eager_step_on_the_card(
+        gen, option, dtype):
+    """The smoke ``make_train_step(grad_accum=2)`` (b static at 4) and
+    ``(compress=True)`` (b and s symbolic; two steps, the second from the
+    first's error) through ``optimize``: every output leaf bitwise equal
+    to the eager step's, with its kernel launches.  Kernel selection is
+    off, so the plan's ops route as eager's do."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.core import (TensorSpec, optimize, spec_like,
+                                  symbolic_dims)
+    from repro_torch.distributed import init_compression_state
+    from repro_torch.launch.steps import adamw_config_for, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    cfg = dataclasses.replace(SMOKE, dtype=dtype)
+    params = init_params(cfg, seed=0)
+    state = [params, init_state(params, adamw_config_for(cfg))]
+    B, S = symbolic_dims("b, s")
+    if option == "grad_accum":
+        step = make_train_step(cfg, grad_accum=2)
+        b_dim, dims = 4, {"s": (16, 64)}
+    else:
+        step = make_train_step(cfg, compress=True)
+        state.append(init_compression_state(params))
+        b_dim, dims = B, {"b": (1, 8), "s": (16, 64)}
+    spec = {k: TensorSpec((b_dim, S), torch.int32)
+            for k in ("tokens", "labels")}
+    opt = optimize(step, *[spec_like(x) for x in state], spec,
+                   dynamic_dims=dims, kernel_select=False)
+    assert opt.report.guards == []
+    for s in (16, 40):
+        batch = {k: torch.randint(0, cfg.vocab, (4, s), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                 for k in spec}
+        n0 = (flash_attention_cuda.launches, rmsnorm_cuda.launches)
+        want = step(*state, batch)
+        n1 = (flash_attention_cuda.launches, rmsnorm_cuda.launches)
+        got = opt(*state, batch)
+        n2 = (flash_attention_cuda.launches, rmsnorm_cuda.launches)
+        assert n2[0] - n1[0] == n1[0] - n0[0] > 0
+        assert n2[1] - n1[1] == n1[1] - n0[1] > 0
+        g, w = pytree.tree_leaves(got), pytree.tree_leaves(want)
+        assert len(g) == len(w)
+        for i, (a, c) in enumerate(zip(g, w)):
+            assert torch.equal(a, c), f"s {s}: leaf {i}"
+        if option == "compress":
+            state = list(got[1:])       # the next step from this error
+
+
+def _scan_norms(x, scales):
+    """Four RMSNorms in a row as a static-length ``core.scan``."""
+    from repro_torch.core import scan
+
+    def body(h, scale):
+        h = rmsnorm(h, scale, 1e-6, None)
+        return h, h.float().square().mean(-1)
+    return scan(body, x, scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_opaque_scan_is_the_eager_loop_on_the_card(gen, dtype):
+    """A static-length scan is one opaque node; its plan, on the VM and
+    the interpreter, is bitwise the eager loop, with one RMSNorm kernel
+    launch an iteration."""
+    from repro_torch.core import TensorSpec, optimize, symbolic_dims
+
+    B, S = symbolic_dims("b, s")
+    specs = (TensorSpec((B, S, 256), dtype), TensorSpec((4, 256), dtype))
+    dims = {"b": (1, 8), "s": (1, 64)}
+    fn = optimize(_scan_norms, *specs, dynamic_dims=dims)
+    ref = optimize(_scan_norms, *specs, dynamic_dims=dims,
+                   executor="reference")
+    assert [n.prim_name for n in fn.plan.graph.nodes] == ["scan"]
+    for b, s in ((1, 16), (3, 40), (8, 64)):
+        x = _randn(gen, (b, s, 256), dtype)
+        scales = _randn(gen, (4, 256), dtype, 0.1)
+        want = _scan_norms(x, scales)
+        n0 = rmsnorm_cuda.launches
+        got = fn(x, scales)
+        assert rmsnorm_cuda.launches - n0 == 4
+        other = ref(x, scales)
+        for a, c, o in zip(got, want, other):
+            assert torch.equal(a, c) and torch.equal(a, o)
+        assert fn.last_report.stats.as_dict() == \
+            ref.last_report.stats.as_dict()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("executor", ["vm", "reference"])
+def test_an_opaque_body_that_fails_on_the_card_raises(gen, executor):
+    """No fallback: a body op that refuses its input on the card (the
+    sm90 flash kernel asked for f32) raises out of the call."""
+    from repro_torch.core import TensorSpec, optimize, scan
+
+    def f(q, xs):
+        def body(h, x):
+            h = flash_attention(h + x, h, h, True, None, "sm90_bm128_bn128")
+            return h, h.sum(-1)
+        return scan(body, q, xs)
+
+    fn = optimize(f, TensorSpec((1, 2, 16, 64), torch.float32),
+                  TensorSpec((3, 1, 2, 16, 64), torch.float32),
+                  executor=executor)
+    assert [n.prim_name for n in fn.plan.graph.nodes] == ["scan"]
+    q = _randn(gen, (1, 2, 16, 64), torch.float32)
+    xs = _randn(gen, (3, 1, 2, 16, 64), torch.float32)
+    n0 = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="takes torch.bfloat16"):
+        fn(q, xs)
+    assert flash_attention_cuda.launches == n0

@@ -21,6 +21,9 @@ to a single ``Loop`` instruction.  On the same seeded numpy inputs:
   planning equals the reference's: schedule, remat candidates, slots,
   ``arena_bound_bytes``, instruction counts, and per trip count
   ``device_peak`` and ``arena_bytes``.
+
+A scan the roll gate refuses (one opaque node) is held in
+``test_torch_capture_parity.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +38,6 @@ from repro_torch.core import (MemoryLimitExceeded, TensorSpec, optimize, scan,
                               symbolic_dims)
 from repro_torch.core.api import _compile_pipeline
 from repro_torch.core.lowering import lower_plan
-from repro_torch.kernels import masked_select
 from test_torch_planning import bridge
 
 ARCHS = ["llama2_1b", "gemma_2b", "granite_8b", "musicgen_medium"]
@@ -269,27 +271,6 @@ def test_scan_outside_optimize_is_a_python_loop():
         h, y = body(h, xs[i])
         want.append(y)
     assert torch.equal(c, h) and torch.equal(ys, torch.stack(want))
-
-
-def test_capture_refuses_unrollable_scans():
-    def static(h0, xs):
-        return scan(lambda h, x: (h + x, h.sum(-1)), h0, xs)
-
-    with pytest.raises(NotImplementedError, match="static"):
-        optimize(static, TensorSpec((2, 4), f32), TensorSpec((3, 2, 4), f32),
-                 device="cpu")
-
-    def bounded_body(h0, xs, mask):
-        def body(h, x):
-            rows, _ = masked_select(x, mask)
-            return h + rows.sum(0), h.sum(-1)
-        return scan(body, h0, xs)
-
-    t, = symbolic_dims("t")
-    with pytest.raises(NotImplementedError, match="bounded dim"):
-        optimize(bounded_body, TensorSpec((4,), f32),
-                 TensorSpec((t, 6, 4), f32), TensorSpec((6,), torch.bool),
-                 dynamic_dims={"t": T_RANGE}, device="cpu")
 
 
 # -- bridged planning ------------------------------------------------------------

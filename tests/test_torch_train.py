@@ -184,11 +184,283 @@ def test_gradients_match_reference(reference, port, b, s):
     _assert_trees_close(grads, params_from_jax(jgrads, cfg, "cpu"))
 
 
-def test_train_step_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="compression"):
-        make_train_step(SMOKE, compress=True)
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        make_train_step(SMOKE, grad_accum=2)
+# -- gradient accumulation and compression (smoke llama2_1b, f32) ------------
+
+OPTION_B = 4
+OPTION_ENVS = [(4, 24), (4, 40)]
+
+
+@pytest.fixture(scope="module")
+def options():
+    """The reference's smoke ``llama2_1b`` (``scan_layers=False``) with an
+    AdamW state three steps old and a compression error drawn from a
+    seed, its eager (jitted) ``grad_accum=2`` and ``compress=True`` steps
+    per shape, and the same state in the port's layout
+    (``models/convert.py``)."""
+    from repro.configs import get_smoke_config as jget_smoke_config
+    from repro.distributed.compression import CompressionState
+    from repro.launch.steps import make_train_step as jstep
+    from repro.models import init_params
+    from repro.optim import AdamWState
+    from repro_torch.models import comp_state_from_jax
+
+    jcfg = dataclasses.replace(jget_smoke_config("llama2_1b"),
+                               scan_layers=False)
+    params = init_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.RandomState(11)
+    opt_state = AdamWState(
+        step=jnp.asarray(3, jnp.int32),
+        m=jax.tree.map(lambda p: jnp.asarray(
+            1e-3 * rng.randn(*p.shape), jnp.float32), params),
+        v=jax.tree.map(lambda p: jnp.asarray(
+            1e-6 * rng.rand(*p.shape), jnp.float32), params))
+    comp = CompressionState(error=jax.tree.map(lambda p: jnp.asarray(
+        1e-4 * rng.randn(*p.shape), jnp.float32), params))
+    steps = {"grad_accum": jax.jit(jstep(jcfg, grad_accum=2)),
+             "compress": jax.jit(jstep(jcfg, compress=True))}
+    results = {}
+
+    def run(option, b, s):
+        if (option, b, s) not in results:
+            nb = {k: jnp.asarray(v) for k, v in
+                  _batch_np(jcfg, b, s, b * 100 + s).items()}
+            state = (params, opt_state) + \
+                ((comp,) if option == "compress" else ())
+            results[(option, b, s)] = jax.tree.map(
+                np.asarray, steps[option](*state, nb))
+        return results[(option, b, s)]
+
+    cfg = SMOKE
+    np_tree = jax.tree.map(np.asarray, (params, opt_state, comp))
+    port_state = (params_from_jax(np_tree[0], cfg, "cpu"),
+                  opt_state_from_jax(np_tree[1], cfg, "cpu"),
+                  comp_state_from_jax(np_tree[2], cfg, "cpu"))
+    return jcfg, run, port_state, (params, opt_state, comp)
+
+
+def _option_step(option):
+    if option == "grad_accum":
+        return make_train_step(SMOKE, grad_accum=2)
+    return make_train_step(SMOKE, compress=True)
+
+
+def _option_state(option, port_state):
+    return port_state if option == "compress" else port_state[:2]
+
+
+def _quant_step(port_state, nb) -> float:
+    """The largest quantization step (a block's scale) of the compression
+    the port's eager step makes from ``port_state``: max |g + err| / 127."""
+    params, _, comp = port_state
+    leaves, tree = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        grads = torch.autograd.grad(loss_fn(
+            SMOKE, pytree.tree_unflatten(leaves, tree), nb), leaves)
+    return max(float((g.float() + e).abs().max()) for g, e in
+               zip(grads, pytree.tree_leaves(comp.error))) / 127
+
+
+def _assert_close_up_to_flips(got, want, flip, scaled=False):
+    """As ``_assert_trees_close``, but an element may also differ by
+    ``flip`` (what one quantization step moves it by): where the two
+    packages' f32 gradients straddle a rounding tie, q differs by one.
+    Such elements stay rare: at most 0.1% of a leaf's, or one."""
+    g, w = _by_path(got), _by_path(want)
+    assert g.keys() == w.keys()
+    for k in w:
+        want_k, got_k = w[k].numpy(), g[k].numpy()
+        atol = TOL * float(np.abs(want_k).max()) if scaled else TOL
+        tol = atol + TOL * np.abs(want_k)
+        diff = np.abs(got_k - want_k)
+        assert (diff <= tol + flip).all(), str(k)
+        assert int((diff > tol).sum()) <= max(1, want_k.size // 1000), \
+            str(k)
+
+
+@pytest.mark.parametrize("option", ["grad_accum", "compress"])
+def test_option_steps_match_reference(options, option):
+    """The port's eager steps against the reference's on the same weights,
+    moments and compression error: loss, parameters, moments and the new
+    error within 2e-4 (the moments relative to their leaf's largest); with
+    compression, an element of the error and moments may also sit one
+    quantization step apart, where the two gradients straddle a tie."""
+    from repro_torch.models import comp_state_from_jax
+
+    _, run, port_state, _ = options
+    cfg = SMOKE
+    for b, s in OPTION_ENVS:
+        want = run(option, b, s)
+        nb = _torch_batch(_batch_np(cfg, b, s, b * 100 + s))
+        got = _option_step(option)(*_option_state(option, port_state), nb)
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=TOL,
+                                   atol=TOL)
+        _assert_trees_close(got[1], params_from_jax(want[1], cfg, "cpu"))
+        want_opt = opt_state_from_jax(want[2], cfg, "cpu")
+        if option == "grad_accum":
+            _assert_trees_close(got[2].m, want_opt.m, scaled=True)
+            _assert_trees_close(got[2].v, want_opt.v, scaled=True)
+            continue
+        # AdamW's b1 = 0.9, b2 = 0.95: a step d moves m by 0.1 d and v by
+        # 0.05 of the square's change, at most 0.05 d (2 |g_hat| + d)
+        d = _quant_step(port_state, nb)
+        g_max = 127 * d
+        _assert_close_up_to_flips(got[2].m, want_opt.m, 0.1 * d * 1.001,
+                                  scaled=True)
+        _assert_close_up_to_flips(got[2].v, want_opt.v,
+                                  0.05 * d * (2 * g_max + d) * 1.001,
+                                  scaled=True)
+        _assert_close_up_to_flips(got[3].error, comp_state_from_jax(
+            want[3], cfg, "cpu").error, d * 1.001)
+
+
+def test_quantize_int8_bitwise_to_reference():
+    """Blocks of 256 with a ragged tail, a zero block (the 1e-12 floor),
+    exact halves (round half to even) and the clip at 127."""
+    from repro.distributed.compression import quantize_int8 as jquant
+    from repro_torch.distributed import quantize_int8
+
+    rng = np.random.RandomState(5)
+    ties = np.zeros(512, np.float32)
+    ties[:256] = np.arange(256) % 9 - 4.5      # max 4.5: ties at x.5
+    ties[0] = 127.0                            # scale 1: ties stay ties
+    cases = [rng.randn(1000).astype(np.float32),
+             (rng.randn(33, 17) * 1e-9).astype(np.float32),
+             np.zeros((3, 256), np.float32), ties,
+             np.float32([1.0, -1.0, 0.5, 3e38, -3e38])]
+    for x in cases:
+        jq, js = jquant(jnp.asarray(x))
+        q, scale = quantize_int8(torch.from_numpy(x))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+
+
+@pytest.fixture(scope="module")
+def option_plans(options):
+    from repro_torch.core import TensorSpec, symbolic_dims
+    B, S = symbolic_dims("b, s")
+    params = options[2]
+    plans = {}
+    for option in ("grad_accum", "compress"):
+        b = OPTION_B if option == "grad_accum" else B
+        spec = {k: TensorSpec((b, S), torch.int32)
+                for k in ("tokens", "labels")}
+        dims = {"s": DYNAMIC_DIMS["s"]} if option == "grad_accum" \
+            else DYNAMIC_DIMS
+        plans[option] = optimize(
+            _option_step(option),
+            *[spec_like(x) for x in _option_state(option, params)], spec,
+            dynamic_dims=dims, device="cpu")
+    return plans
+
+
+def _seed_state():
+    """The port's seed-0 smoke state: weights, AdamW and a zero error."""
+    from repro_torch.distributed import init_compression_state
+    from repro_torch.launch.steps import adamw_config_for
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+    params = init_params(SMOKE, seed=0, device="cpu")
+    return (params, init_state(params, adamw_config_for(SMOKE)),
+            init_compression_state(params))
+
+
+@pytest.mark.parametrize("option", ["grad_accum", "compress"])
+def test_option_steps_through_optimize_are_eager(options, option_plans,
+                                                 option):
+    """One plan, no guard: every output bitwise equal to the eager step's;
+    the compressed step twice, the second from the first's error."""
+    opt = option_plans[option]
+    assert opt.report.guards == []
+    state = _option_state(option, options[2])
+    for b, s in OPTION_ENVS:
+        nb = _torch_batch(_batch_np(SMOKE, b, s, b * 100 + s))
+        got = opt(*state, nb)
+        want = _option_step(option)(*state, nb)
+        assert all(torch.equal(x, y) for x, y in
+                   zip(pytree.tree_leaves(got), pytree.tree_leaves(want)))
+        assert 0 < opt.last_report.stats.device_peak <= \
+            opt.guaranteed_peak_bytes
+        if option == "compress":
+            state = tuple(got[1:])
+
+
+def test_reference_accum_plan_raises_where_the_port_runs(options,
+                                                        option_plans):
+    """The reference plans ``grad_accum=2`` (b static, s symbolic) and its
+    first call raises; the port's plan runs (held bitwise above)."""
+    import repro.core as R
+    from repro.launch.steps import make_train_step as jstep
+
+    jcfg, _, _, (params, opt_state, _) = options
+    S, = R.symbolic_dims("s")
+    spec = {k: jax.ShapeDtypeStruct((OPTION_B, S), jnp.int32)
+            for k in ("tokens", "labels")}
+    as_spec = lambda t: jax.tree.map(              # noqa: E731
+        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
+    jfn = R.optimize(jstep(jcfg, grad_accum=2), as_spec(params),
+                     as_spec(opt_state), spec,
+                     dynamic_dims={"s": DYNAMIC_DIMS["s"]})
+    b, s = OPTION_ENVS[0]
+    nb = {k: jnp.asarray(v) for k, v in
+          _batch_np(jcfg, b, s, b * 100 + s).items()}
+    with pytest.raises(Exception, match="UnexpectedDimVar|'s'"):
+        jfn(params, opt_state, nb)
+
+
+def test_compress_through_both_optimizes(options, option_plans):
+    """``compress=True`` with (b, s) symbolic through the reference's
+    ``optimize`` and the port's, on the same state: the loss, parameters
+    and the new error within 2e-4, the error up to rare tie flips."""
+    import repro.core as R
+    from repro.launch.steps import make_train_step as jstep
+    from repro_torch.models import comp_state_from_jax
+
+    jcfg, _, port_state, jstate = options
+    B, S = R.symbolic_dims("b, s")
+    spec = {k: jax.ShapeDtypeStruct((B, S), jnp.int32)
+            for k in ("tokens", "labels")}
+    as_spec = lambda t: jax.tree.map(              # noqa: E731
+        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), t)
+    jfn = R.optimize(jstep(jcfg, compress=True),
+                     *[as_spec(x) for x in jstate], spec,
+                     dynamic_dims=DYNAMIC_DIMS)
+    opt = option_plans["compress"]
+    for b, s in ((1, 16), (3, 40)):
+        npb = _batch_np(jcfg, b, s, b * 100 + s)
+        want = jax.tree.map(np.asarray, jfn(
+            *jstate, {k: jnp.asarray(v) for k, v in npb.items()}))
+        got = opt(*port_state, _torch_batch(npb))
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=TOL,
+                                   atol=TOL)
+        _assert_trees_close(got[1], params_from_jax(want[1], SMOKE, "cpu"))
+        d = _quant_step(port_state, _torch_batch(npb))
+        _assert_close_up_to_flips(got[3].error, comp_state_from_jax(
+            want[3], SMOKE, "cpu").error, d * 1.001)
+
+
+@pytest.mark.parametrize("case", ["indivisible", "symbolic_batch", "zero"])
+def test_option_refusals(case):
+    """``grad_accum`` must divide a static batch: an eager call at b = 3
+    and a capture with ``b`` symbolic raise ``ValueError``, as does
+    ``grad_accum=0``."""
+    from repro_torch.core import TensorSpec, symbolic_dims
+    if case == "zero":
+        with pytest.raises(ValueError, match="grad_accum must be >= 1"):
+            make_train_step(SMOKE, grad_accum=0)
+        return
+    params, opt_state, _ = _seed_state()
+    if case == "indivisible":
+        nb = _torch_batch(_batch_np(SMOKE, 3, 16, 0))
+        with pytest.raises(ValueError, match="does not divide the batch"):
+            make_train_step(SMOKE, grad_accum=2)(params, opt_state, nb)
+        return
+    B, S = symbolic_dims("b, s")
+    spec = {k: TensorSpec((B, S), torch.int32) for k in ("tokens", "labels")}
+    with pytest.raises(ValueError, match="grad_accum=2 .* symbolic"):
+        optimize(make_train_step(SMOKE, grad_accum=2), spec_like(params),
+                 spec_like(opt_state), spec, dynamic_dims=DYNAMIC_DIMS,
+                 device="cpu")
 
 
 @pytest.mark.parametrize("causal", [True, False])
