@@ -248,17 +248,18 @@ Phases (any failure exits non-zero):
    each in f32 and in bf16: n_layers mma launches a request of the
    dtype's kernel, logits within 2e-4 (f32) or 5e-2 (bf16) of the eager
    plain path; (e) ``serve`` for musicgen (frames, 4 codebooks) and
-   internvl2: no flash launch, (2 L + 1) RMSNorm launches a step, cache
-   length 48 of 49 rows, ms a step; decode vs forward within 2e-2 at
-   GEMMA_CUT_LAYERS layers, the full depth's reading printed beside a
-   control (the plain forward vs the kernel forward).
+   internvl2 at DENSE_SERVE_LAYERS = 16 layers (musicgen's 48-layer
+   decode capture alone took 84 s): no flash launch, (2 L + 1) RMSNorm
+   launches a step, cache length 48 of 49 rows, ms a step; decode vs
+   forward within 2e-2 at GEMMA_CUT_LAYERS layers, the 16 layers' reading
+   printed beside a control (the plain forward vs the kernel forward).
 
 15. bench train (``[bench_train]`` lines), run after a garbage
    collection: the reference's bench step (``make_train_step``, symbolic
    b in [1, 8], s in [16, 1024], the state donated) for ``gemma_2b`` at
-   full width and depth (18 layers, 8/1 heads at hd 256, GeGLU, the tied
-   256k vocab) and ``musicgen_medium`` at full width in ``embeddings``
-   mode (f32 frame embeddings (B, S, 1536), (B, S, 4) labels) at the
+   full width (8/1 heads at hd 256, GeGLU, the tied 256k vocab; 12 of 18
+   layers, for the time limit) and ``musicgen_medium`` at full width in
+   ``embeddings`` mode (f32 frame embeddings (B, S, 1536), (B, S, 4) labels) at the
    depth of BENCH_TRAIN, one model at a time, bf16 weights and f32 AdamW
    moments made from seed 0 on the card anew for every step: optimize
    seconds by span, nodes; at (1,16), (2,1000), (8,1024) one capture, no
@@ -409,6 +410,27 @@ Phases (any failure exits non-zero):
    + x at (s, 4096), s in {16, 1024}, occupancies 0, 0.5, 1: bitwise to
    the eager padded form, the output at the cap.
 
+21. launch (``[launch]`` lines), after phase 20, ``llama2_1b`` at full
+   width (bf16, seed-0 weights): (a) ``launch.train.train(mode=
+   "compiled", data_mode="bucketed", batch_size=8, steps=6)`` -- one
+   static plan per batch shape, the state donated, a checkpoint at step
+   5 -- and ``mode="dynamic"`` on the same seed and batches:
+   ``recompilations`` = the pipeline's distinct shapes, every plan's
+   ``device_peak`` <= its guaranteed peak, 4 sm90 flash and 9 RMSNorm
+   launches a step, finite losses within 1e-4 of the dynamic run's
+   (bitwise reported); compile seconds per shape and step ms beside the
+   dynamic run's reported; (b) ``launch.graph_analysis.analyze_graph`` on
+   phase 3's prefill plan and phase 6's train plan at (8,1024): FLOPs,
+   bytes and transcendentals, the FLOPs beside 2·N·tokens and 6·N·tokens
+   (``benchmarks/roofline.py``'s model), over the phase's median as
+   TFLOP/s and as a share of ``HardwareModel.tensor_flops``, reported
+   only; (c) (a)'s step-5 checkpoint restored through
+   ``ShardingRules(make_debug_mesh(1, 1))`` (NCCL, world 1) as DTensors,
+   every local tensor bitwise the saved one, one step from it giving the
+   uninterrupted step 6's loss bitwise; then
+   ``examples/torch_elastic_restart.py``'s ``main()`` on ``cuda``; the
+   process group destroyed before the phase ends.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
@@ -420,8 +442,9 @@ gemma_train and musicgen_train = phase 15, moe_prefill = phase 16 (a),
 moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a),
 hybrid_serve = phase 17 (d), xlstm_prefill = phase 18 (a),
 xlstm_serve = phase 18 (e), decode = phase 19, accum_train = phase 20
-(a), compress_train = phase 20 (b), opaque_scan = phase 20 (c) and
-mixed_op = phase 20 (d);
+(a), compress_train = phase 20 (b), opaque_scan = phase 20 (c),
+mixed_op = phase 20 (d), compiled_train = phase 21 (a) and elastic =
+phase 21 (c), the step from the restored state and the example;
 bounded, loop, gemma_serve, dense_serve, moe_serve, hybrid_serve,
 both xlstm paths, decode, opaque_scan and mixed_op launch no flash:
 their attention and ops are plain PyTorch, as the reference's are plain
@@ -1164,6 +1187,7 @@ def phase_main_path():
         f"launches over the run {launches}")
     OBS["prefill"] = opt
     medians = phase_latency(opt, params, batches)
+    ANALYZED["prefill"] = (opt.plan.graph, medians[REQUESTS[-1]])
     phase_profile(opt, params, batches)
     return cfg, params, opt_ref, batches, outs, launches, rows, medians
 
@@ -1566,6 +1590,7 @@ def phase_train():
                            int(OBS_RUNG * peak), want[0])
     OBS["train"] = opt
     TRAIN_PLAN["opt"] = opt
+    ANALYZED["train"] = (opt.plan.graph, rows["uncapped"][-1]["median_ms"])
     compare_train_plain(cfg, params, opt_state, batch, want)
     del params, opt_state, want, want_leaves, opt, fn, last
     torch.cuda.empty_cache()
@@ -3917,6 +3942,9 @@ DENSE_SM90_HEADS = {"starcoder2_7b": (36, 4, 128),
 DENSE_SMOKE_TOL = {"float32": 2e-4, "bfloat16": GEMMA_LOGIT_TOL}   # (d)
 DENSE_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}             # (e)
 DENSE_SERVED = ("musicgen_medium", "internvl2_2b")
+# (e): serve's depth, for the script's time limit: musicgen_medium's
+# 48-layer decode capture took 84.3 s of its serve's 90.0 s optimize
+DENSE_SERVE_LAYERS = 16
 
 
 def phase_dense_kernels():
@@ -4279,12 +4307,12 @@ def phase_dense_smoke():
     return totals
 
 
-def _decode_vs_forward(cfg, params, out, opt=None, impl=None):
+def _decode_vs_forward(cfg, params, out, impl=None):
     """max |decode - forward| / max |forward| over the real vocab: the
     logits after the last prompt step of ``serve``'s ``out`` against the
-    forward on the same prompt, through ``opt`` (musicgen's frames) or
-    eagerly (internvl2, with an empty vision prefix, as the decode has
-    none).  Also returns how many argmaxes agree, and of how many."""
+    eager forward on the same prompt (internvl2 with an empty vision
+    prefix, as the decode has none).  Also returns how many argmaxes
+    agree, and of how many."""
     import torch
 
     from repro_torch.models import prefill
@@ -4297,8 +4325,7 @@ def _decode_vs_forward(cfg, params, out, opt=None, impl=None):
         batch = {"vis_embed": torch.zeros(
             (prompt.shape[0], 0, cfg.d_model), dtype=cfg.torch_dtype,
             device=dev), "tokens": prompt.to(torch.int32)}
-    full = opt(params, batch) if opt is not None \
-        else prefill(cfg, params, batch, impl=impl)
+    full = prefill(cfg, params, batch, impl=impl)
     full = full[..., :cfg.vocab].float()
     dec = out["prompt_logits"][:, 0][..., :cfg.vocab].float()
     if not torch.isfinite(dec).all():
@@ -4308,24 +4335,27 @@ def _decode_vs_forward(cfg, params, out, opt=None, impl=None):
     return rel, same, dec.argmax(-1).numel(), full
 
 
-def phase_dense_serve(cfg, arch, params, opt):
-    """Phase 14 (e): ``launch.serve.serve`` at full width and depth (seed
-    0, the weights of (b)), 32 prompt steps and 16 decode steps: no flash
-    launch, (2 L + 1) RMSNorm launches a step, cache length 48 of 49 rows,
-    ms a step.  The logits after the last prompt step against the forward
-    on the same prompt (max |diff| / max |forward| over the real vocab,
+def phase_dense_serve(cfg, arch, params):
+    """Phase 14 (e): ``launch.serve.serve`` at full width, DENSE_SERVE_LAYERS
+    deep (seed 0, the first layers of (b)'s weights), 32 prompt steps and
+    16 decode steps: no flash launch, (2 L + 1) RMSNorm launches a step,
+    cache length 48 of 49 rows, ms a step.  The logits after the last
+    prompt step against the forward on the same prompt (max |diff| / max |forward| over the real vocab,
     the reference's measure, tests/test_models.py:81-108) must be within
     2e-2 at GEMMA_CUT_LAYERS layers (a ``serve`` of the config cut to that
     depth, whose seed-0 weights are (b)'s first layers): like the logits
     in (c), 24-48 random bf16 layers carry one-ulp differences between
     the decode's GEMVs and the forward's GEMMs past any tolerance that
-    would still catch a fault.  At full depth the reading is printed
-    beside a control, the plain forward (``impl="ref"``) against the
-    kernel forward."""
+    would still catch a fault.  At DENSE_SERVE_LAYERS the reading is
+    printed beside a control, the plain forward (``impl="ref"``) against
+    the kernel forward."""
     import dataclasses
 
     from repro_torch.launch.serve import serve
 
+    cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                DENSE_SERVE_LAYERS))
+    params = dict(params, layers=params["layers"][:cfg.n_layers])
     launches, out = counted_launches(
         lambda: serve(cfg, **DENSE_SERVE, seed=0, device=DEV))
     steps = DENSE_SERVE["prompt_len"] + DENSE_SERVE["gen"]
@@ -4356,8 +4386,7 @@ def phase_dense_serve(cfg, arch, params, opt):
                decode_ms=1e3 * out["decode_s"],
                decode_ms_per_step=1e3 * out["decode_s"] / DENSE_SERVE["gen"],
                decode_tok_per_s=out["decode_tok_per_s"], **times)
-    plan = opt if cfg.input_mode == "embeddings" else None
-    rel, same, n, full = _decode_vs_forward(cfg, params, out, opt=plan)
+    rel, same, n, full = _decode_vs_forward(cfg, params, out)
     ctrl = _decode_vs_forward(cfg, params, dict(
         out, prompt_logits=full[:, None]), impl="ref")[0]
     del out, full
@@ -4410,7 +4439,7 @@ def phase_dense():
                                         for (b, s), m in medians.items()},
                              depth=depth)
         if arch in DENSE_SERVED:
-            sl, srow = phase_dense_serve(cfg, arch, params, opt)
+            sl, srow = phase_dense_serve(cfg, arch, params)
             serve_l = {k: serve_l[k] + sl[k] for k in serve_l}
             summary[arch]["serve"] = srow
         del params, opt, batches, outs
@@ -4443,13 +4472,13 @@ def dense_row(r):
 
 # -- phase 15: the bench archs' train steps at full width -------------------
 
-# (arch, layers): gemma_2b at its full depth; musicgen_medium cut from 48
-# to 16 layers so that optimize stays within BENCH_OPTIMIZE_S on the H100
-# machine's host and the whole script within its time limit (48 layers
-# took 124.5 s in one run, 40 layers 161.1 s in another, 24 layers 47.7 s
-# in one and 127.8 s in another, the script then 1046.6 s: capture there
-# takes 1.2 to 4.5 s a layer from run to run)
-BENCH_TRAIN = (("gemma_2b", 18), ("musicgen_medium", 16))
+# (arch, layers): full width, the depth cut for the script's time limit:
+# gemma_2b from 18 layers to 12, musicgen_medium from 48 to 8 (optimize
+# within BENCH_OPTIMIZE_S on the H100 machine's host: musicgen's 48 layers
+# took 124.5 s in one run, 24 layers 47.7 s in one and 127.8 s in
+# another; capture there takes 1.2 to 4.5 s a layer from run to run; the
+# script took 1177.1 s with gemma at 18 and musicgen at 16)
+BENCH_TRAIN = (("gemma_2b", 12), ("musicgen_medium", 8))
 BENCH_OPTIMIZE_S = 120.0
 BENCH_LADDER = (0.90, 0.80, 0.70, 0.60, 0.50)   # of the uncapped device_peak
 BENCH_PLAIN_SHAPES = ((2, 1000), (8, 1024))      # at GEMMA_CUT_LAYERS
@@ -6873,6 +6902,223 @@ def phase_accum():
         f"{json.dumps(dict(a=rows_a, b=rows_b, c=rows_c, d=rows_d))}")
     return launches
 
+# -- phase 21: the launch tooling (compiled trainer, analyzer, restore) -----
+
+LAUNCH_BATCH = 8
+LAUNCH_STEPS = 6
+LAUNCH_CKPT_AT = 5      # (c): the checkpoint the restore reads
+LAUNCH_LOSS_TOL = 1e-4  # (a): compiled vs dynamic losses
+ANALYZED = {}           # (b): phase 3's and 6's graphs, their (8,1024) ms
+
+
+def launch_compiled(cfg, ckdir):
+    """(a) ``train(mode="compiled")`` beside ``mode="dynamic"`` on the same
+    seed and batches.  Returns the compiled run's stats and launches."""
+    import numpy as np
+
+    from repro_torch.launch.train import train
+
+    kw = dict(batch_size=LAUNCH_BATCH, steps=LAUNCH_STEPS,
+              data_mode="bucketed", log_every=10 ** 9)
+    shapes = sorted({tuple(b["tokens"].shape) for b in pipeline_batches(
+        cfg, LAUNCH_BATCH, LAUNCH_STEPS, "bucketed", 16, 96)})
+    t0 = time.perf_counter()
+    launches, compiled = counted_launches(lambda: train(
+        cfg, mode="compiled", ckpt_dir=str(ckdir),
+        ckpt_every=LAUNCH_CKPT_AT, **kw))
+    t_compiled = time.perf_counter() - t0
+    steps = compiled["steps_by_shape"]
+    t0 = time.perf_counter()
+    dynamic = train(cfg, mode="dynamic", **kw)
+    t_dynamic = time.perf_counter() - t0
+    peaks = {f"{b}x{s}": (fn.last_report.stats.device_peak,
+                          steps.guaranteed_peak_bytes[(b, s)])
+             for (b, s), fn in steps.plans.items()}
+    diff = float(np.max(np.abs(np.subtract(compiled["losses"],
+                                           dynamic["losses"]))))
+    bitwise = compiled["losses"] == dynamic["losses"]
+    log(f"[launch] (a) compiled: {LAUNCH_STEPS} steps at batch "
+        f"{LAUNCH_BATCH} in {t_compiled:.1f} s, recompilations "
+        f"{compiled['recompilations']} for the pipeline's shapes {shapes}; "
+        f"compile s per shape "
+        f"{ {f'{b}x{s}': round(v, 2) for (b, s), v in steps.compile_s.items()} }"
+        f"; device_peak, guaranteed per plan {peaks}; launches {launches}; "
+        f"step ms {[round(x, 3) for x in compiled['step_ms']]}; losses "
+        f"{compiled['losses']}")
+    log(f"[launch] (a) dynamic: one capture, {t_dynamic:.1f} s; step ms "
+        f"{[round(x, 3) for x in dynamic['step_ms']]}; losses "
+        f"{dynamic['losses']}; max |compiled - dynamic| {diff:.3e}, "
+        f"bitwise equal: {bitwise}")
+    if compiled["recompilations"] != len(shapes) or \
+            sorted(steps.plans) != shapes:
+        raise AssertionError(f"recompilations {compiled['recompilations']}, "
+                             f"plans {sorted(steps.plans)}, shapes {shapes}")
+    for key, (peak, bound) in peaks.items():
+        if peak > bound:
+            raise AssertionError(f"plan {key}: device_peak {peak} above its "
+                                 f"guaranteed {bound}")
+    want = {"sm90": LAUNCH_STEPS * cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
+            "rmsnorm": LAUNCH_STEPS * (2 * cfg.n_layers + 1)}
+    if launches != want:
+        raise AssertionError(f"compiled trainer launched {launches}, want "
+                             f"{want}")
+    if not np.all(np.isfinite(compiled["losses"])) or \
+            diff > LAUNCH_LOSS_TOL:
+        raise AssertionError(f"compiled losses {compiled['losses']} vs "
+                             f"dynamic {dynamic['losses']}")
+    row = dict(shapes=[list(x) for x in shapes],
+               recompilations=compiled["recompilations"],
+               compile_s={f"{b}x{s}": v
+                          for (b, s), v in steps.compile_s.items()},
+               peaks=peaks, compiled_step_ms=compiled["step_ms"],
+               dynamic_step_ms=dynamic["step_ms"],
+               losses=compiled["losses"], max_loss_diff=diff,
+               bitwise=bitwise, compiled_s=t_compiled, dynamic_s=t_dynamic)
+    return compiled, launches, row
+
+
+def launch_analyze(cfg):
+    """(b) the analyzer on phase 3's prefill plan and phase 6's train plan
+    at (8,1024), beside 2·N·tokens / 6·N·tokens and the phase's median.
+    Reported only."""
+    from repro_torch.kernels.hw_model import DEFAULT_HW
+    from repro_torch.launch.graph_analysis import analyze_graph
+
+    b, s = REQUESTS[-1]
+    n = cfg.param_count()
+    rows = {}
+    for name, factor in (("prefill", 2), ("train", 6)):
+        graph, median_ms = ANALYZED.pop(name)
+        t0 = time.perf_counter()
+        got = analyze_graph(graph, {"b": b, "s": s})
+        model = factor * n * b * s
+        tflops = got["flops"] / (median_ms * 1e-3) / 1e12
+        rows[name] = dict(flops=got["flops"], hbm_bytes=got["hbm_bytes"],
+                          transcendentals=got["transcendentals"],
+                          model_flops=model, median_ms=median_ms,
+                          tflops=tflops,
+                          share=tflops * 1e12 / DEFAULT_HW.tensor_flops,
+                          n_warnings=got["n_warnings"])
+        log(f"[launch] (b) {name} ({b},{s}): flops {got['flops']:.6e}, "
+            f"hbm_bytes {got['hbm_bytes']:.6e}, transcendentals "
+            f"{got['transcendentals']:.6e}, collectives "
+            f"{got['collective_bytes']:.0f} B, warnings "
+            f"{got['n_warnings']:.0f} (analysis "
+            f"{time.perf_counter() - t0:.2f} s); {factor}*N*tokens "
+            f"{model:.6e} (N {n}; ratio {got['flops'] / model:.4f}); over "
+            f"phase {3 if name == 'prefill' else 6}'s median "
+            f"{median_ms:.3f} ms: {tflops:.2f} TFLOP/s, "
+            f"{100 * rows[name]['share']:.2f}% of the bf16 tensor peak "
+            f"({DEFAULT_HW.tensor_flops:.3e})")
+    return rows
+
+
+def launch_restore(cfg, compiled, ckdir):
+    """(c) (a)'s step-5 checkpoint restored as DTensors on a 1x1 NCCL mesh,
+    bitwise; one step from it gives the uninterrupted step 6's loss
+    bitwise; then ``examples/torch_elastic_restart.py`` on the card."""
+    import importlib.util
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import spec_like
+    from repro_torch.data import DataPipeline, PipelineConfig
+    from repro_torch.launch.mesh import destroy_world, make_debug_mesh
+    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.launch.train import to_device
+
+    ck = Checkpointer(str(ckdir))
+    t0 = time.perf_counter()
+    step, plain, extra = ck.restore(LAUNCH_CKPT_AT)
+    t_plain = time.perf_counter() - t0
+    try:
+        rules = ShardingRules(make_debug_mesh(1, 1))
+        backend, world = dist.get_backend(), dist.get_world_size()
+        shardings = {k: rules.named(rules.params_pspecs(spec_like(v)))
+                     for k, v in plain.items()}
+        t0 = time.perf_counter()
+        _, state, _ = ck.restore(LAUNCH_CKPT_AT, shardings=shardings)
+        t_sharded = time.perf_counter() - t0
+        got, want = pytree.tree_leaves(state), pytree.tree_leaves(plain)
+        equal = len(got) == len(want) and all(
+            isinstance(g, DTensor) and g.to_local().is_cuda and
+            torch.equal(g.to_local(), w) for g, w in zip(got, want))
+        nbytes = sum(w.numel() * w.element_size() for w in want)
+        local = pytree.tree_map(lambda x: x.to_local(), state,
+                                is_leaf=lambda x: isinstance(x, DTensor))
+        del state, got, want, plain
+        pipe = DataPipeline(PipelineConfig(
+            vocab=cfg.vocab, batch_size=LAUNCH_BATCH, seed=0,
+            mode="bucketed", min_tokens=16, max_tokens=96))
+        pipe.restore(extra["pipeline"])
+        batch = to_device(pipe.next_batch(), torch.device("cuda"))
+        fn = compiled["steps_by_shape"].plan_for(batch)
+        args = [local["params"], local["opt_state"], batch]
+        del local, batch
+        loss = float(fn.call_donated(args)[0])
+        want_loss = compiled["losses"][LAUNCH_CKPT_AT]
+    finally:
+        destroy_world()
+    log(f"[launch] (c) step {step} restored ({nbytes} B) plain in "
+        f"{t_plain:.2f} s and as DTensors on a 1x1 {backend} mesh (world "
+        f"{world}) in {t_sharded:.2f} s: every local tensor bitwise the "
+        f"saved one: {equal}; step {step + 1} from it: loss {loss!r} vs "
+        f"the uninterrupted run's {want_loss!r}, bitwise: "
+        f"{loss == want_loss}")
+    if not equal or loss != want_loss or backend != "nccl":
+        raise AssertionError("the elastic restore is not bitwise")
+    spec = importlib.util.spec_from_file_location(
+        "torch_elastic_restart", ROOT / "examples" / "torch_elastic_restart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.main(["--device", "cuda"])
+    log(f"[launch] (c) examples/torch_elastic_restart.py on cuda: {out} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if dist.is_initialized():
+        raise AssertionError("the example left a process group up")
+    return dict(step=step, bytes=nbytes, plain_s=t_plain,
+                sharded_s=t_sharded, loss=loss, example=out)
+
+
+def phase_launch():
+    """Phase 21 ([launch] lines): (a) the compiled trainer, (b) the graph
+    analyzer, (c) the elastic restore, llama2_1b at full width.  Returns
+    the launches of each path."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+
+    t_phase = time.perf_counter()
+    cfg = CONFIG
+    ckdir = ROOT / "build" / "launch_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        compiled, compiled_launches, row_a = launch_compiled(cfg, ckdir)
+        rows_b = launch_analyze(cfg)
+        torch.cuda.empty_cache()
+        elastic_launches, row_c = counted_launches(
+            lambda: launch_restore(cfg, compiled, ckdir))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    want = {"sm90": cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
+            "rmsnorm": 2 * cfg.n_layers + 1}
+    if elastic_launches != want:
+        raise AssertionError(f"the restored step launched "
+                             f"{elastic_launches}, want {want}")
+    launches = {"compiled_train": compiled_launches,
+                "elastic": elastic_launches}
+    seconds = time.perf_counter() - t_phase
+    log(f"[launch] phase 21 {seconds:.1f} s; launches {launches}; rows "
+        f"{json.dumps(dict(a=row_a, b=rows_b, c=row_c))}")
+    return launches
+
 
 def main() -> int:
     try:
@@ -6958,6 +7204,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     accum_launches = phase_accum()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_launches = phase_launch()
     by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
                     "loop": rmsnorm_cuda.loop_launches - loop0}
     log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
@@ -7020,6 +7269,8 @@ def main() -> int:
         by_path["decode"] = decode_launches[counter]
         by_path.update({path: n[counter]
                         for path, n in accum_launches.items()})
+        by_path.update({path: n[counter]
+                        for path, n in launch_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \

@@ -1,4 +1,4 @@
-"""Fault-tolerant checkpointing of a pytree of tensors on one device.
+"""Fault-tolerant checkpointing with elastic (re-shardable) restore.
 
 Port of ``repro/checkpoint/checkpointer.py``:
 
@@ -8,14 +8,19 @@ Port of ``repro/checkpoint/checkpointer.py``:
     a failed save raises at the next ``wait()`` (or ``save()``);
   * **keep-N** garbage collection;
   * **data-pipeline cursor** and optimizer step are saved alongside
-    (``extra``), giving exact-once resume semantics.
+    (``extra``), giving exact-once resume semantics;
+  * **elastic restore**: leaves are stored as full logical tensors (a
+    DTensor leaf is gathered whole before it is written), so a checkpoint
+    restores onto any mesh: ``restore(shardings=...)`` makes each leaf a
+    DTensor with its ``NamedSharding`` (``launch.sharding``), each rank
+    cutting its own shard from the full tensor it read, as each host does
+    in the reference; nothing is scattered.
 
 ``save`` copies every leaf to host memory before it returns, so a trainer
 may donate the state to its next step while the write is in flight.
 Leaves are stored as ``.npy`` files; a bfloat16 leaf (which numpy cannot
 hold) is stored as its int16 bits, its dtype named in ``meta.json``, and
-restored bit for bit.  The reference's elastic re-shard restore
-(``shardings=``) is not ported yet.
+restored bit for bit.
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ def _flatten_with_names(tree) -> Tuple[List[Tuple[str, Any]], Any]:
 
 def _to_host(x: Any) -> torch.Tensor:
     """A host copy that no later write to ``x`` (or its donation) reaches."""
+    if hasattr(x, "full_tensor"):          # a DTensor: its logical tensor
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return torch.from_numpy(np.array(x))
@@ -156,10 +163,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, *,
-                device: Any = None) -> Tuple[int, Any, Dict]:
+    def restore(self, step: Optional[int] = None, *, device: Any = None,
+                shardings: Any = None) -> Tuple[int, Any, Dict]:
         """Load ``(step, state, extra)``; the state's tensors on ``device``
-        (``cuda`` unless given)."""
+        (``cuda`` unless given).  ``shardings``: a pytree of
+        ``NamedSharding`` (or ``None``) leaves laid out as the state; each
+        leaf with a sharding becomes a DTensor on its mesh (on the mesh's
+        device), the rank's shard cut from the full tensor, the rest stay
+        plain tensors."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -178,5 +189,17 @@ class Checkpointer:
             if dtype in _BITS:
                 t = t.view(dtype)
             leaves.append(t.to(dev))
-        return meta["step"], pytree.tree_map(leaves.__getitem__, skeleton), \
-            meta.get("extra", {})
+        state = pytree.tree_map(leaves.__getitem__, skeleton)
+        if shardings is not None:
+            state = pytree.tree_map(_distribute, state, shardings)
+        return meta["step"], state, meta.get("extra", {})
+
+
+def _distribute(x: Any, sharding: Any) -> Any:
+    """``x`` as a DTensor with ``sharding``'s placements on its mesh, this
+    rank's shard cut locally (``src_data_rank=None``: no collective)."""
+    if sharding is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x.to(sharding.mesh.device_type), sharding.mesh,
+                             sharding.placements, src_data_rank=None)

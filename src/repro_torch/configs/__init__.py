@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, cells_for
 
 ARCHS = ["llama2_1b", "gemma_2b", "gemma_7b", "granite_8b", "starcoder2_7b",
          "musicgen_medium", "internvl2_2b", "kimi_k2_1t_a32b",
@@ -32,5 +32,5 @@ def get_smoke_config(name: str) -> ModelConfig:
     return importlib.import_module(f".{canonical(name)}", __package__).SMOKE
 
 
-__all__ = ["ARCHS", "ModelConfig", "canonical", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "canonical", "cells_for",
+           "get_config", "get_smoke_config"]

@@ -15,12 +15,13 @@ applies to come from ``models.lm.layer_windows``); and the xLSTM family
 ``slstm_every``-th layer, their inner width ``xlstm_proj_factor`` x
 d_model (``xlstm_config()``; the groups come from ``models.lm.xlstm_meta``).
 The reference's ``remat_policy`` and ``scan_layers`` have no twin: the
-port unrolls its layers and leaves remat to ``optimize``.
+port unrolls its layers and leaves remat to ``optimize``.  ``SHAPES``
+and ``cells_for`` are the dry-run's (arch x input shape) cells.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -137,3 +138,29 @@ class ModelConfig:
         if self.n_codebooks:
             emb += self.n_codebooks * d * self.vocab
         return self.n_layers * (attn + ffn) + emb
+
+
+# -- input shape sets (``repro/configs/base.py:145-166``) ---------------------
+
+SHAPES: Dict[str, Dict] = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+# long_500k requires sub-quadratic attention: only SSM/hybrid run it.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def cells_for(cfg: ModelConfig):
+    """The (shape_name, spec) cells this arch runs; skips are recorded."""
+    out = []
+    for name, spec in SHAPES.items():
+        if name == "long_500k" and cfg.family not in LONG_CONTEXT_FAMILIES \
+                and cfg.block_kind != "xlstm":
+            out.append((name, dict(spec, skip="full-attention arch: no "
+                                   "sub-quadratic mechanism at 500k")))
+        else:
+            out.append((name, dict(spec, skip=None)))
+    return out

@@ -1,21 +1,29 @@
-"""End-to-end trainer: the BladeDISC++ dynamic-shape path.
+"""End-to-end trainer.  Port of ``repro/launch/train.py``.
 
-``train(mode="dynamic")`` traces the train step once with symbolic
-``(b, s)``; the op scheduler, the memory plan and runtime remat then run
-every variable-shape batch of the data pipeline without recompilation or
-padding (paper §2/§3), under an optional memory limit, with checkpoints,
-resume and a straggler monitor.  Port of ``repro/launch/train.py``; its
-``compiled`` mode (jit + mesh sharding) is not ported yet.
+Two execution paths share the data pipeline, the optimizer, checkpoints,
+resume and the straggler monitor:
+
+  * ``dynamic`` -- the BladeDISC++ path: the train step is traced once
+    with symbolic ``(b, s)``; the op scheduler, the memory plan and
+    runtime remat then run every variable-shape batch of the data
+    pipeline without recompilation or padding (paper §2/§3), under an
+    optional memory limit;
+  * ``compiled`` -- one static plan per batch shape, the counterpart of
+    the reference's ``jax.jit`` per shape: ``optimize`` of the step at
+    the batch's concrete shape, the parameters and moments donated,
+    cached by ``tokens.shape``; every new shape is a recompilation.
 
 Usage (on the card; ``--device cpu --smoke`` runs on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-1b \\
         --smoke --steps 50 --memory-limit-mb 200
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-1b \\
+        --smoke --steps 20 --mode compiled --data-mode bucketed
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +31,7 @@ from ..checkpoint import Checkpointer
 from ..configs import get_config, get_smoke_config
 from ..core import TensorSpec, optimize, spec_like, symbolic_dims
 from ..core.api import resolve_device
+from ..core.scheduling.memsim import simulate_peak_bound
 from ..data import DataPipeline, PipelineConfig
 from ..distributed import StragglerMonitor
 from ..models import init_params
@@ -58,21 +67,56 @@ def build_dynamic_step(cfg, params, opt_state, *, device: Any = None):
                     donate_inputs=True, device=device)
 
 
+class CompiledSteps:
+    """The ``compiled`` mode's step: one static plan per batch shape,
+    built on the first batch of that shape (``optimize`` of
+    ``make_train_step(cfg)`` at the concrete ``(b, s)``, the state
+    donated) and cached by ``tokens.shape``.  ``plans``, ``compile_s``
+    and ``guaranteed_peak_bytes`` are keyed by that shape: a static plan
+    declares no dim range, so ``optimize`` states no bound; the bound
+    here is the planner's over the plan's one shape (the schedule's
+    peak, donation counted), which every call's ``device_peak`` meets."""
+
+    def __init__(self, cfg, params, opt_state, *, device: Any = None):
+        self.cfg = cfg
+        self.state_specs = (spec_like(params), spec_like(opt_state))
+        self.device = device
+        self.plans: Dict[Tuple[int, ...], Any] = {}
+        self.compile_s: Dict[Tuple[int, ...], float] = {}
+        self.guaranteed_peak_bytes: Dict[Tuple[int, ...], int] = {}
+
+    def plan_for(self, batch: Dict[str, torch.Tensor]):
+        key = tuple(batch["tokens"].shape)
+        fn = self.plans.get(key)
+        if fn is None:
+            t0 = time.perf_counter()
+            fn = optimize(make_train_step(self.cfg), *self.state_specs,
+                          batch_specs(*key), donate_inputs=True,
+                          device=self.device)
+            self.plans[key] = fn
+            self.compile_s[key] = time.perf_counter() - t0
+            self.guaranteed_peak_bytes[key] = simulate_peak_bound(
+                fn.plan.graph, fn.plan.order, fn.plan.shape_graph,
+                donate_inputs=True)[1]
+        return fn
+
+
 def train(cfg, *, steps: int = 50, batch_size: int = 8, mode: str = "dynamic",
           memory_limit: Optional[int] = None, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 25, resume: bool = True, data_mode: str = "dynamic",
           log_every: int = 10, seed: int = 0,
           device: Any = None) -> Dict[str, Any]:
     """Train ``steps`` steps (counting those of a resumed checkpoint) on
-    ``device`` (``cuda`` unless given).  Returns the losses, useful
-    tokens, the largest planned ``device_peak``, recompilations, wall
-    seconds, tokens/s and, with ``ckpt_dir``, each save's bytes and
-    seconds."""
-    if mode != "dynamic":
-        raise NotImplementedError(
-            f"train(mode={mode!r}): the compiled path (jit + mesh sharding "
-            f"in the reference) is not ported yet (ROADMAP A6, distributed "
-            f"and launch tooling)")
+    ``device`` (``cuda`` unless given).  Returns the losses, each step's
+    ms (the step's call, a plan's build excluded), useful tokens, the
+    largest planned ``device_peak``, recompilations, wall seconds,
+    tokens/s and, with ``ckpt_dir``, each save's bytes and seconds.  ``mode="compiled"`` plans each batch shape apart
+    (:class:`CompiledSteps`; ``recompilations`` counts the shapes, and
+    ``steps_by_shape`` holds the step) and ignores ``memory_limit``, as
+    the reference's ``jax.jit`` path does."""
+    if mode not in ("dynamic", "compiled"):
+        raise ValueError(f"mode must be 'dynamic' or 'compiled', not "
+                         f"{mode!r}")
     dev = resolve_device(device)
     params = init_params(cfg, seed, device=dev)
     opt_state = init_state(params, adamw_config_for(cfg))
@@ -89,17 +133,26 @@ def train(cfg, *, steps: int = 50, batch_size: int = 8, mode: str = "dynamic",
         print(f"[train] resumed from step {start_step}")
 
     monitor = StragglerMonitor()
-    stats: Dict[str, Any] = {"losses": [], "tokens": 0, "peak_bytes": 0,
-                             "recompilations": 0}
-    dyn = build_dynamic_step(cfg, params, opt_state, device=dev)
-    if memory_limit:
-        dyn = dyn.with_memory_limit(memory_limit)
+    stats: Dict[str, Any] = {"losses": [], "step_ms": [], "tokens": 0,
+                             "peak_bytes": 0, "recompilations": 0}
+    if mode == "dynamic":
+        dyn = build_dynamic_step(cfg, params, opt_state, device=dev)
+        if memory_limit:
+            dyn = dyn.with_memory_limit(memory_limit)
+    else:
+        compiled = stats["steps_by_shape"] = CompiledSteps(
+            cfg, params, opt_state, device=dev)
 
     t0 = time.time()
     for step in range(start_step, steps):
         raw = pipe.next_batch()
-        args = [params, opt_state, to_device(raw, dev)]
-        del params, opt_state     # donated: the step frees the old state
+        batch = to_device(raw, dev)
+        if mode == "compiled":
+            n_plans = len(compiled.plans)
+            dyn = compiled.plan_for(batch)
+            stats["recompilations"] += len(compiled.plans) - n_plans
+        args = [params, opt_state, batch]
+        del params, opt_state, batch  # donated: the step frees the old state
         ts = time.time()
         loss, params, opt_state = dyn.call_donated(args)
         loss = float(loss)        # waits for the card
@@ -108,6 +161,7 @@ def train(cfg, *, steps: int = 50, batch_size: int = 8, mode: str = "dynamic",
                                   dyn.last_report.stats.device_peak)
         monitor.record_step({0: dt})
         stats["losses"].append(loss)
+        stats["step_ms"].append(1e3 * dt)
         stats["tokens"] += int(raw["mask"].sum())
         if ck is not None and (step + 1) % ckpt_every == 0:
             ck.save(step + 1, {"params": params, "opt_state": opt_state},
@@ -134,7 +188,8 @@ def main() -> None:
     ap.add_argument("--mode", choices=["dynamic", "compiled"], default="dynamic")
     ap.add_argument("--data-mode", choices=["dynamic", "bucketed"],
                     default="dynamic")
-    ap.add_argument("--memory-limit-mb", type=int, default=0)
+    ap.add_argument("--memory-limit-mb", type=int, default=0,
+                    help="dynamic mode only; compiled ignores it")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda unless given (cpu: run on the CPU)")

@@ -69,6 +69,16 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # -- initializers --------------------------------------------------------------
 
 
+class MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: the initialisers, which
+    draw on ``gen.device``, then build shapes and dtypes and allocate
+    nothing (``init_params(..., device="meta")``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def normal_init(gen: torch.Generator, shape: Sequence[int], std: float,
                 dtype: torch.dtype) -> torch.Tensor:
     """``std``-scaled normal draws in f32 from ``gen``, cast to ``dtype``."""

@@ -69,6 +69,8 @@ def _experts_init(gen: torch.Generator, n: int, shape: Tuple[int, int],
     ``in_axis=1``), drawn one expert at a time: a full-width stack drawn
     at once would take 4x its bf16 bytes in f32 temporaries."""
     out = torch.empty((n, *shape), dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for i in range(n):
         out[i] = dense_init(gen, shape, dtype)
     return out

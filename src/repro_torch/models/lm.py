@@ -35,7 +35,8 @@ from ..core.api import resolve_device
 from .attention import KVCache
 from .blocks import (BlockCache, block_apply, block_decode, block_init,
                      check_family)
-from .common import dense_init, embed_init, rms_norm, softmax_cross_entropy
+from .common import (MetaGenerator, dense_init, embed_init, rms_norm,
+                     softmax_cross_entropy)
 from .mla import MLACache
 from .ssm import ssm_init_cache
 from .xlstm import (mlstm_apply, mlstm_decode_step, mlstm_init,
@@ -71,9 +72,11 @@ def xlstm_meta(cfg: ModelConfig) -> Dict[str, int]:
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Any = None) -> Dict[str, Any]:
     """Random weights drawn from a seeded ``torch.Generator`` on ``device``
-    (``cuda`` unless given)."""
+    (``cuda`` unless given; ``meta``: shapes and dtypes, nothing
+    allocated)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = MetaGenerator() if dev.type == "meta" else \
+        torch.Generator(device=dev)
     gen.manual_seed(seed)
     dtype = cfg.torch_dtype
     vpad = cfg.padded_vocab

@@ -1298,3 +1298,79 @@ def test_an_opaque_body_that_fails_on_the_card_raises(gen, executor):
     with pytest.raises(ValueError, match="takes torch.bfloat16"):
         fn(q, xs)
     assert flash_attention_cuda.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compiled_trainer_on_the_card_matches_the_dynamic_one(gen, dtype):
+    """``train(mode="compiled")`` at smoke size on the card: one plan per
+    bucketed batch shape, each call within its plan's bound, the sm90 or
+    f32 flash and RMSNorm launched every step, the losses within the
+    dtype's tolerance of ``mode="dynamic"``'s on the same batches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.launch.train import train
+
+    cfg = dataclasses.replace(SMOKE, dtype=dtype)
+    f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+    compiled = train(cfg, steps=6, batch_size=4, mode="compiled",
+                     data_mode="bucketed", log_every=100)
+    steps = 6
+    assert flash_attention_cuda.launches - f0 == steps * cfg.n_layers
+    assert rmsnorm_cuda.launches - n0 == steps * (2 * cfg.n_layers + 1)
+    plans = compiled["steps_by_shape"]
+    assert compiled["recompilations"] == len(plans.plans) <= 4
+    for key, fn in plans.plans.items():
+        assert fn.last_report.stats.device_peak <= \
+            plans.guaranteed_peak_bytes[key]
+    dynamic = train(cfg, steps=6, batch_size=4, mode="dynamic",
+                    data_mode="bucketed", log_every=100)
+    tol = 2e-4 if dtype == "float32" else PLAIN_LOSS_TOL
+    assert np.all(np.isfinite(compiled["losses"]))
+    np.testing.assert_allclose(compiled["losses"], dynamic["losses"],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_restore_onto_a_1x1_nccl_mesh_is_bitwise(gen, tmp_path):
+    """bf16 weights and f32 moments restored as DTensors on a 1x1 mesh of
+    a one-process NCCL world: every local tensor on the card, bitwise the
+    saved one; the group is destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import spec_like
+    from repro_torch.launch.mesh import destroy_world, make_debug_mesh
+    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.optim import AdamWState
+
+    params = {"embed": _randn(gen, (512, 128), torch.bfloat16),
+              "layers": [{"attn": {"wq": _randn(gen, (128, 128),
+                                                torch.bfloat16)}}
+                         for _ in range(2)]}
+    opt = AdamWState(step=torch.tensor(5, dtype=torch.int32, device="cuda"),
+                     m=pytree.tree_map(lambda p: p.float() * 1e-3, params),
+                     v=pytree.tree_map(lambda p: p.float() ** 2, params))
+    state = {"params": params, "opt_state": opt}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(5, state)
+    destroy_world()
+    try:
+        rules = ShardingRules(make_debug_mesh(1, 1))
+        assert dist.get_backend() == "nccl"
+        shardings = {k: rules.named(rules.params_pspecs(spec_like(v)))
+                     for k, v in state.items()}
+        _, got, _ = ck.restore(shardings=shardings)
+        for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(state)):
+            assert isinstance(g, DTensor)
+            local = g.to_local()
+            assert local.device.type == "cuda" and local.dtype == w.dtype
+            assert torch.equal(local, w)
+    finally:
+        destroy_world()
+    assert not dist.is_initialized()

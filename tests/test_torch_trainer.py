@@ -10,7 +10,7 @@
   must be bitwise, and an async failure surfacing at ``wait()``.
 * **Trainer**: twins of ``tests/test_system.py``'s dynamic-trainer tests
   (loss decreases without retracing, the limit holds with the same
-  losses, resume is exact), the ``compiled`` mode refused; and one masked
+  losses, resume is exact); and one masked
   train step of ``build_dynamic_step`` on a pipeline batch against the
   reference's step on the same weights (loss and parameters within 2e-4,
   each moment leaf within a relative error norm of 1e-3).
@@ -260,11 +260,6 @@ def test_checkpoint_resume_exact(full_run, tmp_path):
     assert resumed["losses"] == full_run["losses"][5:10]
     assert part["losses"] == full_run["losses"][:5]
     assert Checkpointer(d).all_steps() == [5, 10]
-
-
-def test_compiled_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="compiled"):
-        train(CFG, steps=1, mode="compiled", device="cpu")
 
 
 def test_masked_train_step_matches_reference():
