@@ -232,7 +232,8 @@ Phases (any failure exits non-zero):
    figure the mma kernel's bf16 variant is calibrated on) beside each;
    (b) ``granite_8b``,
    ``starcoder2_7b``, ``musicgen_medium`` and ``internvl2_2b`` at full
-   width and depth in bf16 (seed-0 weights on the card), one at a time,
+   width in bf16, DENSE_LAYERS = 12 layers deep (every layer until phase
+   22 needed the time; seed-0 weights on the card), one at a time,
    each serving the request shapes through one plan (internvl2: s text
    tokens after 256 vision embeddings, its flash S the expression
    ``256 + s``): one
@@ -248,10 +249,10 @@ Phases (any failure exits non-zero):
    each in f32 and in bf16: n_layers mma launches a request of the
    dtype's kernel, logits within 2e-4 (f32) or 5e-2 (bf16) of the eager
    plain path; (e) ``serve`` for musicgen (frames, 4 codebooks) and
-   internvl2 at DENSE_SERVE_LAYERS = 16 layers (musicgen's 48-layer
+   internvl2 at DENSE_SERVE_LAYERS = 8 layers (musicgen's 48-layer
    decode capture alone took 84 s): no flash launch, (2 L + 1) RMSNorm
    launches a step, cache length 48 of 49 rows, ms a step; decode vs
-   forward within 2e-2 at GEMMA_CUT_LAYERS layers, the 16 layers' reading
+   forward within 2e-2 at GEMMA_CUT_LAYERS layers, the 8 layers' reading
    printed beside a control (the plain forward vs the kernel forward).
 
 15. bench train (``[bench_train]`` lines), run after a garbage
@@ -431,6 +432,30 @@ Phases (any failure exits non-zero):
    ``examples/torch_elastic_restart.py``'s ``main()`` on ``cuda``; the
    process group destroyed before the phase ends.
 
+22. dry-run (``[dryrun]`` lines), last: (a) the ``llama2_1b``
+   ``train_4k`` cell of ``python -m repro_torch.launch.dryrun`` on the
+   16x16 mesh, in its own CPU process (a fake 512-rank world cannot
+   start where phase 21 left an NCCL group) while the card is idle:
+   status ok, all-gather bytes > 0 (FSDP), the gradients' reduce-scatter
+   or all-reduce bytes > 0, FLOPs a device within 1e-6 of a step that no
+   rank repeats (``dense_train_flops``), argument bytes between the
+   state split 256 and 16 ways, the whole cell within the card's memory;
+   the record and its seconds printed; (b) the dry-run's cell machinery on
+   ``make_debug_mesh()`` (NCCL, 1x1) for ``llama2_1b`` at full width, the
+   train step at (8,1024) with ``grad_accum=1``, donated: its per-rank
+   plan on the card from phase 6's state and batch beside phase 6's
+   plan: the loss, weights and moments bitwise (else within
+   TRAIN_PLAIN_TOL), the same flash and RMSNorm launches a step,
+   ``argument_bytes`` = the state's bytes + the batch's, the allocator's
+   peak of the call <= ``total_per_device_bytes`` + block overhead,
+   FLOPs = phase 21 (b)'s count of phase 6's plan, collectives 0; (c)
+   ``examples/torch_quickstart.py``, ``torch_ragged_batch.py``,
+   ``torch_serve_decode.py`` and ``tools/torch_memview.py --arch
+   llama2_1b --env b=8,s=1024`` as processes on the card: each exits 0,
+   their seconds and kernel launches printed. Phases 8 and 9 take their
+   steps from ``examples/torch_ragged_batch.py`` and
+   ``examples/torch_serve_decode.py``.
+
 The line before the last is a JSON object describing each kernel (its
 launches per path, each counted from 0 just before the path: prefill,
 prefill_f32, train, buckets = phase 7 (a)-(c), bounded, loop, trainer =
@@ -443,8 +468,9 @@ moe_serve = phase 16 (b), hybrid_prefill = phase 17 (a),
 hybrid_serve = phase 17 (d), xlstm_prefill = phase 18 (a),
 xlstm_serve = phase 18 (e), decode = phase 19, accum_train = phase 20
 (a), compress_train = phase 20 (b), opaque_scan = phase 20 (c),
-mixed_op = phase 20 (d), compiled_train = phase 21 (a) and elastic =
-phase 21 (c), the step from the restored state and the example;
+mixed_op = phase 20 (d), compiled_train = phase 21 (a), elastic =
+phase 21 (c), the step from the restored state and the example, dryrun
+= phase 22 (b)'s step and examples = phase 22 (c)'s processes;
 bounded, loop, gemma_serve, dense_serve, moe_serve, hybrid_serve,
 both xlstm paths, decode, opaque_scan and mixed_op launch no flash:
 their attention and ops are plain PyTorch, as the reference's are plain
@@ -1411,6 +1437,18 @@ def state_call(fn, state, batch):
             torch.cuda.max_memory_allocated() - held)
 
 
+def phase6_batches(cfg):
+    """Phase 6's batch at each of TRAIN_SHAPES, drawn on the card from
+    seed 3 (phase 22 (b) draws them again)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    return {shape: {k: torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device="cuda", dtype=torch.int32)
+                    for k in ("tokens", "labels")}
+            for shape in TRAIN_SHAPES}
+
+
 def phase_train():
     """The train path (phase 6).  Returns the kernels' launches over it."""
     import statistics
@@ -1451,12 +1489,7 @@ def phase_train():
         f"donation the same order would need {undonated})")
     if rep.guards:
         raise AssertionError(f"the train capture left guards {rep.guards}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
-    batches = {shape: {k: torch.randint(0, cfg.vocab, shape, generator=gen,
-                                        device="cuda", dtype=torch.int32)
-                       for k in ("tokens", "labels")}
-               for shape in TRAIN_SHAPES}
+    batches = phase6_batches(cfg)
 
     def step(fn, batch):
         return state_call(fn, (params, opt_state), batch)
@@ -1590,6 +1623,7 @@ def phase_train():
                            int(OBS_RUNG * peak), want[0])
     OBS["train"] = opt
     TRAIN_PLAN["opt"] = opt
+    DRYRUN_BASE["opt"] = opt
     ANALYZED["train"] = (opt.plan.graph, rows["uncapped"][-1]["median_ms"])
     compare_train_plain(cfg, params, opt_state, batch, want)
     del params, opt_state, want, want_leaves, opt, fn, last
@@ -2153,15 +2187,18 @@ BOUNDED_OCCS = [1.0, 0.75, 0.5, 0.25, 0.02, 0.0]
 BOUNDED_TOL = 5e-2
 
 
-def _ragged_serve_step(x, mask, w1, w2):
-    """``examples/ragged_batch.py``'s serve step: run the FFN on the valid
-    rows only (``jax.nn.gelu`` is the tanh approximation)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import masked_select
-    rows, n_valid = masked_select(x, mask)
-    h = F.gelu(rows @ w1, approximate="tanh")
-    return (h @ w2).sum(0), n_valid
+def example(name: str):
+    """``examples/<name>.py`` as a module (in ``sys.modules``: torch's scan
+    compiles a body by its module's name); its ``main`` is not run."""
+    import importlib.util
+    if name in sys.modules:
+        return sys.modules[name]
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _eager_serve_step(x, mask, w1, w2):
@@ -2190,7 +2227,10 @@ def phase_bounded():
     w2 = (torch.randn(F, D, generator=gen, device=DEV) * 0.02).to(bf16)
     in_bytes = x.nbytes + n + w1.nbytes + w2.nbytes
     t0 = time.perf_counter()
-    fn = optimize(_ragged_serve_step, TensorSpec((S, D), bf16),
+    # examples/torch_ragged_batch.py's serve step: the FFN on the valid
+    # rows only
+    serve_step = example("torch_ragged_batch").serve_step
+    fn = optimize(serve_step, TensorSpec((S, D), bf16),
                   TensorSpec((S,), torch.bool), TensorSpec((D, F), bf16),
                   TensorSpec((F, D), bf16),
                   dynamic_dims={"s": BOUNDED_RANGE}, buckets="geometric",
@@ -2277,7 +2317,7 @@ def phase_bounded():
     return rows_out
 
 
-# -- phase 9: a rolled decode loop (serve_decode's decode_loop) --------------
+# -- phase 9: a rolled decode loop (torch_serve_decode's decode_loop) --------
 
 LOOP_D, LOOP_VOCAB, LOOP_B = 4096, 32000, 4     # llama2_1b widths
 LOOP_RANGE = (1, 512)
@@ -2286,23 +2326,12 @@ LOOP_EDGES = {"t": [16, 64]}
 LOOP_TOL = 2e-4
 
 
-def _decode_cell(w, h, p):
-    import torch
-    h = torch.tanh(h @ w["wh"] + p)
-    return h, (h @ w["wv"]).argmax(-1)
-
-
-def _decode_loop(w, h0, pos):
-    from repro_torch.core import scan
-    return scan(lambda h, p: _decode_cell(w, h, p), h0.tanh(), pos)
-
-
-def _decode_unrolled(T):
+def _decode_unrolled(T, cell):
     def f(w, h0, pos):
         import torch
         h, toks = h0.tanh(), []
         for i in range(T):
-            h, tok = _decode_cell(w, h, pos[i])
+            h, tok = cell(w, h, pos[i])
             toks.append(tok)
         return h, torch.stack(toks)
     return f
@@ -2326,11 +2355,13 @@ def loop_allocator_slack(program, env) -> int:
 
 
 def phase_loop():
-    """Phase 9: the rolled decode loop at llama2_1b widths, f32."""
+    """Phase 9: the rolled decode loop at llama2_1b widths, f32: the
+    ``decode_loop`` of ``examples/torch_serve_decode.py``."""
     import torch
 
     from repro_torch.core import TensorSpec, optimize, scan, symbolic_dims
 
+    twin = example("torch_serve_decode")
     D, V, B = LOOP_D, LOOP_VOCAB, LOOP_B
     f32 = torch.float32
     gen = torch.Generator(device=DEV)
@@ -2344,7 +2375,7 @@ def phase_loop():
     def compile_rolled(t_range, **kw):
         t, = symbolic_dims("t")
         t0 = time.perf_counter()
-        fn = optimize(_decode_loop, w_specs, TensorSpec((B, D), f32),
+        fn = optimize(twin.decode_loop, w_specs, TensorSpec((B, D), f32),
                       TensorSpec((t, D), f32), dynamic_dims={"t": t_range},
                       device=DEV, **kw)
         return fn, time.perf_counter() - t0
@@ -2402,7 +2433,7 @@ def phase_loop():
     for T in (1, 17):
         pos, h, toks, _ = out[T]
         t0 = time.perf_counter()
-        unrolled = optimize(_decode_unrolled(T), w_specs,
+        unrolled = optimize(_decode_unrolled(T, twin.decode_cell), w_specs,
                             TensorSpec((B, D), f32), TensorSpec((T, D), f32),
                             device=DEV)
         un_s = time.perf_counter() - t0
@@ -2423,7 +2454,8 @@ def phase_loop():
                        unrolled_compile_s=un_s)
         del unrolled
     pos, h, toks, peak512 = out[512]
-    eh, etoks = scan(lambda hh, p: _decode_cell(w, hh, p), h0.tanh(), pos)
+    eh, etoks = scan(lambda hh, p: twin.decode_cell(w, hh, p), h0.tanh(),
+                     pos)
     err = (h - eh).abs().max().item()
     log(f"[loop] T=512: max|h - eager loop| {err:.3e}, tokens equal "
         f"{torch.equal(toks, etoks)}")
@@ -3943,8 +3975,14 @@ DENSE_SMOKE_TOL = {"float32": 2e-4, "bfloat16": GEMMA_LOGIT_TOL}   # (d)
 DENSE_SERVE = {"batch": 4, "prompt_len": 32, "gen": 16}             # (e)
 DENSE_SERVED = ("musicgen_medium", "internvl2_2b")
 # (e): serve's depth, for the script's time limit: musicgen_medium's
-# 48-layer decode capture took 84.3 s of its serve's 90.0 s optimize
-DENSE_SERVE_LAYERS = 16
+# 48-layer decode capture took 84.3 s of its serve's 90.0 s optimize; 8
+# since phase 22 (16 before: the script took 987.7 s with them, phase 14
+# 125.7 s against 96.8 at 8)
+DENSE_SERVE_LAYERS = 8
+# (b)-(c): the prefill's depth, for the script's time limit since phase 22
+# (the script 1028.9 s with every layer: granite_8b's 36-layer capture
+# 36.3 s, starcoder2_7b's 32 34.9 s, musicgen_medium's 48 29.2 s)
+DENSE_LAYERS = 12
 
 
 def phase_dense_kernels():
@@ -4415,6 +4453,8 @@ def phase_dense():
     (d) the smoke configs through the mma route, (e) the KV-cache server
     for musicgen and internvl2.  Returns the kernel rows and the launches
     per path."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -4426,6 +4466,8 @@ def phase_dense():
     for arch in DENSE_ARCHS:
         t_model = time.perf_counter()
         cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                    DENSE_LAYERS))
         params, opt, batches, outs, launches, req_rows, t_opt = \
             phase_dense_prefill(cfg, arch)
         prefill = {k: prefill[k] + launches[k] for k in prefill}
@@ -6993,6 +7035,8 @@ def launch_analyze(cfg):
         got = analyze_graph(graph, {"b": b, "s": s})
         model = factor * n * b * s
         tflops = got["flops"] / (median_ms * 1e-3) / 1e12
+        if name == "train":
+            DRYRUN_BASE["flops"] = got["flops"]
         rows[name] = dict(flops=got["flops"], hbm_bytes=got["hbm_bytes"],
                           transcendentals=got["transcendentals"],
                           model_flops=model, median_ms=median_ms,
@@ -7120,6 +7164,296 @@ def phase_launch():
     return launches
 
 
+# -- phase 22: the dry-run ([dryrun] lines) -----------------------------------
+
+# (a) one production train cell of the dry-run on the 16x16 mesh of a fake
+# 512-rank world, on the host's CPU: llama2_1b, whose train_4k cell is the
+# smallest one (4 layers at llama2-7b's width; a full-width train cell
+# unrolls 8 micro-batches and takes minutes), in a fresh process (the fake
+# world cannot start where phase 21 left an NCCL group) run while the card
+# is idle, so no phase's host-bound reading shares the CPU with it
+DRYRUN_ARCH, DRYRUN_SHAPE = "llama2_1b", "train_4k"
+DRYRUN_TIMEOUT_S = 400
+DRYRUN_FLOPS_TOL = 1e-6      # (a)'s FLOPs a device vs the analytic count
+DRYRUN_BASE = {}             # (b): phase 6's plan, phase 21 (b)'s FLOPs
+# (c) the example and tool twins, each in its own process on the card
+DRYRUN_TWINS = [["examples/torch_quickstart.py"],
+                ["examples/torch_ragged_batch.py"],
+                ["examples/torch_serve_decode.py"],
+                ["tools/torch_memview.py", "--arch", "llama2_1b", "--env",
+                 "b=8,s=1024"]]
+# runs a script as __main__ and prints the kernel launches it made
+TWIN_WRAPPER = r"""
+import json, runpy, sys
+sys.path.insert(0, "src")
+from repro_torch.kernels import flash_attention_cuda as f, rmsnorm_cuda as r
+path = sys.argv[1]
+sys.argv = sys.argv[1:]
+code = 0
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+    code = e.code or 0
+print("LAUNCHES " + json.dumps({"sm90": f.sm90_launches,
+      "mma_f32": f.mma_f32_launches, "mma_bf16": f.mma_bf16_launches,
+      "rmsnorm": r.launches}))
+sys.exit(code)
+"""
+
+
+def dense_train_flops(cfg, shape, devices: int) -> float:
+    """FLOPs a device of a dense train cell split over ``devices`` with no
+    rank repeating another's work, counted as ``graph_analysis`` counts
+    them: 6 x the matmul parameters (attention projections, the SwiGLU
+    FFN's three, the readout) a token, plus the attention's products,
+    4 S T hd a head and token forward (dense, causal or not) and 10
+    backward (the plain backward's QKᵀ recompute, dP, dV, dQ, dK)."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, t = cfg.resolved_head_dim, shape["seq_len"]
+    mm = cfg.n_layers * (2 * d * hq * hd + 2 * d * hkv * hd
+                         + 3 * d * cfg.d_ff) + d * cfg.vocab
+    tokens = shape["global_batch"] * t / devices
+    return tokens * (6 * mm + 14 * t * hq * hd * cfg.n_layers)
+
+
+def dryrun_cell():
+    """(a): the cell in its own process, its record checked against the
+    counts of a step that no rank repeats: FLOPs a device within
+    DRYRUN_FLOPS_TOL of ``dense_train_flops``, the arguments between the
+    state split over every rank and over the model axis alone, and the
+    whole cell within the card's memory."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--mesh", "single",
+             "--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"(a) the {DRYRUN_ARCH} {DRYRUN_SHAPE} cell "
+                             f"was not done in {DRYRUN_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines()
+             if x.startswith(("[dryrun]", "[done]"))]
+    path = out / f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__single.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    cfg, shape = get_config(DRYRUN_ARCH), SHAPES[DRYRUN_SHAPE]
+    want_flops = dense_train_flops(cfg, shape, 256)
+    state = rec.get("params", 0) * 10       # bf16 weights, two f32 moments
+    mem = rec.get("memory", {})
+    card = torch.cuda.get_device_properties(0).total_memory
+    log(f"[dryrun] (a) {DRYRUN_ARCH} {DRYRUN_SHAPE} on the 16x16 mesh of a "
+        f"fake 512-rank world, on the host's CPU with the card idle: exit "
+        f"{proc.returncode}, {seconds:.1f} s; {lines}; FLOPs a device "
+        f"{rec.get('flops', 0):.6e} against {want_flops:.6e} with no "
+        f"rank repeating another's work; record {json.dumps(rec)}")
+    if proc.returncode != 0 or rec.get("status") != "ok":
+        raise AssertionError(f"(a) the dry-run cell failed (exit "
+                             f"{proc.returncode}): {proc.stdout[-3000:]}")
+    coll = rec["collectives"]
+    if not coll["all-gather"] > 0:
+        raise AssertionError("(a) no all-gather bytes: FSDP gathered no "
+                             "weight")
+    if not (coll["reduce-scatter"] > 0 or coll["all-reduce"] > 0):
+        raise AssertionError("(a) no reduce-scatter or all-reduce bytes: "
+                             "the gradients were not reduced")
+    if abs(rec["flops"] - want_flops) > DRYRUN_FLOPS_TOL * want_flops:
+        raise AssertionError(f"(a) {rec['flops']:.6e} FLOPs a device, "
+                             f"{rec['flops'] / want_flops:.3f}x a step "
+                             f"that no rank repeats: ranks compute each "
+                             f"other's work")
+    if not state / 256 <= mem["argument_bytes"] <= state / 16 + (1 << 24):
+        raise AssertionError(f"(a) argument bytes {mem['argument_bytes']} "
+                             f"outside the state ({state} B) split 256 "
+                             f"and 16 ways")
+    if mem["total_per_device_bytes"] > card:
+        raise AssertionError(f"(a) {mem['total_per_device_bytes']} B a "
+                             f"device, more than the card's {card}")
+    return dict(seconds=seconds, want_flops=want_flops, record=rec)
+
+
+def dryrun_card(cfg):
+    """(b): the dry-run's cell machinery on a 1x1 NCCL mesh for llama2_1b
+    at full width, the train step at (8,1024) with grad_accum=1, donated:
+    its per-rank plan runs on the card from phase 6's state and batch and
+    is held against phase 6's plan.  Returns the dry plan's launches."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import spec_like
+    from repro_torch.kernels import flash_attention_cuda, rmsnorm_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import destroy_world, make_debug_mesh
+    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.launch.steps import adamw_config_for
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    base, base_flops = DRYRUN_BASE.pop("opt"), DRYRUN_BASE.pop("flops")
+    params = init_params(cfg, seed=0, device="cuda")
+    opt_state = init_state(params, adamw_config_for(cfg))
+    batch = phase6_batches(cfg)[TRAIN_SHAPES[-1]]
+    state_bytes = _nbytes((params, opt_state))
+    b, s = TRAIN_SHAPES[-1]
+
+    def launches():
+        return _launch_counts()
+
+    def zero():
+        flash_attention_cuda.launches = 0
+        flash_attention_cuda.sm90_launches = 0
+        flash_attention_cuda.mma_f32_launches = 0
+        flash_attention_cuda.mma_bf16_launches = 0
+        rmsnorm_cuda.launches = 0
+
+    destroy_world()
+    try:
+        mesh = make_debug_mesh(1, 1)
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        rules = ShardingRules(mesh)
+        specs = {"params": spec_like(params),
+                 "opt_state": spec_like(opt_state),
+                 "batch": spec_like(batch)}
+        t0 = time.perf_counter()
+        sharded = dryrun.shard_step(cfg, "train", specs, rules,
+                                    grad_accum=1)
+        plan = dryrun.plan_step(sharded, device="cuda")
+        plan_s = time.perf_counter() - t0
+        mem = dryrun.memory_of(plan, sharded.argument_bytes)
+        an = dryrun.analysis_of(plan)
+        local = sharded.shard_args(params, opt_state, batch)
+        for fn, state, x in ((base, (params, opt_state), batch),
+                             (plan, local[:2], local[2])):
+            state_call(fn, state, x)          # warm-up, outside the timing
+        zero()
+        want, _, want_ms, want_alloc = state_call(base, (params, opt_state),
+                                                  batch)
+        torch.cuda.synchronize()
+        base_launches = launches()
+        zero()
+        got, st, got_ms, alloc = state_call(plan, local[:2], local[2])
+        torch.cuda.synchronize()
+        dry_launches = launches()
+        slack = allocator_slack(plan.program, {})
+        bitwise = all(torch.equal(x, y) for x, y in zip(
+            pytree.tree_leaves(got), pytree.tree_leaves(want)))
+        err = train_errors(got, want)
+    finally:
+        destroy_world()
+    batch_bytes = _nbytes(batch)
+    log(f"[dryrun] (b) llama2_1b full width ({cfg.n_layers} layers) train "
+        f"({b},{s}) grad_accum=1 on a 1x1 {backend} mesh: shard_step + plan "
+        f"{plan_s:.2f} s ({len(plan.plan.graph.nodes)} nodes); memory "
+        f"{json.dumps(mem)}; flops {an['flops']:.6e} vs phase 21 (b)'s count "
+        f"of phase 6's plan {base_flops:.6e}; collectives "
+        f"{an['collectives']}; argument_bytes {mem['argument_bytes']} vs "
+        f"state {state_bytes} + batch {batch_bytes}; the allocator's peak "
+        f"of the call {alloc} vs total_per_device_bytes "
+        f"{mem['total_per_device_bytes']} + block overhead {slack} (device_"
+        f"peak {st.device_peak}); launches {dry_launches} vs phase 6's plan "
+        f"{base_launches}; step {got_ms:.3f} ms vs phase 6's plan "
+        f"{want_ms:.3f} ms; loss {got[0].item()!r} vs {want[0].item()!r}; "
+        f"outputs bitwise equal: {bitwise}; "
+        + ", ".join(f"{k} {v:.4g}" for k, v in err.items()))
+    if backend != "nccl":
+        raise AssertionError(f"(b) ran on {backend}, not NCCL")
+    if not bitwise and any(not v <= TRAIN_PLAIN_TOL[k]
+                           for k, v in err.items()):
+        raise AssertionError(f"(b) the dry-run's plan differs from phase "
+                             f"6's: {err}")
+    if dry_launches != base_launches or             dry_launches["sm90"] != cfg.n_layers or             dry_launches["rmsnorm"] != 2 * cfg.n_layers + 1:
+        raise AssertionError(f"(b) launches {dry_launches}, phase 6's plan "
+                             f"{base_launches}")
+    if mem["argument_bytes"] != state_bytes + batch_bytes:
+        raise AssertionError("(b) argument_bytes is not the state's and the "
+                             "batch's bytes")
+    if alloc > mem["total_per_device_bytes"] + slack:
+        raise AssertionError(f"(b) the allocator's peak {alloc} is above "
+                             f"total_per_device_bytes + {slack}")
+    if an["flops"] != base_flops:
+        raise AssertionError(f"(b) flops {an['flops']} vs {base_flops}")
+    if an["collectives"]["total"] != 0:
+        raise AssertionError(f"(b) collectives on a 1x1 mesh: "
+                             f"{an['collectives']}")
+    del params, opt_state, batch, local, got, want, base, plan
+    torch.cuda.empty_cache()
+    return dry_launches, dict(plan_s=plan_s, memory=mem, flops=an["flops"],
+                              alloc=alloc, slack=slack, step_ms=got_ms,
+                              base_step_ms=want_ms, bitwise=bitwise)
+
+
+def dryrun_twins():
+    """(c): the example and tool twins, each in its own process on the
+    card, all at once.  Returns the launches they made, summed."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    for args in DRYRUN_TWINS:
+        procs.append((args, subprocess.Popen(
+            [sys.executable, "-c", TWIN_WRAPPER, *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    total = {"sm90": 0, "mma_f32": 0, "mma_bf16": 0, "rmsnorm": 0}
+    rows, failed = {}, []
+    try:
+        for args, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            seconds = time.perf_counter() - t0
+            found = [x for x in out.splitlines()
+                     if x.startswith("LAUNCHES ")]
+            n = json.loads(found[-1][9:]) if found else {}
+            for k in total:
+                total[k] += n.get(k, 0)
+            rows[args[0]] = dict(rc=proc.returncode, seconds=seconds,
+                                 launches=n)
+            log(f"[dryrun] (c) {' '.join(args)} on cuda: exit "
+                f"{proc.returncode}, done {seconds:.1f} s after the start; "
+                f"launches {n}; last lines {out.splitlines()[-4:]}")
+            if proc.returncode != 0 or not found:
+                failed.append((args, err[-2000:]))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError(f"(c) twins failed: {failed}")
+    return total, rows
+
+
+def phase_dryrun():
+    """Phase 22 ([dryrun] lines): (a) a production cell on the CPU, (b)
+    the cell machinery's per-rank plan on the card, (c) the twins.
+    Returns the launches of the dryrun and examples paths."""
+    import torch
+
+    from repro_torch.configs.llama2_1b import CONFIG
+
+    t_phase = time.perf_counter()
+    row_a = dryrun_cell()
+    dry_launches, row_b = dryrun_card(CONFIG)
+    torch.cuda.empty_cache()
+    twin_launches, row_c = dryrun_twins()
+    launches = {"dryrun": dry_launches, "examples": twin_launches}
+    log(f"[dryrun] phase 22 {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {launches}; rows "
+        f"{json.dumps(dict(a=row_a, b=row_b, c=row_c))}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -7137,6 +7471,11 @@ def main() -> int:
     sys.path.insert(0, str(src))
 
     t_start = time.perf_counter()
+    return run_phases(t_start)
+
+
+def run_phases(t_start: float) -> int:
+    import torch
     name, smi_line = phase_device()
     rows = phase_kernels()
     norm_rows = phase_norm_sweep()
@@ -7207,6 +7546,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launch_launches = phase_launch()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_launches = phase_dryrun()
     by_norm_path = {"reg": rmsnorm_cuda.reg_launches - reg0,
                     "loop": rmsnorm_cuda.loop_launches - loop0}
     log(f"[norm] RMSNorm launches after phase 2 by path: {by_norm_path}")
@@ -7271,6 +7613,8 @@ def main() -> int:
                         for path, n in accum_launches.items()})
         by_path.update({path: n[counter]
                         for path, n in launch_launches.items()})
+        by_path.update({path: n[counter]
+                        for path, n in dryrun_launches.items()})
         # the mma route's bf16 kernel runs at the dense family's smoke
         # head dims only: its numbers are hd 16's at the (8, 1024) request
         r = dense_rows[("hd16_gqa", *DENSE_TIMED_AT, "bfloat16")] \

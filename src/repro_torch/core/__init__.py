@@ -12,7 +12,7 @@ telemetry, memory timelines), wired together by :func:`optimize`.
 """
 from .api import (DynamicShapeFunction, MemoryLimitExceeded, OptimizeReport,
                   TensorSpec, optimize, resolve_device, scan, spec_like,
-                  symbolic_dims)
+                  symbolic_dim, symbolic_dims)
 from .dispatch import (BucketPlan, BucketSpace, SpecializationTable,
                        build_bucket_space)
 from .executor import PlanInterpreter, ProgramVM
@@ -22,4 +22,4 @@ __all__ = ["BucketPlan", "BucketSpace", "DynamicShapeFunction",
            "MemoryLimitExceeded", "OptimizeReport", "PlanInterpreter",
            "Program", "ProgramVM", "SpecializationTable", "TensorSpec",
            "build_bucket_space", "lower_plan", "optimize", "resolve_device",
-           "scan", "spec_like", "symbolic_dims"]
+           "scan", "spec_like", "symbolic_dim", "symbolic_dims"]

@@ -59,8 +59,8 @@ from .executor.memory import MemoryLimitExceeded
 from .executor.vm import ProgramVM, RunReport
 from .ir.dynamism import complete_bound_env
 from .ir.capture import (TensorSpec, capture, check_declared_ranges,
-                         solve_env, spec_like, symbolic_dims, tree_flatten,
-                         tree_unflatten)
+                         solve_env, spec_like, symbolic_dim, symbolic_dims,
+                         tree_flatten, tree_unflatten)
 from .lowering import Program, lower_plan
 from .memplan import ArenaPlan, build_arena_plan
 from .memplan.arena import ArenaExhausted
@@ -76,7 +76,8 @@ from .scheduling.scheduler import ScheduleResult, schedule_graph
 from .symbolic import ShapeGraph, declare_dim_ranges
 
 __all__ = ["optimize", "DynamicShapeFunction", "OptimizeReport",
-           "MemoryLimitExceeded", "TensorSpec", "scan", "symbolic_dims",
+           "MemoryLimitExceeded", "TensorSpec", "scan", "symbolic_dim",
+           "symbolic_dims",
            "spec_like",
            "resolve_device", "BucketSpace", "SpecializationTable",
            "BucketPlan", "build_bucket_space"]

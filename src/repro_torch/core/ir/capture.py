@@ -67,8 +67,14 @@ from .graph import Graph, Value
 from .loop import LOOP_PARAM, LoopBody, OpaqueScan, rollable_body
 
 _CLONE = torch.ops.aten.clone.default
-# ops that return their input's storage without the schema marking an alias
-_STORAGE_ALIASES = (torch.ops.aten._unsafe_view.default,)
+# ops that return their input's storage without the schema marking an
+# alias: a functional collective's ``wait_tensor`` returns the buffer its
+# collective wrote, so it is counted once
+_STORAGE_ALIASES = (torch.ops.aten._unsafe_view.default,
+                    torch.ops._c10d_functional.wait_tensor.default)
+_IDENTITY_VIEWS = (torch.ops.aten.view.default,
+                   torch.ops.aten._unsafe_view.default,
+                   torch.ops.aten.alias.default)
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +89,11 @@ class SymDim:
 
     def __repr__(self) -> str:
         return self.name
+
+
+def symbolic_dim(name: str) -> SymDim:
+    """One symbolic dimension: ``symbolic_dim("s")`` -> ``SymDim('s')``."""
+    return SymDim(name.strip())
 
 
 def symbolic_dims(spec: str) -> Tuple[SymDim, ...]:
@@ -418,6 +429,11 @@ def _convert(gm, in_dims: Sequence[Any], names: Mapping[Any, str], *,
                 if not isinstance(v, Value):
                     raise NotImplementedError(
                         f"step output {x} is not a tensor")
+                if v.base is not None and not is_body and \
+                        _whole_of_base(v):
+                    # the view is all of its base, as it lies (DTensor's
+                    # ``to_local`` returns a shard so): return the base
+                    v = v.base
                 if v.base is not None and (is_body
                                            or v.base.kind == "intermediate"):
                     # a returned view would pin its whole base to the end
@@ -434,6 +450,15 @@ def _convert(gm, in_dims: Sequence[Any], names: Mapping[Any, str], *,
         else:
             raise NotImplementedError(f"fx node kind {node.op!r}")
     return g
+
+
+def _whole_of_base(v: Value) -> bool:
+    """``v`` is a same-shape ``view``/``alias`` of its base itself: the
+    same bytes in the same layout."""
+    p = v.producer
+    return p is not None and p.prim in _IDENTITY_VIEWS and \
+        p.invals[0] is v.base and v.dims == v.base.dims and \
+        v.dtype == v.base.dtype and v.base.kind == "intermediate"
 
 
 def _record_intro(g: Graph, node, env: Dict[Any, Any],
@@ -598,8 +623,7 @@ def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of,
     if not isinstance(target, torch._ops.OpOverload):
         raise NotImplementedError(f"unsupported call {target}")
     if target._schema.is_mutable:
-        raise NotImplementedError(
-            f"in-place op {target}: capture expects a functional step")
+        target = _out_of_place(node, env)
 
     leaves, spec = pytree.tree_flatten((tuple(node.args), dict(node.kwargs)))
     invals: List[Value] = []
@@ -643,6 +667,37 @@ def _convert_call(g: Graph, node, env: Dict[Any, Any], exprs_of,
                {"leaves": out_leaves, "spec": spec, "multi": multi},
                n_args=n_args)
     env[node] = outs if multi else outs[0]
+
+
+def _out_of_place(node, env: Dict[Any, Any]) -> Any:
+    """The out-of-place twin of an in-place op that writes an intermediate
+    nothing reads afterwards and no view shares (DTensor zeroes the
+    out-of-range rows of a sharded lookup so, before reducing it): the
+    graph then stays functional.  Any other in-place op is refused."""
+    import torch.fx
+
+    target = node.target
+    schema = target._schema
+    name = schema.name.split("::")[-1]
+    writes = [a.alias_info is not None and a.alias_info.is_write
+              for a in schema.arguments]
+    src = node.args[0] if node.args else None
+    twin = getattr(getattr(torch.ops.aten, name[:-1], None),
+                   target._overloadname, None) if name.endswith("_") \
+        else None
+    if twin is not None and writes[0] and not any(writes[1:]) and \
+            isinstance(src, torch.fx.Node):
+        v = env.get(src)
+        order = {n: i for i, n in enumerate(node.graph.nodes)}
+        readers = [u for u in src.users if u is not node]
+        if isinstance(v, Value) and v.kind == "intermediate" and \
+                v.base is None and all(
+                    order[u] < order[node] and not (
+                        isinstance(u.target, torch._ops.OpOverload)
+                        and _is_view_op(u.target)) for u in readers):
+            return twin
+    raise NotImplementedError(
+        f"in-place op {target}: capture expects a functional step")
 
 
 def _pad_mixed(g: Graph, invals: List[Value],

@@ -19,8 +19,16 @@ symbolic dims, and returns the reference's keys:
   * ``transcendentals`` -- output elements of exp/log/tanh/rsqrt/sqrt/
     pow/sigmoid/sin/cos, plus the exps of flash attention's softmax
     (B·Hq·S·T) and the rsqrt of each RMSNorm row;
-  * the five collective types, ``collective_bytes`` -- 0 on a one-card
-    graph: the port's captures have no collective node yet;
+  * the five collective types, ``collective_bytes`` -- the output bytes
+    of every functional collective (``_c10d_functional::*``, what DTensor
+    emits when a step runs sharded): ``all_gather_into_tensor`` as
+    ``all-gather``, ``all_reduce`` as ``all-reduce``,
+    ``reduce_scatter_tensor`` as ``reduce-scatter``, ``all_to_all_single``
+    as ``all-to-all`` (funcol's ``permute_tensor`` lowers to it too), the
+    point-to-point ``isend``/``irecv``/``batch_p2p_ops`` as
+    ``collective-permute``, and their ``_coalesced`` forms likewise.
+    ``wait_tensor`` counts 0, as the reference's ``-done`` half does
+    (``repro/launch/dryrun.py:68-69``).  A one-card graph has none;
   * ``n_warnings`` -- see ``GraphAnalyzer.warnings``.
 
 Loops.  A rolled ``Loop`` node's body is counted once and scaled by its
@@ -46,6 +54,15 @@ COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 # op (overload packet) -> index of the left operand whose last dim is K
 _MATMULS = {"mm": 0, "bmm": 0, "matmul": 0, "addmm": 1, "baddbmm": 1,
             "linear": 0}
+# functional collective -> the reference's collective type
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                "isend": "collective-permute", "irecv": "collective-permute",
+                "batch_p2p_ops": "collective-permute"}
 _TRANSCENDENTAL = {"exp", "log", "tanh", "rsqrt", "sqrt", "pow", "sigmoid",
                    "sin", "cos"}
 
@@ -111,6 +128,8 @@ def op_costs(prim: Any, args: Sequence[Any], outs: Sequence[_T]
         x = ins[0]
         tot["transcendentals"] = float(x.numel // max(x.shape[-1], 1)
                                        if x.shape else 1)
+    elif ns == "_c10d_functional" and op in _COLLECTIVES:
+        tot[_COLLECTIVES[op]] = float(sum(o.nbytes for o in outs))
     if ns == "aten" and op in _TRANSCENDENTAL:
         tot["transcendentals"] = float(sum(o.numel for o in outs))
     tot["hbm_bytes"] = float(sum(o.nbytes for o in outs) +

@@ -1,0 +1,474 @@
+"""DTensor sharding strategies for the two kernel ops.
+
+``repro_torch::flash_attention`` and ``repro_torch::rmsnorm`` are custom
+ops, so DTensor has no rule for them until one is registered; a sharded
+step (the dry-run, a restore onto a mesh) then raises ``NotImplementedError``
+at its first norm.  :func:`register_kernel_strategies` registers both with
+``torch.distributed.tensor.experimental.register_sharding``.  The launch
+tooling calls it before it runs a step on DTensors; importing
+``kernels.ops`` stays free of ``torch.distributed``.
+
+Each rule lists, per mesh dim, the placements the op computes correctly on
+the local shards; DTensor expands them over the mesh and picks the one
+that costs the inputs the least redistribution:
+
+* **flash attention** ``q (B, Hq, S, hd), k/v (B, Hkv, T, hd)``:
+  everything replicated; the batch sharded on all three (and the output);
+  or the heads sharded on all three.  The op pairs local q head ``j`` with
+  local kv head ``j // (Hq_local / Hkv_local)``, which is the global
+  pairing only when every rank's q heads use exactly its own kv heads:
+  when the mesh dims that shard the heads split ``Hkv`` evenly.  Where
+  they do not (``gemma_2b``'s one kv head, ``granite_8b``'s 8 on a model
+  axis of 16), the rule is dropped from the choice and DTensor gathers the
+  heads (q included) instead: each rank then computes all heads of its
+  batch rows.  S and T are never sharded (the causal mask reads absolute
+  positions).  The backward is the op's plain gradient (``ops.py``
+  ``_flash_backward``), run on the local shards at the placements the
+  forward ran at (``_LocalFlash``), so its gradients come out there.
+* **RMSNorm** ``x (..., d), scale (d,)``: any one leading dim of ``x``
+  sharded (or none), the output likewise, ``scale`` replicated.  ``d`` is
+  never offered: the mean is over ``d``, so an input sharded there is
+  gathered first.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any, Iterator, List, Tuple
+
+import torch
+
+_REGISTERED = False
+
+
+def _flash_rules(q, k, v, causal=True, softmax_scale=None, impl=None
+                 ) -> List[Tuple[List[Any], List[Any]]]:
+    from torch.distributed.tensor import Replicate, Shard
+    rest = [None, None, None]       # causal, softmax_scale, impl
+    return [([p], [p] * 3 + rest) for p in (Replicate(), Shard(0), Shard(1))]
+
+
+def _head_shards(spec) -> int:
+    """How many ways the mesh splits dim 1 (the heads) of ``spec``."""
+    return math.prod(spec.mesh.size(i) for i, p in enumerate(spec.placements)
+                     if p.is_shard() and p.dim == 1)
+
+
+def _heads_aligned(op_spec) -> bool:
+    """Each rank's q heads are those of its own kv heads: the head
+    shards split ``Hkv`` evenly (and with it ``Hq``)."""
+    q, k = op_spec.input_specs[0], op_spec.input_specs[1]
+    n = _head_shards(q)
+    return n == 1 or (k.shape[1] % n == 0 and q.shape[1] % n == 0)
+
+
+def _ready(q, k, v) -> bool:
+    """q, k and v already stand on one of the flash rules on every mesh
+    dim of more than one rank, so DTensor moves none of them."""
+    from torch.distributed.tensor import Replicate, Shard
+    ok = (Replicate(), Shard(0), Shard(1))
+    for i, (a, b, c) in enumerate(zip(q.placements, k.placements,
+                                      v.placements)):
+        if q.device_mesh.size(i) > 1 and not (a == b == c and a in ok):
+            return False
+    n = math.prod(q.device_mesh.size(i) for i, p in enumerate(q.placements)
+                  if p == Shard(1))
+    return k.shape[1] % n == 0
+
+
+def _moved_flash(func, args, kwargs):
+    """Flash attention on inputs DTensor must move first.  A move leaves
+    each shard contiguous but keeps the DTensor's global strides, and the
+    op lays its output out as q: a q passed as a transposed view would
+    then have one layout as a DTensor and another in its shard.  So the
+    inputs go in contiguous, and the output comes back laid out as q was
+    (the model views it in that layout)."""
+    q = args[0]
+    out = _LocalFlash.apply(func, kwargs, *(
+        tuple(a.contiguous() for a in args[:3]) + tuple(args[3:])))
+    order = sorted(range(q.ndim), key=lambda d: -q.stride(d))
+    back = sorted(range(q.ndim), key=order.__getitem__)
+    return out.permute(order).contiguous().permute(back)
+
+
+class _LocalFlash(torch.autograd.Function):
+    """Flash attention on DTensors whose backward runs on the shards.
+
+    The forward is the op under its rule, which leaves the output on the
+    placements q, k and v were computed at.  The op's own backward is
+    plain aten ops, and on DTensors each of them would take whatever
+    placement DTensor's propagation picks: torch 2.11 gathered the heads
+    there, so every model rank ran the whole attention backward and the
+    projections' whole weight gradients.  Here the backward moves q, k,
+    v and the output gradient to the forward's placements and runs the
+    op's backward on the local shards (a batch or head shard is a whole
+    attention problem), so dq, dk and dv come back on those placements
+    whatever the torch version."""
+
+    @staticmethod
+    def forward(ctx, func, kwargs, q, k, v, *rest):
+        out = func(q, k, v, *rest, **kwargs)
+        ctx.save_for_backward(q, k, v)
+        ctx.placements = tuple(out.placements)
+        ctx.options = _flash_options(*rest, **kwargs)
+        ctx.n_rest = len(rest)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        from ..kernels.ref import reference_attention_backward
+        p = ctx.placements
+        q, k, v = ctx.saved_tensors
+        local = [t.redistribute(placements=p).to_local()
+                 for t in (q, k, v, grad)]
+        grads = reference_attention_backward(*local, **ctx.options)
+        # each gradient laid out as its input's shard, as its DTensor says
+        return (None, None) + tuple(
+            DTensor.from_local(
+                g if g.stride() == x.stride() else
+                torch.empty_like(x).copy_(g), t.device_mesh, p,
+                run_check=False, shape=t.shape, stride=t.stride())
+            for g, x, t in zip(grads, local, (q, k, v))) + \
+            (None,) * ctx.n_rest
+
+
+def _flash_options(causal=True, softmax_scale=None, impl=None):
+    """The options of a flash call that its backward takes."""
+    return {"causal": causal, "softmax_scale": softmax_scale}
+
+
+def _gathered_weight(x, w):
+    """``w`` gathered on every mesh dim that shards both it and the rows
+    of ``x``: FSDP's gather of a weight at its use."""
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if px.is_shard() and px.dim < x.ndim - 1 and
+            pw.is_shard() else pw
+            for px, pw in zip(x.placements, w.placements)]
+    return w if want == list(w.placements) else \
+        w.redistribute(placements=want)
+
+
+class _WeightProduct(torch.autograd.Function):
+    """``x @ w`` for a 2-D weight on DTensors, as XLA's partitioner runs
+    it for the same rules: the weight gathered where the rows of ``x``
+    are sharded (``_gathered_weight``); in the backward, the output
+    gradient moved back to the output's placements (a pending sum there
+    reduced), ``dx = g wᵀ`` and ``dw = xᵀ g`` on those, and ``dw``, a
+    pending sum over the rows' mesh dims, reduce-scattered onto the
+    weight's own placements.
+
+    DTensor left to itself picks each op's placements greedily, by the
+    bytes its inputs would move.  Where a micro-batch's rows were fewer
+    than a weight's, it moved the activations instead of the weight and
+    split the contraction, and every model rank then ran the whole
+    output width: 16x the FFN's FLOPs on the 16x16 mesh at
+    ``grad_accum=8``.  torch 2.11 went further, in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        wg = _gathered_weight(x, w)
+        out = x @ wg
+        ctx.save_for_backward(x, wg)
+        ctx.w_placements = tuple(w.placements)
+        ctx.g_placements = _reduced_placements(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wg = ctx.saved_tensors
+        g = g.redistribute(placements=ctx.g_placements)
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = torch.mm(g2, wg.t()).reshape(x.shape)
+        dw = torch.mm(x.reshape(-1, x.shape[-1]).t(), g2)
+        return dx, dw.redistribute(placements=ctx.w_placements)
+
+
+def _placed_like(x, want):
+    """``x`` on ``want`` where that splits its dims evenly and ``x`` holds
+    no pending sum.  DTensor slices a sharded dim by gathering it, so a
+    micro-batch cut from a batch sharded on ``data`` comes out replicated
+    and every data rank would run all of it; XLA keeps the operand's
+    sharding on the slice.  Going back from ``Replicate`` to ``Shard`` is
+    a local chunk, so this costs the one gather of the batch."""
+    from torch.distributed.tensor import Partial
+    want = tuple(want)
+    if tuple(x.placements) == want or any(
+            isinstance(p, Partial) for p in x.placements):
+        return x
+    ways = [1] * x.ndim
+    for i, p in enumerate(want):
+        if p.is_shard():
+            ways[p.dim] *= x.device_mesh.size(i)
+    if any(x.shape[d] % w for d, w in enumerate(ways)):
+        return x
+    return x.redistribute(placements=want)
+
+
+def _reduced_placements(placements):
+    from torch.distributed.tensor import Partial, Replicate
+    return [Replicate() if isinstance(p, Partial) else p for p in placements]
+
+
+class _Reduced(torch.autograd.Function):
+    """A pending sum reduced to ``Replicate``; its gradient comes back with
+    any pending sum reduced too, since DTensor cannot turn a plain pending
+    sum back into a lookup's masked one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.redistribute(placements=_reduced_placements(x.placements))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(placements=_reduced_placements(g.placements))
+
+
+def _rmsnorm_rules(x, scale, eps=1e-6, impl=None
+                   ) -> List[Tuple[List[Any], List[Any]]]:
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()], [Replicate(), Replicate(), None, None])]
+    for d in range(x.ndim - 1):
+        out.append(([Shard(d)], [Shard(d), Replicate(), None, None]))
+    return out
+
+
+def _index_copy_rules(x, dim, index, source):
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    out = [([Replicate()], [Replicate(), None, Replicate(), Replicate()])]
+    for d in range(x.ndim):
+        if d != dim:
+            out.append(([Shard(d)], [Shard(d), None, Replicate(), Shard(d)]))
+    return out
+
+
+def _searchsorted_rules(seq, values, **kwargs):
+    from torch.distributed.tensor import Replicate, Shard
+    out = [([Replicate()], [Replicate(), Replicate()]),
+           # every rank searches its share of the values in the whole run
+           ([Shard(values.ndim - 1)], [Replicate(), Shard(values.ndim - 1)])]
+    for d in range(values.ndim - 1):             # batch dims, on both
+        out.append(([Shard(d)], [Shard(d), Shard(d)]))
+    return out
+
+
+def _pointwise_rules(n_out: int, n_in: int):
+    def rules(x, *args, **kwargs):
+        from torch.distributed.tensor import Replicate, Shard
+        return [([p] * n_out, [p] * n_in)
+                for p in [Replicate()] + [Shard(d) for d in range(x.ndim)]]
+    return rules
+
+
+def register_kernel_strategies() -> None:
+    """Register both ops' rules with DTensor (once a process), and rules
+    for four aten ops the port's models reach that DTensor lacks on torch
+    2.11 or 2.13: ``index_copy`` (the KV cache's write: any dim but the
+    written one sharded on the cache, the new rows and the output alike,
+    the row indices replicated; torch 2.13 reaches the same function
+    through a decomposition, 2.11 refuses a decode step),
+    ``searchsorted`` (MoE routing: batch dims on both, or the values
+    alone) and ``log_sigmoid_forward`` / ``log_sigmoid_backward`` (the xLSTM
+    gates; elementwise)."""
+    global _REGISTERED
+    if _REGISTERED:
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import OpStrategy
+    from torch.distributed.tensor.experimental import register_sharding
+
+    from ..kernels import ops  # noqa: F401  (defines the ops)
+
+    flash = torch.ops.repro_torch.flash_attention.default
+    norm = torch.ops.repro_torch.rmsnorm.default
+    register_sharding(flash)(_flash_rules)
+    register_sharding(norm)(_rmsnorm_rules)
+    aten = torch.ops.aten
+    register_sharding(aten.index_copy.default)(_index_copy_rules)
+    register_sharding(aten.searchsorted.Tensor)(_searchsorted_rules)
+    register_sharding(aten.log_sigmoid_forward.default)(
+        _pointwise_rules(2, 1))
+    register_sharding(aten.log_sigmoid_backward.default)(
+        _pointwise_rules(1, 3))
+
+    # register_sharding expands the per-dim rules over every combination
+    # of mesh dims; keep only the combinations whose head shards pair q
+    # with its own kv heads
+    funcs = DTensor._op_dispatcher.sharding_propagator.op_strategy_funcs
+    expand = funcs[flash]
+
+    def aligned(op_schema):
+        st = expand(op_schema)
+        return OpStrategy([s for s in st.strategies if _heads_aligned(s)])
+    funcs[flash] = aligned
+    _REGISTERED = True
+
+
+@contextlib.contextmanager
+def sharded_execution() -> Iterator[None]:
+    """Run a step's model code on DTensors: the rules above registered,
+    plain tensors the model makes (positions, masks, the iota of the loss)
+    taken as replicated (``implicit_replication``), flash attention on
+    inputs DTensor must move given contiguous ones (``_moved_flash``), an
+    embedding lookup into a vocab-sharded table reduced at once, a slice
+    of the leading dim (a micro-batch) kept on its operand's placements
+    (``_placed_like``), a product with a weight run FSDP's way
+    (``_WeightProduct``), a pending sum reduced before ``log`` takes it
+    (``_Reduced``), and three
+    of DTensor's own steps adjusted for a traced step (``_untraced_meta``,
+    ``_host_strided_offsets``, ``_resharding_views``).
+
+    ``log``: the loss's ``log(sum(exp(x)))`` over vocab-sharded logits
+    takes a pending sum.  ``log``'s backward divides by its saved input,
+    and autograd saves the pending sum itself, not DTensor's reduction of
+    it; torch 2.11's DTensor divided by the local share, so the gradients
+    were wrong on a real multi-rank world (2.13 gets it right).  Reduced
+    first, ``log`` saves the whole sum on every version.
+
+    DTensor computes that lookup as a masked local gather whose output is
+    a pending sum (``_MaskPartial``) that holds its mask until the one
+    reduction; the first hidden state has two readers (the first norm and
+    the residual), and the second would find the mask gone.  Reducing it
+    to ``Replicate`` where it is made is one all-reduce of the (B, S, D)
+    activations, the collective XLA's partitioner emits for the same
+    gather."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.distributed.tensor.placement_types import _MaskPartial
+    from torch.overrides import TorchFunctionMode
+
+    register_kernel_strategies()
+    flash = torch.ops.repro_torch.flash_attention.default
+
+    class _ShardedOps(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is flash and isinstance(args[0], DTensor):
+                if not _ready(*args[:3]):
+                    return _moved_flash(func, args, kwargs)
+                return _LocalFlash.apply(func, kwargs, *args)
+            if func in (torch.Tensor.matmul, torch.matmul) and \
+                    not kwargs and len(args) == 2 and \
+                    isinstance(args[0], DTensor) and \
+                    isinstance(args[1], DTensor) and args[1].ndim == 2:
+                return _WeightProduct.apply(*args)
+            if func in (torch.log, torch.Tensor.log) and \
+                    isinstance(args[0], DTensor) and any(
+                        isinstance(p, Partial) for p in args[0].placements):
+                args = (_Reduced.apply(args[0]),) + tuple(args[1:])
+            out = func(*args, **kwargs)
+            if func is F.embedding and isinstance(out, DTensor) and any(
+                    isinstance(p, _MaskPartial) for p in out.placements):
+                out = _Reduced.apply(out)
+            if func is torch.Tensor.__getitem__ and \
+                    isinstance(args[1], slice) and \
+                    isinstance(args[0], DTensor):
+                out = _placed_like(out, args[0].placements)
+            return out
+
+    with implicit_replication(), _ShardedOps(), _host_strided_offsets(), \
+            _resharding_views(), _untraced_meta():
+        yield
+
+
+@contextlib.contextmanager
+def _untraced_meta() -> Iterator[None]:
+    """DTensor derives an op's global output shape by running the op on
+    fake global-shape arguments.  torch 2.11 does that under the capture's
+    tracer, so every such op left dead "shadow" nodes in the graph: an
+    ``empty_strided`` on the CPU and the op on it (the plan then ran an
+    embedding on uninitialised indices).  torch 2.13 runs it untraced;
+    this does the same on 2.11."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+    orig = ShardingPropagator.__dict__.get("_propagate_tensor_meta_non_cached")
+    if orig is None:
+        yield
+        return
+
+    def untraced(self, op_schema):
+        with disable_proxy_modes_tracing():
+            return orig(self, op_schema)
+    ShardingPropagator._propagate_tensor_meta_non_cached = untraced
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+
+
+def _strict_first(strict, loose):
+    def rule(op_schema):
+        try:
+            return strict(op_schema)
+        except RuntimeError:
+            return loose(op_schema)
+    return rule
+
+
+@contextlib.contextmanager
+def _resharding_views() -> Iterator[None]:
+    """DTensor refuses a ``view`` that splits a dim whose shards do not
+    fall on whole pieces of the split (``gemma_2b``'s 8 heads of a q
+    projection sharded 16 ways, forward and backward); XLA reshards
+    there, and so does this: ``view`` and ``_unsafe_view`` take DTensor's
+    ``reshape`` rule, which gathers such a dim first.  The step is
+    functional, so a view that is a copy of its input changes nothing.
+    Every view DTensor takes as it is keeps its own rule."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor._ops import _view_ops
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    ops = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
+    saved = [(prop.op_strategy_funcs.get(op), prop.op_to_schema_info.get(op))
+             for op in ops]
+    for op, (strict, _) in zip(ops, saved):
+        _view_ops.register_op_strategy_map(
+            op, torch.Tensor.view, schema_info=RuntimeSchemaInfo(1),
+            strict_view=False)
+        prop.op_strategy_funcs[op] = _strict_first(
+            strict, prop.op_strategy_funcs[op])
+    try:
+        yield
+    finally:
+        for op, (fn, info) in zip(ops, saved):
+            prop.op_strategy_funcs[op] = fn
+            prop.op_to_schema_info[op] = info
+
+
+@contextlib.contextmanager
+def _host_strided_offsets() -> Iterator[None]:
+    """DTensor finds a strided shard's local size and offsets
+    (``_StridedShard.local_shard_size_and_offset``, met where a product
+    merges a dim sharded on one mesh dim with one sharded on another: the
+    batch on ``data`` with the heads on ``model``) by splitting an
+    ``arange`` over the dim and reading it back with ``tolist``.  Under a
+    trace that tensor is fake: every element becomes a fresh unbacked
+    symbol, tens of thousands of them at a 32k cache, and a cell takes
+    minutes.  The function reads only ints, so it runs here outside the
+    trace, on a real ``arange``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import placement_types as pt
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+    cls = getattr(pt, "_StridedShard", None)
+    raw = vars(cls).get("local_shard_size_and_offset") if cls else None
+    if raw is None:
+        yield
+        return
+    static = isinstance(raw, staticmethod)
+    fn = raw.__func__ if static else raw
+
+    def on_host(*args, **kwargs):
+        with unset_fake_temporarily(), disable_proxy_modes_tracing():
+            return fn(*args, **kwargs)
+    cls.local_shard_size_and_offset = staticmethod(on_host) if static \
+        else on_host
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = raw

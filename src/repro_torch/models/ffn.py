@@ -178,7 +178,11 @@ def moe_apply(params: Dict, x: torch.Tensor, *, top_k: int,
     cap = r.cap
 
     # Switch-style aux loss over every token
-    counts = torch.bincount(r.top_i.reshape(-1), minlength=e)
+    # bincount with minlength e (top_i < e), at a size known before the
+    # values: a sharded step cannot trace bincount's value-dependent one
+    idx = r.top_i.reshape(-1)
+    counts = torch.zeros(e, dtype=idx.dtype, device=idx.device).scatter_add(
+        0, idx, torch.ones_like(idx))
     frac_tokens = counts.to(torch.float32) / (b * s * top_k)
     aux = e * torch.sum(frac_tokens * r.probs.reshape(-1, e).mean(dim=0))
 

@@ -1,0 +1,172 @@
+"""The dry-run against a real reference lowering: smoke ``llama2_1b``.
+
+One subprocess runs the reference with ``XLA_FLAGS`` forcing 8 host
+devices: it lowers and compiles the smoke config at ``train_4k`` and
+``decode_32k`` on a 2x4 ``(data, model)`` mesh with the reference's own
+``ShardingRules``, ``input_specs`` and steps (``jax.jit`` with its
+``donate_argnums``), and reads ``memory_analysis()``, ``HLOAnalyzer``'s
+FLOPs and the HLO's collective bytes.  The port runs the same cells with
+``launch.dryrun.run_cell`` as rank 0 of a fake 8-rank world on a 2x4 mesh.
+Both train steps take ``grad_accum=2`` (the port unrolls its
+micro-batches, so 8 of them cost a minute of capture here; the counts per
+device do not depend on it).
+
+* ``argument_bytes`` equals ``argument_size_in_bytes`` exactly;
+* per-device FLOPs agree within 1e-6 once the terms each side counts by
+  design are added (:func:`named_terms`);
+* the collective bytes of each type are printed side by side, and every
+  type the reference's HLO holds is > 0 in the port, except the two
+  DTensor does not emit on this world: ``all-to-all`` (a CPU process
+  group moves a shard to another dim by all-gather and chunk) and
+  ``collective-permute`` (DTensor has no point-to-point redistribution).
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs import SHAPES, get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import _mesh, destroy_world, init_fake_world
+
+CELLS = ["train_4k", "decode_32k"]
+GRAD_ACCUM = 2
+REF_SCRIPT = r"""
+import json, os, sys
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.configs import get_smoke_config
+from repro.launch.hlo_analysis import HLOAnalyzer
+from repro.launch.sharding import ShardingRules
+from repro.launch.specs import input_specs
+from repro.launch.steps import make_serve_step, make_train_step
+devs = jax.devices()
+assert len(devs) == 8, devs
+from repro.launch.dryrun import collective_bytes   # sets XLA_FLAGS: late
+arch, grad_accum = sys.argv[1], int(sys.argv[2])
+cfg = get_smoke_config(arch)
+mesh = Mesh(np.array(devs).reshape(2, 4), ("data", "model"))
+rules = ShardingRules(mesh)
+out = {}
+for shape in sys.argv[3:]:
+    kind, specs = input_specs(cfg, shape)
+    def shard(tree, fn):
+        sh = rules.named(fn(tree))
+        return jax.tree.map(lambda s, ns: jax.ShapeDtypeStruct(
+            s.shape, s.dtype, sharding=ns), tree, sh)
+    with mesh:
+        if kind == "train":
+            args = (shard(specs["params"], rules.params_pspecs),
+                    shard(specs["opt_state"], rules.params_pspecs),
+                    shard(specs["batch"], rules.batch_specs))
+            jfn = jax.jit(make_train_step(cfg, grad_accum=grad_accum),
+                          donate_argnums=(0, 1))
+        else:
+            args = (shard(specs["params"], rules.params_pspecs),
+                    shard(specs["state"], rules.cache_specs),
+                    shard(specs["inp"], rules.batch_specs))
+            jfn = jax.jit(make_serve_step(cfg), donate_argnums=(1,))
+        comp = jfn.lower(*args).compile()
+    hlo = comp.as_text()
+    out[shape] = {
+        "argument_bytes": int(comp.memory_analysis().argument_size_in_bytes),
+        "flops": HLOAnalyzer(hlo).analyze()["flops"],
+        "collectives": collective_bytes(hlo)}
+print("REF " + json.dumps(out))
+"""
+# the types DTensor does not emit on a CPU world (see the module docstring)
+NOT_EMITTED = ("all-to-all", "collective-permute")
+
+
+def named_terms(cfg, shape, model: int, data: int) -> dict:
+    """Per-device FLOPs each side counts by design, by name.
+
+    * ``reference block remat``: the reference scans its layers under
+      ``jax.checkpoint`` (``remat_policy="block"``), so its backward
+      recomputes each layer's forward but the last FFN product, whose
+      output nothing in the backward reads: q, k, v, o, the gate and up
+      projections and the attention's two products (the blockwise
+      forward, QKᵀ and PV over every key block), per token and layer.
+    * ``reference blockwise delta``: past T = 2048 the reference's
+      blockwise backward contracts dO with O over hd once a layer
+      (``delta``), 2·Hq·hd a token.
+    The port's flash backward recomputes QKᵀ as the reference's blockwise
+    one does past T = 2048, so that needs no term here; and it runs on
+    the shards the forward ran on (``strategies._LocalFlash``), so where
+    the model axis does not divide the kv heads no rank computes a kv
+    weight gradient whole."""
+    cell = SHAPES[shape]
+    if cell["kind"] != "train":
+        return {}
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, f, n = cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers
+    t = cell["seq_len"]
+    tokens = cell["global_batch"] * t
+    per_device = tokens // (model * data)
+    remat = 2 * (d * hq * hd + 2 * d * hkv * hd + hq * hd * d + 2 * d * f) \
+        + 4 * t * hq * hd
+    terms = {"reference block remat": -n * remat * per_device,
+             "reference blockwise delta":
+                 -(n * 2 * hq * hd * per_device if t > 2048 else 0)}
+    return terms
+
+
+def compare(arch):
+    """Both sides' records, printed side by side, and the checks."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-c", REF_SCRIPT, arch, str(GRAD_ACCUM)] + CELLS,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cfg = get_smoke_config(arch)
+    ours = {}
+    init_fake_world(8)
+    try:
+        mesh = _mesh((2, 4), ("data", "model"), torch.device("cpu"))
+        get = dryrun.get_config
+        dryrun.get_config = get_smoke_config
+        try:
+            for shape in CELLS:
+                ours[shape] = dryrun.run_cell(arch, shape, multi_pod=False,
+                                              grad_accum=GRAD_ACCUM,
+                                              mesh=mesh)
+        finally:
+            dryrun.get_config = get
+    finally:
+        destroy_world()
+    out, err = ref_proc.communicate(timeout=600)
+    assert ref_proc.returncode == 0, err[-3000:]
+    line = next(x for x in out.splitlines() if x.startswith("REF "))
+    ref = json.loads(line[4:])
+    for shape in CELLS:
+        rec, want = ours[shape], ref[shape]
+        assert rec["status"] == "ok" and rec["mesh"] == "2x4"
+        assert set(rec["memory"]) >= {"argument_bytes", "output_bytes",
+                                      "temp_bytes", "total_per_device_bytes"}
+        assert rec["memory"]["argument_bytes"] == want["argument_bytes"]
+        terms = named_terms(cfg, shape, model=4, data=2)
+        got = rec["flops"] - sum(terms.values())
+        print(f"{arch} {shape}: flops port {rec['flops']:.0f} reference "
+              f"{want['flops']:.0f} named terms {terms}")
+        assert abs(got - want["flops"]) <= 1e-6 * want["flops"], \
+            (shape, got, want["flops"])
+        for c, b in want["collectives"].items():
+            print(f"  {c:18s} port {rec['collectives'][c]:>14,} "
+                  f"reference {b:>14,}")
+            if b > 0 and c not in NOT_EMITTED and c != "total":
+                assert rec["collectives"][c] > 0, (shape, c)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_llama2_1b_cells_against_the_reference_lowering():
+    compare("llama2_1b")

@@ -1374,3 +1374,109 @@ def test_restore_onto_a_1x1_nccl_mesh_is_bitwise(gen, tmp_path):
     finally:
         destroy_world()
     assert not dist.is_initialized()
+
+
+def _strategy_inputs(gen, dtype):
+    """q, k, v as the model hands them to flash attention ((B, S, H, hd)
+    activations transposed), and an RMSNorm input and scale."""
+    q = _randn(gen, (2, 256, 8, 64), dtype).transpose(1, 2)
+    k = _randn(gen, (2, 256, 2, 64), dtype).transpose(1, 2)
+    v = _randn(gen, (2, 256, 2, 64), dtype).transpose(1, 2)
+    x = _randn(gen, (2, 256, 512), dtype)
+    scale = _randn(gen, (512,), dtype, 0.1)
+    return q, k, v, x, scale
+
+
+def _on_1x1_mesh(fn):
+    """``fn(mesh)`` on a 1x1 mesh of a one-process NCCL world, destroyed
+    after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_world, make_debug_mesh
+    destroy_world()
+    try:
+        mesh = make_debug_mesh(1, 1)
+        assert dist.get_backend() == "nccl"
+        return fn(mesh)
+    finally:
+        destroy_world()
+
+
+MESH_PLACEMENTS = [("replicate", ((0, None), (0, None))),
+                   ("batch-heads", ((0, 0), (0, 1)))]
+
+
+def _placements(spec):
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if d is None else Shard(d) for _, d in spec]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kernel_strategies_on_a_1x1_nccl_mesh_are_bitwise(gen, dtype):
+    """flash attention and RMSNorm on DTensors, through their sharding
+    strategies (``launch.strategies``), launch their kernels once each and
+    equal the direct kernel calls bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.strategies import sharded_execution
+    q, k, v, x, scale = _strategy_inputs(gen, dtype)
+    want_o = flash_attention(q, k, v, True, None, None)
+    want_n = rmsnorm(x, scale, 1e-6, None)
+
+    def run(mesh):
+        for _, spec in MESH_PLACEMENTS:
+            pl = _placements(spec)
+            d = [DTensor.from_local(t, mesh, pl) for t in (q, k, v, x)]
+            ds = DTensor.from_local(scale, mesh, _placements(
+                ((0, None), (0, None))))
+            f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+            with sharded_execution():
+                o = flash_attention(d[0], d[1], d[2], True, None, None)
+                n = rmsnorm(d[3], ds, 1e-6, None)
+            assert flash_attention_cuda.launches == f0 + 1
+            assert rmsnorm_cuda.launches == n0 + 1
+            assert torch.equal(o.to_local(), want_o)
+            assert o.to_local().stride() == want_o.stride()
+            assert torch.equal(n.to_local(), want_n)
+    _on_1x1_mesh(run)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_kernel_strategies_backward_on_a_1x1_nccl_mesh_is_bitwise(gen,
+                                                                  dtype):
+    """The ops' plain gradients (flash's on the local shards at the
+    forward's placements, RMSNorm's as aten ops on the DTensors) give the
+    direct call's gradients bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.strategies import sharded_execution
+    q, k, v, x, scale = _strategy_inputs(gen, dtype)
+    go = _randn(gen, q.shape, dtype)
+    gn = _randn(gen, x.shape, dtype)
+
+    def grads(args, wrap=lambda t, i: t, ctx=None):
+        leaves = [a.detach().requires_grad_() for a in args]
+        w = [wrap(t, i) for i, t in enumerate(leaves)]
+        import contextlib
+        with ctx or contextlib.nullcontext():
+            o = flash_attention(w[0], w[1], w[2], True, None, None)
+            n = rmsnorm(w[3], w[4], 1e-6, None)
+            gw = [wrap(go, 0), wrap(gn, 3)]
+            torch.autograd.backward([o, n], gw)
+        return [t.grad for t in leaves]
+
+    want = grads((q, k, v, x, scale))
+
+    def run(mesh):
+        for _, spec in MESH_PLACEMENTS:
+            pl = _placements(spec)
+            rep = _placements(((0, None), (0, None)))
+
+            def wrap(t, i):
+                return DTensor.from_local(t, mesh, rep if i == 4 else pl)
+            got = grads((q, k, v, x, scale), wrap, sharded_execution())
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    _on_1x1_mesh(run)
