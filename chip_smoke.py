@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
    taken, rows bitwise equal alone, in a 4-row call and in the whole
    call, and per row the device time from torch.profiler's kernel
    records of back-to-back calls over inputs rotated across twice the
-   L2 (the kernel, the loop path -- the earlier one-CTA-a-row design --
+   L2 (a profile short of records taken again, then read from the
+   records it has; the kernel, the loop path -- the earlier one-CTA-a-row design --
    ``F.rms_norm``, a device copy of x), the host microseconds per call
    (the wrapper, the op, ``F.rms_norm``) and the bound;
 3. main path: ``optimize(make_prefill_step(llama2_1b))`` at full width
@@ -433,15 +434,23 @@ Phases (any failure exits non-zero):
    process group destroyed before the phase ends.
 
 22. dry-run (``[dryrun]`` lines), last: (a) the ``llama2_1b``
-   ``train_4k`` cell of ``python -m repro_torch.launch.dryrun`` on the
-   16x16 mesh, in its own CPU process (a fake 512-rank world cannot
-   start where phase 21 left an NCCL group) while the card is idle:
-   status ok, all-gather bytes > 0 (FSDP), the gradients' reduce-scatter
+   ``train_4k`` and ``decode_32k`` cells of ``python -m
+   repro_torch.launch.dryrun`` on the 16x16 mesh, two CPU processes
+   started together (a fake 512-rank world cannot start where phase 21
+   left an NCCL group) while the card is idle, each waited with its own
+   limit (DRYRUN_TIMEOUT_S, DRYRUN_DECODE_TIMEOUT_S); train: status ok,
+   all-gather bytes > 0 (FSDP), the gradients' reduce-scatter
    or all-reduce bytes > 0, FLOPs a device within 1e-6 of a step that no
    rank repeats (``dense_train_flops``), argument bytes between the
    state split 256 and 16 ways, the whole cell within the card's memory;
-   the record and its seconds printed; (b) the dry-run's cell machinery on
-   ``make_debug_mesh()`` (NCCL, 1x1) for ``llama2_1b`` at full width, the
+   decode: status ok, the reference's argument bytes, all-gather below
+   1/30 of the bytes it gathered when DTensor moved the sequence-sharded
+   KV cache, no collective output as large as one layer's local k shard
+   (the cache stays where it is sharded); the records, their seconds and
+   the decode cell's collectives beside those earlier bytes printed;
+   (b) the dry-run's cell machinery on
+   ``make_debug_mesh()`` (NCCL, 1x1, a 120 s process-group timeout) for
+   ``llama2_1b`` at full width, the
    train step at (8,1024) with ``grad_accum=1``, donated: its per-rank
    plan on the card from phase 6's state and batch beside phase 6's
    plan: the loss, weights and moments bitwise (else within
@@ -555,6 +564,10 @@ RMSNORM_TEST_SHAPES = [(64, 256), (100, 300), (32, 2048), (7, 128),
 NORM_WIDTHS = (512, 1536, 1600, 2048, 3072, 4096, 4608, 7168)
 NORM_ROWS = (8192, 4)
 NORM_TIMED = 50          # profiled calls per function, back to back
+NORM_PROFILES = 5        # profiles taken at most for a whole record of them
+# host seconds the profiler's window runs idle before the calls and after
+# their sync: the profiler keeps only device records inside its window
+PROFILE_PAD_S = 0.005
 NORM_HOST_CALLS = 200    # calls per function on the host clock
 NORM_BITWISE_ROWS = (0, 1, 4097, 8191)
 
@@ -889,14 +902,19 @@ def phase_kernels():
 
 def profiled_kernels(run):
     """torch.profiler over ``run()``: (name, start ns, duration ns) of
-    every device kernel it launched, in start order."""
+    every device kernel it launched, in start order.  The window opens
+    PROFILE_PAD_S before ``run`` and closes as long after its sync, so a
+    device clock read a little off the host's leaves no kernel outside
+    it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         run()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     out = [(ev.name(), ev.start_ns(), ev.duration_ns())
            for ev in prof.profiler.kineto_results.events()
            if ev.device_type() == torch.autograd.DeviceType.CUDA]
@@ -931,34 +949,69 @@ def norm_edge_checks(randn):
             f"with plain (tol {TOL[name]})")
 
 
-def rotated_device_ms(fn, xs, n_slots):
+class RotatedTime(NamedTuple):
+    ms: float            # mean device ms a call
+    names: dict          # {kernel name: launches a call}
+    records: int         # kernel records the time was read from, of ...
+    want: int            # ... the records NORM_TIMED calls make
+    profiles: int        # profiles of NORM_TIMED calls taken
+
+
+def rotated_device_ms(fn, xs, n_slots) -> RotatedTime:
     """Mean device ms of ``fn(x)`` over NORM_TIMED back-to-back calls, from
     torch.profiler's kernel records (every kernel a call launches), and
-    the kernels' names.  ``xs(j)`` is the input of call j: the calls walk
-    ``n_slots`` inputs that together hold at least twice the L2, so each
-    finds its input in HBM; the outputs are held in a ring as long, so
-    each call writes fresh lines and the write-back of the lines it
-    evicts, earlier calls' outputs, lands inside some call's window.  A
-    first NORM_TIMED calls bring the L2 to that steady state.  A profile
-    whose kernels are not a whole number a call (the profiler dropped
-    records) is taken again, up to three times."""
+    the kernels a call launches by name.  ``xs(j)`` is the input of call
+    j: the calls walk ``n_slots`` inputs that together hold at least twice
+    the L2, so each finds its input in HBM; the outputs are held in a
+    ring as long, so each call writes fresh lines and the write-back of
+    the lines it evicts, earlier calls' outputs, lands inside some call's
+    window.  A first NORM_TIMED calls bring the L2 to that steady state.
+    A profile that lacks records (the profiler dropped some: a kernel's
+    count is not a whole number a call) is taken again, up to
+    NORM_PROFILES in all; then a profile of one call counts its kernels
+    by name, and the fullest profile's records give each name's mean,
+    times its launches a call."""
     import itertools
-    from collections import deque
+    from collections import Counter, deque
     ring = deque(maxlen=n_slots)
     walk = itertools.count()
 
-    def run():
-        for _ in range(NORM_TIMED):
+    def run(calls=NORM_TIMED):
+        for _ in range(calls):
             ring.append(fn(xs(next(walk) % n_slots)))
 
     run()
-    for _ in range(3):
+    best = []
+    for tries in range(1, NORM_PROFILES + 1):
         evs = profiled_kernels(run)
-        if evs and len(evs) % NORM_TIMED == 0:
-            return (sum(e[2] for e in evs) / NORM_TIMED / 1e6,
-                    [e[0] for e in evs])
-    raise AssertionError(f"the profile of {NORM_TIMED} calls holds "
-                         f"{len(evs)} kernels three times running")
+        counts = Counter(e[0] for e in evs)
+        if evs and all(c % NORM_TIMED == 0 for c in counts.values()):
+            return RotatedTime(sum(e[2] for e in evs) / NORM_TIMED / 1e6,
+                               {k: c // NORM_TIMED for k, c in counts.items()},
+                               len(evs), len(evs), tries)
+        if len(evs) > len(best):
+            best = evs
+    for _ in range(NORM_PROFILES):
+        names = Counter(e[0] for e in profiled_kernels(lambda: run(1)))
+        if names:
+            break
+    else:
+        raise AssertionError(f"{NORM_PROFILES} profiles of one call running "
+                             f"hold no kernel")
+    want = NORM_TIMED * sum(names.values())
+    by_name = {}
+    for name, _, dur in best:
+        if name not in names:
+            raise AssertionError(f"the profile of {NORM_TIMED} calls holds "
+                                 f"{name}, which one call does not launch")
+        by_name.setdefault(name, []).append(dur)
+    if set(by_name) != set(names):
+        raise AssertionError(f"{NORM_PROFILES} profiles of {NORM_TIMED} "
+                             f"calls running lack {set(names) - set(by_name)}"
+                             f"; the fullest holds {len(best)} of {want} "
+                             f"kernel records")
+    ms = sum(names[k] * sum(v) / len(v) for k, v in by_name.items()) / 1e6
+    return RotatedTime(ms, dict(names), len(best), want, NORM_PROFILES)
 
 
 def norm_sweep_row(n, d, dtype, randn, l2):
@@ -1010,15 +1063,19 @@ def norm_sweep_row(n, d, dtype, randn, l2):
            "old": (old, "rmsnorm_loop<"),
            "library": (lambda xi: F.rms_norm(xi, (d,), w, 1e-6), None),
            "copy": (lambda xi: xi.clone(), None)}
-    dev = {}
+    dev, short = {}, []
     for label, (fn, kernel) in fns.items():
-        dev[label], names = rotated_device_ms(fn, xs, n_slots)
+        timed = rotated_device_ms(fn, xs, n_slots)
+        dev[label] = timed.ms
         if kernel is not None and (
-                len(names) != NORM_TIMED or any(kernel not in k
-                                                for k in names)):
-            raise AssertionError(f"rmsnorm ({n},{d}) {name} {label}: the "
-                                 f"profile holds {names[:4]}..., want "
-                                 f"{NORM_TIMED} {kernel} kernels")
+                len(timed.names) != 1 or kernel not in next(iter(timed.names))
+                or timed.want != NORM_TIMED):
+            raise AssertionError(f"rmsnorm ({n},{d}) {name} {label}: a call "
+                                 f"launches {timed.names}, want one "
+                                 f"{kernel} kernel")
+        if timed.profiles > 1:
+            short.append(f"{label}: {timed.profiles} profiles, time from "
+                         f"{timed.records} of {timed.want} records")
     host = {}
     for label, fn in (("rmsnorm_cuda", lambda: rmsnorm_cuda(x, sc)),
                       ("op", lambda: rmsnorm(x, sc, 1e-6, None)),
@@ -1040,7 +1097,9 @@ def norm_sweep_row(n, d, dtype, randn, l2):
         f"{bound:.4f} ms ({by}), {100 * bound / dev['kernel']:.1f}% of it "
         f"(the copy {100 * bound / dev['copy']:.1f}%); host us per call: "
         f"rmsnorm_cuda {host['rmsnorm_cuda']:.2f} op {host['op']:.2f} "
-        f"F.rms_norm {host['F.rms_norm']:.2f}")
+        f"F.rms_norm {host['F.rms_norm']:.2f}"
+        + (f"; profiles short of records, taken again: {'; '.join(short)}"
+           if short else ""))
     del big, x, y, want
     return {"rows": n, "d": d, "dtype": name, "path": geo.path,
             "threads_per_row": geo.threads_per_row,
@@ -1049,6 +1108,7 @@ def norm_sweep_row(n, d, dtype, randn, l2):
             "device_ms": dev["kernel"], "old_device_ms": dev["old"],
             "library_device_ms": dev["library"], "copy_device_ms": dev["copy"],
             "host_us": host, "bound_ms": bound, "bound_by": by,
+            "profiles_retaken": short,
             "share_of_bound": bound / dev["kernel"]}
 
 
@@ -7166,14 +7226,29 @@ def phase_launch():
 
 # -- phase 22: the dry-run ([dryrun] lines) -----------------------------------
 
-# (a) one production train cell of the dry-run on the 16x16 mesh of a fake
-# 512-rank world, on the host's CPU: llama2_1b, whose train_4k cell is the
-# smallest one (4 layers at llama2-7b's width; a full-width train cell
-# unrolls 8 micro-batches and takes minutes), in a fresh process (the fake
-# world cannot start where phase 21 left an NCCL group) run while the card
-# is idle, so no phase's host-bound reading shares the CPU with it
+# (a) two production cells of the dry-run on the 16x16 mesh of a fake
+# 512-rank world, on the host's CPU: llama2_1b's train_4k, the smallest
+# train cell (4 layers at llama2-7b's width; a full-width train cell
+# unrolls 8 micro-batches and takes minutes), and its decode_32k, whose
+# KV cache is sharded on its 32k positions; each in a fresh process (the
+# fake world cannot start where phase 21 left an NCCL group), both started
+# together while the card is idle, so no phase's host-bound reading shares
+# the CPU with them.  The train cell takes 47-71 s on the card's host and
+# the decode cell about 32 s beside it: a limit each, so a slowed cell
+# fails here with its name
 DRYRUN_ARCH, DRYRUN_SHAPE = "llama2_1b", "train_4k"
-DRYRUN_TIMEOUT_S = 400
+DRYRUN_DECODE_SHAPE = "decode_32k"
+DRYRUN_TIMEOUT_S = 180
+DRYRUN_DECODE_TIMEOUT_S = 90
+# the decode cell: the reference's argument bytes a device, one layer's
+# local k shard (8 x 2048 x 32 x 128 bf16), and its collective bytes when
+# DTensor gathered the cache (torch 2.13, CPU; all-to-all and
+# collective-permute 0); its all-gather must stay below 1/30 of those
+DRYRUN_DECODE_ARGS = 1_112_907_824
+DRYRUN_DECODE_K_SHARD = 134_217_728
+DRYRUN_DECODE_GATHERED = {"all-gather": 34_460_925_952,
+                          "all-reduce": 589_824, "reduce-scatter": 0,
+                          "total": 34_461_515_776}
 DRYRUN_FLOPS_TOL = 1e-6      # (a)'s FLOPs a device vs the analytic count
 DRYRUN_BASE = {}             # (b): phase 6's plan, phase 21 (b)'s FLOPs
 # (c) the example and tool twins, each in its own process on the card
@@ -7216,13 +7291,74 @@ def dense_train_flops(cfg, shape, devices: int) -> float:
     return tokens * (6 * mm + 14 * t * hq * hd * cfg.n_layers)
 
 
-def dryrun_cell():
-    """(a): the cell in its own process, its record checked against the
-    counts of a step that no rank repeats: FLOPs a device within
-    DRYRUN_FLOPS_TOL of ``dense_train_flops``, the arguments between the
-    state split over every rank and over the model axis alone, and the
-    whole cell within the card's memory."""
+def _dryrun_procs(out):
+    """Start the train and decode cells' processes together, each writing
+    its output to a log in ``out``; wait for each within its own limit.
+    Returns {shape: (exit code, seconds from the start to its end, its
+    [dryrun]/[done] lines, its whole output)}."""
     import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    limits = {DRYRUN_SHAPE: DRYRUN_TIMEOUT_S,
+              DRYRUN_DECODE_SHAPE: DRYRUN_DECODE_TIMEOUT_S}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for shape in limits:
+            with open(out / f"{shape}.log", "w") as f:
+                procs[shape] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", DRYRUN_ARCH, "--shape", shape, "--mesh",
+                     "single", "--out", str(out)], cwd=ROOT, env=env,
+                    stdout=f, stderr=subprocess.STDOUT)
+        ended = {}
+        while len(ended) < len(procs):
+            now = time.perf_counter() - t0
+            for shape, proc in procs.items():
+                if shape in ended:
+                    continue
+                if proc.poll() is not None:
+                    ended[shape] = now
+                elif now > limits[shape]:
+                    raise AssertionError(
+                        f"(a) the {DRYRUN_ARCH} {shape} cell was not done "
+                        f"in {limits[shape]} s")
+            time.sleep(0.2)
+        done = {}
+        for shape, proc in procs.items():
+            text = (out / f"{shape}.log").read_text()
+            done[shape] = (proc.returncode, ended[shape],
+                           [x for x in text.splitlines()
+                            if x.startswith(("[dryrun]", "[done]"))], text)
+        return done
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _dryrun_record(out, shape, done):
+    """The cell's record, after a failure check of its process."""
+    code, _, _, text = done[shape]
+    path = out / f"{DRYRUN_ARCH}__{shape}__single.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    if code != 0 or rec.get("status") != "ok":
+        raise AssertionError(f"(a) the {shape} dry-run cell failed (exit "
+                             f"{code}): {text[-3000:]}")
+    return rec
+
+
+def dryrun_cell():
+    """(a): the train and decode cells, each in its own process, both
+    started at once.  The train cell's record is held to the counts of a
+    step that no rank repeats: FLOPs a device within DRYRUN_FLOPS_TOL of
+    ``dense_train_flops``, the arguments between the state split over
+    every rank and over the model axis alone, and the whole cell within
+    the card's memory.  The decode cell's is held to its cache staying
+    where it is sharded: the reference's argument bytes, all-gather below
+    1/30 of DRYRUN_DECODE_GATHERED's, no collective output as large as
+    one layer's local k shard."""
     import shutil
 
     import torch
@@ -7232,37 +7368,33 @@ def dryrun_cell():
     out = ROOT / "build" / "dryrun_smoke"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--mesh", "single",
-             "--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, timeout=DRYRUN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"(a) the {DRYRUN_ARCH} {DRYRUN_SHAPE} cell "
-                             f"was not done in {DRYRUN_TIMEOUT_S} s")
-    seconds = time.perf_counter() - t0
-    lines = [x for x in proc.stdout.splitlines()
-             if x.startswith(("[dryrun]", "[done]"))]
-    path = out / f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__single.json"
-    rec = json.loads(path.read_text()) if path.exists() else {}
+    done = _dryrun_procs(out)
+    _, seconds, lines, _ = done[DRYRUN_SHAPE]
+    _, dec_seconds, dec_lines, _ = done[DRYRUN_DECODE_SHAPE]
+    rec = _dryrun_record(out, DRYRUN_SHAPE, done)
+    dec = _dryrun_record(out, DRYRUN_DECODE_SHAPE, done)
     cfg, shape = get_config(DRYRUN_ARCH), SHAPES[DRYRUN_SHAPE]
     want_flops = dense_train_flops(cfg, shape, 256)
     state = rec.get("params", 0) * 10       # bf16 weights, two f32 moments
     mem = rec.get("memory", {})
     card = torch.cuda.get_device_properties(0).total_memory
     log(f"[dryrun] (a) {DRYRUN_ARCH} {DRYRUN_SHAPE} on the 16x16 mesh of a "
-        f"fake 512-rank world, on the host's CPU with the card idle: exit "
-        f"{proc.returncode}, {seconds:.1f} s; {lines}; FLOPs a device "
+        f"fake 512-rank world, on the host's CPU with the card idle: done "
+        f"{seconds:.1f} s after the start; {lines}; FLOPs a device "
         f"{rec.get('flops', 0):.6e} against {want_flops:.6e} with no "
         f"rank repeating another's work; record {json.dumps(rec)}")
-    if proc.returncode != 0 or rec.get("status") != "ok":
-        raise AssertionError(f"(a) the dry-run cell failed (exit "
-                             f"{proc.returncode}): {proc.stdout[-3000:]}")
     coll = rec["collectives"]
+    dec_coll, dec_mem = dec["collectives"], dec["memory"]
+    largest = max(dec["collectives_largest"].values())
+    log(f"[dryrun] (a) {DRYRUN_ARCH} {DRYRUN_DECODE_SHAPE} beside it: done "
+        f"{dec_seconds:.1f} s after the start; {dec_lines}; collectives a "
+        f"device (now, when DTensor gathered the cache): " + ", ".join(
+            f"{k} {dec_coll[k]:,} vs {v:,}"
+            for k, v in DRYRUN_DECODE_GATHERED.items()) +
+        f"; largest collective output {largest:,} vs one layer's local k "
+        f"shard {DRYRUN_DECODE_K_SHARD:,}; argument bytes "
+        f"{dec_mem['argument_bytes']:,}, temp {dec_mem['temp_bytes']:,}; "
+        f"record {json.dumps(dec)}")
     if not coll["all-gather"] > 0:
         raise AssertionError("(a) no all-gather bytes: FSDP gathered no "
                              "weight")
@@ -7281,7 +7413,20 @@ def dryrun_cell():
     if mem["total_per_device_bytes"] > card:
         raise AssertionError(f"(a) {mem['total_per_device_bytes']} B a "
                              f"device, more than the card's {card}")
-    return dict(seconds=seconds, want_flops=want_flops, record=rec)
+    if dec_mem["argument_bytes"] != DRYRUN_DECODE_ARGS:
+        raise AssertionError(f"(a) decode argument bytes "
+                             f"{dec_mem['argument_bytes']}, not the "
+                             f"reference's {DRYRUN_DECODE_ARGS}")
+    if not dec_coll["all-gather"] < \
+            DRYRUN_DECODE_GATHERED["all-gather"] / 30:
+        raise AssertionError(f"(a) the decode cell gathers "
+                             f"{dec_coll['all-gather']} B a device: the "
+                             f"KV cache moved")
+    if largest >= DRYRUN_DECODE_K_SHARD:
+        raise AssertionError(f"(a) a decode collective of {largest} B, as "
+                             f"large as a layer's local k shard")
+    return dict(seconds=seconds, want_flops=want_flops, record=rec,
+                decode_seconds=dec_seconds, decode_record=dec)
 
 
 def dryrun_card(cfg):
@@ -7320,7 +7465,7 @@ def dryrun_card(cfg):
 
     destroy_world()
     try:
-        mesh = make_debug_mesh(1, 1)
+        mesh = make_debug_mesh(1, 1)     # a hung collective raises
         import torch.distributed as dist
         backend = dist.get_backend()
         rules = ShardingRules(mesh)
@@ -7435,9 +7580,10 @@ def dryrun_twins():
 
 
 def phase_dryrun():
-    """Phase 22 ([dryrun] lines): (a) a production cell on the CPU, (b)
-    the cell machinery's per-rank plan on the card, (c) the twins.
-    Returns the launches of the dryrun and examples paths."""
+    """Phase 22 ([dryrun] lines): (a) two production cells on the CPU at
+    once, a train cell and a decode cell whose KV cache must stay where
+    it is sharded, (b) the cell machinery's per-rank plan on the card, (c)
+    the twins.  Returns the launches of the dryrun and examples paths."""
     import torch
 
     from repro_torch.configs.llama2_1b import CONFIG

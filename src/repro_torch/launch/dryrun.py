@@ -45,6 +45,8 @@ The record has the reference's keys:
 * ``collectives`` -- per type, the output bytes of the graph's functional
   collectives, and ``total`` (``graph_analysis``; the dry-run's graphs put
   no collective inside a loop, so this is the reference's unscaled count);
+  ``collectives_largest`` -- the port's own key: per type, the output
+  bytes of the largest single collective (a cache moved whole shows here);
 * ``scaled`` / ``scaled_warnings`` -- ``analyze_graph`` and its warnings,
   as the reference's ``HLOAnalyzer``;
 * ``hlo_bytes`` -- the captured graph's node count, the nearest port
@@ -299,7 +301,8 @@ def memory_of(plan, arg_bytes: int) -> Dict[str, Any]:
 
 def analysis_of(plan) -> Dict[str, Any]:
     """``flops``, ``bytes_accessed``, ``cost``, ``collectives``,
-    ``scaled`` and ``scaled_warnings`` of a per-rank plan."""
+    ``collectives_largest``, ``scaled`` and ``scaled_warnings`` of a
+    per-rank plan."""
     an = GraphAnalyzer(plan.plan.graph, {})
     scaled = an.analyze()
     coll = {c: int(scaled[c]) for c in COLLECTIVE_OPS}
@@ -308,7 +311,7 @@ def analysis_of(plan) -> Dict[str, Any]:
                      "bytes accessed": scaled["hbm_bytes"],
                      "transcendentals": scaled["transcendentals"]},
             "flops": scaled["flops"], "bytes_accessed": scaled["hbm_bytes"],
-            "collectives": coll,
+            "collectives": coll, "collectives_largest": dict(an.largest),
             "scaled": {k: float(v) for k, v in scaled.items()},
             "scaled_warnings": len(an.warnings)}
 

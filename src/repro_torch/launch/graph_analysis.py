@@ -142,12 +142,15 @@ class GraphAnalyzer:
 
     ``warnings``: a bounded dim ``env`` does not bind (counted at its
     cap), or an opaque body whose shapes are symbolic (counted at the
-    capture's example sizes)."""
+    capture's example sizes).  ``largest``: per collective type, the
+    output bytes of its largest single node (0 for a type the graph lacks),
+    filled by ``analyze``."""
 
     def __init__(self, graph: Graph, env: Optional[Mapping[str, int]] = None):
         self.graph = graph
         self.env = dict(env or {})
         self.warnings: List[str] = []
+        self.largest: Dict[str, int] = dict.fromkeys(COLLECTIVE_OPS, 0)
         for name, cap in graph.bound_dims.items():
             if name not in self.env:
                 self.env[name] = cap.evaluate(self.env)
@@ -185,7 +188,10 @@ class GraphAnalyzer:
                 continue
             if outs and all(o.view for o in outs):
                 continue
-            _add(tot, op_costs(n.prim, self._args(n), outs), 1.0)
+            costs = op_costs(n.prim, self._args(n), outs)
+            for c in COLLECTIVE_OPS:
+                self.largest[c] = max(self.largest[c], int(costs[c]))
+            _add(tot, costs, 1.0)
         return tot
 
     # -- an opaque scan's fx body ------------------------------------------------

@@ -11,6 +11,7 @@ every collective on it returns at once and moves nothing.
 """
 from __future__ import annotations
 
+import datetime
 import math
 from typing import Any, Dict, Sequence, Tuple
 
@@ -21,6 +22,7 @@ from ..core.api import resolve_device
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
+DEBUG_TIMEOUT_S = 120    # make_debug_mesh's one-process group
 
 
 def init_fake_world(n: int, rank: int = 0) -> None:
@@ -67,14 +69,17 @@ def make_production_mesh(multi_pod: bool = False, *, device: Any = None):
 def make_debug_mesh(data: int = 1, model: int = 1, *, device: Any = None):
     """A ``data x model`` mesh on ``device`` (``cuda`` unless given),
     starting a one-process group (NCCL on ``cuda``, gloo on ``cpu``) when
-    none exists."""
+    none exists.  The group's timeout is DEBUG_TIMEOUT_S: one process
+    waits on no peer, so a collective still running then has hung, and
+    raises instead of holding the caller."""
     dev = resolve_device(device)
     if not dist.is_initialized():
         if dev.type == "cuda":
             torch.cuda.set_device(dev.index or 0)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                store=dist.HashStore(), rank=0,
-                                world_size=1)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=DEBUG_TIMEOUT_S))
     return _mesh((data, model), ("data", "model"), dev)
 
 

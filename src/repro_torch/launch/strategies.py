@@ -29,6 +29,14 @@ that costs the inputs the least redistribution:
   sharded (or none), the output likewise, ``scale`` replicated.  ``d`` is
   never offered: the mean is over ``d``, so an input sharded there is
   gathered first.
+
+A decode step's KV or latent cache is sharded on its sequence
+(``sharding.cache_specs``), which no rule above offers.  Under
+:func:`sharded_execution` the three places decode touches it run where it
+lies, as XLA partitions the same step: the write (``index_copy``) on
+each rank's own rows (``_sharded_index_copy``), the softmax over the keys
+reduced across the shards (``_sharded_softmax``), and the attention's
+products with the query moved, not the cache (``_cache_product``).
 """
 from __future__ import annotations
 
@@ -244,6 +252,187 @@ def _index_copy_rules(x, dim, index, source):
     return out
 
 
+def _shards_on(t, dim: int) -> bool:
+    """``t`` is a DTensor a mesh dim shards (plainly) on ``dim``."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and isinstance(dim, int) and any(
+        type(p) is Shard and p.dim == dim % t.ndim for p in t.placements)
+
+
+def _plain(t) -> bool:
+    """Every placement of ``t`` is ``Replicate`` or a plain ``Shard``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return all(type(p) is Shard or isinstance(p, Replicate)
+               for p in t.placements)
+
+
+def _as_dtensor(t, like):
+    """``t`` as a DTensor on ``like``'s mesh (a plain tensor replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh,
+                              [Replicate()] * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def _sharded_index_copy(x, dim: int, index, source):
+    """``x.index_copy(dim, index, source)`` where a mesh dim shards ``x``
+    on ``dim``, the written dim (a KV or MLA cache's sequence), without
+    moving ``x``: XLA's partition of a ``dynamic_update_slice`` on a
+    sharded dim.  Every rank takes the new rows and the row indices whole,
+    and writes the rows that fall in its own slice ``[start, start + n)``;
+    the others it writes back as they were.  The local index is ``(row -
+    start) mod n``: the rows a write takes are a run of at most ``n``
+    (``kv_cache_update``, ``mla_cache_update``), so no two land on one
+    local row, and the written cache is the unsharded write's bit for bit.
+    ``start`` comes from this rank's mesh coordinate, the mask from the
+    row indices on the device: nothing is read back to the host.  The
+    output keeps ``x``'s placements."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+    dim %= x.ndim
+    mesh = x.device_mesh
+    want = [Replicate() if type(p) is Shard and p.dim == dim else p
+            for p in x.placements]
+    src = _as_dtensor(source, x).redistribute(placements=want).to_local()
+    rows = _as_dtensor(index, x).full_tensor()
+    # ints from the shape and the coordinate; DTensor computes them on an
+    # arange, which a trace would make a tensor of unbacked symbols
+    with unset_fake_temporarily(), disable_proxy_modes_tracing():
+        shape, offset = compute_local_shape_and_global_offset(
+            tuple(int(d) for d in x.shape), mesh, x.placements)
+    n, start = int(shape[dim]), int(offset[dim])
+    xl = x.to_local()
+    if n:
+        local = torch.remainder(rows - start, n)
+        mine = ((rows >= start) & (rows < start + n)).view(
+            [-1 if d == dim else 1 for d in range(x.ndim)])
+        xl = xl.index_copy(dim, local, torch.where(
+            mine, src, xl.index_select(dim, local)))
+    # DTensor's own constructor, as its ops build their outputs: from_local
+    # would hand the step a view of the write, and capture returns a
+    # view's base only when it is one view deep, so each layer's cache
+    # would be copied again at the step's end
+    spec = DTensorSpec(mesh, tuple(x.placements), tensor_meta=TensorMeta(
+        x.shape, x.stride(), x.dtype))
+    return DTensor(xl, spec, requires_grad=False)
+
+
+def _sharded_softmax(x, dim: int, dtype=None):
+    """``torch.softmax(x, dim)`` where a mesh dim shards ``x`` on ``dim``
+    (decode scores over a sequence-sharded cache), reduced across the
+    shards as XLA reduces a partial softmax: each rank's max, an
+    all-reduce of it, ``exp`` and each rank's sum, an all-reduce of that.
+    The probabilities stay sharded where ``x`` was; the two statistics are
+    ``(..., 1)`` in size.  The math runs in f32 at least."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    out_dtype = dtype or x.dtype
+    x = x.to(torch.promote_types(out_dtype, torch.float32))
+    stat = [Replicate() if type(p) is Shard and p.dim == dim else p
+            for p in x.placements]
+    m = x.amax(dim, keepdim=True).redistribute(placements=stat)
+    e = torch.exp(x - m)
+    return (e / e.sum(dim, keepdim=True).redistribute(
+        placements=stat)).to(out_dtype)
+
+
+def _cache_product(call, a, b, la: str, lb: str, lo: str):
+    """``call(a, b)``, a product written as the einsum ``la,lb->lo``, run
+    where the larger operand, a cache sharded on its sequence, lies; else
+    ``None`` (a product the larger operand is sharded for on no dim but
+    shared batch dims, a larger one on anything but a plain ``Shard``, or
+    operands that do not lead with one batch dim: a cache and its queries
+    do, a weight does not, and there DTensor's own choice splits the
+    work).
+
+    DTensor picks each product's placements by its own cost model, which
+    does not see that one operand is a token and the other a 32k cache: it
+    gathered the cache.  Here the smaller operand moves instead: on each
+    mesh dim that shards the larger on a dim, the smaller is sharded on
+    its dim of the same letter, or replicated if it has none (decode's
+    query, for ``q · kᵀ`` with k sharded on T).  Where that dim is summed
+    over (T in ``p · v``), each rank holds a share of the sum; it is
+    reduce-scattered onto the first dim after the batch that the mesh dim
+    divides (the heads, where the query's heads were), so the layer goes
+    on as it did with the query's heads split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    swap = a.numel() > b.numel()
+    small, big, ls, lbig = (b, a, lb, la) if swap else (a, b, la, lb)
+    if ls[0] != lbig[0] or not _plain(big) or any(
+            ls.count(c) > 1 or (c in lbig and
+                                small.shape[ls.index(c)] !=
+                                big.shape[lbig.index(c)]) for c in ls):
+        return None
+    want, cached, summed = list(small.placements), [], []
+    for i, p in enumerate(big.placements):
+        if type(p) is Shard:
+            c = lbig[p.dim]
+            if c not in ls or c not in lo:
+                cached.append(c)
+            if c in ls and c not in lo:
+                summed.append(i)
+            want[i] = Shard(ls.index(c)) if c in ls else Replicate()
+    if not cached:
+        return None
+    # a mesh dim that replicates both operands would have its ranks repeat
+    # one product: split the cache's sequence over it as well (a local
+    # slice of the replicated cache, nothing moved)
+    seq = lbig.index(cached[0])
+    ways = math.prod(big.device_mesh.size(i) for i, p in
+                     enumerate(big.placements) if type(p) is Shard and
+                     p.dim == seq)
+    placed = list(big.placements)
+    for i, p in enumerate(placed):
+        n = big.device_mesh.size(i)
+        if n > 1 and isinstance(p, Replicate) and \
+                isinstance(want[i], Replicate) and \
+                big.shape[seq] % (ways * n) == 0:
+            placed[i], ways = Shard(seq), ways * n
+            if cached[0] in ls:
+                want[i] = Shard(ls.index(cached[0]))
+                summed.append(i)
+    big = big.redistribute(placements=placed)
+    small = small.redistribute(placements=want)
+    out = call(*((big, small) if swap else (small, big)))
+    placed = list(out.placements)
+    taken = {p.dim for p in placed if p.is_shard()}
+    for i in summed:
+        if not isinstance(placed[i], Partial):
+            continue
+        n = out.device_mesh.size(i)
+        dims = [d for d in range(1, out.ndim)
+                if d not in taken and out.shape[d] % n == 0]
+        placed[i] = Shard(dims[0]) if dims else Replicate()
+        taken.update(dims[:1])
+    return out.redistribute(placements=placed)
+
+
+def _matmul_letters(a, b):
+    """``a @ b`` of two operands of one rank >= 3 and equal batch dims as
+    einsum letters, else ``None``."""
+    n = a.ndim
+    if n < 3 or b.ndim != n or a.shape[:-2] != b.shape[:-2]:
+        return None
+    batch = "abcdefgh"[:n - 2]
+    return batch + "mk", batch + "kn", batch + "mn"
+
+
+def _einsum_letters(eq: str):
+    """``"x,y->z"`` of a two-operand einsum, else ``None``."""
+    eq = eq.replace(" ", "")
+    if "->" not in eq or "." in eq:
+        return None
+    ins, out = eq.split("->")
+    ins = ins.split(",")
+    return (ins[0], ins[1], out) if len(ins) == 2 else None
+
+
 def _searchsorted_rules(seq, values, **kwargs):
     from torch.distributed.tensor import Replicate, Shard
     out = [([Replicate()], [Replicate(), Replicate()]),
@@ -268,7 +457,9 @@ def register_kernel_strategies() -> None:
     2.11 or 2.13: ``index_copy`` (the KV cache's write: any dim but the
     written one sharded on the cache, the new rows and the output alike,
     the row indices replicated; torch 2.13 reaches the same function
-    through a decomposition, 2.11 refuses a decode step),
+    through a decomposition, 2.11 refuses a decode step; a cache sharded
+    on the written dim never reaches the rule, ``sharded_execution``
+    writes it in place),
     ``searchsorted`` (MoE routing: batch dims on both, or the values
     alone) and ``log_sigmoid_forward`` / ``log_sigmoid_backward`` (the xLSTM
     gates; elementwise)."""
@@ -316,7 +507,11 @@ def sharded_execution() -> Iterator[None]:
     of the leading dim (a micro-batch) kept on its operand's placements
     (``_placed_like``), a product with a weight run FSDP's way
     (``_WeightProduct``), a pending sum reduced before ``log`` takes it
-    (``_Reduced``), and three
+    (``_Reduced``), a cache sharded on its sequence written, softmaxed
+    over and multiplied where it lies (``_sharded_index_copy``,
+    ``_sharded_softmax``, ``_cache_product``: ``index_copy`` on the
+    sharded dim, ``softmax`` over it, and a batched ``matmul`` or a
+    two-operand ``einsum`` whose larger operand is so sharded), and three
     of DTensor's own steps adjusted for a traced step (``_untraced_meta``,
     ``_host_strided_offsets``, ``_resharding_views``).
 
@@ -355,6 +550,32 @@ def sharded_execution() -> Iterator[None]:
                     isinstance(args[0], DTensor) and \
                     isinstance(args[1], DTensor) and args[1].ndim == 2:
                 return _WeightProduct.apply(*args)
+            if func in (torch.Tensor.index_copy, torch.index_copy) and \
+                    not kwargs and len(args) == 4 and \
+                    _shards_on(args[0], args[1]) and _plain(args[0]) and \
+                    not (args[0].requires_grad or args[3].requires_grad) and \
+                    args[2].numel() <= args[0].to_local().shape[args[1]]:
+                return _sharded_index_copy(*args)
+            if func in (torch.softmax, torch.Tensor.softmax) and \
+                    _shards_on(args[0], args[1] if len(args) > 1 else
+                               kwargs.get("dim")):
+                return _sharded_softmax(*args, **kwargs)
+            if func in (torch.Tensor.matmul, torch.matmul) and \
+                    not kwargs and len(args) == 2 and \
+                    isinstance(args[0], DTensor) and \
+                    isinstance(args[1], DTensor):
+                letters = _matmul_letters(*args)
+                out = letters and _cache_product(func, *args, *letters)
+                if out is not None:
+                    return out
+            if func is torch.einsum and len(args) == 3 and \
+                    isinstance(args[1], DTensor) and \
+                    isinstance(args[2], DTensor):
+                letters = _einsum_letters(args[0])
+                out = letters and _cache_product(
+                    lambda x, y: func(args[0], x, y), *args[1:], *letters)
+                if out is not None:
+                    return out
             if func in (torch.log, torch.Tensor.log) and \
                     isinstance(args[0], DTensor) and any(
                         isinstance(p, Partial) for p in args[0].placements):

@@ -8,19 +8,32 @@ cache write, MoE routing's ``searchsorted``, the xLSTM gates'
 the prefill of the smoke hymba and xlstm configs (a 32k sequence in
 their smoke blocks and chunks is tens of thousands of nodes) and their
 train cells; ``llama2_1b`` and ``gemma_2b`` are in
-``test_torch_dryrun_ref*.py``."""
+``test_torch_dryrun_ref*.py``.
+
+Every decode cell whose cache holds the sequence (all but xLSTM's, whose
+state has none) keeps that cache where ``cache_specs`` shards it: no
+collective output is as large as one layer's local cache leaf (the
+smallest local shard of a leaf that holds the sequence).  That covers
+hymba's ``long_500k`` too, at B = 1 with the sequence sharded on ``data``."""
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, get_smoke_config
+from repro_torch.configs import ARCHS, SHAPES, get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import _mesh, destroy_world, init_fake_world
+from repro_torch.launch.sharding import ShardingRules
+from test_torch_dryrun_decode import local_cache_leaf_bytes
 
 OTHERS = [a for a in ARCHS if a not in ("llama2_1b", "gemma_2b")]
 CELLS = [(a, "decode_32k") for a in OTHERS] + \
+    [("hymba_1p5b", "long_500k")] + \
     [(a, "prefill_32k") for a in OTHERS
      if a not in ("hymba_1p5b", "xlstm_1p3b")] + \
     [("kimi_k2_1t_a32b", "train_4k")]
+SEQUENCE_CACHES = [(a, s) for a, s in CELLS
+                   if SHAPES[s]["kind"] == "decode" and
+                   get_smoke_config(a).block_kind != "xlstm"]
+RECORDS = {}      # (arch, shape) -> record, run once for both tests
 KEYS = {"arch", "shape", "mesh", "params", "params_active", "grad_accum",
         "lower_s", "compile_s", "memory", "cost", "flops", "bytes_accessed",
         "collectives", "scaled", "scaled_warnings", "hlo_bytes",
@@ -40,10 +53,16 @@ def mesh():
     torch.set_num_threads(n)
 
 
+def _record(mesh, arch, shape):
+    if (arch, shape) not in RECORDS:
+        RECORDS[arch, shape] = dryrun.run_cell(
+            arch, shape, multi_pod=False, grad_accum=2, mesh=mesh)
+    return RECORDS[arch, shape]
+
+
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_smoke_cell_runs(mesh, arch, shape):
-    rec = dryrun.run_cell(arch, shape, multi_pod=False, grad_accum=2,
-                          mesh=mesh)
+    rec = _record(mesh, arch, shape)
     assert rec["status"] == "ok", rec
     assert KEYS <= set(rec)
     mem = rec["memory"]
@@ -53,3 +72,15 @@ def test_smoke_cell_runs(mesh, arch, shape):
     assert set(rec["collectives"]) == {"all-gather", "all-reduce",
                                        "reduce-scatter", "all-to-all",
                                        "collective-permute", "total"}
+
+
+@pytest.mark.parametrize("arch,shape", SEQUENCE_CACHES)
+def test_smoke_decode_cell_keeps_the_cache_in_place(mesh, arch, shape):
+    rec = _record(mesh, arch, shape)
+    leaf = local_cache_leaf_bytes(get_smoke_config(arch), shape,
+                                  ShardingRules(mesh))
+    print(f"{arch} {shape}: collectives {rec['collectives']}, largest "
+          f"{rec['collectives_largest']}, a layer's local cache leaf {leaf}")
+    assert rec["status"] == "ok", rec
+    assert max(rec["collectives_largest"].values()) < leaf, \
+        (rec["collectives_largest"], leaf)

@@ -6,9 +6,17 @@ world.  Here four processes form a gloo 2x2 ``(data, model)`` world on
 the CPU (``torch.multiprocessing.spawn``); each runs the smoke
 ``llama2_1b`` (4 heads, 4 kv heads: heads shard) and the smoke
 ``gemma_2b`` (1 kv head, which the model axis of 2 does not divide)
-prefill and train steps as DTensors, placed by the dry-run's rules
-(``launch.dryrun.shard_step``), with the kernels' plain versions.  Every
-output's ``full_tensor()`` matches the one-process step to 2e-4 (f32).
+prefill, train and decode steps as DTensors, placed by the dry-run's
+rules (``launch.dryrun.shard_step``), with the kernels' plain versions.
+Every output's ``full_tensor()`` matches the one-process step to 2e-4
+(f32).
+
+The decode cache has ``T`` rows, its widest dim, so the rules shard it on
+T over the model axis (``strategies`` writes it and attends to it in
+place).  The step runs at four cache lengths, so the new row lands inside
+model rank 0's slice, on its last row, on model rank 1's first row and on
+the last row of all; the written cache must equal the one-process write
+bit for bit (a write is a copy) and keep its placements.
 """
 import json
 import os
@@ -20,9 +28,14 @@ import torch
 import torch.multiprocessing as mp
 
 ARCHS = ["llama2_1b", "gemma_2b"]
-KINDS = ["prefill", "train"]
+KINDS = ["prefill", "train", "decode"]
 B, S = 4, 16
 TOL = 2e-4
+T = 64                    # decode cache rows: 32 a model rank
+LENGTHS = [5, 31, 32, 63]
+# decode batches: B shards on data; at 1 the data axis replicates the
+# cache, and the products split its rows over data as well
+DECODE_BATCHES = [B, 1]
 
 
 def _free_port() -> int:
@@ -31,16 +44,66 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _case(arch, kind, rules):
-    """(max |sharded - one-process| over the outputs, output leaves)."""
-    from torch.distributed.tensor import DTensor
+def _decode_args(cfg, params, rng, length, batch):
+    """A decode step's arguments: ``batch`` caches of ``T`` rows drawn from
+    ``rng`` holding ``length`` valid rows, and one token a row."""
+    from repro_torch.core.ir.capture import tree_flatten, tree_unflatten
+    from repro_torch.models import init_cache
+
+    def fill(t):
+        if t.dtype == torch.int32:
+            return torch.tensor(length, dtype=torch.int32)
+        return torch.from_numpy(rng.standard_normal(tuple(t.shape))).to(
+            t.dtype)
+    leaves, tdef = tree_flatten(init_cache(cfg, batch, T, device="cpu"))
+    state = tree_unflatten([fill(t) for t in leaves], tdef)
+    tok = torch.from_numpy(rng.randint(0, cfg.vocab, (batch, 1))).to(
+        torch.int32)
+    return params, state, {"token": tok}
+
+
+def _write_bitwise(rules, rng, length) -> bool:
+    """``kv_cache_update`` on DTensors, the cache sharded on T over the
+    model axis and the new rows on their heads, equals the one-process
+    write bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.strategies import sharded_execution
+    from repro_torch.models.attention import KVCache, kv_cache_update
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).float()
+    k, v, kn, vn = rand(B, T, 4, 8), rand(B, T, 4, 8), rand(B, 1, 4, 8), \
+        rand(B, 1, 4, 8)
+    n = torch.tensor(length, dtype=torch.int32)
+    want = kv_cache_update(KVCache(k, v, n), kn, vn)
+    mesh = rules.mesh
+
+    def put(t, *p):
+        return distribute_tensor(t, mesh, list(p), src_data_rank=None)
+    with sharded_execution():
+        got = kv_cache_update(
+            KVCache(put(k, Shard(0), Shard(1)), put(v, Shard(0), Shard(1)),
+                    put(n, Replicate(), Replicate())),
+            put(kn, Shard(0), Shard(2)), put(vn, Shard(0), Shard(2)))
+    return all(torch.equal(a.full_tensor(), b) for a, b in zip(got, want))
+
+
+def _case(arch, kind, rules, length=None, batch=B):
+    """(max |sharded - one-process| over the outputs, output leaves); for
+    decode also whether the written cache is bitwise the one-process one
+    and whether its leaves came back on the placements they went in at,
+    sharded on T."""
+    from torch.distributed.tensor import DTensor, Shard
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import spec_like
+    from repro_torch.core.ir.capture import tree_flatten
     from repro_torch.launch.dryrun import shard_step
     from repro_torch.launch.steps import (adamw_config_for,
-                                          make_prefill_step, make_train_step)
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step)
     from repro_torch.models import init_params
     from repro_torch.optim import init_state
 
@@ -48,6 +111,31 @@ def _case(arch, kind, rules):
     params = init_params(cfg, 0, device="cpu")
     rng = np.random.RandomState(0)
     tok = torch.from_numpy(rng.randint(0, cfg.vocab, (B, S))).to(torch.int32)
+    if kind == "decode":
+        args = _decode_args(cfg, params, rng, length, batch)
+        specs = {"params": spec_like(args[0]), "state": spec_like(args[1]),
+                 "inp": spec_like(args[2])}
+        want = make_serve_step(cfg)(*args)
+        step = shard_step(cfg, kind, specs, rules)
+        got = step.dtensor_fn(*step.shard_args(*args))
+        model = rules.mesh.mesh_dim_names.index("model")
+        caches = [d for d in tree_flatten(got[1])[0] if d.ndim == 4]
+        placed = len(caches) == 2 * cfg.n_layers and all(
+            d.placements[model] == Shard(1) for d in caches)
+        full = pytree.tree_map_only(DTensor, lambda d: d.full_tensor(), got)
+        g, w = tree_flatten(full[1])[0], tree_flatten(want[1])[0]
+        assert len(g) == len(w) and full[0].shape == want[0].shape
+        # a layer's new row is its k or v of the token, which the sharded
+        # step computes from sums over the cache's shards: equal to
+        # rounding past the first layer; every other row is a copy
+        rest = [(a[:, torch.arange(T) != length], b[:, torch.arange(T) !=
+                                                   length])
+                if a.ndim == 4 else (a, b) for a, b in zip(g, w)]
+        bitwise = all(torch.equal(a, b) for a, b in rest) and \
+            _write_bitwise(rules, rng, length)
+        err = max((a.double() - b.double()).abs().max().item()
+                  for a, b in [(full[0], want[0])] + list(zip(g, w)))
+        return err, len(g) + 1, bitwise, placed
     if kind == "train":
         opt = init_state(params, adamw_config_for(cfg))
         batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
@@ -86,9 +174,17 @@ def _worker(rank, world, port, out_dir):
         mesh = init_device_mesh("cpu", (2, 2),
                                 mesh_dim_names=("data", "model"))
         for arch in ARCHS:
-            for kind in KINDS:
+            for kind in KINDS[:2]:
                 rules = ShardingRules(mesh)
                 res[f"{arch}/{kind}"] = _case(arch, kind, rules)
+            runs = [f"{arch}/decode/{b}/{n}" for b in DECODE_BATCHES
+                    for n in LENGTHS]
+            for b in DECODE_BATCHES:
+                for n in LENGTHS:
+                    res[f"{arch}/decode/{b}/{n}"] = _case(
+                        arch, "decode", ShardingRules(mesh), n, b)
+            res[f"{arch}/decode"] = (max(res[r][0] for r in runs),
+                                     min(res[r][1] for r in runs))
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -109,3 +205,15 @@ def test_sharded_step_matches_the_one_process_step(results, arch, kind):
         err, n = res[f"{arch}/{kind}"]
         assert n >= (1 if kind == "prefill" else 3)
         assert err <= TOL, (rank, arch, kind, err)
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+@pytest.mark.parametrize("batch", DECODE_BATCHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_decode_writes_the_cache_in_place(results, arch, batch,
+                                                 length):
+    for rank, res in enumerate(results):
+        err, n, bitwise, placed = res[f"{arch}/decode/{batch}/{length}"]
+        assert placed, (rank, arch, batch, length, "cache not on T")
+        assert bitwise, (rank, arch, batch, length, "the write is no copy")
+        assert err <= TOL, (rank, arch, batch, length, err)

@@ -18,7 +18,12 @@ device do not depend on it).
   type the reference's HLO holds is > 0 in the port, except the two
   DTensor does not emit on this world: ``all-to-all`` (a CPU process
   group moves a shard to another dim by all-gather and chunk) and
-  ``collective-permute`` (DTensor has no point-to-point redistribution).
+  ``collective-permute`` (DTensor has no point-to-point redistribution);
+* ``decode_32k`` keeps the cache where ``cache_specs`` puts it, on its
+  32k positions over the model axis, as the reference's XLA does: the
+  all-gather bytes stay below 1% of the argument bytes (what is left are
+  the weights' gathers), no collective output is as large as one layer's
+  local k shard, and the temp bytes stay below the argument bytes.
 """
 import json
 import os
@@ -31,9 +36,12 @@ import torch
 from repro_torch.configs import SHAPES, get_smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import _mesh, destroy_world, init_fake_world
+from repro_torch.launch.sharding import ShardingRules
+from test_torch_dryrun_decode import local_cache_leaf_bytes
 
 CELLS = ["train_4k", "decode_32k"]
 GRAD_ACCUM = 2
+DECODE_GATHER = 0.01      # decode all-gather bytes over the argument bytes
 REF_SCRIPT = r"""
 import json, os, sys
 import jax, numpy as np
@@ -126,6 +134,8 @@ def compare(arch):
     init_fake_world(8)
     try:
         mesh = _mesh((2, 4), ("data", "model"), torch.device("cpu"))
+        k_shard = local_cache_leaf_bytes(cfg, "decode_32k",
+                                         ShardingRules(mesh))
         get = dryrun.get_config
         dryrun.get_config = get_smoke_config
         try:
@@ -158,6 +168,15 @@ def compare(arch):
                   f"reference {b:>14,}")
             if b > 0 and c not in NOT_EMITTED and c != "total":
                 assert rec["collectives"][c] > 0, (shape, c)
+        if SHAPES[shape]["kind"] == "decode":
+            mem, largest = rec["memory"], rec["collectives_largest"]
+            print(f"  largest collective {largest}, one layer's local k "
+                  f"shard {k_shard}, temp {mem['temp_bytes']}, arguments "
+                  f"{mem['argument_bytes']}")
+            assert rec["collectives"]["all-gather"] < \
+                DECODE_GATHER * mem["argument_bytes"], rec["collectives"]
+            assert max(largest.values()) < k_shard, largest
+            assert mem["temp_bytes"] < mem["argument_bytes"]
 
 
 @pytest.fixture(autouse=True)
