@@ -443,11 +443,19 @@ Phases (any failure exits non-zero):
    or all-reduce bytes > 0, FLOPs a device within 1e-6 of a step that no
    rank repeats (``dense_train_flops``), argument bytes between the
    state split 256 and 16 ways, the whole cell within the card's memory;
-   decode: status ok, the reference's argument bytes, all-gather below
-   1/30 of the bytes it gathered when DTensor moved the sequence-sharded
-   KV cache, no collective output as large as one layer's local k shard
-   (the cache stays where it is sharded); the records, their seconds and
-   the decode cell's collectives beside those earlier bytes printed;
+   decode: status ok, the reference's argument bytes, FLOPs exactly
+   DRYRUN_DECODE_FLOPS, no collective output as large as one layer's
+   local k shard (the cache stays where it is sharded), and its weight
+   products moving the few rows, not the weights: all-gather and
+   collective total below 1/3 of the bytes when every product gathered
+   its weight, the largest all-gather below one gathered FFN weight; a
+   third process, started with the two and waited with its own limit
+   (DRYRUN_MOE_TIMEOUT_S), runs the smoke ``kimi_k2_1t_a32b``
+   ``prefill_32k`` and ``train_4k`` and ``deepseek_v3_671b``
+   ``prefill_32k`` cells on a fake 8-rank 2x4 world (``grad_accum=2``):
+   each ok, FLOPs and collective bytes > 0, its collectives printed
+   beside the reference's lowering; the records, their seconds and the
+   decode cell's collectives beside those earlier bytes printed;
    (b) the dry-run's cell machinery on
    ``make_debug_mesh()`` (NCCL, 1x1, a 120 s process-group timeout) for
    ``llama2_1b`` at full width, the
@@ -7235,20 +7243,68 @@ def phase_launch():
 # together while the card is idle, so no phase's host-bound reading shares
 # the CPU with them.  The train cell takes 47-71 s on the card's host and
 # the decode cell about 32 s beside it: a limit each, so a slowed cell
-# fails here with its name
+# fails here with its name.  A third process, started with them, runs
+# the MoE family's smoke cells on a fake 8-rank 2x4 world (DRYRUN_MOE),
+# whose expert products take their own rule on the host's torch
 DRYRUN_ARCH, DRYRUN_SHAPE = "llama2_1b", "train_4k"
 DRYRUN_DECODE_SHAPE = "decode_32k"
 DRYRUN_TIMEOUT_S = 180
 DRYRUN_DECODE_TIMEOUT_S = 90
+DRYRUN_MOE_TIMEOUT_S = 150
 # the decode cell: the reference's argument bytes a device, one layer's
-# local k shard (8 x 2048 x 32 x 128 bf16), and its collective bytes when
-# DTensor gathered the cache (torch 2.13, CPU; all-to-all and
-# collective-permute 0); its all-gather must stay below 1/30 of those
+# local k shard (8 x 2048 x 32 x 128 bf16), its FLOPs a device, and its
+# collective bytes when every weight product gathered its weight (the
+# dry-run CLI on torch 2.13, CPU, before products could move their rows;
+# all-to-all and collective-permute 0; the largest all-gather one FFN
+# weight, 4096 x 688 bf16).  Its all-gather and total must stay below
+# 1/3 of those, its largest all-gather below that weight
 DRYRUN_DECODE_ARGS = 1_112_907_824
 DRYRUN_DECODE_K_SHARD = 134_217_728
-DRYRUN_DECODE_GATHERED = {"all-gather": 34_460_925_952,
-                          "all-reduce": 589_824, "reduce-scatter": 0,
-                          "total": 34_461_515_776}
+DRYRUN_DECODE_FLOPS = 2_014_314_496
+DRYRUN_DECODE_WEIGHTS_GATHERED = {"all-gather": 102_236_160,
+                                  "all-reduce": 598_016,
+                                  "reduce-scatter": 32_768,
+                                  "total": 102_866_944}
+DRYRUN_DECODE_LARGEST_GATHER = 5_636_096
+# the MoE cells (arch, shape) and the reference's collective bytes a
+# device on the same 2x4 mesh (its lowering on the CPU with jax 0.9,
+# tests/test_torch_dryrun_ref_moe.py's; train not lowered)
+DRYRUN_MOE = [("kimi_k2_1t_a32b", "prefill_32k"),
+              ("kimi_k2_1t_a32b", "train_4k"),
+              ("deepseek_v3_671b", "prefill_32k")]
+DRYRUN_MOE_REFERENCE = {
+    ("kimi_k2_1t_a32b", "prefill_32k"): {
+        "all-gather": 201_396_224, "all-reduce": 671_088_640,
+        "reduce-scatter": 0, "all-to-all": 167_780_352,
+        "collective-permute": 16_790_016, "total": 1_057_055_232},
+    ("deepseek_v3_671b", "prefill_32k"): {
+        "all-gather": 167_843_840, "all-reduce": 675_282_944,
+        "reduce-scatter": 0, "all-to-all": 176_168_960,
+        "collective-permute": 10_498_560, "total": 1_029_794_304}}
+# runs the MoE cells argv[2] lists as rank 0 of a fake 8-rank world, one
+# thread, and writes their records to the file argv[1] names
+DRYRUN_MOE_SCRIPT = r"""
+import json, sys, torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import _mesh, destroy_world, init_fake_world
+torch.set_num_threads(1)
+cells = json.loads(sys.argv[2])
+init_fake_world(8)
+dryrun.get_config = get_smoke_config
+out = {}
+try:
+    mesh = _mesh((2, 4), ("data", "model"), torch.device("cpu"))
+    for arch, shape in cells:
+        print(f"[dryrun] {arch} {shape} ...", flush=True)
+        out[f"{arch} {shape}"] = dryrun.run_cell(
+            arch, shape, multi_pod=False, grad_accum=2, mesh=mesh)
+        print(f"[done] {arch} {shape}", flush=True)
+finally:
+    destroy_world()
+    with open(sys.argv[1], "w") as f:
+        json.dump(out, f)
+"""
 DRYRUN_FLOPS_TOL = 1e-6      # (a)'s FLOPs a device vs the analytic count
 DRYRUN_BASE = {}             # (b): phase 6's plan, phase 21 (b)'s FLOPs
 # (c) the example and tool twins, each in its own process on the card
@@ -7292,44 +7348,49 @@ def dense_train_flops(cfg, shape, devices: int) -> float:
 
 
 def _dryrun_procs(out):
-    """Start the train and decode cells' processes together, each writing
-    its output to a log in ``out``; wait for each within its own limit.
-    Returns {shape: (exit code, seconds from the start to its end, its
-    [dryrun]/[done] lines, its whole output)}."""
+    """Start the train and decode cells' processes and the MoE cells'
+    together, each writing its output to a log in ``out``; wait for each
+    within its own limit.  Returns {name: (exit code, seconds from the
+    start to its end, its [dryrun]/[done] lines, its whole output)}, the
+    names the two shapes and ``moe``."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    limits = {DRYRUN_SHAPE: DRYRUN_TIMEOUT_S,
-              DRYRUN_DECODE_SHAPE: DRYRUN_DECODE_TIMEOUT_S}
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_ARCH, "--mesh", "single", "--out", str(out), "--shape"]
+    runs = {DRYRUN_SHAPE: (cli + [DRYRUN_SHAPE], DRYRUN_TIMEOUT_S),
+            DRYRUN_DECODE_SHAPE: (cli + [DRYRUN_DECODE_SHAPE],
+                                  DRYRUN_DECODE_TIMEOUT_S),
+            "moe": ([sys.executable, "-c", DRYRUN_MOE_SCRIPT,
+                     str(out / "moe.json"), json.dumps(DRYRUN_MOE)],
+                    DRYRUN_MOE_TIMEOUT_S)}
     t0 = time.perf_counter()
     procs = {}
     try:
-        for shape in limits:
-            with open(out / f"{shape}.log", "w") as f:
-                procs[shape] = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", DRYRUN_ARCH, "--shape", shape, "--mesh",
-                     "single", "--out", str(out)], cwd=ROOT, env=env,
-                    stdout=f, stderr=subprocess.STDOUT)
+        for name, (cmd, _) in runs.items():
+            with open(out / f"{name}.log", "w") as f:
+                procs[name] = subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=f,
+                    stderr=subprocess.STDOUT)
         ended = {}
         while len(ended) < len(procs):
             now = time.perf_counter() - t0
-            for shape, proc in procs.items():
-                if shape in ended:
+            for name, proc in procs.items():
+                if name in ended:
                     continue
                 if proc.poll() is not None:
-                    ended[shape] = now
-                elif now > limits[shape]:
+                    ended[name] = now
+                elif now > runs[name][1]:
                     raise AssertionError(
-                        f"(a) the {DRYRUN_ARCH} {shape} cell was not done "
-                        f"in {limits[shape]} s")
+                        f"(a) the {name} dry-run process was not done in "
+                        f"{runs[name][1]} s")
             time.sleep(0.2)
         done = {}
-        for shape, proc in procs.items():
-            text = (out / f"{shape}.log").read_text()
-            done[shape] = (proc.returncode, ended[shape],
-                           [x for x in text.splitlines()
-                            if x.startswith(("[dryrun]", "[done]"))], text)
+        for name, proc in procs.items():
+            text = (out / f"{name}.log").read_text()
+            done[name] = (proc.returncode, ended[name],
+                          [x for x in text.splitlines()
+                           if x.startswith(("[dryrun]", "[done]"))], text)
         return done
     finally:
         for proc in procs.values():
@@ -7349,16 +7410,38 @@ def _dryrun_record(out, shape, done):
     return rec
 
 
+def _dryrun_moe(out, done):
+    """The MoE cells' records, after a failure check of their process:
+    each ``ok`` with FLOPs and collective bytes > 0."""
+    code, _, _, text = done["moe"]
+    path = out / "moe.json"
+    recs = json.loads(path.read_text()) if path.exists() else {}
+    for arch, shape in DRYRUN_MOE:
+        rec = recs.get(f"{arch} {shape}", {})
+        if code != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"(a) the MoE dry-run cell {arch} {shape} "
+                                 f"failed (exit {code}): {text[-3000:]}")
+        if not (rec["flops"] > 0 and rec["collectives"]["total"] > 0):
+            raise AssertionError(f"(a) {arch} {shape}: FLOPs "
+                                 f"{rec['flops']}, collectives "
+                                 f"{rec['collectives']}")
+    return recs
+
+
 def dryrun_cell():
-    """(a): the train and decode cells, each in its own process, both
-    started at once.  The train cell's record is held to the counts of a
-    step that no rank repeats: FLOPs a device within DRYRUN_FLOPS_TOL of
-    ``dense_train_flops``, the arguments between the state split over
-    every rank and over the model axis alone, and the whole cell within
-    the card's memory.  The decode cell's is held to its cache staying
-    where it is sharded: the reference's argument bytes, all-gather below
-    1/30 of DRYRUN_DECODE_GATHERED's, no collective output as large as
-    one layer's local k shard."""
+    """(a): the train and decode cells, each in its own process, and the
+    MoE cells in a third, all started at once.  The train cell's record
+    is held to the counts of a step that no rank repeats: FLOPs a device
+    within DRYRUN_FLOPS_TOL of ``dense_train_flops``, the arguments
+    between the state split over every rank and over the model axis
+    alone, and the whole cell within the card's memory.  The decode
+    cell's is held to its cache staying where it is sharded (the
+    reference's argument bytes, no collective output as large as one
+    layer's local k shard) and to its weight products moving the rows:
+    all-gather and collective total below 1/3 of
+    DRYRUN_DECODE_WEIGHTS_GATHERED's, the largest all-gather below one
+    gathered FFN weight, the FLOPs exactly DRYRUN_DECODE_FLOPS.  The MoE
+    cells are held by ``_dryrun_moe``."""
     import shutil
 
     import torch
@@ -7371,8 +7454,10 @@ def dryrun_cell():
     done = _dryrun_procs(out)
     _, seconds, lines, _ = done[DRYRUN_SHAPE]
     _, dec_seconds, dec_lines, _ = done[DRYRUN_DECODE_SHAPE]
+    _, moe_seconds, moe_lines, _ = done["moe"]
     rec = _dryrun_record(out, DRYRUN_SHAPE, done)
     dec = _dryrun_record(out, DRYRUN_DECODE_SHAPE, done)
+    moe = _dryrun_moe(out, done)
     cfg, shape = get_config(DRYRUN_ARCH), SHAPES[DRYRUN_SHAPE]
     want_flops = dense_train_flops(cfg, shape, 256)
     state = rec.get("params", 0) * 10       # bf16 weights, two f32 moments
@@ -7386,15 +7471,30 @@ def dryrun_cell():
     coll = rec["collectives"]
     dec_coll, dec_mem = dec["collectives"], dec["memory"]
     largest = max(dec["collectives_largest"].values())
+    largest_gather = dec["collectives_largest"]["all-gather"]
     log(f"[dryrun] (a) {DRYRUN_ARCH} {DRYRUN_DECODE_SHAPE} beside it: done "
         f"{dec_seconds:.1f} s after the start; {dec_lines}; collectives a "
-        f"device (now, when DTensor gathered the cache): " + ", ".join(
-            f"{k} {dec_coll[k]:,} vs {v:,}"
-            for k, v in DRYRUN_DECODE_GATHERED.items()) +
-        f"; largest collective output {largest:,} vs one layer's local k "
-        f"shard {DRYRUN_DECODE_K_SHARD:,}; argument bytes "
-        f"{dec_mem['argument_bytes']:,}, temp {dec_mem['temp_bytes']:,}; "
-        f"record {json.dumps(dec)}")
+        f"device (now, when every weight product gathered its weight): " +
+        ", ".join(f"{k} {dec_coll[k]:,} vs {v:,}"
+                  for k, v in DRYRUN_DECODE_WEIGHTS_GATHERED.items()) +
+        f", all-to-all {dec_coll['all-to-all']:,} vs 0; largest all-gather "
+        f"{largest_gather:,} vs {DRYRUN_DECODE_LARGEST_GATHER:,}; largest "
+        f"collective output {largest:,} vs one layer's local k shard "
+        f"{DRYRUN_DECODE_K_SHARD:,}; FLOPs {dec['flops']:.0f}; argument "
+        f"bytes {dec_mem['argument_bytes']:,}, temp "
+        f"{dec_mem['temp_bytes']:,}; record {json.dumps(dec)}")
+    for arch, shp in DRYRUN_MOE:
+        got = moe[f"{arch} {shp}"]["collectives"]
+        ref = DRYRUN_MOE_REFERENCE.get((arch, shp))
+        log(f"[dryrun] (a) MoE smoke {arch} {shp} on a fake 8-rank 2x4 "
+            f"world (torch {torch.__version__}), done {moe_seconds:.1f} s "
+            f"after the start with the other MoE cells: FLOPs "
+            f"{moe[f'{arch} {shp}']['flops']:.0f}; collectives a device "
+            f"(port vs the reference's lowering): " + ", ".join(
+                f"{k} {v:,} vs " + (f"{ref[k]:,}" if ref and k in ref
+                                    else "not lowered")
+                for k, v in got.items()))
+    log(f"[dryrun] (a) MoE process lines {moe_lines}")
     if not coll["all-gather"] > 0:
         raise AssertionError("(a) no all-gather bytes: FSDP gathered no "
                              "weight")
@@ -7417,16 +7517,28 @@ def dryrun_cell():
         raise AssertionError(f"(a) decode argument bytes "
                              f"{dec_mem['argument_bytes']}, not the "
                              f"reference's {DRYRUN_DECODE_ARGS}")
-    if not dec_coll["all-gather"] < \
-            DRYRUN_DECODE_GATHERED["all-gather"] / 30:
-        raise AssertionError(f"(a) the decode cell gathers "
-                             f"{dec_coll['all-gather']} B a device: the "
-                             f"KV cache moved")
+    if dec["flops"] != DRYRUN_DECODE_FLOPS:
+        raise AssertionError(f"(a) decode FLOPs {dec['flops']}, not "
+                             f"{DRYRUN_DECODE_FLOPS}")
+    before = DRYRUN_DECODE_WEIGHTS_GATHERED
+    for k in ("all-gather", "total"):
+        if not dec_coll[k] < before[k] / 3:
+            raise AssertionError(f"(a) the decode cell's {k} is "
+                                 f"{dec_coll[k]} B a device, not below 1/3 "
+                                 f"of {before[k]}: its products gather "
+                                 f"their weights")
+    if largest_gather >= DRYRUN_DECODE_LARGEST_GATHER:
+        raise AssertionError(f"(a) a decode all-gather of {largest_gather} "
+                             f"B, as large as a gathered FFN weight")
     if largest >= DRYRUN_DECODE_K_SHARD:
         raise AssertionError(f"(a) a decode collective of {largest} B, as "
                              f"large as a layer's local k shard")
     return dict(seconds=seconds, want_flops=want_flops, record=rec,
-                decode_seconds=dec_seconds, decode_record=dec)
+                decode_seconds=dec_seconds, decode_record=dec,
+                moe_seconds=moe_seconds,
+                moe={k: {"flops": v["flops"],
+                         "collectives": v["collectives"]}
+                     for k, v in moe.items()})
 
 
 def dryrun_card(cfg):

@@ -85,6 +85,7 @@ from .mesh import destroy_world, init_fake_world, make_production_mesh
 from .sharding import PartitionSpec, ShardingRules
 from .specs import input_specs
 from .steps import make_prefill_step, make_serve_step, make_train_step
+from .strategies import _contiguous_stride, sharded_execution
 
 WORLD = 512          # ranks of the fake world: the 2x16x16 mesh's
 DEFAULT_OUT = "build/dryrun"     # listed in .gitignore
@@ -173,22 +174,12 @@ class ShardedStep:
              .to_local() for t, p in zip(leaves, self.placements)], tdef))
 
 
-def _contiguous_stride(shape) -> Tuple[int, ...]:
-    out, acc = [], 1
-    for d in reversed(tuple(shape)):
-        out.append(acc)
-        acc *= d
-    return tuple(reversed(out))
-
-
 def shard_step(cfg: ModelConfig, kind: str, specs: Dict[str, Any],
                rules: ShardingRules, *, grad_accum: int = 8) -> ShardedStep:
     """The ``kind`` step (``train`` / ``prefill`` / ``decode``) of
     ``cfg`` over ``specs`` (``input_specs``' trees, or any of the same
     layout), sharded by ``rules`` on its mesh."""
     from torch.distributed.tensor import DTensor
-
-    from .strategies import sharded_execution
 
     mesh = rules.mesh
     trees, spec_trees, donate = _cell_args(kind, specs, rules)

@@ -37,12 +37,20 @@ lies, as XLA partitions the same step: the write (``index_copy``) on
 each rank's own rows (``_sharded_index_copy``), the softmax over the keys
 reduced across the shards (``_sharded_softmax``), and the attention's
 products with the query moved, not the cache (``_cache_product``).
+
+A product with a sharded weight moves whichever side is smaller, as
+XLA's partitioner does (``_product_plans``): the weight gathered, or the
+rows of the activations moved and the output brought back.  A decode
+step's few rows move; a train step, which takes a gradient, gathers its
+weights as FSDP does.  An MoE layer's expert products run on each
+rank's own experts, the activations dispatched to the expert shard and
+combined back by all-to-all (``_expert_product``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Iterator, List, NamedTuple, Tuple
 
 import torch
 
@@ -158,14 +166,317 @@ def _gathered_weight(x, w):
         w.redistribute(placements=want)
 
 
+class _Plan(NamedTuple):
+    """Where a product ``einsum(eq, x, w)`` of global output ``shape``
+    runs: the placements ``x`` and ``w`` are moved to, those of the local
+    product's output (``out``), and those the output is moved to after it
+    (``final``; a pending sum there is all-reduced before it is cut)."""
+    eq: str
+    shape: Tuple[int, ...]
+    x: Tuple[Any, ...]
+    w: Tuple[Any, ...]
+    out: Tuple[Any, ...]
+    final: Tuple[Any, ...]
+
+
+def _sharded_letter(letters: str, p):
+    """The einsum letter ``p`` shards, or ``None`` (replicated or a
+    pending sum)."""
+    from torch.distributed.tensor import Shard
+    return letters[p.dim] if type(p) is Shard else None
+
+
+def _product_placements(la: str, pa, lb: str, pb, lc: str) -> List[Any]:
+    """The placements of ``einsum("la,lb->lc")`` run on local shards at
+    ``pa`` and ``pb``, which shard each mesh dim on one shared letter (or
+    one operand alone on a letter the other lacks): that letter's dim of
+    the output, or a pending sum where it is summed over."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for a, b in zip(pa, pb):
+        c = _sharded_letter(la, a) or _sharded_letter(lb, b)
+        out.append(Replicate() if c is None else
+                   Shard(lc.index(c)) if c in lc else Partial())
+    return out
+
+
+def _shard_bytes(shape, dtype, mesh, placements) -> int:
+    """One rank's bytes of a ``shape`` tensor at ``placements`` (a pending
+    sum is whole on every rank)."""
+    n = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            n[p.dim] = -(-n[p.dim] // mesh.size(i))
+    return math.prod(n) * dtype.itemsize
+
+
+def _product_plans(x, w, lx: str, lw: str, lo: str):
+    """The two plans of ``einsum("lx,lw->lo", x, w)`` for a weight ``w``
+    sharded on mesh dims that also shard the rows of ``x`` (a letter of
+    ``x`` and the output, not of ``w``), and their costs in bytes:
+
+    * (W) the weight gathered on those mesh dims, FSDP's way; its cost
+      is the gathered weight's bytes;
+    * (R) the rows moved: ``x`` onto the weight's contraction shard
+      where the weight shards a summed letter (one all-to-all from its
+      rows' shard), gathered where it shards an output letter; the
+      output, a pending sum or sharded on the weight's output letter,
+      goes back onto the rows (all-reduce and a local cut; one
+      all-to-all).  Its cost is the bytes of ``x`` so moved and of the
+      output moved back.  ``None`` where a mesh dim would need a move
+      this plan does not make.
+
+    Elsewhere both plans are one: an operand replicated on a mesh dim
+    the other shards on a shared letter is cut locally, and a weight
+    sharded on a letter both operands have and the output keeps (the
+    experts) takes ``x`` there too (one all-to-all from a shard of
+    another dim, a local cut from ``Replicate``), its output staying on
+    the weight's shard.  ``x`` holds no pending sum.
+
+    Returns ``(W, R, cost of W, cost of R)``; the costs are ``None``
+    without an (R) plan or where a size is symbolic."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    px, pw = list(x.placements), list(w.placements)
+    wx, ww, rx, rw = list(px), list(pw), list(px), list(pw)
+    moved, back = [], {}         # mesh dims with rows in conflict
+    r_ok = True
+    for i, (a, b) in enumerate(zip(px, pw)):
+        cx, cw = _sharded_letter(lx, a), _sharded_letter(lw, b)
+        if mesh.size(i) == 1 or cx == cw:
+            continue
+        if cw is None:                         # cut w to x's letter
+            if cx in lw:
+                ww[i] = rw[i] = Shard(lw.index(cx))
+            continue
+        if cw in lx and cw in lo:              # an expert dim: x moves
+            wx[i] = rx[i] = Shard(lx.index(cw))
+            continue
+        if cx is None:                         # x replicated
+            if cw not in lo:                   # cut its contraction
+                wx[i] = rx[i] = Shard(lx.index(cw))
+            continue
+        if cx in lw:                           # x on a letter w has
+            ww[i] = rw[i] = Shard(lw.index(cx))
+            r_ok = False
+            continue
+        # x's rows against the weight's shard: the plans part here
+        ww[i] = Replicate()
+        moved.append(i)
+        back[i] = Shard(lo.index(cx))
+        rx[i] = Shard(lx.index(cw)) if cw not in lo else Replicate()
+
+    size = dict(zip(lx, x.shape))
+    size.update(zip(lw, w.shape))
+    out_shape = tuple(size[c] for c in lo)
+
+    def plan(xp, wp):
+        out = _product_placements(lx, xp, lw, wp, lo)
+        final = list(out)
+        for i, p in back.items():
+            if xp[i] != px[i]:
+                final[i] = p
+        return _Plan(f"{lx},{lw}->{lo}", out_shape, tuple(xp), tuple(wp),
+                     tuple(out), tuple(final))
+    w_plan = plan(wx, ww)
+    r_plan = plan(rx, rw) if moved and r_ok and not any(
+            type(p) is Shard and p.dim == rx[i].dim and j != i
+            for i in moved if rx[i].is_shard()
+            for j, p in enumerate(rx)) else None
+    if r_plan is None or not all(type(d) is int
+                                 for d in (*x.shape, *w.shape)):
+        return w_plan, r_plan, None, None
+    cost_w = _shard_bytes(w.shape, w.dtype, mesh, ww)
+    cost_r = _shard_bytes(x.shape, x.dtype, mesh, rx) + len(moved) * \
+        _shard_bytes(out_shape, x.dtype, mesh, r_plan.out)
+    return w_plan, r_plan, cost_w, cost_r
+
+
+def _rows_move(x, w, lx: str, lw: str, lo: str):
+    """The cost rule over :func:`_product_plans`: (W)'s plan, and (R)'s
+    where it moves fewer bytes, else ``None`` (a tie, a symbolic size or
+    no (R) plan keeps (W))."""
+    w_plan, r_plan, cost_w, cost_r = _product_plans(x, w, lx, lw, lo)
+    if r_plan is None or cost_w is None or cost_r >= cost_w:
+        r_plan = None
+    return w_plan, r_plan
+
+
+def _expert_product(x, w, lx: str, lw: str, lo: str, cache, dispatched):
+    """``einsum("lx,lw->lo", x, w)`` for an expert weight (sharded on its
+    leading dim, a letter ``x`` and the output share) as
+    :class:`_ExpertProduct`.  ``dispatched`` maps each expert mesh dim to
+    the letter the block's activations were sharded on there before the
+    dispatch (``None``: replicated), for the combine to go back to."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = _Reduced.apply(x)
+    w_plan, r_plan = _rows_move(x, w, lx, lw, lo)
+    plan = r_plan or w_plan
+    final = list(plan.final)
+    for i, (a, b) in enumerate(zip(x.placements, w.placements)):
+        c = _sharded_letter(lw, b)
+        if x.device_mesh.size(i) == 1 or c is None or c not in lx or \
+                c not in lo:
+            continue
+        if _sharded_letter(lx, a) != c:            # the dispatch
+            dispatched[i] = _sharded_letter(lx, a)
+        elif i in dispatched:                      # the combine
+            back = dispatched.pop(i)
+            final[i] = Shard(lo.index(back)) if back and back in lo \
+                else Replicate()
+    return _ExpertProduct.apply(plan._replace(final=tuple(final)), cache,
+                                x, w)
+
+
+def _all_to_all(t, i: int, src: int, dst: int):
+    """``t`` with mesh dim ``i``'s shard moved from tensor dim ``src`` to
+    ``dst`` by one all-to-all over that mesh dim: each rank sends its
+    ``dst`` chunks, one a peer, and stacks what it gets on ``src`` in the
+    peers' order.  ``None`` where that is not the move (a later mesh dim
+    shards either dim, or a dim does not split evenly); DTensor then
+    moves it."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single, wait_tensor)
+    from torch.distributed.tensor import DTensor, Shard
+    mesh, n = t.device_mesh, t.device_mesh.size(i)
+    want = list(t.placements)
+    want[i] = Shard(dst)
+    ways = [1] * t.ndim
+    for j, p in enumerate(want):
+        if p.is_shard():
+            ways[p.dim] *= mesh.size(j)
+    ways[src] *= n
+    if any(type(p) is Shard and p.dim in (src, dst)
+           for p in list(t.placements)[i + 1:]) or \
+            any(type(d) is not int or d % k for d, k in zip(t.shape, ways)):
+        return None
+    local = t.to_local()
+    chunks = local.unflatten(dst, (n, -1)).movedim(dst, 0).contiguous()
+    got = wait_tensor(all_to_all_single(chunks, None, None, (mesh, i)))
+    out = got.movedim(0, src).flatten(src, src + 1)
+    return DTensor.from_local(out, mesh, want, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def _moved(t, want):
+    """``t`` on ``want``: by ``redistribute``, but a shard that goes from
+    one tensor dim to another in one all-to-all (:func:`_all_to_all`;
+    DTensor runs that move as an all-gather and a chunk on a CPU world),
+    after the other mesh dims have moved."""
+    from torch.distributed.tensor import Shard
+    want = tuple(want)
+    swaps = [i for i, (a, b) in enumerate(zip(t.placements, want))
+             if type(a) is Shard and type(b) is Shard and a.dim != b.dim]
+    first = tuple(t.placements[i] if i in swaps else p
+                  for i, p in enumerate(want))
+    if tuple(t.placements) != first:
+        t = t.redistribute(placements=first)
+    for i in swaps:
+        moved = _all_to_all(t, i, t.placements[i].dim, want[i].dim)
+        t = t if moved is None else moved
+    return t if tuple(t.placements) == want else \
+        t.redistribute(placements=want)
+
+
+def _run_plan(plan: _Plan, x, w, cache=None):
+    """The local product of ``plan`` on ``x`` and ``w`` moved to its
+    placements, and its output moved on to ``plan.final``.  Returns the
+    output and the local operands.  ``cache`` keeps ``x`` once moved, by
+    identity, for the next product that takes it to the same place."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    hit = cache.get(x) if cache is not None else None
+    if hit is not None and hit[0] == plan.x:
+        xm = hit[1]
+    else:
+        xm = _moved(x, plan.x)
+        if cache is not None:
+            cache[x] = (plan.x, xm)
+    xl, wl = xm.to_local(), _moved(w, plan.w).to_local()
+    # a 2-D weight's product as the model writes it, ``x @ w``
+    local = torch.matmul(xl, wl) if w.ndim == 2 else \
+        torch.einsum(plan.eq, xl, wl)
+    out = DTensor.from_local(local, x.device_mesh, plan.out, run_check=False,
+                             shape=torch.Size(plan.shape),
+                             stride=_contiguous_stride(plan.shape))
+    reduced = [Replicate() if isinstance(p, Partial) and
+               not isinstance(f, Partial) else p
+               for p, f in zip(plan.out, plan.final)]
+    if reduced != list(plan.out):
+        out = out.redistribute(placements=reduced)
+    return _moved(out, plan.final), xl, wl
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= d
+    return tuple(reversed(out))
+
+
+class _ExpertProduct(torch.autograd.Function):
+    """An expert product ``einsum(eq, x, w)`` (``"becd,edf->becf"``,
+    ``"becf,efd->becd"``, ``models/ffn.py``) with a weight sharded on
+    its expert dim, run on each rank's own experts, as XLA's partitioner
+    runs the reference's: never DTensor's einsum strategy, which gathers
+    the experts whole on the model axis (and raises on torch 2.11).
+
+    The plan (:func:`_product_plans`) takes the activations to the
+    weight's expert shard (the dispatch: one all-to-all from a shard of
+    their batch; a local cut from ``Replicate``), and settles the
+    weight's other sharded dim by the cost rule.  The first expert
+    product that finds its activations already there ends the block (the
+    combine): its output goes back to where the dispatch took them from,
+    in one all-to-all.  The backward moves the output gradient to the
+    local product's placements (a pending sum there replicated), runs
+    ``dx`` and ``dw`` on the same shards, and moves each to its input's
+    own placements (``dw``'s pending sum over the rows reduce-scattered
+    onto the weight's)."""
+
+    @staticmethod
+    def forward(ctx, plan, cache, x, w):
+        out, xl, wl = _run_plan(plan, x, w, cache)
+        ctx.save_for_backward(xl, wl)
+        ctx.plan = plan
+        ctx.meta = [(t.device_mesh, tuple(t.placements), t.shape, t.stride())
+                    for t in (x, w)]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        plan = ctx.plan
+        xl, wl = ctx.saved_tensors
+        la, _, lo = plan.eq.partition("->")
+        lx, lw = la.split(",")
+        gp = _reduced_placements(plan.out)
+        gl = _moved(g, gp).to_local()
+        grads = []
+        for (mesh, placed, shape, stride), eq, a, pa, b, pb, lg in (
+                (ctx.meta[0], f"{lo},{lw}->{lx}", gl, gp, wl, plan.w, lx),
+                (ctx.meta[1], f"{lx},{lo}->{lw}", xl, plan.x, gl, gp, lw)):
+            la2, lb2 = eq.split("->")[0].split(",")
+            d = DTensor.from_local(
+                torch.einsum(eq, a, b), mesh,
+                _product_placements(la2, pa, lb2, pb, lg), run_check=False,
+                shape=shape, stride=stride)
+            grads.append(_moved(d, placed))
+        return (None, None) + tuple(grads)
+
+
 class _WeightProduct(torch.autograd.Function):
     """``x @ w`` for a 2-D weight on DTensors, as XLA's partitioner runs
-    it for the same rules: the weight gathered where the rows of ``x``
-    are sharded (``_gathered_weight``); in the backward, the output
-    gradient moved back to the output's placements (a pending sum there
-    reduced), ``dx = g wᵀ`` and ``dw = xᵀ g`` on those, and ``dw``, a
-    pending sum over the rows' mesh dims, reduce-scattered onto the
-    weight's own placements.
+    it for the same rules, which moves whichever side is smaller
+    (:func:`_rows_move`).  Under (W) the weight is gathered where the
+    rows of ``x`` are sharded (``_gathered_weight``); in the backward,
+    the output gradient moved back to the output's placements (a pending
+    sum there reduced), ``dx = g wᵀ`` and ``dw = xᵀ g`` on those, and
+    ``dw``, a pending sum over the rows' mesh dims, reduce-scattered onto
+    the weight's own placements.  Under (R), taken only where neither
+    operand requires a gradient (a decode step's few rows against a wide
+    weight), the rows move instead and the output comes back on the
+    placements (W) gives it.
 
     DTensor left to itself picks each op's placements greedily, by the
     bytes its inputs would move.  Where a micro-batch's rows were fewer
@@ -176,6 +487,13 @@ class _WeightProduct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
+        from torch.distributed.tensor import Partial
+        if not any(ctx.needs_input_grad) and not any(
+                isinstance(p, Partial) for p in x.placements):
+            rows = "abcdefgh"[:x.ndim - 1]
+            plan = _rows_move(x, w, rows + "y", "yz", rows + "z")[1]
+            if plan is not None:
+                return _run_plan(plan, x, w)[0]
         wg = _gathered_weight(x, w)
         out = x @ wg
         ctx.save_for_backward(x, wg)
@@ -433,6 +751,15 @@ def _einsum_letters(eq: str):
     return (ins[0], ins[1], out) if len(ins) == 2 else None
 
 
+def _is_expert_weight(w, lx: str, lw: str, lo: str) -> bool:
+    """``w`` is a 3-D weight sharded on its leading dim, a letter the
+    activations and the output share but do not lead with: an MoE
+    layer's experts (a cache's products lead both operands with the
+    batch)."""
+    return w.ndim == 3 and len(lw) == 3 and lw[0] in lx[1:] and \
+        lw[0] in lo and _shards_on(w, 0)
+
+
 def _searchsorted_rules(seq, values, **kwargs):
     from torch.distributed.tensor import Replicate, Shard
     out = [([Replicate()], [Replicate(), Replicate()]),
@@ -505,15 +832,20 @@ def sharded_execution() -> Iterator[None]:
     inputs DTensor must move given contiguous ones (``_moved_flash``), an
     embedding lookup into a vocab-sharded table reduced at once, a slice
     of the leading dim (a micro-batch) kept on its operand's placements
-    (``_placed_like``), a product with a weight run FSDP's way
-    (``_WeightProduct``), a pending sum reduced before ``log`` takes it
-    (``_Reduced``), a cache sharded on its sequence written, softmaxed
-    over and multiplied where it lies (``_sharded_index_copy``,
-    ``_sharded_softmax``, ``_cache_product``: ``index_copy`` on the
-    sharded dim, ``softmax`` over it, and a batched ``matmul`` or a
-    two-operand ``einsum`` whose larger operand is so sharded), and three
-    of DTensor's own steps adjusted for a traced step (``_untraced_meta``,
-    ``_host_strided_offsets``, ``_resharding_views``).
+    (``_placed_like``), a product with a 2-D weight moving whichever side
+    is smaller (``_WeightProduct``: the weight gathered FSDP's way, or
+    without a gradient the rows moved where that costs fewer bytes,
+    ``_rows_move``), an MoE layer's expert products (a two-operand
+    ``einsum`` with a 3-D weight sharded on its expert dim) on each
+    rank's own experts (``_expert_product``), a pending sum reduced
+    before ``log`` takes it (``_Reduced``), a cache sharded on its
+    sequence written, softmaxed over and multiplied where it lies
+    (``_sharded_index_copy``, ``_sharded_softmax``, ``_cache_product``:
+    ``index_copy`` on the sharded dim, ``softmax`` over it, and a batched
+    ``matmul`` or a two-operand ``einsum`` whose larger operand is so
+    sharded), and three of DTensor's own steps adjusted for a traced step
+    (``_untraced_meta``, ``_host_strided_offsets``,
+    ``_resharding_views``).
 
     ``log``: the loss's ``log(sum(exp(x)))`` over vocab-sharded logits
     takes a pending sum.  ``log``'s backward divides by its saved input,
@@ -534,9 +866,13 @@ def sharded_execution() -> Iterator[None]:
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.distributed.tensor.placement_types import _MaskPartial
     from torch.overrides import TorchFunctionMode
+    from torch.utils.weak import WeakIdKeyDictionary
 
     register_kernel_strategies()
     flash = torch.ops.repro_torch.flash_attention.default
+    # expert activations once dispatched, and where each dispatch took
+    # them from (``_expert_product``)
+    moved, dispatched = WeakIdKeyDictionary(), {}
 
     class _ShardedOps(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -572,6 +908,9 @@ def sharded_execution() -> Iterator[None]:
                     isinstance(args[1], DTensor) and \
                     isinstance(args[2], DTensor):
                 letters = _einsum_letters(args[0])
+                if letters and _is_expert_weight(args[2], *letters):
+                    return _expert_product(*args[1:], *letters, moved,
+                                           dispatched)
                 out = letters and _cache_product(
                     lambda x, y: func(args[0], x, y), *args[1:], *letters)
                 if out is not None:

@@ -14,12 +14,22 @@ Every decode cell whose cache holds the sequence (all but xLSTM's, whose
 state has none) keeps that cache where ``cache_specs`` shards it: no
 collective output is as large as one layer's local cache leaf (the
 smallest local shard of a leaf that holds the sequence).  That covers
-hymba's ``long_500k`` too, at B = 1 with the sequence sharded on ``data``."""
+hymba's ``long_500k`` too, at B = 1 with the sequence sharded on ``data``.
+
+The MoE cells run their expert products on each rank's own experts
+(``strategies._expert_product``): no all-gather in their graphs
+collects an expert weight's experts on the model axis.  The dense
+families' prefill cells, whose products all gather their weights (their
+rows outweigh the weights), keep the FLOPs, argument bytes and
+collectives they had before the products could move the rows instead
+(``DENSE``, recorded then); their train cells are held so in
+``test_torch_dryrun_ref.py``, which runs them already."""
 import pytest
 import torch
 
 from repro_torch.configs import ARCHS, SHAPES, get_smoke_config
 from repro_torch.launch import dryrun
+from repro_torch.launch.graph_analysis import GraphAnalyzer
 from repro_torch.launch.mesh import _mesh, destroy_world, init_fake_world
 from repro_torch.launch.sharding import ShardingRules
 from test_torch_dryrun_decode import local_cache_leaf_bytes
@@ -33,7 +43,19 @@ CELLS = [(a, "decode_32k") for a in OTHERS] + \
 SEQUENCE_CACHES = [(a, s) for a, s in CELLS
                    if SHAPES[s]["kind"] == "decode" and
                    get_smoke_config(a).block_kind != "xlstm"]
+MOE_CELLS = [(a, s) for a, s in CELLS if get_smoke_config(a).n_experts]
+# (FLOPs, argument bytes, collectives: all-gather, all-reduce,
+# reduce-scatter, all-to-all, collective-permute) of the smoke prefill
+# cells on the 2x4 mesh, before a product could move its rows (torch 2.13)
+DENSE = {
+    ("llama2_1b", "prefill_32k"): (9_020_505_063_424, 2_628_096, (
+        4_677_632, 268_435_456, 134_217_728, 0, 0)),
+    ("gemma_2b", "prefill_32k"): (4_425_963_798_528, 2_159_872, (
+        403_197_952, 134_217_728, 0, 0, 0))}
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
 RECORDS = {}      # (arch, shape) -> record, run once for both tests
+GATHERS = {}      # (arch, shape) -> the output shapes of its all-gathers
 KEYS = {"arch", "shape", "mesh", "params", "params_active", "grad_accum",
         "lower_s", "compile_s", "memory", "cost", "flops", "bytes_accessed",
         "collectives", "scaled", "scaled_warnings", "hlo_bytes",
@@ -55,8 +77,24 @@ def mesh():
 
 def _record(mesh, arch, shape):
     if (arch, shape) not in RECORDS:
-        RECORDS[arch, shape] = dryrun.run_cell(
-            arch, shape, multi_pod=False, grad_accum=2, mesh=mesh)
+        plans = []
+        real = dryrun.plan_step
+
+        def kept(sharded, **kwargs):
+            plans.append(real(sharded, **kwargs))
+            return plans[-1]
+        dryrun.plan_step = kept
+        try:
+            RECORDS[arch, shape] = dryrun.run_cell(
+                arch, shape, multi_pod=False, grad_accum=2, mesh=mesh)
+        finally:
+            dryrun.plan_step = real
+        if (arch, shape) in MOE_CELLS:
+            graph = plans[0].plan.graph
+            an = GraphAnalyzer(graph, {})
+            GATHERS[arch, shape] = [
+                an._value(n.outvals[0]).shape for n in graph.nodes
+                if n.prim_name.startswith("_c10d_functional.all_gather")]
     return RECORDS[arch, shape]
 
 
@@ -84,3 +122,28 @@ def test_smoke_decode_cell_keeps_the_cache_in_place(mesh, arch, shape):
     assert rec["status"] == "ok", rec
     assert max(rec["collectives_largest"].values()) < leaf, \
         (rec["collectives_largest"], leaf)
+
+
+@pytest.mark.parametrize("arch,shape", MOE_CELLS)
+def test_smoke_moe_cell_keeps_the_experts_sharded(mesh, arch, shape):
+    cfg = get_smoke_config(arch)
+    _record(mesh, arch, shape)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    # an expert weight (E, D, F) or (E, F, D), D whole or on data, with
+    # all E experts on one rank
+    whole = {(e, a, b) for a, b in ((d, f), (d // 2, f), (f, d), (f, d // 2))}
+    got = [s for s in GATHERS[arch, shape] if tuple(s) in whole]
+    print(f"{arch} {shape}: {len(GATHERS[arch, shape])} all-gathers, "
+          f"collectives {RECORDS[arch, shape]['collectives']}")
+    assert got == [], got
+
+
+@pytest.mark.parametrize("arch,shape", list(DENSE))
+def test_smoke_dense_prefill_records_are_unchanged(mesh, arch, shape):
+    rec = _record(mesh, arch, shape)
+    flops, args, coll = DENSE[arch, shape]
+    assert rec["status"] == "ok", rec
+    assert rec["flops"] == flops
+    assert rec["memory"]["argument_bytes"] == args
+    assert tuple(rec["collectives"][c] for c in COLLECTIVES) == coll, \
+        rec["collectives"]

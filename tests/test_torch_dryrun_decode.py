@@ -10,7 +10,11 @@ keys and the attention's two products then run on each rank's own rows
   mesh of a fake 512-rank world: the reference's argument bytes, no
   collective output as large as one layer's local k shard, and all-gather
   bytes below 1/30 of what the cells gathered when DTensor moved the cache
-  (34,460,925,952 and 10,063,724,544 B a device);
+  (34,460,925,952 and 10,063,724,544 B a device).  Their weight products
+  move the few rows, not the weights (``strategies._rows_move``): the
+  all-gather and the collective total below 1/3 of what they were when
+  every product gathered its weight, the largest all-gather below the
+  largest gathered weight then, and the FLOPs exact;
 * toy steps on a fake 2x2 world, captured and read with the analyzer:
   a cache write on its sharded dim emits no all-gather and keeps its
   placements; a softmax over a sharded dim emits all-reduces of its
@@ -39,6 +43,16 @@ from repro_torch.launch.specs import input_specs
 GATHERED = {"llama2_1b": 34_460_925_952, "gemma_2b": 10_063_724_544}
 ARGUMENT_BYTES = {"llama2_1b": 1_112_907_824, "gemma_2b": 383_160_424}
 K_SHARD = {"llama2_1b": 134_217_728, "gemma_2b": 8_388_608}
+# when every weight product gathered its weight (torch 2.13, CPU): the
+# all-gather bytes a device, the collective total and the largest
+# all-gather (one of llama2_1b's FFN weights, 4096 x 688 bf16), and the
+# FLOPs a device, which moving the rows leaves as they were
+WEIGHTS_GATHERED = {
+    "llama2_1b": {"all-gather": 102_236_160, "total": 102_866_944,
+                  "largest": 5_636_096},
+    "gemma_2b": {"all-gather": 249_126_912, "total": 250_422_272,
+                 "largest": 4_194_304}}
+FLOPS = {"llama2_1b": 2_014_314_496, "gemma_2b": 4_922_015_744}
 
 
 def local_cache_leaf_bytes(cfg, shape: str, rules: ShardingRules) -> int:
@@ -83,6 +97,11 @@ def test_full_size_decode_keeps_the_cache_in_place(one_thread, arch):
     assert max(largest.values()) < k_shard, largest
     assert coll["all-gather"] < GATHERED[arch] / 30, coll
     assert rec["memory"]["temp_bytes"] < rec["memory"]["argument_bytes"]
+    before = WEIGHTS_GATHERED[arch]
+    assert coll["all-gather"] < before["all-gather"] / 3, coll
+    assert coll["total"] < before["total"] / 3, coll
+    assert largest["all-gather"] < before["largest"], largest
+    assert rec["flops"] == FLOPS[arch]
 
 
 # -- toy steps on a fake 2x2 (data, model) world --------------------------------

@@ -15,10 +15,19 @@ device do not depend on it).
 * per-device FLOPs agree within 1e-6 once the terms each side counts by
   design are added (:func:`named_terms`);
 * the collective bytes of each type are printed side by side, and every
-  type the reference's HLO holds is > 0 in the port, except the two
-  DTensor does not emit on this world: ``all-to-all`` (a CPU process
-  group moves a shard to another dim by all-gather and chunk) and
-  ``collective-permute`` (DTensor has no point-to-point redistribution);
+  type the reference's HLO holds is > 0 in the port, except those the
+  port does not emit in the cell (:func:`not_emitted`):
+  ``collective-permute`` (DTensor has no point-to-point redistribution)
+  anywhere, and ``all-to-all`` in the dense cells.  The port's own
+  all-to-alls (``strategies._all_to_all``, where DTensor's CPU world
+  would all-gather and chunk) are an MoE layer's dispatch onto the
+  expert shard and its combine back, and in a product that moves its
+  rows (a decode step's, ``strategies._rows_move``) the rows onto the
+  weight's contraction shard and the output's columns back onto its
+  rows.  The dense train cells move no rows (a gradient is taken), so
+  their all-to-all stays 0 where the reference's XLA emits some; their
+  FLOPs, argument bytes and collectives are held to the counts they had
+  before rows could move (``TRAIN_BEFORE``);
 * ``decode_32k`` keeps the cache where ``cache_specs`` puts it, on its
   32k positions over the model axis, as the reference's XLA does: the
   all-gather bytes stay below 1% of the argument bytes (what is left are
@@ -50,7 +59,8 @@ from repro.configs import get_smoke_config
 from repro.launch.hlo_analysis import HLOAnalyzer
 from repro.launch.sharding import ShardingRules
 from repro.launch.specs import input_specs
-from repro.launch.steps import make_serve_step, make_train_step
+from repro.launch.steps import (make_prefill_step, make_serve_step,
+                                make_train_step)
 devs = jax.devices()
 assert len(devs) == 8, devs
 from repro.launch.dryrun import collective_bytes   # sets XLA_FLAGS: late
@@ -72,6 +82,10 @@ for shape in sys.argv[3:]:
                     shard(specs["batch"], rules.batch_specs))
             jfn = jax.jit(make_train_step(cfg, grad_accum=grad_accum),
                           donate_argnums=(0, 1))
+        elif kind == "prefill":
+            args = (shard(specs["params"], rules.params_pspecs),
+                    shard(specs["batch"], rules.batch_specs))
+            jfn = jax.jit(make_prefill_step(cfg))
         else:
             args = (shard(specs["params"], rules.params_pspecs),
                     shard(specs["state"], rules.cache_specs),
@@ -85,8 +99,22 @@ for shape in sys.argv[3:]:
         "collectives": collective_bytes(hlo)}
 print("REF " + json.dumps(out))
 """
-# the types DTensor does not emit on a CPU world (see the module docstring)
-NOT_EMITTED = ("all-to-all", "collective-permute")
+# the dense train cells' (FLOPs, argument bytes, collectives by type in
+# COLLECTIVES' order) before a product could move its rows (torch 2.13)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+TRAIN_BEFORE = {
+    "llama2_1b": (4_521_526_820_864, 5_787_140, (
+        296_730_624, 1_074_518_032, 406_704_128, 0, 0)),
+    "gemma_2b": (2_007_897_210_880, 4_382_468, (
+        1_158_733_824, 268_631_056, 34_045_952, 0, 0))}
+
+
+def not_emitted(cfg) -> tuple:
+    """The collective types the port does not emit in ``cfg``'s cells (see
+    the module docstring)."""
+    return ("collective-permute",) + (() if cfg.n_experts else
+                                      ("all-to-all",))
 
 
 def named_terms(cfg, shape, model: int, data: int) -> dict:
@@ -101,6 +129,14 @@ def named_terms(cfg, shape, model: int, data: int) -> dict:
     * ``reference blockwise delta``: past T = 2048 the reference's
       blockwise backward contracts dO with O over hd once a layer
       (``delta``), 2·Hq·hd a token.
+    * ``reference router repeat``: the MoE router's product (D x E, E
+      whole) on every model rank of a data rank's tokens.  The port's
+      activations there are sharded on the batch over the model axis
+      too (the flash rule's choice where the model axis does not divide
+      the kv heads, and MLA's), so each rank routes its own tokens;
+      2·D·E a token and layer, times (model - 1) / (data · model) of the
+      cell's tokens.  Counted for the forward-only cells (prefill,
+      decode).
     The port's flash backward recomputes QKᵀ as the reference's blockwise
     one does past T = 2048, so that needs no term here; and it runs on
     the shards the forward ran on (``strategies._LocalFlash``), so where
@@ -108,7 +144,13 @@ def named_terms(cfg, shape, model: int, data: int) -> dict:
     weight gradient whole."""
     cell = SHAPES[shape]
     if cell["kind"] != "train":
-        return {}
+        if not cfg.n_experts:
+            return {}
+        tokens = cell["global_batch"] * (
+            cell["seq_len"] if cell["kind"] == "prefill" else 1)
+        return {"reference router repeat":
+                -cfg.n_layers * 2 * cfg.d_model * cfg.n_experts * tokens *
+                (model - 1) // (data * model)}
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, f, n = cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers
     t = cell["seq_len"]
@@ -122,12 +164,13 @@ def named_terms(cfg, shape, model: int, data: int) -> dict:
     return terms
 
 
-def compare(arch):
-    """Both sides' records, printed side by side, and the checks."""
+def compare(arch, cells=CELLS):
+    """Both sides' records of ``cells``, printed side by side, and the
+    checks."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     ref_proc = subprocess.Popen(
-        [sys.executable, "-c", REF_SCRIPT, arch, str(GRAD_ACCUM)] + CELLS,
+        [sys.executable, "-c", REF_SCRIPT, arch, str(GRAD_ACCUM)] + cells,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     cfg = get_smoke_config(arch)
     ours = {}
@@ -139,7 +182,7 @@ def compare(arch):
         get = dryrun.get_config
         dryrun.get_config = get_smoke_config
         try:
-            for shape in CELLS:
+            for shape in cells:
                 ours[shape] = dryrun.run_cell(arch, shape, multi_pod=False,
                                               grad_accum=GRAD_ACCUM,
                                               mesh=mesh)
@@ -151,7 +194,7 @@ def compare(arch):
     assert ref_proc.returncode == 0, err[-3000:]
     line = next(x for x in out.splitlines() if x.startswith("REF "))
     ref = json.loads(line[4:])
-    for shape in CELLS:
+    for shape in cells:
         rec, want = ours[shape], ref[shape]
         assert rec["status"] == "ok" and rec["mesh"] == "2x4"
         assert set(rec["memory"]) >= {"argument_bytes", "output_bytes",
@@ -166,8 +209,12 @@ def compare(arch):
         for c, b in want["collectives"].items():
             print(f"  {c:18s} port {rec['collectives'][c]:>14,} "
                   f"reference {b:>14,}")
-            if b > 0 and c not in NOT_EMITTED and c != "total":
+            if b > 0 and c not in not_emitted(cfg) and c != "total":
                 assert rec["collectives"][c] > 0, (shape, c)
+        if SHAPES[shape]["kind"] == "train" and arch in TRAIN_BEFORE:
+            assert (rec["flops"], rec["memory"]["argument_bytes"],
+                    tuple(rec["collectives"][c] for c in COLLECTIVES)) == \
+                TRAIN_BEFORE[arch], rec["collectives"]
         if SHAPES[shape]["kind"] == "decode":
             mem, largest = rec["memory"], rec["collectives_largest"]
             print(f"  largest collective {largest}, one layer's local k "

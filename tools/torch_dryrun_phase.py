@@ -60,6 +60,7 @@ def timed_cell():
     rows["a"] = time.perf_counter() - t0
     rows["train_cell"] = row["seconds"]
     rows["decode_cell"] = row.get("decode_seconds")
+    rows["moe_cells"] = row.get("moe_seconds")
     return row
 cs.dryrun_cell = timed_cell
 t0 = time.perf_counter()
