@@ -36,6 +36,7 @@ on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -101,6 +102,7 @@ def run_system(system: str, cfg, *, batch_size: int, steps: int,
     ``init_params(cfg, seed)``); never modified, the state is not
     donated.  ``device``: ``cuda`` unless given."""
     dev = resolve_device(device)
+    cfg = dataclasses.replace(cfg, scan_layers=False)
     step = make_train_step(cfg)
     if params is None:
         params = init_params(cfg, seed, device=dev)

@@ -48,9 +48,11 @@ Phases (any failure exits non-zero):
    flash route and 3 RMSNorm launches per request, logits within 2e-4 of
    the plain path;
 6. the train path: ``optimize(make_train_step(llama2_1b))`` at full width
-   (4 layers, bf16 weights, f32 AdamW moments), forward, backward and
-   AdamW captured as one graph and planned once with the parameters and
-   moments donated (``call_donated`` on fresh copies of the state, so the
+   (4 layers, bf16 weights, f32 AdamW moments; the flat graph,
+   ``scan_layers=False``, as every ``optimize`` caller builds it), forward,
+   backward and AdamW captured as one graph and planned once with the
+   parameters and moments donated; ``recommend_policy``'s policy,
+   fractions and rationale printed at RECOMMEND_ENVS (``call_donated`` on fresh copies of the state, so the
    step's old state is freed inside the step).  Uncapped at (b, s) =
    (1,16), (2,1000), (8,1024): median step time, 4 flash and 9 RMSNorm
    launches per step, device_peak <= guaranteed_peak_bytes, the
@@ -233,8 +235,9 @@ Phases (any failure exits non-zero):
    figure the mma kernel's bf16 variant is calibrated on) beside each;
    (b) ``granite_8b``,
    ``starcoder2_7b``, ``musicgen_medium`` and ``internvl2_2b`` at full
-   width in bf16, DENSE_LAYERS = 12 layers deep (every layer until phase
-   22 needed the time; seed-0 weights on the card), one at a time,
+   width in bf16, DENSE_LAYERS = 6 layers deep (every layer until phase
+   22 needed the time, 12 until phase 21's block remat; seed-0 weights on
+   the card), one at a time,
    each serving the request shapes through one plan (internvl2: s text
    tokens after 256 vision embeddings, its flash S the expression
    ``256 + s``): one
@@ -250,16 +253,17 @@ Phases (any failure exits non-zero):
    each in f32 and in bf16: n_layers mma launches a request of the
    dtype's kernel, logits within 2e-4 (f32) or 5e-2 (bf16) of the eager
    plain path; (e) ``serve`` for musicgen (frames, 4 codebooks) and
-   internvl2 at DENSE_SERVE_LAYERS = 8 layers (musicgen's 48-layer
-   decode capture alone took 84 s): no flash launch, (2 L + 1) RMSNorm
-   launches a step, cache length 48 of 49 rows, ms a step; decode vs
-   forward within 2e-2 at GEMMA_CUT_LAYERS layers, the 8 layers' reading
+   internvl2 at min(DENSE_LAYERS, DENSE_SERVE_LAYERS) = 6 layers
+   (musicgen's 48-layer decode capture alone took 84 s): no flash launch,
+   (2 L + 1) RMSNorm launches a step, cache length 48 of 49 rows, ms a
+   step; decode vs forward within 2e-2 at GEMMA_CUT_LAYERS layers, the 6
+   layers' reading
    printed beside a control (the plain forward vs the kernel forward).
 
 15. bench train (``[bench_train]`` lines), run after a garbage
    collection: the reference's bench step (``make_train_step``, symbolic
    b in [1, 8], s in [16, 1024], the state donated) for ``gemma_2b`` at
-   full width (8/1 heads at hd 256, GeGLU, the tied 256k vocab; 12 of 18
+   full width (8/1 heads at hd 256, GeGLU, the tied 256k vocab; 6 of 18
    layers, for the time limit) and ``musicgen_medium`` at full width in
    ``embeddings`` mode (f32 frame embeddings (B, S, 1536), (B, S, 4) labels) at the
    depth of BENCH_TRAIN, one model at a time, bf16 weights and f32 AdamW
@@ -418,10 +422,18 @@ Phases (any failure exits non-zero):
    static plan per batch shape, the state donated, a checkpoint at step
    5 -- and ``mode="dynamic"`` on the same seed and batches:
    ``recompilations`` = the pipeline's distinct shapes, every plan's
-   ``device_peak`` <= its guaranteed peak, 4 sm90 flash and 9 RMSNorm
-   launches a step, finite losses within 1e-4 of the dynamic run's
-   (bitwise reported); compile seconds per shape and step ms beside the
-   dynamic run's reported; (b) ``launch.graph_analysis.analyze_graph`` on
+   ``device_peak`` <= its guaranteed peak, 8 sm90 flash and 17 RMSNorm
+   launches a step (the compiled path recomputes each block in the
+   backward: ``remat_policy="block"``, ``step_launches``), finite losses
+   within 1e-4 of the dynamic run's (the flat graph; bitwise reported);
+   compile seconds per shape and step ms beside the dynamic run's
+   reported; then one compiled plan at (8,1024) for each of
+   ``remat_policy`` "block" and "none" on the same state and batch
+   (``launch_policies``): nodes, ``device_peak`` and the guaranteed bound,
+   the planned live bytes where the forward ends (``forward_end_bytes``:
+   the block plan's must be below the none plan's), the median ms of 4
+   donated steps, one step's launches (8 + 17 and 4 + 9), the losses
+   bitwise equal; (b) ``launch.graph_analysis.analyze_graph`` on
    phase 3's prefill plan and phase 6's train plan at (8,1024): FLOPs,
    bytes and transcendentals, the FLOPs beside 2·N·tokens and 6·N·tokens
    (``benchmarks/roofline.py``'s model), over the phase's median as
@@ -429,7 +441,7 @@ Phases (any failure exits non-zero):
    only; (c) (a)'s step-5 checkpoint restored through
    ``ShardingRules(make_debug_mesh(1, 1))`` (NCCL, world 1) as DTensors,
    every local tensor bitwise the saved one, one step from it giving the
-   uninterrupted step 6's loss bitwise; then
+   uninterrupted step 6's loss bitwise (8 + 17 launches); then
    ``examples/torch_elastic_restart.py``'s ``main()`` on ``cuda``; the
    process group destroyed before the phase ends.
 
@@ -441,7 +453,8 @@ Phases (any failure exits non-zero):
    limit (DRYRUN_TIMEOUT_S, DRYRUN_DECODE_TIMEOUT_S); train: status ok,
    all-gather bytes > 0 (FSDP), the gradients' reduce-scatter
    or all-reduce bytes > 0, FLOPs a device within 1e-6 of a step that no
-   rank repeats (``dense_train_flops``), argument bytes between the
+   rank repeats (``dense_train_flops``, each block's recompute counted:
+   ``block_remat_flops``), argument bytes between the
    state split 256 and 16 ways, the whole cell within the card's memory;
    decode: status ok, the reference's argument bytes, FLOPs exactly
    DRYRUN_DECODE_FLOPS, no collective output as large as one layer's
@@ -453,19 +466,22 @@ Phases (any failure exits non-zero):
    (DRYRUN_MOE_TIMEOUT_S), runs the smoke ``kimi_k2_1t_a32b``
    ``prefill_32k`` and ``train_4k`` and ``deepseek_v3_671b``
    ``prefill_32k`` cells on a fake 8-rank 2x4 world (``grad_accum=2``):
-   each ok, FLOPs and collective bytes > 0, its collectives printed
-   beside the reference's lowering; the records, their seconds and the
+   each ok, FLOPs and collective bytes > 0, all-gather bytes within 10%
+   of torch 2.13's (DRYRUN_MOE_GATHER_213: the dispatch buffer kept on
+   the batch), its collectives printed beside the reference's lowering; the records, their seconds and the
    decode cell's collectives beside those earlier bytes printed;
    (b) the dry-run's cell machinery on
    ``make_debug_mesh()`` (NCCL, 1x1, a 120 s process-group timeout) for
    ``llama2_1b`` at full width, the
    train step at (8,1024) with ``grad_accum=1``, donated: its per-rank
    plan on the card from phase 6's state and batch beside phase 6's
-   plan: the loss, weights and moments bitwise (else within
-   TRAIN_PLAIN_TOL), the same flash and RMSNorm launches a step,
+   (flat) plan: the loss, weights and moments bitwise (else within
+   TRAIN_PLAIN_TOL, which of the two printed), each block's flash and
+   norms launched again in the recompute (8 + 17 against 4 + 9),
    ``argument_bytes`` = the state's bytes + the batch's, the allocator's
    peak of the call <= ``total_per_device_bytes`` + block overhead,
-   FLOPs = phase 21 (b)'s count of phase 6's plan, collectives 0; (c)
+   FLOPs = phase 21 (b)'s count of phase 6's plan + the recompute's
+   (``block_remat_flops``), collectives 0; (c)
    ``examples/torch_quickstart.py``, ``torch_ragged_batch.py``,
    ``torch_serve_decode.py`` and ``tools/torch_memview.py --arch
    llama2_1b --env b=8,s=1024`` as processes on the card: each exits 0,
@@ -1505,6 +1521,11 @@ def state_call(fn, state, batch):
             torch.cuda.max_memory_allocated() - held)
 
 
+# the envs at which phase 6 prints the §2.3 search's checkpoint policy
+# for the compiled path (core.remat.export.recommend_policy)
+RECOMMEND_ENVS = ({"b": 8, "s": 1024}, {"b": 8, "s": 128})
+
+
 def phase6_batches(cfg):
     """Phase 6's batch at each of TRAIN_SHAPES, drawn on the card from
     seed 3 (phase 22 (b) draws them again)."""
@@ -1519,6 +1540,7 @@ def phase6_batches(cfg):
 
 def phase_train():
     """The train path (phase 6).  Returns the kernels' launches over it."""
+    import dataclasses
     import statistics
 
     import torch
@@ -1533,7 +1555,8 @@ def phase_train():
     from repro_torch.models import init_params
     from repro_torch.optim import init_state
 
-    cfg = CONFIG
+    # the flat graph (no block remat): optimize's own remat plans it
+    cfg = dataclasses.replace(CONFIG, scan_layers=False)
     params = init_params(cfg, seed=0, device="cuda")
     opt_state = init_state(params, adamw_config_for(cfg))
     state_bytes = sum(t.numel() * t.element_size()
@@ -1557,6 +1580,13 @@ def phase_train():
         f"donation the same order would need {undonated})")
     if rep.guards:
         raise AssertionError(f"the train capture left guards {rep.guards}")
+    from repro_torch.core.remat.export import recommend_policy
+    for env in RECOMMEND_ENVS:
+        rec = recommend_policy(plan, env)
+        log(f"[train] recommend_policy at {env}: {rec.policy_name}, "
+            f"recompute FLOP fraction {rec.recompute_flop_fraction!r}, "
+            f"recomputable byte fraction "
+            f"{rec.recomputable_byte_fraction!r}: {rec.rationale}")
     batches = phase6_batches(cfg)
 
     def step(fn, batch):
@@ -4045,12 +4075,17 @@ DENSE_SERVED = ("musicgen_medium", "internvl2_2b")
 # (e): serve's depth, for the script's time limit: musicgen_medium's
 # 48-layer decode capture took 84.3 s of its serve's 90.0 s optimize; 8
 # since phase 22 (16 before: the script took 987.7 s with them, phase 14
-# 125.7 s against 96.8 at 8)
+# 125.7 s against 96.8 at 8).  The serve takes the prefill's weights, so
+# it runs at min(DENSE_LAYERS, DENSE_SERVE_LAYERS) layers: 6 since
+# DENSE_LAYERS is 6
 DENSE_SERVE_LAYERS = 8
 # (b)-(c): the prefill's depth, for the script's time limit since phase 22
 # (the script 1028.9 s with every layer: granite_8b's 36-layer capture
-# 36.3 s, starcoder2_7b's 32 34.9 s, musicgen_medium's 48 29.2 s)
-DENSE_LAYERS = 12
+# 36.3 s, starcoder2_7b's 32 34.9 s, musicgen_medium's 48 29.2 s); 6
+# since phases 21-22 recompute each block of the compiled train step
+# (12 before: the script took 1186.0 s on a slow host with them, phase
+# 14 162.8 s, its 12-layer captures 12.1-13.2 s each)
+DENSE_LAYERS = 6
 
 
 def phase_dense_kernels():
@@ -4587,8 +4622,11 @@ def dense_row(r):
 # within BENCH_OPTIMIZE_S on the H100 machine's host: musicgen's 48 layers
 # took 124.5 s in one run, 24 layers 47.7 s in one and 127.8 s in
 # another; capture there takes 1.2 to 4.5 s a layer from run to run; the
-# script took 1177.1 s with gemma at 18 and musicgen at 16)
-BENCH_TRAIN = (("gemma_2b", 12), ("musicgen_medium", 8))
+# script took 1177.1 s with gemma at 18 and musicgen at 16); gemma_2b at
+# 6 and musicgen_medium at 6 since phases 21-22 recompute each block of
+# the compiled train step (12 and 8 before: the script took 1186.0 s on a
+# slow host with them, phase 15 151.8 s, gemma's optimize 38.0 s)
+BENCH_TRAIN = (("gemma_2b", 6), ("musicgen_medium", 6))
 BENCH_OPTIMIZE_S = 120.0
 BENCH_LADDER = (0.90, 0.80, 0.70, 0.60, 0.50)   # of the uncapped device_peak
 BENCH_PLAIN_SHAPES = ((2, 1000), (8, 1024))      # at GEMMA_CUT_LAYERS
@@ -4683,7 +4721,8 @@ def phase_bench_train_model(arch, n_layers):
     from repro_torch.models import init_params
     from repro_torch.optim import init_state
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              scan_layers=False)
     tag = f"[bench_train] {arch} L{n_layers}"
 
     def fresh_state(c=cfg):
@@ -6978,6 +7017,8 @@ def phase_accum():
     """Phase 20 ([accum] lines): (a) grad_accum, (b) compress, (c) the
     opaque scan node, (d) the mixed op, llama2_1b at full width.  Returns
     the launches of each path."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.llama2_1b import CONFIG
@@ -6986,7 +7027,7 @@ def phase_accum():
     from repro_torch.optim import init_state
 
     t0 = time.perf_counter()
-    cfg = CONFIG
+    cfg = dataclasses.replace(CONFIG, scan_layers=False)
     base = TRAIN_PLAN.pop("opt")
     params = init_params(cfg, seed=0, device=DEV)
     opt_state = init_state(params, adamw_config_for(cfg))
@@ -7019,6 +7060,134 @@ LAUNCH_STEPS = 6
 LAUNCH_CKPT_AT = 5      # (c): the checkpoint the restore reads
 LAUNCH_LOSS_TOL = 1e-4  # (a): compiled vs dynamic losses
 ANALYZED = {}           # (b): phase 3's and 6's graphs, their (8,1024) ms
+LAUNCH_POLICY_AT = (8, 1024)   # (a): one compiled plan a remat_policy
+LAUNCH_POLICY_STEPS = 5        # (a): donated steps timed a plan
+
+
+def step_launches(cfg):
+    """The kernel launches of one train step of ``cfg``'s compiled path:
+    the forward's (a flash and two norms a layer, the final norm), and
+    with block remat each block's flash and two norms again in the
+    backward's recompute (which stops before the block's last FFN
+    product)."""
+    n = cfg.n_layers
+    remat = cfg.scan_layers and cfg.remat_policy != "none"
+    return {"sm90": n * (2 if remat else 1), "mma_f32": 0, "mma_bf16": 0,
+            "rmsnorm": 2 * n * (2 if remat else 1) + 1}
+
+
+def forward_end_bytes(opt, env):
+    """A train plan's planned live bytes where its forward ends: at the
+    gradient seed (``ones_like`` of the 0-d loss, which every node the
+    loss reads precedes), from the planned timeline (``core.obs.
+    timeline.planned_timeline``).  Returns (bytes, the seed's step)."""
+    from repro_torch.core.obs.timeline import planned_timeline
+    pos = next(i for i, n in enumerate(opt.plan.order)
+               if n.prim_name == "aten.ones_like.default" and
+               not n.outvals[0].dims)
+    return planned_timeline(opt.program, env)[0][pos], pos
+
+
+def launch_policies(cfg):
+    """(a) one compiled plan of the train step at LAUNCH_POLICY_AT for
+    each ``remat_policy``, ``block`` (the compiled path's default) and
+    ``none``, on the same seed-0 state and batch: device_peak and the
+    planner's guaranteed bound, the planned live bytes where the forward
+    ends, the median ms of a donated step, the nodes, one step's
+    launches.  The block plan's forward-end bytes must be below the
+    none plan's, and its losses bitwise the none plan's.  Returns the
+    rows."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.core.scheduling.memsim import simulate_peak_bound
+    from repro_torch.launch.steps import adamw_config_for
+    from repro_torch.launch.train import CompiledSteps
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    b, s = LAUNCH_POLICY_AT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    batch["mask"] = torch.ones((b, s), dtype=torch.float32, device="cuda")
+    rows = {}
+    for pol in ("block", "none"):
+        pcfg = dataclasses.replace(cfg, remat_policy=pol)
+        params = init_params(pcfg, seed=0, device="cuda")
+        opt_state = init_state(params, adamw_config_for(pcfg))
+        t0 = time.perf_counter()
+        fn = CompiledSteps(pcfg, params, opt_state).plan_for(batch)
+        compile_s = time.perf_counter() - t0
+        plan = fn.plan
+        bound = simulate_peak_bound(plan.graph, plan.order, plan.shape_graph,
+                                    donate_inputs=True)[1]
+        fwd_end, seed = forward_end_bytes(fn, {})
+        state = [params, opt_state]
+        del params, opt_state
+        losses, ms, peaks = [], [], []
+        for i in range(LAUNCH_POLICY_STEPS):
+            args = state + [batch]
+            state = []
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if i == 0:
+                launches, out = counted_launches(
+                    lambda: fn.call_donated(args))
+            else:
+                start.record()
+                out = fn.call_donated(args)
+                end.record()
+            torch.cuda.synchronize()
+            if i:
+                ms.append(start.elapsed_time(end))
+            del args
+            losses.append(float(out[0]))
+            peaks.append(fn.last_report.stats.device_peak)
+            state = [out[1], out[2]]
+            del out
+        del state
+        torch.cuda.empty_cache()
+        rows[pol] = dict(nodes=len(plan.graph.nodes), compile_s=compile_s,
+                         device_peak=max(peaks), guaranteed=bound,
+                         forward_end_bytes=fwd_end, seed_step=seed,
+                         steps=len(plan.order), median_ms=statistics.median(ms),
+                         launches=launches, losses=losses)
+        log(f"[launch] (a) remat_policy={pol} compiled plan at ({b},{s}): "
+            f"{rows[pol]['nodes']} nodes, optimize {compile_s:.2f} s; "
+            f"device_peak {max(peaks)} B, guaranteed {bound} B; planned "
+            f"live bytes where the forward ends (step {seed} of "
+            f"{len(plan.order)}) {fwd_end}; step median "
+            f"{rows[pol]['median_ms']:.3f} ms of {LAUNCH_POLICY_STEPS - 1}; "
+            f"launches a step {launches}; losses {losses}")
+        if launches != step_launches(pcfg):
+            raise AssertionError(f"(a) {pol}: launches {launches}, want "
+                                 f"{step_launches(pcfg)}")
+        if max(peaks) > bound:
+            raise AssertionError(f"(a) {pol}: device_peak {max(peaks)} above "
+                                 f"its guaranteed {bound}")
+    blk, none = rows["block"], rows["none"]
+    log(f"[launch] (a) block vs none at ({b},{s}): forward-end live bytes "
+        f"{blk['forward_end_bytes']} vs {none['forward_end_bytes']} "
+        f"({none['forward_end_bytes'] - blk['forward_end_bytes']} B less), "
+        f"device_peak {blk['device_peak']} vs {none['device_peak']}, step "
+        f"{blk['median_ms']:.3f} vs {none['median_ms']:.3f} ms "
+        f"({blk['median_ms'] / none['median_ms']:.3f}x), nodes "
+        f"{blk['nodes']} vs {none['nodes']}; losses bitwise: "
+        f"{blk['losses'] == none['losses']}")
+    if not blk["forward_end_bytes"] < none["forward_end_bytes"]:
+        raise AssertionError("(a) the block plan keeps as much live where "
+                             "the forward ends as the none plan: the "
+                             "recompute was scheduled into the forward")
+    if blk["losses"] != none["losses"]:
+        raise AssertionError(f"(a) block losses {blk['losses']} vs none "
+                             f"{none['losses']}")
+    return rows
 
 
 def launch_compiled(cfg, ckdir):
@@ -7067,8 +7236,8 @@ def launch_compiled(cfg, ckdir):
         if peak > bound:
             raise AssertionError(f"plan {key}: device_peak {peak} above its "
                                  f"guaranteed {bound}")
-    want = {"sm90": LAUNCH_STEPS * cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
-            "rmsnorm": LAUNCH_STEPS * (2 * cfg.n_layers + 1)}
+    # train(mode="compiled") runs the config's block remat
+    want = {k: LAUNCH_STEPS * v for k, v in step_launches(cfg).items()}
     if launches != want:
         raise AssertionError(f"compiled trainer launched {launches}, want "
                              f"{want}")
@@ -7213,14 +7382,14 @@ def phase_launch():
     shutil.rmtree(ckdir, ignore_errors=True)
     try:
         compiled, compiled_launches, row_a = launch_compiled(cfg, ckdir)
+        row_a["policies"] = launch_policies(cfg)
         rows_b = launch_analyze(cfg)
         torch.cuda.empty_cache()
         elastic_launches, row_c = counted_launches(
             lambda: launch_restore(cfg, compiled, ckdir))
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
-    want = {"sm90": cfg.n_layers, "mma_f32": 0, "mma_bf16": 0,
-            "rmsnorm": 2 * cfg.n_layers + 1}
+    want = step_launches(cfg)       # the compiled plan's, block remat
     if elastic_launches != want:
         raise AssertionError(f"the restored step launched "
                              f"{elastic_launches}, want {want}")
@@ -7281,6 +7450,13 @@ DRYRUN_MOE_REFERENCE = {
         "all-gather": 167_843_840, "all-reduce": 675_282_944,
         "reduce-scatter": 0, "all-to-all": 176_168_960,
         "collective-permute": 10_498_560, "total": 1_029_794_304}}
+# their all-gather bytes a device on torch 2.13 (the CPU accounting of
+# tests/test_torch_dryrun_moe_dispatch.py; train with its block remat),
+# which the host's torch must come within DRYRUN_MOE_GATHER_TOL of
+DRYRUN_MOE_GATHER_213 = {("kimi_k2_1t_a32b", "prefill_32k"): 369_389_568,
+                         ("kimi_k2_1t_a32b", "train_4k"): 1_158_733_824,
+                         ("deepseek_v3_671b", "prefill_32k"): 235_216_896}
+DRYRUN_MOE_GATHER_TOL = 0.10
 # runs the MoE cells argv[2] lists as rank 0 of a fake 8-rank world, one
 # thread, and writes their records to the file argv[1] names
 DRYRUN_MOE_SCRIPT = r"""
@@ -7338,13 +7514,29 @@ def dense_train_flops(cfg, shape, devices: int) -> float:
     them: 6 x the matmul parameters (attention projections, the SwiGLU
     FFN's three, the readout) a token, plus the attention's products,
     4 S T hd a head and token forward (dense, causal or not) and 10
-    backward (the plain backward's QKᵀ recompute, dP, dV, dQ, dK)."""
+    backward (the plain backward's QKᵀ recompute, dP, dV, dQ, dK); and
+    the config's block remat (``block_remat_flops``)."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, t = cfg.resolved_head_dim, shape["seq_len"]
     mm = cfg.n_layers * (2 * d * hq * hd + 2 * d * hkv * hd
                          + 3 * d * cfg.d_ff) + d * cfg.vocab
     tokens = shape["global_batch"] * t / devices
-    return tokens * (6 * mm + 14 * t * hq * hd * cfg.n_layers)
+    return tokens * (6 * mm + 14 * t * hq * hd * cfg.n_layers
+                     + block_remat_flops(cfg, t))
+
+
+def block_remat_flops(cfg, t: int) -> int:
+    """The FLOPs a token that a dense step's block remat adds at sequence
+    length ``t``: each layer's forward but its last FFN product, 2 x (q,
+    k, v, o, the gate and up weights) + 4 T hq hd (the attention's two
+    products); 0 without block remat (``scan_layers=False`` or
+    ``remat_policy="none"``)."""
+    if not cfg.scan_layers or cfg.remat_policy == "none":
+        return 0
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
+    return cfg.n_layers * (2 * (d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+                                + 2 * d * f) + 4 * t * hq * hd)
 
 
 def _dryrun_procs(out):
@@ -7412,7 +7604,9 @@ def _dryrun_record(out, shape, done):
 
 def _dryrun_moe(out, done):
     """The MoE cells' records, after a failure check of their process:
-    each ``ok`` with FLOPs and collective bytes > 0."""
+    each ``ok`` with FLOPs and collective bytes > 0, and its all-gather
+    bytes within DRYRUN_MOE_GATHER_TOL of torch 2.13's (the MoE dispatch
+    kept sharded on the batch on the host's torch too)."""
     code, _, _, text = done["moe"]
     path = out / "moe.json"
     recs = json.loads(path.read_text()) if path.exists() else {}
@@ -7425,6 +7619,14 @@ def _dryrun_moe(out, done):
             raise AssertionError(f"(a) {arch} {shape}: FLOPs "
                                  f"{rec['flops']}, collectives "
                                  f"{rec['collectives']}")
+        got, want = rec["collectives"]["all-gather"], \
+            DRYRUN_MOE_GATHER_213[arch, shape]
+        if abs(got - want) > DRYRUN_MOE_GATHER_TOL * want:
+            raise AssertionError(f"(a) {arch} {shape}: all-gather {got:,} "
+                                 f"B a device, not within "
+                                 f"{DRYRUN_MOE_GATHER_TOL:.0%} of torch "
+                                 f"2.13's {want:,}: the MoE dispatch "
+                                 f"buffer is not kept on the batch")
     return recs
 
 
@@ -7545,7 +7747,13 @@ def dryrun_card(cfg):
     """(b): the dry-run's cell machinery on a 1x1 NCCL mesh for llama2_1b
     at full width, the train step at (8,1024) with grad_accum=1, donated:
     its per-rank plan runs on the card from phase 6's state and batch and
-    is held against phase 6's plan.  Returns the dry plan's launches."""
+    is held against phase 6's plan by values.  The dry-run keeps the
+    config's block remat, as the reference's ``jax.jit`` path does, where
+    phase 6's plan is the flat graph: the dry plan launches each block's
+    two norms and its flash again in the backward's recompute, counts
+    ``block_remat_flops`` more, and gives the same values (the recompute
+    runs the same kernels on the same inputs).  Returns the dry plan's
+    launches."""
     import torch
     from torch.utils import _pytree as pytree
 
@@ -7627,21 +7835,34 @@ def dryrun_card(cfg):
         + ", ".join(f"{k} {v:.4g}" for k, v in err.items()))
     if backend != "nccl":
         raise AssertionError(f"(b) ran on {backend}, not NCCL")
+    log(f"[dryrun] (b) against phase 6's flat plan "
+        f"({len(base.plan.graph.nodes)} nodes): " + (
+            "bitwise: the recompute runs the same kernels on the same "
+            "shapes and inputs" if bitwise else
+            f"within TRAIN_PLAIN_TOL ({TRAIN_PLAIN_TOL}), not bitwise: the "
+            f"two plans order their bf16 sums apart"))
     if not bitwise and any(not v <= TRAIN_PLAIN_TOL[k]
                            for k, v in err.items()):
         raise AssertionError(f"(b) the dry-run's plan differs from phase "
                              f"6's: {err}")
-    if dry_launches != base_launches or             dry_launches["sm90"] != cfg.n_layers or             dry_launches["rmsnorm"] != 2 * cfg.n_layers + 1:
+    n = cfg.n_layers
+    if base_launches != {"sm90": n, "mma_f32": 0, "mma_bf16": 0,
+                         "rmsnorm": 2 * n + 1} or \
+            dry_launches != {"sm90": 2 * n, "mma_f32": 0, "mma_bf16": 0,
+                             "rmsnorm": 4 * n + 1}:
         raise AssertionError(f"(b) launches {dry_launches}, phase 6's plan "
-                             f"{base_launches}")
+                             f"{base_launches}: want the recompute's n "
+                             f"flash and 2 n norms more")
     if mem["argument_bytes"] != state_bytes + batch_bytes:
         raise AssertionError("(b) argument_bytes is not the state's and the "
                              "batch's bytes")
     if alloc > mem["total_per_device_bytes"] + slack:
         raise AssertionError(f"(b) the allocator's peak {alloc} is above "
                              f"total_per_device_bytes + {slack}")
-    if an["flops"] != base_flops:
-        raise AssertionError(f"(b) flops {an['flops']} vs {base_flops}")
+    if an["flops"] != base_flops + b * s * block_remat_flops(cfg, s):
+        raise AssertionError(f"(b) flops {an['flops']} vs {base_flops} + "
+                             f"the block remat's "
+                             f"{b * s * block_remat_flops(cfg, s)}")
     if an["collectives"]["total"] != 0:
         raise AssertionError(f"(b) collectives on a 1x1 mesh: "
                              f"{an['collectives']}")

@@ -14,8 +14,15 @@ applies to come from ``models.lm.layer_windows``); and the xLSTM family
 (``block_kind="xlstm"``): runs of mLSTM layers with an sLSTM every
 ``slstm_every``-th layer, their inner width ``xlstm_proj_factor`` x
 d_model (``xlstm_config()``; the groups come from ``models.lm.xlstm_meta``).
-The reference's ``remat_policy`` and ``scan_layers`` have no twin: the
-port unrolls its layers and leaves remat to ``optimize``.  ``SHAPES``
+``remat_policy`` (``none | block | full``, default ``block``; ``full``
+acts as ``block``, as in the reference) and ``scan_layers`` (default
+True) are the reference's training knobs with its defaults.  The port
+unrolls its layers either way and keeps one parameter layout;
+``scan_layers=True`` is the layer stack as the reference's compiled path
+runs it, each block recomputed in the backward under ``remat_policy``
+(``models.lm``), and ``scan_layers=False`` the flat graph whose remat is
+left to ``optimize``, which is how every ``optimize`` caller builds its
+train step, as the reference's do.  ``SHAPES``
 and ``cells_for`` are the dry-run's (arch x input shape) cells.
 """
 from __future__ import annotations
@@ -72,6 +79,11 @@ class ModelConfig:
     input_mode: str = "tokens"
     n_codebooks: int = 0           # musicgen-style multi-head output
     vis_tokens: int = 256          # vlm: stub patch-embedding count
+    # training / memory knobs: the backward's recompute of each block
+    # (none | block | full) and the layer stack it applies to (False: the
+    # flat graph the dynamic-shape optimizer plans and rematerialises)
+    remat_policy: str = "block"
+    scan_layers: bool = True
     # embedding-table padding to a tile boundary (pad logits masked)
     pad_vocab_to: int = 128
 

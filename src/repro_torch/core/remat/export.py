@@ -1,15 +1,25 @@
-"""Export the remat analysis to the lowered runtime.
+"""Export the remat analysis to the executable paths.
 
-Port of ``export_regen_programs`` (``repro/core/remat/export.py:29``):
-each candidate's recompute subgraph becomes a register-addressed
-``RegenProgram`` that the ``ProgramVM`` runs inline (the paper's
-``Remat::RegenerateOp``, compiled instead of interpreted).
+Two consumers, as in the reference (``repro/core/remat/export.py``):
+
+* the lowered runtime — :func:`export_regen_programs` turns each
+  candidate's recompute subgraph into a register-addressed
+  ``RegenProgram`` the ``ProgramVM`` runs inline (the paper's
+  ``Remat::RegenerateOp``, compiled instead of interpreted);
+* the compiled path — :func:`recommend_policy` derives which checkpoint
+  policy the layer stack (``ModelConfig.remat_policy``, each block under
+  ``torch.utils.checkpoint``) should use from the §2.3 search results
+  (how much of the block is cheap to recompute).
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Callable, Dict, Optional
+
+import torch
 
 from ..remat.planner import ExecutionPlan
+from ..remat.search import node_flops
 from ..symbolic import ZERO
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
@@ -62,3 +72,69 @@ def export_regen_programs(plan: ExecutionPlan, reg_of: Dict[int, int],
             n_temps=len(temp_of), steps=tuple(steps),
             target_temp=temp_of[vid], flops_expr=rp.flops)
     return out
+
+
+# products with no batch dims: their outputs are what
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` saves
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy for
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``: save
+    the outputs of the products with no batch dims (``aten.mm``,
+    ``aten.addmm``: every ``x @ w`` with a 2-D weight), recompute the rest
+    (``bmm``, the flash op, the elementwise chains), as
+    ``dots_with_no_batch_dims_saveable`` does in the reference."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@dataclass
+class RematRecommendation:
+    policy_name: str              # 'block' | 'dots_saveable' | 'none'
+    policy: Optional[Callable]    # selective-checkpoint policy (None = block)
+    recompute_flop_fraction: float
+    recomputable_byte_fraction: float
+    rationale: str
+
+
+def recommend_policy(plan: ExecutionPlan, env: Dict[str, int],
+                     *, memory_headroom: float = 0.25) -> RematRecommendation:
+    """Pick the layer stack's checkpoint policy from the §2.3 search
+    results (``repro/core/remat/export.py:87``: the same heuristic,
+    thresholds and rationale).
+
+    If most candidate bytes are cheaply recomputable (elementwise-dominated
+    regeneration subgraphs), full block remat is nearly free — 'block'.  If
+    regeneration cost concentrates in matmuls, saving the products'
+    outputs trades memory for FLOPs — 'dots_saveable' (:func:`dots_saveable`)
+    only when there is HBM headroom to spend."""
+    total_flops = sum(node_flops(n).evaluate(env)
+                      for n in plan.graph.nodes) or 1
+    recomp_flops = 0
+    recomp_bytes = 0
+    total_bytes = 0
+    for cand in plan.candidates.values():
+        b = cand.value.nbytes_expr.evaluate(env)
+        total_bytes += b
+        if cand.recompute is not None:
+            recomp_bytes += b
+            recomp_flops += cand.recompute.flops.evaluate(env)
+    flop_frac = recomp_flops / total_flops
+    byte_frac = recomp_bytes / max(total_bytes, 1)
+
+    if byte_frac >= 0.5 and flop_frac <= 0.35:
+        return RematRecommendation(
+            "block", None, flop_frac, byte_frac,
+            f"{byte_frac:.0%} of candidate bytes regenerate for "
+            f"{flop_frac:.0%} of step FLOPs: full block remat is cheap")
+    if memory_headroom >= 0.3:
+        return RematRecommendation(
+            "dots_saveable", dots_saveable, flop_frac, byte_frac,
+            "regeneration is matmul-heavy and HBM headroom exists: save "
+            "dot outputs, recompute the elementwise chains")
+    return RematRecommendation(
+        "block", None, flop_frac, byte_frac,
+        "matmul-heavy regeneration but no HBM headroom: block remat")

@@ -465,15 +465,12 @@ class _ExpertProduct(torch.autograd.Function):
         return (None, None) + tuple(grads)
 
 
-class _WeightProduct(torch.autograd.Function):
+def _weight_product(x, w):
     """``x @ w`` for a 2-D weight on DTensors, as XLA's partitioner runs
     it for the same rules, which moves whichever side is smaller
     (:func:`_rows_move`).  Under (W) the weight is gathered where the
-    rows of ``x`` are sharded (``_gathered_weight``); in the backward,
-    the output gradient moved back to the output's placements (a pending
-    sum there reduced), ``dx = g wᵀ`` and ``dw = xᵀ g`` on those, and
-    ``dw``, a pending sum over the rows' mesh dims, reduce-scattered onto
-    the weight's own placements.  Under (R), taken only where neither
+    rows of ``x`` are sharded (:class:`_GatheredWeight`) and multiplied
+    (:class:`_WeightProduct`).  Under (R), taken only where neither
     operand requires a gradient (a decode step's few rows against a wide
     weight), the rows move instead and the output comes back on the
     placements (W) gives it.
@@ -484,31 +481,65 @@ class _WeightProduct(torch.autograd.Function):
     split the contraction, and every model rank then ran the whole
     output width: 16x the FFN's FLOPs on the 16x16 mesh at
     ``grad_accum=8``.  torch 2.11 went further, in the backward."""
+    from torch.distributed.tensor import Partial
+    if not (torch.is_grad_enabled() and (x.requires_grad or
+                                         w.requires_grad)) and \
+            not any(isinstance(p, Partial) for p in x.placements):
+        rows = "abcdefgh"[:x.ndim - 1]
+        plan = _rows_move(x, w, rows + "y", "yz", rows + "z")[1]
+        if plan is not None:
+            return _run_plan(plan, x, w)[0]
+    wg = _GatheredWeight.apply(x, w)
+    return _WeightProduct.apply(wg.grad_fn, x, wg)
+
+
+class _GatheredWeight(torch.autograd.Function):
+    """``w`` gathered FSDP's way for its product with ``x``
+    (``_gathered_weight``), saving ``x`` and the gathered weight for that
+    product's backward (:class:`_WeightProduct`).  Saved here, they are
+    packed before the product runs, so a checkpoint's recompute, which
+    stops at the last tensor it must regenerate, stops short of a block's
+    last product, as the reference's recompute does (nothing in the
+    backward reads that product's output).  The backward takes the
+    gathered weight's gradient, a pending sum over the rows' mesh dims,
+    onto the weight's own placements (a reduce-scatter)."""
 
     @staticmethod
     def forward(ctx, x, w):
-        from torch.distributed.tensor import Partial
-        if not any(ctx.needs_input_grad) and not any(
-                isinstance(p, Partial) for p in x.placements):
-            rows = "abcdefgh"[:x.ndim - 1]
-            plan = _rows_move(x, w, rows + "y", "yz", rows + "z")[1]
-            if plan is not None:
-                return _run_plan(plan, x, w)[0]
         wg = _gathered_weight(x, w)
-        out = x @ wg
+        if wg is w:
+            wg = w.view_as(w)
         ctx.save_for_backward(x, wg)
         ctx.w_placements = tuple(w.placements)
+        return wg
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g.redistribute(placements=ctx.w_placements)
+
+
+class _WeightProduct(torch.autograd.Function):
+    """``x @ wg`` for the gathered weight of ``gather`` (the
+    :class:`_GatheredWeight` node that made ``wg`` and holds both
+    operands); in the backward, the output gradient moved back to the
+    output's placements (a pending sum there reduced), and ``dx = g wᵀ``
+    and ``dw = xᵀ g`` on those."""
+
+    @staticmethod
+    def forward(ctx, gather, x, wg):
+        out = x @ wg
+        ctx.gather = gather
         ctx.g_placements = _reduced_placements(out.placements)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, wg = ctx.saved_tensors
+        x, wg = ctx.gather.saved_tensors
         g = g.redistribute(placements=ctx.g_placements)
         g2 = g.reshape(-1, g.shape[-1])
         dx = torch.mm(g2, wg.t()).reshape(x.shape)
         dw = torch.mm(x.reshape(-1, x.shape[-1]).t(), g2)
-        return dx, dw.redistribute(placements=ctx.w_placements)
+        return None, dx, dw
 
 
 def _placed_like(x, want):
@@ -567,6 +598,25 @@ def _index_copy_rules(x, dim, index, source):
     for d in range(x.ndim):
         if d != dim:
             out.append(([Shard(d)], [Shard(d), None, Replicate(), Shard(d)]))
+    return out
+
+
+def _scatter_rules(x, dim, index, src):
+    """``scatter(x, dim, index, src)``: everything replicated, or any dim
+    but the written one sharded on all four where the three operands agree
+    in size on it, so each rank writes its own rows locally.  torch 2.13's
+    own rule; 2.11 offered only the replicated one, so the MoE dispatch
+    (``models/ffn.py``: the kept pairs scattered into a fresh zero buffer,
+    index and source sharded on the batch) all-gathered both and
+    replicated the buffer."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    out = [([Replicate()], [Replicate(), None, Replicate(), Replicate()])]
+    if x.ndim == index.ndim:
+        for d in range(x.ndim):
+            if d != dim and x.shape[d] == index.shape[d] == src.shape[d]:
+                out.append(([Shard(d)], [Shard(d), None, Shard(d),
+                                         Shard(d)]))
     return out
 
 
@@ -780,13 +830,14 @@ def _pointwise_rules(n_out: int, n_in: int):
 
 def register_kernel_strategies() -> None:
     """Register both ops' rules with DTensor (once a process), and rules
-    for four aten ops the port's models reach that DTensor lacks on torch
+    for five aten ops the port's models reach that DTensor lacks on torch
     2.11 or 2.13: ``index_copy`` (the KV cache's write: any dim but the
     written one sharded on the cache, the new rows and the output alike,
     the row indices replicated; torch 2.13 reaches the same function
     through a decomposition, 2.11 refuses a decode step; a cache sharded
     on the written dim never reaches the rule, ``sharded_execution``
-    writes it in place),
+    writes it in place), ``scatter`` with a source tensor (the MoE
+    dispatch and combine: 2.13's rule, which 2.11 lacks, ``_scatter_rules``),
     ``searchsorted`` (MoE routing: batch dims on both, or the values
     alone) and ``log_sigmoid_forward`` / ``log_sigmoid_backward`` (the xLSTM
     gates; elementwise)."""
@@ -805,6 +856,7 @@ def register_kernel_strategies() -> None:
     register_sharding(norm)(_rmsnorm_rules)
     aten = torch.ops.aten
     register_sharding(aten.index_copy.default)(_index_copy_rules)
+    register_sharding(aten.scatter.src)(_scatter_rules)
     register_sharding(aten.searchsorted.Tensor)(_searchsorted_rules)
     register_sharding(aten.log_sigmoid_forward.default)(
         _pointwise_rules(2, 1))
@@ -833,7 +885,7 @@ def sharded_execution() -> Iterator[None]:
     embedding lookup into a vocab-sharded table reduced at once, a slice
     of the leading dim (a micro-batch) kept on its operand's placements
     (``_placed_like``), a product with a 2-D weight moving whichever side
-    is smaller (``_WeightProduct``: the weight gathered FSDP's way, or
+    is smaller (``_weight_product``: the weight gathered FSDP's way, or
     without a gradient the rows moved where that costs fewer bytes,
     ``_rows_move``), an MoE layer's expert products (a two-operand
     ``einsum`` with a 3-D weight sharded on its expert dim) on each
@@ -885,7 +937,7 @@ def sharded_execution() -> Iterator[None]:
                     not kwargs and len(args) == 2 and \
                     isinstance(args[0], DTensor) and \
                     isinstance(args[1], DTensor) and args[1].ndim == 2:
-                return _WeightProduct.apply(*args)
+                return _weight_product(*args)
             if func in (torch.Tensor.index_copy, torch.index_copy) and \
                     not kwargs and len(args) == 4 and \
                     _shards_on(args[0], args[1]) and _plain(args[0]) and \

@@ -22,6 +22,7 @@ Usage (on the card; ``--device cpu --smoke`` runs on the CPU):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -60,8 +61,11 @@ def build_dynamic_step(cfg, params, opt_state, *, device: Any = None):
 
     The state is donated: call it through ``call_donated`` with no other
     reference to the state, or the old state stays allocated beside the
-    new one."""
+    new one.  The step is the flat graph (``scan_layers=False``): the
+    symbolic optimizer's scheduling and remat own the memory plan, as in
+    the reference."""
     B, S = symbolic_dims("b, s")
+    cfg = dataclasses.replace(cfg, scan_layers=False)
     return optimize(make_train_step(cfg), spec_like(params),
                     spec_like(opt_state), batch_specs(B, S),
                     donate_inputs=True, device=device)
@@ -71,7 +75,9 @@ class CompiledSteps:
     """The ``compiled`` mode's step: one static plan per batch shape,
     built on the first batch of that shape (``optimize`` of
     ``make_train_step(cfg)`` at the concrete ``(b, s)``, the state
-    donated) and cached by ``tokens.shape``.  ``plans``, ``compile_s``
+    donated; the config's ``scan_layers`` and ``remat_policy`` as given,
+    by default each block recomputed in the backward as under the
+    reference's ``jax.jit``) and cached by ``tokens.shape``.  ``plans``, ``compile_s``
     and ``guaranteed_peak_bytes`` are keyed by that shape: a static plan
     declares no dim range, so ``optimize`` states no bound; the bound
     here is the planner's over the plan's one shape (the schedule's

@@ -6,10 +6,15 @@ both compute ``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
+from torch.overrides import _get_current_function_mode_stack
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import ops
 
@@ -17,6 +22,62 @@ from ..kernels import ops
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              impl: Optional[str] = None) -> torch.Tensor:
     return ops.rmsnorm(x, scale, eps, impl)
+
+
+def checkpointed(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations recomputed in the
+    backward, the twin of the reference's ``jax.checkpoint(fn,
+    prevent_cse=False)``, where autograd records (grad enabled and an
+    argument that requires grad); a plain call otherwise, so a forward
+    without a gradient (a prefill, a decode step, their captures) runs
+    and captures what it always did.
+
+    Non-reentrant, since the train step takes its gradients with
+    ``torch.autograd.grad``; no RNG state is kept (no block draws a random
+    number, and fake tensors under capture have no device RNG state).
+    The recompute runs under the torch function modes the forward ran
+    under (:class:`_ForwardModes`)."""
+    if not torch.is_grad_enabled() or not any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in pytree.tree_leaves((args, kwargs))):
+        return fn(*args, **kwargs)
+    modes = _get_current_function_mode_stack()
+    if modes:
+        kwargs["context_fn"] = lambda: (_ForwardModes(()),
+                                        _ForwardModes(modes))
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+
+class _ForwardModes(TorchDispatchMode):
+    """A pass-through dispatch mode (``checkpoint`` takes its contexts as
+    dispatch modes under capture) that pushes back, while it is entered,
+    the torch function modes of ``modes`` missing from the stack.  A mode
+    that handles ``autograd.grad`` is off the stack while the backward
+    runs (the dry-run's ``launch.strategies.sharded_execution``): pushed
+    back for the recompute, it makes the recompute run the forward's ops
+    and save the forward's tensors."""
+
+    def __init__(self, modes):
+        super().__init__()
+        self.modes = modes
+        self.pushed = contextlib.ExitStack()
+
+    def __enter__(self):
+        live = {id(m) for m in _get_current_function_mode_stack()}
+        for m in self.modes:
+            if id(m) not in live:
+                self.pushed.enter_context(m)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self.pushed.close()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
 
 
 # -- RoPE ---------------------------------------------------------------------

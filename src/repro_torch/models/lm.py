@@ -13,11 +13,18 @@ latent cache (``MLACache``); hybrid layers (hymba) carry an SSM state
 layers, each group closed by an sLSTM layer (``xlstm_meta``), decoding
 over an ``MLSTMCache`` / ``SLSTMCache`` a layer (``DecodeState.xlstm``).
 
-Layers are unrolled in Python, as the reference does with
-``scan_layers=False`` (``repro/models/lm.py:134-143``): the flat graph is
-what the dynamic-shape optimizer schedules and plans.  The reference
-scans an xLSTM group's mLSTM layers whatever ``scan_layers`` says
-(``:171-175``); the port unrolls those too.  Parameters are a plain dict
+Layers are unrolled in Python whatever ``scan_layers`` says: the
+reference's ``lax.scan`` over the layers has no twin.  What the scan
+carries does: with ``scan_layers`` and a ``remat_policy`` other than
+``"none"`` (the defaults, the reference's ``jax.jit`` path) each block
+runs under ``models.common.checkpointed``, so the backward recomputes
+its forward, as the reference's ``jax.checkpoint`` of the scan body
+(``repro/models/lm.py:156-157``) does; ``scan_layers=False`` is the
+reference's flat graph (``:134-143``), which the dynamic-shape optimizer
+schedules and rematerialises itself.  An xLSTM group's mLSTM layers are
+checkpointed unless ``remat_policy="none"``, whatever ``scan_layers``
+says (``:169-172``).  Only under grad: a forward without a gradient
+runs the same ops either way.  Parameters are a plain dict
 of tensors (the reference's pytree layout, with the per-layer stacks
 split into lists: ``layers[i]``, or for xLSTM ``mlstm[g][j]`` and
 ``slstm[g]``), so a step ``fn(params, batch)`` takes its weights as graph
@@ -35,8 +42,8 @@ from ..core.api import resolve_device
 from .attention import KVCache
 from .blocks import (BlockCache, block_apply, block_decode, block_init,
                      check_family)
-from .common import (MetaGenerator, dense_init, embed_init, rms_norm,
-                     softmax_cross_entropy)
+from .common import (MetaGenerator, checkpointed, dense_init, embed_init,
+                     rms_norm, softmax_cross_entropy)
 from .mla import MLACache
 from .ssm import ssm_init_cache
 from .xlstm import (mlstm_apply, mlstm_decode_step, mlstm_init,
@@ -145,10 +152,15 @@ def _xlstm_forward(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     """Each group's mLSTM layers, then its sLSTM layer, each on its own
     pre-norm with a residual (``repro/models/lm.py:164-179``)."""
     xc, meta = cfg.xlstm_config(), xlstm_meta(cfg)
+
+    def m_body(h, lp):
+        return h + mlstm_apply(lp, xc, rms_norm(h, lp["ln"], impl=impl),
+                               impl=impl)
+
     for g in range(meta["n_groups"]):
         for lp in params["mlstm"][g]:
-            x = x + mlstm_apply(lp, xc, rms_norm(x, lp["ln"], impl=impl),
-                                impl=impl)
+            x = checkpointed(m_body, x, lp) if cfg.remat_policy != "none" \
+                else m_body(x, lp)
         if meta["n_s"]:
             sp = params["slstm"][g]
             x = x + slstm_apply(sp, xc, rms_norm(x, sp["ln"], impl=impl))
@@ -166,8 +178,11 @@ def _forward(cfg: ModelConfig, params: Dict, batch: Dict,
                           impl), None
     aux = None
     windows = layer_windows(cfg) or [None] * cfg.n_layers
+    remat = cfg.scan_layers and cfg.remat_policy != "none"
     for layer_p, w in zip(params["layers"], windows):
-        x, a = block_apply(layer_p, cfg, x, window=w, impl=impl)
+        x, a = checkpointed(block_apply, layer_p, cfg, x, window=w,
+                            impl=impl) if remat else \
+            block_apply(layer_p, cfg, x, window=w, impl=impl)
         if a is not None:
             aux = a if aux is None else aux + a
     return _lm_logits(cfg, params, x, impl), aux

@@ -24,7 +24,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import checkpointed, dense_init
 
 
 class SSMConfig(NamedTuple):
@@ -170,20 +170,29 @@ def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
     ys = []
     for c in range(nchunks):
         sl = slice(c * q, (c + 1) * q)
-        uc, dtc, bmc, cmc = u[:, sl], dt[:, sl], bm[:, sl], cm[:, sl]
-        log_ac = dtc.to(torch.float32)[..., None] * a      # (B,Q,di,N)
-        buc = (dtc * uc).to(torch.float32)[..., None] * bmc[:, :, None, :]
-        hs, h = _chunk_scan(log_ac, buc, h)
-        del log_ac, buc
-        # the reference's einsum "bqdn,bqn->bqd" as a batched product: an
-        # einsum over a size-1 batch takes another path than over b > 1,
-        # so a plan captured with a symbolic b would not be bitwise at b = 1
-        yc = torch.matmul(hs, cmc.to(torch.float32)[..., None])[..., 0]
-        del hs
-        yc = yc + uc.to(torch.float32) * d_skip[None, None, :]
-        ys.append(yc.to(u.dtype))
+        # recomputed in the backward, as the reference's
+        # jax.checkpoint(chunk_body) (repro/models/ssm.py:122)
+        h, yc = checkpointed(_chunk_body, h, u[:, sl], dt[:, sl], bm[:, sl],
+                             cm[:, sl], a, d_skip)
+        ys.append(yc)
     y = torch.cat(ys, dim=1) if nchunks > 1 else ys[0]
     return y[:, :s], h
+
+
+def _chunk_body(h, uc, dtc, bmc, cmc, a, d_skip):
+    """One chunk of :func:`selective_scan_chunked`: (the carried state,
+    the chunk's y in u's dtype)."""
+    log_ac = dtc.to(torch.float32)[..., None] * a          # (B,Q,di,N)
+    buc = (dtc * uc).to(torch.float32)[..., None] * bmc[:, :, None, :]
+    hs, h = _chunk_scan(log_ac, buc, h)
+    del log_ac, buc
+    # the reference's einsum "bqdn,bqn->bqd" as a batched product: an
+    # einsum over a size-1 batch takes another path than over b > 1,
+    # so a plan captured with a symbolic b would not be bitwise at b = 1
+    yc = torch.matmul(hs, cmc.to(torch.float32)[..., None])[..., 0]
+    del hs
+    yc = yc + uc.to(torch.float32) * d_skip[None, None, :]
+    return h, yc.to(uc.dtype)
 
 
 def _depthwise_conv(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, rms_norm
+from .common import checkpointed, dense_init, rms_norm
 from .ssm import _causal_conv, _depthwise_conv
 
 NEG_INF = -1e30   # not -inf: m_p + F - m_t must stay finite
@@ -123,7 +123,7 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"mlstm_chunkwise: the sequence length {s} is symbolic; the "
             f"chunk split min({chunk}, s) needs a concrete one")
-    dt, f32 = q.dtype, torch.float32
+    f32 = torch.float32
     qc = min(chunk, s)
     nch = -(-s // qc)
     if nch * qc != s:
@@ -142,39 +142,48 @@ def mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hs = []
     for c in range(nch):
         sl = slice(c * qc, (c + 1) * qc)
-        qx, kx, vx = q[:, :, sl], k[:, :, sl], v[:, :, sl]
-        lix, lfx = log_i[..., sl], log_f[..., sl]
-        qf, kf, vf = qx.to(f32), kx.to(f32), vx.to(f32)
-        fc = torch.cumsum(lfx, dim=-1)                      # decay incl. t
-        # log decay matrix: D[t, j] = F_t - F_j + li_j (j <= t)
-        logd = fc[..., :, None] - fc[..., None, :] + lix[..., None, :]
-        logd = torch.where(tri, logd, NEG_INF)
-        m_t = torch.maximum(m_p[..., None] + fc, logd.amax(dim=-1))
-        w_intra = torch.exp(logd - m_t[..., None])          # (B,H,Q,Q)
-        sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-        num = torch.matmul(_f32(sc * w_intra, dt), vf)
-        # the denominator |q . n_t|: n_t the decayed n_p plus sum_j w k_j
-        w_inter = torch.exp(m_p[..., None] + fc - m_t)      # (B,H,Q)
-        num = num + w_inter[..., None] * torch.matmul(
-            qf, _f32(c_p, dt)) * scale
-        n_t = w_inter[..., None] * n_p[:, :, None, :] + torch.matmul(
-            _f32(w_intra, dt), kf)
-        den = torch.abs((qf * scale * n_t).sum(dim=-1))
-        hx = num / torch.maximum(den, torch.exp(-m_t))[..., None]
-        hs.append(hx.to(dt))
-        # the carry
-        tot = fc[..., -1]                                   # (B,H)
-        m_out = torch.maximum(m_p + tot,
-                              (tot[..., None] - fc + lix).amax(dim=-1))
-        decay_c = torch.exp(m_p + tot - m_out)
-        w_k = torch.exp(tot[..., None] - fc + lix - m_out[..., None])
-        kw = kf * w_k[..., None]
-        c_p = decay_c[..., None, None] * c_p + torch.matmul(
-            _f32(kw, dt).transpose(-1, -2), vf)
-        n_p = decay_c[..., None] * n_p + kw.sum(dim=2)
-        m_p = m_out
+        # recomputed in the backward, as the reference's
+        # jax.checkpoint(body) (repro/models/xlstm.py:146)
+        c_p, n_p, m_p, hx = checkpointed(
+            _mlstm_chunk, c_p, n_p, m_p, q[:, :, sl], k[:, :, sl],
+            v[:, :, sl], log_i[..., sl], log_f[..., sl], tri, scale)
+        hs.append(hx)
     hx = torch.cat(hs, dim=2) if nch > 1 else hs[0]
     return hx[:, :, :s], (c_p, n_p, m_p)
+
+
+def _mlstm_chunk(c_p, n_p, m_p, qx, kx, vx, lix, lfx, tri, scale):
+    """One chunk of :func:`mlstm_chunkwise`: the carried (C, n, m) and the
+    chunk's h in q's dtype."""
+    dt, f32 = qx.dtype, torch.float32
+    qf, kf, vf = qx.to(f32), kx.to(f32), vx.to(f32)
+    fc = torch.cumsum(lfx, dim=-1)                      # decay incl. t
+    # log decay matrix: D[t, j] = F_t - F_j + li_j (j <= t)
+    logd = fc[..., :, None] - fc[..., None, :] + lix[..., None, :]
+    logd = torch.where(tri, logd, NEG_INF)
+    m_t = torch.maximum(m_p[..., None] + fc, logd.amax(dim=-1))
+    w_intra = torch.exp(logd - m_t[..., None])          # (B,H,Q,Q)
+    sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    num = torch.matmul(_f32(sc * w_intra, dt), vf)
+    # the denominator |q . n_t|: n_t the decayed n_p plus sum_j w k_j
+    w_inter = torch.exp(m_p[..., None] + fc - m_t)      # (B,H,Q)
+    num = num + w_inter[..., None] * torch.matmul(
+        qf, _f32(c_p, dt)) * scale
+    n_t = w_inter[..., None] * n_p[:, :, None, :] + torch.matmul(
+        _f32(w_intra, dt), kf)
+    den = torch.abs((qf * scale * n_t).sum(dim=-1))
+    hx = num / torch.maximum(den, torch.exp(-m_t))[..., None]
+    # the carry
+    tot = fc[..., -1]                                   # (B,H)
+    m_out = torch.maximum(m_p + tot,
+                          (tot[..., None] - fc + lix).amax(dim=-1))
+    decay_c = torch.exp(m_p + tot - m_out)
+    w_k = torch.exp(tot[..., None] - fc + lix - m_out[..., None])
+    kw = kf * w_k[..., None]
+    c_p = decay_c[..., None, None] * c_p + torch.matmul(
+        _f32(kw, dt).transpose(-1, -2), vf)
+    n_p = decay_c[..., None] * n_p + kw.sum(dim=2)
+    return c_p, n_p, m_out, hx.to(dt)
 
 
 def mlstm_apply(params: Dict, cfg: XLSTMConfig, x: torch.Tensor,

@@ -19,6 +19,8 @@ the VM and the op-by-op interpreter of one plan agree bit for bit at
 three envs, with equal ``device_peak``, ``arena_bytes`` and
 ``reuse_ratio``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -58,7 +60,7 @@ def batch_specs(cfg):
 def step_and_specs(arch):
     """Train step + symbolic ``(b, s)`` specs for one bench arch, or
     ``None`` for an input mode the reference's bench does not model."""
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), scan_layers=False)
     if cfg.input_mode not in ("tokens", "embeddings"):
         return None
     params = init_params(cfg, seed=0, device="cpu")

@@ -27,7 +27,8 @@ device do not depend on it).
   rows.  The dense train cells move no rows (a gradient is taken), so
   their all-to-all stays 0 where the reference's XLA emits some; their
   FLOPs, argument bytes and collectives are held to the counts they had
-  before rows could move (``TRAIN_BEFORE``);
+  before rows could move, each block recomputed in the backward as in
+  the reference's lowering (``TRAIN_BEFORE``);
 * ``decode_32k`` keeps the cache where ``cache_specs`` puts it, on its
   32k positions over the model axis, as the reference's XLA does: the
   all-gather bytes stay below 1% of the argument bytes (what is left are
@@ -100,14 +101,27 @@ for shape in sys.argv[3:]:
 print("REF " + json.dumps(out))
 """
 # the dense train cells' (FLOPs, argument bytes, collectives by type in
-# COLLECTIVES' order) before a product could move its rows (torch 2.13)
+# COLLECTIVES' order) as before a product could move its rows (torch
+# 2.13), with each block recomputed in the backward (remat_policy
+# "block", as the reference's lowering).  Against the flat graph's
+# counts (llama2_1b 4,521,526,820,864 FLOPs, all-gather 296,730,624,
+# reduce-scatter 406,704,128; gemma_2b 2,007,897,210,880 and 1,158,733,824)
+# the FLOPs rose by the recompute, each layer's forward but its last FFN
+# product (the reference's own, so no named term remains); the all-gather
+# by every weight gathered again in the recompute, as the reference's
+# remat gathers it again (llama2_1b +8,830,976), and in gemma_2b by the
+# flash rule's head gather (one kv head on a model axis of 4) repeated
+# (+403,611,648); llama2_1b's reduce-scatter by one more of the first
+# block's input a micro-batch (+67,108,864), which the block redistributes
+# on entry and so again in its recompute.  Argument bytes, all-reduce and
+# gemma_2b's reduce-scatter are unchanged.
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 TRAIN_BEFORE = {
-    "llama2_1b": (4_521_526_820_864, 5_787_140, (
-        296_730_624, 1_074_518_032, 406_704_128, 0, 0)),
-    "gemma_2b": (2_007_897_210_880, 4_382_468, (
-        1_158_733_824, 268_631_056, 34_045_952, 0, 0))}
+    "llama2_1b": (5_782_099_722_240, 5_787_140, (
+        305_561_600, 1_074_518_032, 473_812_992, 0, 0)),
+    "gemma_2b": (2_576_980_377_600, 4_382_468, (
+        1_562_345_472, 268_631_056, 34_045_952, 0, 0))}
 
 
 def not_emitted(cfg) -> tuple:
@@ -120,12 +134,11 @@ def not_emitted(cfg) -> tuple:
 def named_terms(cfg, shape, model: int, data: int) -> dict:
     """Per-device FLOPs each side counts by design, by name.
 
-    * ``reference block remat``: the reference scans its layers under
-      ``jax.checkpoint`` (``remat_policy="block"``), so its backward
-      recomputes each layer's forward but the last FFN product, whose
-      output nothing in the backward reads: q, k, v, o, the gate and up
-      projections and the attention's two products (the blockwise
-      forward, QKᵀ and PV over every key block), per token and layer.
+    Both sides recompute each layer's forward in the backward but the last
+    FFN product (``remat_policy="block"``: the reference's layer scan under
+    ``jax.checkpoint``, the port's blocks under ``torch.utils.checkpoint``),
+    so that needs no term.
+
     * ``reference blockwise delta``: past T = 2048 the reference's
       blockwise backward contracts dO with O over hd once a layer
       (``delta``), 2·Hq·hd a token.
@@ -151,17 +164,11 @@ def named_terms(cfg, shape, model: int, data: int) -> dict:
         return {"reference router repeat":
                 -cfg.n_layers * 2 * cfg.d_model * cfg.n_experts * tokens *
                 (model - 1) // (data * model)}
-    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, f, n = cfg.resolved_head_dim, cfg.d_ff, cfg.n_layers
+    hq, hd, n = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
     t = cell["seq_len"]
-    tokens = cell["global_batch"] * t
-    per_device = tokens // (model * data)
-    remat = 2 * (d * hq * hd + 2 * d * hkv * hd + hq * hd * d + 2 * d * f) \
-        + 4 * t * hq * hd
-    terms = {"reference block remat": -n * remat * per_device,
-             "reference blockwise delta":
-                 -(n * 2 * hq * hd * per_device if t > 2048 else 0)}
-    return terms
+    per_device = cell["global_batch"] * t // (model * data)
+    return {"reference blockwise delta":
+            -(n * 2 * hq * hd * per_device if t > 2048 else 0)}
 
 
 def compare(arch, cells=CELLS):

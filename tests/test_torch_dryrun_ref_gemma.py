@@ -1,6 +1,8 @@
 """The dry-run against a real reference lowering: smoke ``gemma_2b``, one
 kv head, which the model axis of 4 does not divide (the flash rule
-gathers the heads).  The comparison is ``test_torch_dryrun_ref.compare``;
+gathers the heads).  The comparison, with its named terms and the train
+cell's counts (both sides recompute each block in the backward), is
+``test_torch_dryrun_ref.compare``;
 see there."""
 import pytest
 import torch

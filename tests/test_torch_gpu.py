@@ -349,7 +349,7 @@ def test_capped_train_step_on_the_card_equals_uncapped(gen, layers, fracs):
     from repro_torch.models import init_params
     from repro_torch.optim import init_state
 
-    cfg = dataclasses.replace(SMOKE, n_layers=layers)
+    cfg = dataclasses.replace(SMOKE, n_layers=layers, scan_layers=False)
     params = init_params(cfg, seed=0)
     opt_state = init_state(params, adamw_config_for(cfg))
     B, S = symbolic_dims("b, s")
@@ -1201,7 +1201,7 @@ def test_accum_and_compress_steps_are_the_eager_step_on_the_card(
     from repro_torch.models import init_params
     from repro_torch.optim import init_state
 
-    cfg = dataclasses.replace(SMOKE, dtype=dtype)
+    cfg = dataclasses.replace(SMOKE, dtype=dtype, scan_layers=False)
     params = init_params(cfg, seed=0)
     state = [params, init_state(params, adamw_config_for(cfg))]
     B, S = symbolic_dims("b, s")
@@ -1305,8 +1305,10 @@ def test_an_opaque_body_that_fails_on_the_card_raises(gen, executor):
 def test_compiled_trainer_on_the_card_matches_the_dynamic_one(gen, dtype):
     """``train(mode="compiled")`` at smoke size on the card: one plan per
     bucketed batch shape, each call within its plan's bound, the sm90 or
-    f32 flash and RMSNorm launched every step, the losses within the
-    dtype's tolerance of ``mode="dynamic"``'s on the same batches."""
+    f32 flash and RMSNorm launched every step (each block's again in its
+    recompute: the compiled path's block remat), the losses within the
+    dtype's tolerance of ``mode="dynamic"``'s (the flat graph) on the
+    same batches."""
     import dataclasses
 
     import numpy as np
@@ -1319,8 +1321,8 @@ def test_compiled_trainer_on_the_card_matches_the_dynamic_one(gen, dtype):
     compiled = train(cfg, steps=6, batch_size=4, mode="compiled",
                      data_mode="bucketed", log_every=100)
     steps = 6
-    assert flash_attention_cuda.launches - f0 == steps * cfg.n_layers
-    assert rmsnorm_cuda.launches - n0 == steps * (2 * cfg.n_layers + 1)
+    assert flash_attention_cuda.launches - f0 == steps * 2 * cfg.n_layers
+    assert rmsnorm_cuda.launches - n0 == steps * (4 * cfg.n_layers + 1)
     plans = compiled["steps_by_shape"]
     assert compiled["recompilations"] == len(plans.plans) <= 4
     for key, fn in plans.plans.items():
@@ -1332,6 +1334,45 @@ def test_compiled_trainer_on_the_card_matches_the_dynamic_one(gen, dtype):
     assert np.all(np.isfinite(compiled["losses"]))
     np.testing.assert_allclose(compiled["losses"], dynamic["losses"],
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_remat_step_on_the_card_is_the_flat_step(gen, dtype):
+    """The compiled path's step at (2, 128) with ``remat_policy`` "block"
+    and "none", one static plan each on the same state and batch: every
+    output bitwise equal; one checkpointed step launches each block's
+    flash and two norms twice (the forward, the backward's recompute)
+    and the final norm once, the flat step once each."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.llama2_1b import SMOKE
+    from repro_torch.launch.steps import adamw_config_for
+    from repro_torch.launch.train import CompiledSteps
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_state
+
+    batch = {k: torch.randint(0, SMOKE.vocab, (2, 128), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    batch["mask"] = torch.ones((2, 128), device="cuda")
+    outs = {}
+    for pol in ("block", "none"):
+        cfg = dataclasses.replace(SMOKE, dtype=dtype, remat_policy=pol)
+        params = init_params(cfg, seed=0)
+        opt_state = init_state(params, adamw_config_for(cfg))
+        fn = CompiledSteps(cfg, params, opt_state).plan_for(batch)
+        f0, n0 = flash_attention_cuda.launches, rmsnorm_cuda.launches
+        out = fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        k = 2 if pol == "block" else 1
+        assert flash_attention_cuda.launches - f0 == k * cfg.n_layers
+        assert rmsnorm_cuda.launches - n0 == 2 * k * cfg.n_layers + 1
+        assert torch.isfinite(out[0])
+        outs[pol] = pytree.tree_leaves(out)
+    assert all(torch.equal(a, b) for a, b in zip(outs["block"], outs["none"]))
 
 
 @pytest.mark.gpu

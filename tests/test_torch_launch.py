@@ -384,7 +384,8 @@ def smoke_1layer():
     from repro_torch.models import init_params
     jcfg = dataclasses.replace(ref_smoke("llama2_1b"), n_layers=1,
                                scan_layers=False)
-    cfg = dataclasses.replace(get_smoke_config("llama2_1b"), n_layers=1)
+    cfg = dataclasses.replace(get_smoke_config("llama2_1b"), n_layers=1,
+                              scan_layers=False)
     jp = ref_init(jcfg, jax.random.PRNGKey(0))
     return (cfg, init_params(cfg, 0, device="cpu"), jcfg, jp,
             ref_state(jp, ref_adamw(jcfg)))

@@ -25,12 +25,15 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.configs.llama2_1b import SMOKE
+from repro_torch.configs.llama2_1b import SMOKE as LLAMA_SMOKE
 from repro_torch.core import optimize, spec_like
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import loss_fn, opt_state_from_jax, params_from_jax
 from test_torch_bench_archs import BENCH_ARCHS, batch_specs
+
+# the flat graph, as the reference's optimize callers build theirs
+SMOKE = dataclasses.replace(LLAMA_SMOKE, scan_layers=False)
 
 ENVS = [(1, 16), (2, 40), (3, 96)]
 DYNAMIC_DIMS = {"b": (1, 8), "s": (16, 128)}
@@ -122,7 +125,7 @@ def reference(request):
 @pytest.fixture(scope="module")
 def port(reference):
     arch, jparams, jopt, _ = reference
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), scan_layers=False)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                              device="cpu")
     opt_state = opt_state_from_jax(jax.tree.map(np.asarray, jopt), cfg,

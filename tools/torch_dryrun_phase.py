@@ -27,7 +27,7 @@ from pathlib import Path
 
 # run inside a checkout's root: its chip_smoke module, its src/
 ONE = r"""
-import json, sys, time
+import dataclasses, json, sys, time
 sys.path.insert(0, "src")
 sys.path.insert(0, ".")
 import chip_smoke as cs
@@ -43,7 +43,10 @@ params = init_params(CONFIG, seed=0, device="cuda")
 opt_state = init_state(params, adamw_config_for(CONFIG))
 B, S = symbolic_dims("b, s")
 batch = {k: TensorSpec((B, S), torch.int32) for k in ("tokens", "labels")}
-opt = optimize(make_train_step(CONFIG), spec_like(params),
+# phase 6's flat graph (a checkout before the field has only that one)
+cfg = dataclasses.replace(CONFIG, scan_layers=False) \
+    if hasattr(CONFIG, "scan_layers") else CONFIG
+opt = optimize(make_train_step(cfg), spec_like(params),
                spec_like(opt_state), batch, dynamic_dims=cs.DYNAMIC_DIMS,
                donate_inputs=True)
 b, s = cs.TRAIN_SHAPES[-1]

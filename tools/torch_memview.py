@@ -21,6 +21,7 @@ allocations) -- usable as a gate -- and 2 for an arch with no bench model.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from pathlib import Path
 from typing import Dict, List
@@ -97,7 +98,7 @@ def step_and_specs(arch: str):
     from repro_torch.launch.specs import opt_specs, params_specs
     from repro_torch.launch.steps import make_train_step
 
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), scan_layers=False)
     B, S = symbolic_dims("b, s")
     if cfg.input_mode == "tokens":
         batch = {"tokens": TensorSpec((B, S), torch.int32),
